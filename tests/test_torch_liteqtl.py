@@ -1,0 +1,106 @@
+"""The per-trait LOD step: the CUDA kernel's plain version and the plain
+``lods_per_trait`` against the JAX package, on CPU.
+
+Mirrors tests/test_pallas_fused.py: the same generator, shapes and 5e-5 bar
+(float32 products summed in different orders, scaled by n/2 in the LOD).
+The CUDA kernel itself runs only on the card, where chip_smoke.py holds it
+against the same plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bulklmm_tpu.ops.liteqtl import lods_per_trait as jax_lods_per_trait
+from bulklmm_tpu.pallas import fused_lods_per_trait as jax_fused
+from bulklmm_tpu.utils import config as jcfg
+from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+from bulklmm_tpu_torch.ops.liteqtl import lods_per_trait
+from bulklmm_tpu_torch.utils.config import precision_by_name
+
+torch.set_num_threads(1)
+
+KERNEL_BAR = 5e-5
+PRESETS = ["EXACT64", "MIXED", "BALANCED", "FAST32", "THROUGHPUT"]
+
+
+def _mk(n=48, p=96, m=64, c=1, seed=3, dtype=np.float32):
+    rng = np.random.default_rng(seed + 10 * c + p + m)
+    Y0 = rng.normal(size=(n, m))
+    X0m = rng.normal(size=(n, p))
+    C0 = np.concatenate([np.ones((n, 1))] + [rng.normal(size=(n, 1)) for _ in range(c - 1)], 1)
+    lam = rng.uniform(0.1, 2.0, n)
+    h2 = rng.uniform(0.0, 0.9, m)
+    return [a.astype(dtype) for a in (Y0, X0m, C0, lam, h2)]
+
+
+def _both(args):
+    return [jnp.asarray(a) for a in args], [torch.from_numpy(a) for a in args]
+
+
+def _maxdiff(port, ref):
+    return float(np.max(np.abs(port.double().numpy() - np.asarray(ref, dtype=np.float64))))
+
+
+@pytest.mark.parametrize("shape", [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1)])
+def test_kernel_plain_version_matches_jax(shape):
+    """Plain version vs the Pallas kernel (interpret mode) and vs the XLA
+    FAST32 path, c = 1..3 and a non-divisible 70 x 45 shape."""
+    n, p, m, c = shape
+    jargs, targs = _both(_mk(n, p, m, c))
+    ref = lf.fused_lods_per_trait_reference(*targs)
+    assert ref.shape == (p, m) and ref.dtype == torch.float32
+    pallas = jax_fused(*jargs, tile_p=32, tile_m=32, interpret=True)
+    xla = jax_lods_per_trait(*jargs, precision=jcfg.FAST32)
+    assert _maxdiff(ref, pallas) < KERNEL_BAR
+    assert _maxdiff(ref, xla) < KERNEL_BAR
+    # on CPU tensors the dispatching entry takes the same plain version
+    assert torch.equal(lf.fused_lods_per_trait(*targs), ref)
+    assert lf.launches == 0
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_plain_lods_per_trait_matches_jax(preset):
+    """The port's plain ``lods_per_trait`` under each preset: 1e-10 at
+    EXACT64 (float64 throughout), else the float32 kernel bar."""
+    dtype = np.float64 if preset in ("EXACT64", "MIXED", "BALANCED") else np.float32
+    jargs, targs = _both(_mk(c=2, dtype=dtype))
+    port = lods_per_trait(*targs, precision=precision_by_name(preset))
+    ref = jax_lods_per_trait(*jargs, precision=getattr(jcfg, preset))
+    assert port.shape == ref.shape
+    assert port.dtype == {jnp.float32: torch.float32, jnp.float64: torch.float64}[ref.dtype.type]
+    assert _maxdiff(port, ref) < (1e-10 if preset == "EXACT64" else KERNEL_BAR)
+
+
+def test_zero_marker_column_gives_zero_lod():
+    """An all-zero marker has D = D1 = 0: the plain version (and the kernel)
+    give r2 = 0 there, like the XLA path, where the Pallas form divides 0/0."""
+    args = _mk(p=40, m=30)
+    args[1][:, 7] = 0.0
+    jargs, targs = _both(args)
+    ref = lf.fused_lods_per_trait_reference(*targs)
+    assert bool(torch.isfinite(ref).all())
+    assert torch.all(ref[7] == 0)
+    assert _maxdiff(ref, jax_lods_per_trait(*jargs, precision=jcfg.FAST32)) < KERNEL_BAR
+
+
+def test_prepare_inputs_layout():
+    """The scalar block's rows are the packed factor, zeta and inv_nrm2;
+    every operand is float32 and contiguous, as the kernel's checks want."""
+    n, p, m, c = 20, 9, 11, 3
+    _, targs = _both(_mk(n, p, m, c, dtype=np.float64))
+    X, C, W, WY, scal = lf.prepare_inputs(*targs)
+    assert [t.shape for t in (X, C, W, WY, scal)] == [
+        (n, p), (n, c), (n, m), (n, m), (lf.scalar_rows(c), m)
+    ]
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in (X, C, W, WY, scal))
+    assert lf.scalar_rows(c) == 10
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    _, targs = _both(_mk(n=12, p=8, m=5))
+    ops = lf.prepare_inputs(*targs)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        lf.liteqtl_lod_cuda(*ops)
+    assert lf.launches == 0
