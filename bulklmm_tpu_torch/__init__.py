@@ -1,13 +1,21 @@
 """bulklmm_tpu_torch: the PyTorch / CUDA port of ``bulklmm_tpu``.
 
 A second package beside the JAX one, held against it test by test. It
-imports torch, numpy and scipy, never JAX. This slice runs the null-grid
-``bulkscan`` end to end; its per-trait LOD step is a hand-written CUDA
-kernel (``csrc/liteqtl_fused.cu``) on CUDA tensors. Inputs and outputs keep
-the JAX package's layouts: Y (n, m), G (n, p), L (p, m).
+imports torch, numpy and scipy, never JAX. ``bulkscan`` runs its three
+methods end to end: null-grid and null-exact, whose per-trait LOD step is a
+hand-written CUDA kernel (``csrc/liteqtl_fused.cu``) on CUDA tensors, and
+alt-grid, whose scan over the h2 grid is another
+(``csrc/altgrid_fused.cu``). Inputs and outputs keep the JAX package's
+layouts: Y (n, m), G (n, p), L (p, m).
 """
 
-from .models import BulkScanResult, bulkscan, bulkscan_null_grid
+from .models import (
+    BulkScanResult,
+    bulkscan,
+    bulkscan_alt_grid,
+    bulkscan_null,
+    bulkscan_null_grid,
+)
 from .ops import (
     KinshipDecomposition,
     calc_kinship,
@@ -40,6 +48,8 @@ __all__ = [
     "PrecisionConfig",
     "THROUGHPUT",
     "bulkscan",
+    "bulkscan_alt_grid",
+    "bulkscan_null",
     "bulkscan_null_grid",
     "calc_kinship",
     "decompose_kinship",

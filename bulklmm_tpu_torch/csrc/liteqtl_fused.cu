@@ -215,8 +215,4 @@ int bulklmm_liteqtl_lod(const float* X, const float* Cov, const float* W,
   }
 }
 
-const char* bulklmm_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 }  // extern "C"

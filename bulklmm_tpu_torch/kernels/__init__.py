@@ -1,6 +1,12 @@
 """Hand-written CUDA kernels (sources in ``csrc/``), each with its plain
 PyTorch version. Importing this package builds nothing."""
 
+from .altgrid_fused import (
+    altgrid_cuda,
+    altgrid_plain,
+    fused_alt_grid,
+    fused_alt_grid_reference,
+)
 from .liteqtl_fused import (
     fused_lods_per_trait,
     fused_lods_per_trait_reference,
@@ -9,6 +15,10 @@ from .liteqtl_fused import (
 )
 
 __all__ = [
+    "altgrid_cuda",
+    "altgrid_plain",
+    "fused_alt_grid",
+    "fused_alt_grid_reference",
     "fused_lods_per_trait",
     "fused_lods_per_trait_reference",
     "liteqtl_lod_cuda",

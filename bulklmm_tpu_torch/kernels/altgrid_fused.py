@@ -1,0 +1,193 @@
+"""Fused alt-grid scan: the CUDA kernel and its plain version.
+
+Replaces ``bulklmm_tpu/pallas/altgrid_fused.py::fused_alt_grid`` (the Pallas
+kernel ``_kernel``) with ``csrc/altgrid_fused.cu``, a hand-written CUDA C++
+kernel for sm_90a. For every (marker, trait) pair it finds the h2 grid step
+that maximizes the alternative log-likelihood and writes the (p, m) LOD and,
+optionally, that step's index. The plain formulation
+(``models/bulkscan.py::_alt_grid_impl``) round-trips (p, m) running-max and
+argmax carries through device memory on every grid step; the kernel keeps
+them in registers and writes once.
+
+Maximizing ``logL1_k = -(n/2) ln(1 - r_k^2) + ell0_k`` over k is minimizing
+``u_k = (1 - r_k^2) exp(-(2/n)(ell0_k - max_k ell0_k))``, so the (g, m)
+trait factors ``cmat`` are formed once outside and the loop needs no log:
+``LOD = -(n/2) log10(min_k u_k)``.
+
+What bounds it on an H100: 2 n p m g float32 FMA-flops on the CUDA cores
+against one 4 p m byte write of L (and of the index). At 79 samples x 7,321
+markers x 35,554 traits and the default 10-point grid that is ~4.1e11 flops.
+
+Layers:
+
+- :func:`prepare_inputs`: per grid step, the sqrt-weighted, covariate-
+  residualized, masked and normalized markers and traits, and the trait
+  factors (the JAX wrapper's lines 215-242, taken further: the kernel's
+  body is then a pure contraction plus the epilogue).
+- :func:`altgrid_cuda`: the kernel's wrapper. CUDA tensors only; it checks
+  its inputs, allocates the outputs, launches on the current stream, raises
+  on a launch error and counts its launches in :data:`launches`.
+- :func:`altgrid_plain`: the same function in plain torch, one (p, n)(n, m)
+  product and the epilogue per grid step.
+- :func:`fused_alt_grid`: the kernel on CUDA tensors, its plain version on
+  CPU tensors. :func:`fused_alt_grid_reference` always takes the plain
+  version, for comparisons.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..ops.smallchol import residual_keep_mask
+from ..ops.weights import make_weights
+from ..utils.config import with_highest_matmul
+
+#: launches of the CUDA kernel in this process; chip_smoke.py resets and
+#: reads it to show that the alt-grid path ran through the kernel
+launches = 0
+
+#: the most markers one launch takes: 65,535 blocks of 64 markers on the
+#: launch grid's y axis (the trait axis has no practical limit)
+MAX_MARKERS = 65535 * 64
+
+_F32 = torch.float32
+_TINY = torch.finfo(_F32).tiny
+
+
+@with_highest_matmul()
+def prepare_inputs(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False):
+    """(Xn, Yn, cmat): the kernel's float32 contiguous operands.
+
+    Xn (g, n, p) and Yn (g, n, m): for grid step k, the columns of X0m and
+    Y0 scaled by ``S_k = sqrt|w_k|``, with the orthobasis ``Q_k`` of
+    ``S_k * C0`` projected out, masked where the residual is rounding noise
+    (float32 eps, as the kernel's dtype) and normalized to unit length.
+    cmat (g, m) = ``exp(-(2/n)(ells - max ells))`` from the (g, m) null
+    log-likelihoods. Everything is formed in the inputs' dtype and then
+    rounded to float32.
+    """
+    from ..models.bulkscan import grid_null_ell
+
+    n = Y0.shape[0]
+    ells = grid_null_ell(Y0, C0, lam, h2_grid, prior, reml=reml)  # (g, m)
+    cmat = torch.exp(-(2.0 / n) * (ells - ells.max(0).values))
+
+    S = torch.sqrt(make_weights(h2_grid, lam).abs())  # (g, n)
+    Q = torch.linalg.qr(C0[None] * S[:, :, None], mode="reduced")[0]  # (g, n, c)
+    eps32 = torch.finfo(_F32).eps
+
+    def residualize_normalize(M):
+        Mw = S[:, :, None] * M[None]  # (g, n, cols)
+        Mr = Mw - Q @ (Q.mT @ Mw)
+        nrm2 = (Mr * Mr).sum(1, keepdim=True)
+        keep = residual_keep_mask(nrm2, (Mw * Mw).sum(1, keepdim=True), eps=eps32)
+        return ((Mr * keep) / torch.sqrt(torch.clamp(nrm2, min=_TINY))).to(_F32).contiguous()
+
+    return residualize_normalize(X0m), residualize_normalize(Y0), cmat.to(_F32).contiguous()
+
+
+def _check_operands(Xn, Yn, cmat):
+    if Xn.ndim != 3 or Yn.ndim != 3:
+        raise ValueError("altgrid_cuda: Xn and Yn must be (g, n, p) and (g, n, m)")
+    g, n, p = Xn.shape
+    m = Yn.shape[2]
+    expected = {"Xn": (Xn, (g, n, p)), "Yn": (Yn, (g, n, m)), "cmat": (cmat, (g, m))}
+    for name, (t, shape) in expected.items():
+        if not t.is_cuda:
+            raise ValueError(f"altgrid_cuda: {name} lies on {t.device}, not on a CUDA device")
+        if t.device != Xn.device:
+            raise ValueError(f"altgrid_cuda: {name} lies on {t.device}, Xn on {Xn.device}")
+        if t.dtype != _F32:
+            raise TypeError(f"altgrid_cuda: {name} is {t.dtype}; the kernel takes float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"altgrid_cuda: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"altgrid_cuda: {name} must be contiguous")
+    if min(g, n, p, m) == 0 or p > MAX_MARKERS:
+        raise ValueError(
+            f"altgrid_cuda: the kernel takes 1 to {MAX_MARKERS} markers and a "
+            f"non-empty grid, samples and traits; got g={g}, n={n}, p={p}, m={m}"
+        )
+    return g, n, p, m
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from .build import load_library
+
+    lib = load_library()
+    fn = lib.bulklmm_altgrid
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
+    """(L, kidx) from the kernel's operands, on their CUDA device: L (p, m)
+    float32 and kidx (p, m) int32, the first grid step of the minimum, or
+    None when ``panel`` is False (the kernel then carries no index).
+
+    Raises on a CPU tensor, a wrong dtype, shape or layout, a failed build
+    or a launch error. Does not synchronize.
+    """
+    global launches
+    g, n, p, m = _check_operands(Xn, Yn, cmat)
+    lib = _library()
+    out = torch.empty((p, m), dtype=_F32, device=Xn.device)
+    kidx = torch.empty((p, m), dtype=torch.int32, device=Xn.device) if panel else None
+    with torch.cuda.device(Xn.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.bulklmm_altgrid(
+            Xn.data_ptr(), Yn.data_ptr(), cmat.data_ptr(), out.data_ptr(),
+            kidx.data_ptr() if panel else None, g, n, p, m, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "altgrid kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
+        )
+    launches += 1
+    return out, kidx
+
+
+@with_highest_matmul()
+def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True):
+    """The kernel's function in plain torch, on any device (float32)."""
+    g, n, _ = Xn.shape
+    umin = kidx = None
+    for k in range(g):
+        R = Xn[k].T @ Yn[k]  # (p, m)
+        u = torch.clamp(torch.clamp(1.0 - R * R, min=_TINY) * cmat[k], min=_TINY)
+        if k == 0:
+            umin = u
+            kidx = torch.zeros(u.shape, dtype=torch.int32, device=u.device) if panel else None
+            continue
+        upd = u < umin  # strict: the first minimum wins
+        umin = torch.where(upd, u, umin)
+        if panel:
+            kidx.masked_fill_(upd, k)
+    return (-0.5 * n) * torch.log10(umin), kidx
+
+
+def _finish(L, kidx, Y0, h2_grid):
+    """L in Y0's dtype and the h2 panel, as the JAX wrapper returns them."""
+    return L.to(Y0.dtype), None if kidx is None else h2_grid[kidx]
+
+
+def fused_alt_grid(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True):
+    """(L, h2_panel) of the alt-grid scan: the CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors. L (p, m) in Y0's dtype; h2_panel (p, m)
+    ``h2_grid[argmax]``, or None when ``output_h2_panel`` is False."""
+    ops = prepare_inputs(Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml)
+    run = altgrid_cuda if ops[0].is_cuda else altgrid_plain
+    return _finish(*run(*ops, panel=output_h2_panel), Y0, h2_grid)
+
+
+def fused_alt_grid_reference(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True):
+    """:func:`fused_alt_grid` through the plain version on any device."""
+    ops = prepare_inputs(Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml)
+    return _finish(*altgrid_plain(*ops, panel=output_h2_panel), Y0, h2_grid)

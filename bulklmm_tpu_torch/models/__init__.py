@@ -1,4 +1,10 @@
-from .bulkscan import bulkscan, bulkscan_null_grid
+from .bulkscan import bulkscan, bulkscan_alt_grid, bulkscan_null, bulkscan_null_grid
 from .results import BulkScanResult
 
-__all__ = ["BulkScanResult", "bulkscan", "bulkscan_null_grid"]
+__all__ = [
+    "BulkScanResult",
+    "bulkscan",
+    "bulkscan_alt_grid",
+    "bulkscan_null",
+    "bulkscan_null_grid",
+]

@@ -1,32 +1,48 @@
-"""Multi-trait bulk genome scan, null-grid method.
+"""Multi-trait bulk genome scans: null-grid, null-exact and alt-grid.
 
-Counterpart of the null-grid path of ``bulklmm_tpu/models/bulkscan.py``
-(reference ``bulkscan`` null-grid, src/bulkscan.jl:321-397). In order:
-argument checks, optional heteroskedastic weights (host float64), the
-intercept, the host float64 kinship eigendecomposition, three rotation
-products, the (g x m) null log-likelihood grid in the kernel dtype, a
-per-trait argmax over h2, and the per-trait-weight correlation -> LOD step.
+Counterpart of ``bulklmm_tpu/models/bulkscan.py`` (reference ``bulkscan``,
+src/bulkscan.jl:81-162, and its three engines). Every method runs, in
+order: argument checks, optional heteroskedastic weights (host float64),
+the intercept, the host float64 kinship eigendecomposition, three rotation
+products, then its engine, over blocks of traits when ``trait_chunk`` is an
+int:
 
-That last step is decided by precision and device only:
+- **null-grid** (src/bulkscan.jl:321-397): the (g x m) null log-likelihood
+  grid in the kernel dtype, a per-trait argmax over h2, then the
+  per-trait-weight correlation -> LOD step;
+- **null-exact** (src/bulkscan.jl:188-313): a batched Brent fit of every
+  trait's h2 (``ops/lmm.py::fit_h2_traits``), then the same LOD step;
+- **alt-grid** (src/bulkscan.jl:428-527): for each grid h2, the shared-h2
+  scan and null likelihoods, with a running max of the alternative
+  log-likelihood per (marker, trait) and its true argmax (the reference's
+  ``tmax!`` counter bug is fixed, COMPAT.md #8).
 
-- float32 products and float32 combines (FAST32, BALANCED, THROUGHPUT):
-  the fused kernel, ``kernels/liteqtl_fused.py`` -- the CUDA kernel on CUDA
-  tensors, its plain version on CPU tensors;
-- otherwise (MIXED, EXACT64): plain ``ops/liteqtl.py::lods_per_trait`` in
-  the preset's own dtypes. This is a choice of numerics (float64
-  combines), as in the JAX package's XLA path.
+The LOD step of the null methods is decided by precision and device only:
+under float32 products and combines (FAST32, BALANCED, THROUGHPUT) the
+fused kernel, ``kernels/liteqtl_fused.py`` (the CUDA kernel on CUDA tensors,
+its plain version on CPU tensors); otherwise (MIXED, EXACT64) plain
+``ops/liteqtl.py::lods_per_trait`` in the preset's own dtypes.
 
-What the slice does not implement raises ``NotImplementedError`` naming
+The alt-grid engine is chosen by ``engine``: "pallas" is the CUDA kernel
+``kernels/altgrid_fused.py`` (float32 products, CUDA tensors, else a
+``ValueError``); "auto" takes it on CUDA tensors under a float32 GEMM dtype
+and the plain path otherwise; "xla" is always the plain path.
+
+What the port does not implement yet raises ``NotImplementedError`` naming
 its ROADMAP.md item ("Still to port").
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..kernels.altgrid_fused import fused_alt_grid
 from ..kernels.liteqtl_fused import MAX_COVARIATES, fused_lods_per_trait
-from ..ops.liteqtl import lods_per_trait
+from ..ops.liteqtl import lods_per_trait, lods_shared
+from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
 from ..ops.rotation import KinshipDecomposition, resolve_kinship
 from ..ops.stats import check_covar_full_rank
@@ -38,6 +54,7 @@ from .results import BulkScanResult
 from .scan import _apply_weights
 
 _TODO = 'not ported to bulklmm_tpu_torch yet (ROADMAP.md "Still to port" item {})'
+_LN10 = math.log(10.0)
 
 
 def grid_null_ell(Y0, X0_cov, lam, h2_grid, prior, *, reml=False) -> torch.Tensor:
@@ -53,6 +70,14 @@ def _uses_kernel(precision: PrecisionConfig) -> bool:
     )
 
 
+def _lod_step(Y0, X0m, C0, lam, h2_list, precision):
+    """(p, m) LOD with one h2 per trait: the fused kernel's entry under
+    float32 products and combines, the plain float64-combine path otherwise."""
+    if _uses_kernel(precision):
+        return fused_lods_per_trait(Y0, X0m, C0, lam, h2_list)
+    return lods_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
+
+
 def _null_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
     """(L, h2_list) for one block of traits.
 
@@ -64,33 +89,109 @@ def _null_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
         Y0.to(kdt), C0.to(kdt), lam.to(kdt), h2_grid.to(kdt), prior, reml=reml
     )
     h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
-    if _uses_kernel(precision):
-        L = fused_lods_per_trait(Y0, X0m, C0, lam, h2_list)
-    else:
-        L = lods_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
-    return L, h2_list
+    return _lod_step(Y0, X0m, C0, lam, h2_list, precision), h2_list
+
+
+def _null_exact_impl(Y0, X0m, C0, lam, *, prior, reml, optim_interval, precision):
+    """(L, h2_list) for one block of traits: each trait's h2 from a Brent
+    fit in the solve dtype, then the LOD step."""
+    h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
+    return _lod_step(Y0, X0m, C0, lam, h2_list, precision), h2_list
+
+
+def _alt_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
+    """(L, h2_panel) for one block of traits, the plain formulation: per
+    grid step the shared-h2 LODs and null likelihoods, and (p, m) running
+    maxima of the alternative log-likelihood carried in Y0's dtype."""
+    p, m = X0m.shape[1], Y0.shape[1]
+    dt = Y0.dtype
+    logL1_max = torch.full((p, m), -math.inf, dtype=dt, device=Y0.device)
+    kmax = torch.zeros((p, m), dtype=torch.int32, device=Y0.device)
+    logL0_max = torch.full((m,), -math.inf, dtype=dt, device=Y0.device)
+    for k in range(h2_grid.shape[0]):
+        h2 = h2_grid[k]
+        lod_k = lods_shared(Y0, X0m, C0, lam, h2, precision=precision)
+        ell0 = wls_ell(Y0, C0, make_weights(h2, lam), prior, reml=reml)[0]
+        logL1 = lod_k * _LN10 + ell0[None, :]
+        upd = logL1 > logL1_max  # strict: the first maximum wins
+        logL1_max = torch.where(upd, logL1, logL1_max)
+        kmax.masked_fill_(upd, k)
+        logL0_max = torch.maximum(logL0_max, ell0)
+        del lod_k, logL1, upd
+    L = (logL1_max - logL0_max[None, :]) / _LN10
+    return L, h2_grid[kmax]
+
+
+def _chunked(impl, Y0, trait_chunk):
+    """``impl(Y0)`` for an int ``trait_chunk``: trait blocks of that width in
+    turn, each written into one preallocated output per result (the traits
+    are each result's last axis; a None result stays None)."""
+    m = Y0.shape[1]
+    if trait_chunk is None or trait_chunk >= m:
+        return impl(Y0)
+    outs = None
+    for s in range(0, m, trait_chunk):
+        res = impl(Y0[:, s : s + trait_chunk])
+        if outs is None:
+            outs = tuple(
+                None if r is None
+                else torch.empty(r.shape[:-1] + (m,), dtype=r.dtype, device=r.device)
+                for r in res
+            )
+        for o, r in zip(outs, res):
+            if o is not None:
+                o[..., s : s + trait_chunk] = r
+    return outs
 
 
 @with_highest_matmul()
+def _rotate_and_run(impl, Y, Xm, C, Ut, trait_chunk):
+    """The three rotation products, then ``impl(Y0, X0m, C0)`` over trait
+    blocks."""
+    Y0, X0m, C0 = Ut @ Y, Ut @ Xm, Ut @ C
+    return _chunked(lambda Yc: impl(Yc, X0m, C0), Y0, trait_chunk)
+
+
 def _null_grid_pipeline(
     Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None
 ):
-    """Rotation + grid fit + LOD step. An int ``trait_chunk`` runs trait
-    blocks of that width in turn, each written into one preallocated L."""
-    Y0, X0m, C0 = Ut @ Y, Ut @ Xm, Ut @ C
+    """Rotation + grid fit + LOD step."""
     kw = dict(prior=prior, reml=reml, precision=precision)
-    m = Y0.shape[1]
-    if trait_chunk is None or trait_chunk >= m:
-        return _null_grid_impl(Y0, X0m, C0, lam, h2_grid, **kw)
-    L = h2 = None
-    for s in range(0, m, trait_chunk):
-        Lb, hb = _null_grid_impl(Y0[:, s : s + trait_chunk], X0m, C0, lam, h2_grid, **kw)
-        if L is None:
-            L = torch.empty((Lb.shape[0], m), dtype=Lb.dtype, device=Lb.device)
-            h2 = torch.empty((m,), dtype=hb.dtype, device=hb.device)
-        L[:, s : s + trait_chunk] = Lb
-        h2[s : s + trait_chunk] = hb
-    return L, h2
+    return _rotate_and_run(
+        lambda Y0, X0m, C0: _null_grid_impl(Y0, X0m, C0, lam, h2_grid, **kw),
+        Y, Xm, C, Ut, trait_chunk,
+    )
+
+
+def _null_exact_pipeline(
+    Y, Xm, C, Ut, lam, *, prior, reml, optim_interval, precision, trait_chunk=None
+):
+    """Rotation + Brent fit + LOD step."""
+    kw = dict(prior=prior, reml=reml, optim_interval=optim_interval, precision=precision)
+    return _rotate_and_run(
+        lambda Y0, X0m, C0: _null_exact_impl(Y0, X0m, C0, lam, **kw),
+        Y, Xm, C, Ut, trait_chunk,
+    )
+
+
+def _alt_grid_pipeline(
+    Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None,
+    use_kernel=False, panel=True,
+):
+    """Rotation + the alt-grid engine: the fused kernel's entry when
+    ``use_kernel`` (its index carry dropped when ``panel`` is False), the
+    plain formulation otherwise."""
+    if use_kernel:
+        def impl(Y0, X0m, C0):
+            return fused_alt_grid(
+                Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml, output_h2_panel=panel
+            )
+    else:
+        def impl(Y0, X0m, C0):
+            return _alt_grid_impl(
+                Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision
+            )
+    return _rotate_and_run(impl, Y, Xm, C, Ut, trait_chunk)
 
 
 def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, device):
@@ -133,15 +234,38 @@ def _check_output_effects(output_effects: bool, method: str) -> None:
         )
 
 
-def _refuse_unported(*, method, missing, K, output_effects):
-    if method != "null-grid":
-        raise NotImplementedError(f"method={method!r} is " + _TODO.format(6))
+def _refuse_unported(*, missing, K, output_effects):
     if output_effects:
         raise NotImplementedError("output_effects=True is " + _TODO.format(1))
     if missing != "error":
         raise NotImplementedError(f"missing={missing!r} is " + _TODO.format(3))
     if hasattr(K, "U") and hasattr(K, "lam"):
         raise NotImplementedError("a LowRankKinship is " + _TODO.format(4))
+
+
+def _altgrid_uses_kernel(engine: str, precision: PrecisionConfig, device) -> bool:
+    """Whether alt-grid runs the CUDA kernel; ``engine="pallas"`` refuses
+    what the kernel cannot honour instead of downgrading it silently."""
+    float32 = precision.resolve_gemm() == torch.float32
+    cuda = torch.device(device).type == "cuda"
+    if engine == "pallas":
+        if not float32:
+            raise ValueError(
+                "engine='pallas' runs the fused alt-grid CUDA kernel in float32; "
+                "the current precision config resolves GEMMs to "
+                f"{str(precision.resolve_gemm()).removeprefix('torch.')}, which it "
+                "would silently downgrade. Use engine='xla' (honors the config) or "
+                "a precision whose GEMM dtype is float32."
+            )
+        if not cuda:
+            raise ValueError(
+                "engine='pallas' runs the fused alt-grid CUDA kernel and needs "
+                f"tensors on a CUDA device, not {torch.device(device)}; use "
+                "engine='xla' (or call kernels.altgrid_fused."
+                "fused_alt_grid_reference for the kernel's plain version)."
+            )
+        return True
+    return engine == "auto" and cuda and float32
 
 
 def bulkscan(
@@ -173,12 +297,17 @@ def bulkscan(
     """Genome scan for many traits at once: Y (n, m), G (n, p), K (n, n) or
     a :class:`KinshipDecomposition`; returns L as (p, m).
 
-    The keyword surface is the JAX package's ``bulkscan``. This slice runs
-    ``method="null-grid"``; ``trait_chunk=None`` means one block of all
-    traits (no sizing from device memory yet), an int runs trait blocks of
-    that width. ``solve_method``, ``optim_interval`` and ``output_h2_panel``
-    do not apply to null-grid and are accepted as in the JAX package.
-    ``device`` defaults to ``Y``'s when it is a tensor, else the CPU.
+    The keyword surface is the JAX package's ``bulkscan``. ``method`` is
+    "null-grid" (default), "null-exact" or "alt-grid"; ``engine`` ("auto",
+    "xla", "pallas") picks the alt-grid implementation, "pallas" being the
+    CUDA kernel (see the module docstring). ``optim_interval`` applies to
+    null-exact; ``solve_method`` ("qr"/"cholesky") only to coefficient
+    solves, which no method returns, so it is checked and has no effect;
+    ``output_h2_panel=False`` returns ``h2_panel=None`` from alt-grid and
+    drops the kernel's index carry. ``trait_chunk=None`` means one block of
+    all traits (no sizing from device memory yet), an int runs trait blocks
+    of that width. ``device`` defaults to ``Y``'s when it is a tensor, else
+    the CPU.
     """
     validate_missing_kwarg(missing)
     _check_output_effects(output_effects, method)
@@ -187,10 +316,14 @@ def bulkscan(
     Y, covar, h2_grid, add_intercept = _scan_common_inputs(
         Y, covar, h2_grid, add_intercept, method=method, engine=engine, device=device
     )
-    _refuse_unported(method=method, missing=missing, K=K, output_effects=output_effects)
+    _refuse_unported(missing=missing, K=K, output_effects=output_effects)
+    if method == "null-exact" and solve_method not in ("qr", "cholesky"):
+        raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
+    use_altgrid_kernel = method == "alt-grid" and _altgrid_uses_kernel(engine, precision, device)
     finite = finite_flag(Y)
     if (
-        torch.device(device).type == "cuda"
+        method != "alt-grid"
+        and torch.device(device).type == "cuda"
         and _uses_kernel(precision)
         and _ncov_total(covar, add_intercept) > MAX_COVARIATES
     ):
@@ -215,11 +348,21 @@ def bulkscan(
         covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
     dtype = precision.resolve_solve()
     Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-    L, h2_list = _null_grid_pipeline(
-        Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype),
-        prior=prior, reml=reml, precision=precision, trait_chunk=trait_chunk,
-    )
-    result = BulkScanResult(L=L, h2_null_list=h2_list)
+    args = (Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam)
+    kw = dict(prior=prior, reml=reml, precision=precision, trait_chunk=trait_chunk)
+    if method == "null-grid":
+        L, h2_list = _null_grid_pipeline(*args, h2_grid.to(dtype), **kw)
+        result = BulkScanResult(L=L, h2_null_list=h2_list)
+    elif method == "null-exact":
+        L, h2_list = _null_exact_pipeline(*args, optim_interval=optim_interval, **kw)
+        result = BulkScanResult(L=L, h2_null_list=h2_list)
+    else:
+        L, h2_panel = _alt_grid_pipeline(
+            *args, h2_grid.to(dtype), use_kernel=use_altgrid_kernel,
+            panel=output_h2_panel, **kw,
+        )
+        # the plain path computes the panel either way; the flag drops it
+        result = BulkScanResult(L=L, h2_panel=h2_panel if output_h2_panel else None)
     if output_pvals:
         result.log10Pvals_mat = lod2log10p(result.L, chisq_df)
         result.chisq_df = chisq_df
@@ -227,7 +370,19 @@ def bulkscan(
     return result
 
 
+def bulkscan_null(Y, G, K, covar=None, **kwargs) -> BulkScanResult:
+    """Exact Null-LMM bulk scan (reference bulkscan_null, src/bulkscan.jl:188)."""
+    kwargs.setdefault("prior_variance", 1.0)
+    return bulkscan(Y, G, K, covar, method="null-exact", **kwargs)
+
+
 def bulkscan_null_grid(Y, G, K, h2_grid=None, covar=None, **kwargs) -> BulkScanResult:
     """Grid-approximated Null-LMM bulk scan (reference src/bulkscan.jl:321)."""
     kwargs.setdefault("prior_variance", 1.0)
     return bulkscan(Y, G, K, covar, method="null-grid", h2_grid=h2_grid, **kwargs)
+
+
+def bulkscan_alt_grid(Y, G, K, h2_grid=None, covar=None, **kwargs) -> BulkScanResult:
+    """Grid-approximated Exact-LMM bulk scan (reference src/bulkscan.jl:428)."""
+    kwargs.setdefault("prior_variance", 1.0)
+    return bulkscan(Y, G, K, covar, method="alt-grid", h2_grid=h2_grid, **kwargs)

@@ -18,7 +18,7 @@ class BulkScanResult:
 
     L: torch.Tensor  # (p, m) LOD matrix
     h2_null_list: Optional[torch.Tensor] = None  # (m,) null/grid methods
-    h2_panel: Optional[torch.Tensor] = None  # (p, m) alt-grid (not ported yet)
+    h2_panel: Optional[torch.Tensor] = None  # (p, m) alt-grid argmax h2
     beta_mat: Optional[torch.Tensor] = None  # (p, m) effects (not ported yet)
     beta_se_mat: Optional[torch.Tensor] = None  # (p, m)
     log10Pvals_mat: Optional[torch.Tensor] = None  # (p, m), float64

@@ -1,7 +1,14 @@
 """Numerical primitives on torch tensors."""
 
+from .brent import brent_min, gridbrent
 from .kinship import calc_kinship
-from .liteqtl import lods_per_trait, weighted_correlation_per_trait
+from .liteqtl import (
+    lods_per_trait,
+    lods_shared,
+    weighted_correlation_per_trait,
+    weighted_correlation_shared,
+)
+from .lmm import LMMResult, fit_h2_traits, fit_lmm, fit_lmm_traits
 from .lod import lod2log10p, lod2p, p2lod, r2lod
 from .rotation import (
     KinshipDecomposition,
@@ -22,21 +29,30 @@ from .smallchol import (
 )
 from .stats import check_covar_full_rank
 from .weights import make_weights
-from .wls import wls_ell
+# ``wls`` the function stays in ``ops.wls``: the name here is the module
+from .wls import WLSResult, wls_ell, wls_ell_columns
 
 __all__ = [
     "KinshipDecomposition",
+    "LMMResult",
     "RotatedData",
+    "WLSResult",
+    "brent_min",
     "calc_kinship",
     "cancel_keep_mask",
     "check_covar_full_rank",
     "decompose_kinship",
     "decomposition_from_numpy",
+    "fit_h2_traits",
+    "fit_lmm",
+    "fit_lmm_traits",
     "fwd_subst",
+    "gridbrent",
     "kinship_eigen",
     "lod2log10p",
     "lod2p",
     "lods_per_trait",
+    "lods_shared",
     "make_weights",
     "p2lod",
     "pair_indices",
@@ -47,5 +63,7 @@ __all__ = [
     "transform_rotation",
     "unrolled_cholesky",
     "weighted_correlation_per_trait",
+    "weighted_correlation_shared",
     "wls_ell",
+    "wls_ell_columns",
 ]

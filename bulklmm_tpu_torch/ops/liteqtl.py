@@ -18,6 +18,12 @@ This is the path of the MIXED and EXACT64 presets, which combine in
 float64, on every device; the float32 presets go through the fused kernel
 (``kernels/liteqtl_fused.py``), whose plain version computes the same
 function in float32.
+
+``weighted_correlation_shared`` / ``lods_shared`` are the one-h2 special
+case (reference ``weighted_liteqtl``, src/bulkscan_helpers.jl:175-201):
+markers and traits are weighted, residualized on the weighted covariates'
+orthobasis and normalized once, so the scan is one (p x m) product. The
+plain alt-grid path takes one such step per grid point.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from .lod import r2lod
 from .smallchol import (
-    cancel_keep_mask, fwd_subst, pair_indices, residual_sq, unrolled_cholesky,
+    cancel_keep_mask, fwd_subst, pair_indices, residual_keep_mask, residual_sq,
+    unrolled_cholesky,
 )
 from .weights import make_weights
 
@@ -103,4 +110,41 @@ def lods_per_trait(
 ) -> torch.Tensor:
     """(p, m) LOD scores with per-trait h2."""
     R = weighted_correlation_per_trait(Y0, X0m, C0, lam, h2_per_trait, precision=precision)
+    return r2lod(R, Y0.shape[0], fast_log=_fast_log(precision))
+
+
+@with_highest_matmul()
+def weighted_correlation_shared(
+    Y0, X0m, C0, lam, h2, *, precision: PrecisionConfig = DEFAULT_PRECISION
+) -> torch.Tensor:
+    """(p, m) correlations with one h2 shared by every column of Y0.
+
+    Weighting, residualization and normalization run in the kernel dtype
+    (they cancel); only the (p x m) product drops to the gemm dtype.
+    """
+    gdt = precision.resolve_gemm()
+    sdt = precision.resolve_kernel()
+    tiny = torch.finfo(sdt).tiny
+    s = torch.sqrt(make_weights(h2, lam).abs()).to(sdt)  # (n,)
+    q = torch.linalg.qr(C0.to(sdt) * s[:, None], mode="reduced")[0]  # (n, c)
+
+    def residualize_normalize(M):
+        Mw = M.to(sdt) * s[:, None]
+        Mr = Mw - q @ (q.T @ Mw)
+        nrm2 = (Mr * Mr).sum(0)
+        # a column collinear with the covariates residualizes to rounding
+        # noise: the relative rank mask maps it to r = 0 (COMPAT.md #15)
+        keep = residual_keep_mask(nrm2, (Mw * Mw).sum(0), eps=torch.finfo(sdt).eps)
+        return (Mr * keep[None, :]) / torch.sqrt(torch.clamp(nrm2, min=tiny))
+
+    X00 = residualize_normalize(X0m).to(gdt)
+    Y00 = residualize_normalize(Y0).to(gdt)
+    return (X00.T @ Y00).to(sdt)
+
+
+def lods_shared(
+    Y0, X0m, C0, lam, h2, *, precision: PrecisionConfig = DEFAULT_PRECISION
+) -> torch.Tensor:
+    """(p, m) LOD scores with one h2 shared by every trait."""
+    R = weighted_correlation_shared(Y0, X0m, C0, lam, h2, precision=precision)
     return r2lod(R, Y0.shape[0], fast_log=_fast_log(precision))

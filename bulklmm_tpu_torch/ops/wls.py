@@ -1,18 +1,109 @@
-"""Weighted least-squares log-likelihood with a Scaled-Inv-Chi^2 prior.
+"""Weighted least squares with a Scaled-Inv-Chi^2 prior.
 
-Counterpart of ``bulklmm_tpu/ops/wls.py::wls_ell`` (reference
-src/wls.jl:69-93, formulas (2) and (3) of Kang 2008). ``wls``, ``resid``
-and ``rss`` are not on the null-grid path and wait.
+Counterpart of ``bulklmm_tpu/ops/wls.py`` (reference src/wls.jl:27-101,
+formulas (2) and (3) of Kang 2008):
+
+  rss     = ||W^1/2 (y - X coef)||^2
+  prior_df = prior_b + 2 if prior_b > 0 else prior_b
+  sigma2  = (rss + prior_a prior_b) / ((n - p reml) + prior_df)
+  ell     = -1/2 [ (n + prior_b) log sigma2 - sum(log w) + (rss + prior_a prior_b) / sigma2 ]
+  reml:  ell += 1/2 [ p log sigma2 - logdet(X^T W X) ]
+
+- :func:`wls`: coefficients by QR or normal equations (Cholesky);
+- :func:`wls_ell` and :func:`wls_ell_columns`: the likelihood alone, with no
+  linear-algebra primitive (the unrolled covariate Cholesky), for a shared
+  weight vector or a batch of them, and for one weight vector per column.
+
+``wls_multivar``, ``resid`` and ``rss`` wait for the engines that use them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..utils.config import with_highest_matmul
 from .smallchol import fwd_subst, residual_sq, unrolled_cholesky
+
+
+class WLSResult(NamedTuple):
+    """Estimates from one weighted LS fit; q is the number of y columns.
+
+    b: (p, q) coefficients; sigma2, ell, rss: (q,) per column.
+    """
+
+    b: torch.Tensor
+    sigma2: torch.Tensor
+    ell: torch.Tensor
+    rss: torch.Tensor
+
+
+def _likelihood(rss0, sum_log_w, logdet, n, p, prior, reml):
+    """(ell, sigma2) from the residual sum of squares; ``logdet`` is that of
+    the weighted Gram X^T W X (read only under REML)."""
+    prior_a, prior_b = prior
+    prior_df = prior_b + 2.0 if prior_b > 0.0 else prior_b
+    denom = (n - p if reml else n) + prior_df
+    # degenerate columns (rss0 == 0 with a zero prior) floor at the dtype's
+    # tiny, so the log stays finite
+    sigma2 = torch.clamp((rss0 + prior_a * prior_b) / denom, min=torch.finfo(rss0.dtype).tiny)
+    ell = -0.5 * (
+        (n + prior_b) * torch.log(sigma2) - sum_log_w + (rss0 + prior_a * prior_b) / sigma2
+    )
+    if reml:
+        ell = ell + 0.5 * (p * torch.log(sigma2) - logdet)
+    return ell, sigma2
+
+
+@with_highest_matmul()
+def wls(
+    y: torch.Tensor,
+    X: torch.Tensor,
+    w: torch.Tensor,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+    method: str = "qr",
+) -> WLSResult:
+    """Weighted least squares of ``y`` (n,) or (n, q) on ``X`` (n, p).
+
+    ``w`` is one (n,) weight vector for every column, as in the JAX
+    package, or (q, n), one weight vector per column (the batched refit of
+    :func:`~bulklmm_tpu_torch.ops.lmm.fit_lmm_traits`). ``method`` is "qr"
+    (reduced QR and a triangular solve) or "cholesky" (normal equations).
+    """
+    y = y[:, None] if y.ndim == 1 else y
+    n, p = X.shape
+    sqrtw = torch.sqrt(w)
+    if w.ndim == 1:
+        XX, yy = X * sqrtw[:, None], y * sqrtw[:, None]  # (n, p), (n, q)
+    else:
+        XX = X[None] * sqrtw[:, :, None]  # (q, n, p)
+        yy = (y.T * sqrtw)[:, :, None]  # (q, n, 1)
+
+    if method == "qr":
+        Q, R = torch.linalg.qr(XX, mode="reduced")
+        coef = torch.linalg.solve_triangular(R, Q.mT @ yy, upper=True)
+        logdet = 2.0 * torch.log(torch.diagonal(R, dim1=-2, dim2=-1).abs()).sum(-1)
+    elif method == "cholesky":
+        chol = torch.linalg.cholesky(XX.mT @ XX)
+        z = torch.linalg.solve_triangular(chol, XX.mT @ yy, upper=False)
+        coef = torch.linalg.solve_triangular(chol.mT, z, upper=True)
+        logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    else:
+        raise ValueError(f"unknown method {method!r}; use 'qr' or 'cholesky'")
+
+    resid = yy - XX @ coef
+    rss0 = (resid * resid).sum(-2)
+    if w.ndim > 1:
+        coef, rss0 = coef[..., 0].T, rss0[:, 0]  # (p, q), (q,)
+    ell, sigma2 = _likelihood(rss0, torch.log(w).sum(-1), logdet, n, p, prior, reml)
+    return WLSResult(b=coef, sigma2=sigma2, ell=ell, rss=rss0)
+
+
+def _chol_logdet(Lc, p):
+    return sum(2.0 * torch.log(Lc[(k, k)]) for k in range(p))
 
 
 @with_highest_matmul()
@@ -35,7 +126,6 @@ def wls_ell(
     """
     y = y[:, None] if y.ndim == 1 else y
     n, p = X.shape
-    prior_a, prior_b = prior
 
     # Gram entries (..., 1) broadcast against the (..., q) right-hand sides
     G = {
@@ -47,18 +137,33 @@ def wls_ell(
     Lc = unrolled_cholesky(G, p)
     zeta = fwd_subst(Lc, t, p)
     rss0 = residual_sq(w @ (y * y), zeta)
+    logdet = _chol_logdet(Lc, p) if reml else None
+    return _likelihood(rss0, torch.log(w).sum(-1, keepdim=True), logdet, n, p, prior, reml)
 
-    prior_df = prior_b + 2.0 if prior_b > 0.0 else prior_b
-    denom = (n - p if reml else n) + prior_df
-    sigma2 = torch.clamp(
-        (rss0 + prior_a * prior_b) / denom, min=torch.finfo(rss0.dtype).tiny
-    )
-    ell = -0.5 * (
-        (n + prior_b) * torch.log(sigma2)
-        - torch.log(w).sum(-1, keepdim=True)
-        + (rss0 + prior_a * prior_b) / sigma2
-    )
-    if reml:
-        logdet = sum(2.0 * torch.log(Lc[(k, k)]) for k in range(p))
-        ell = ell + 0.5 * (p * torch.log(sigma2) - logdet)
-    return ell, sigma2
+
+@with_highest_matmul()
+def wls_ell_columns(
+    y: torch.Tensor,
+    X: torch.Tensor,
+    w: torch.Tensor,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wls_ell` with one weight vector per column of ``y``.
+
+    ``y``: (n, q); ``X``: (n, p); ``w``: (..., q, n), where ``w[..., j, :]``
+    weighs column j. Returns (ell, sigma2) of shape (..., q). This is the
+    per-trait objective of the batched Brent: every trait at its own h2,
+    with no (q x q) table.
+    """
+    n, p = X.shape
+    yt = y.T  # (q, n)
+    G = {(k, l): w @ (X[:, k] * X[:, l]) for k in range(p) for l in range(k, p)}
+    wy = w * yt
+    t = [wy @ X[:, k] for k in range(p)]
+    Lc = unrolled_cholesky(G, p)
+    zeta = fwd_subst(Lc, t, p)
+    rss0 = residual_sq((wy * yt).sum(-1), zeta)
+    logdet = _chol_logdet(Lc, p) if reml else None
+    return _likelihood(rss0, torch.log(w).sum(-1), logdet, n, p, prior, reml)

@@ -173,8 +173,8 @@ def test_same_value_errors_as_jax(bxd_like, case):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="null-exact"), dict(method="alt-grid"), dict(missing="mask"),
-    dict(missing="drop"), dict(output_effects=True), dict(lowrank=True),
+    dict(method="null-exact", output_effects=True), dict(method="alt-grid", missing="mask"),
+    dict(missing="mask"), dict(missing="drop"), dict(output_effects=True), dict(lowrank=True),
 ], ids=["null-exact", "alt-grid", "mask", "drop", "effects", "lowrank"])
 def test_unported_options_raise(bxd_like, kw):
     K = bxd_like["K"]
@@ -194,7 +194,8 @@ def test_weights_refuse_cached_decomposition(bxd_like):
 def test_port_imports_no_jax():
     repo = Path(__file__).resolve().parent.parent
     code = (
-        "import sys, bulklmm_tpu_torch; "
+        "import sys, bulklmm_tpu_torch, bulklmm_tpu_torch.kernels.altgrid_fused, "
+        "bulklmm_tpu_torch.ops.brent, bulklmm_tpu_torch.ops.lmm; "
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bulklmm_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
