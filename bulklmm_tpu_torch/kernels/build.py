@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<name>.cu    (each)
+    nvcc -shared -o <lib> <obj>...
 
 The library lands in ``build/bulklmm_tpu_torch_kernels/`` beside the
 package, named by a hash of the sources and flags, so an edited source is
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bulklmm_tpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -67,14 +69,35 @@ def library_path() -> Path:
 
 def _build(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources()[0])]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n{r.stderr[-4000:]}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees the whole library or none
+    nvcc = _nvcc()
+    stem = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{stem}.tmp.so")
+    objs = {src: lib.with_name(f"{stem}.{src.stem}.o") for src in _sources()[0]}
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in objs.items()]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())]
+    failed = [(cmd, out) for cmd, proc, out in zip(cmds, procs, outputs) if proc.returncode]
+    try:
+        if not failed:
+            r = subprocess.run(link, capture_output=True, text=True)
+            cmds.append(link)
+            outputs.append(r.stdout + r.stderr)
+            if r.returncode:
+                failed.append((link, outputs[-1]))
+        (BUILD_DIR / "build.log").write_text(
+            "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outputs))
+        )
+        if failed:
+            cmd, out = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
+        os.replace(tmp, lib)  # atomic: a concurrent build sees the whole library or none
+    finally:
+        for leftover in (tmp, *objs.values()):
+            leftover.unlink(missing_ok=True)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,196 @@
+"""Fused bulk-permutation maxima: the CUDA kernel and its plain version.
+
+Replaces ``bulklmm_tpu/pallas/bulkperm_fused.py::fused_perm_maxlods`` (the
+Pallas kernel ``_kernel``) with ``csrc/bulkperm_fused.cu``, a hand-written
+CUDA C++ kernel for sm_90a. For every trait t of a block and every
+permutation k it computes
+
+    out[t, k] = max over markers i of (sum_s X[s, i] S2[t, s, k])^2 inv_xn[t, i]
+
+the genome-wide maximum squared correlation, without the (traits x markers x
+permutations) tensor ever reaching device memory (at 79 samples x 7,321
+markers x 35,554 traits x 1,001 columns it would be ~1 TB). The monotone
+LOD transform runs outside (``ops/bulkperm.py::maxr2_to_lod``).
+
+What bounds it on an H100: 2 n p mb K float32 FMA-flops on the CUDA cores
+(4.1e13 over all 35,554 traits) against reading S2 (4 mb n K bytes) and
+inv_xn once; compute by two orders of magnitude.
+
+Layers:
+
+- :func:`prepare_trait_block`: the permutation-independent ``inv_xn``
+  (mb, p) of a trait block, once per block.
+- :func:`prepare_chunk_inputs`: ``S2`` (mb, n, Kc) of one (trait block,
+  permutation chunk): the shuffled unit residuals, residualized against each
+  trait's weighted-covariate orthobasis and folded with its sqrt-weights,
+  ``sw_t * (I - Q_t^T Q_t) S_t`` (the projector moved from the marker side by
+  self-adjointness, so the kernel runs one product per trait).
+- :func:`bulkperm_maxr2_cuda`: the kernel's wrapper. CUDA tensors only; it
+  checks its inputs, allocates the output, launches on the current stream,
+  raises on a launch error and counts its launches in :data:`launches`.
+- :func:`bulkperm_maxr2_plain`: the same function in plain torch.
+- :func:`fused_perm_maxlods`: max LODs through the kernel on CUDA tensors,
+  through its plain version on CPU tensors.
+  :func:`fused_perm_maxlods_reference` always takes the plain version (the
+  counterpart of the Pallas interpret mode, and the comparison's yardstick).
+
+The kernel's operands must be finite: its running max drops a NaN where
+``torch.max`` would carry it. ``inv_xn`` is made finite here, and S2 is
+finite whenever the traits are (the entry point's finiteness guard).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
+from ..utils.config import with_highest_matmul
+
+#: launches of the CUDA kernel in this process; chip_smoke.py resets and
+#: reads it to show that the permutation path ran through the kernel
+launches = 0
+
+#: time of a 64-permutation tile's lane relative to a 128-wide tile's, at 79
+#: samples x 7,321 markers x 1,024 traits x 1,001 columns on an H100
+#: (44.8 ms against 38.8 ms for the same 1,024 padded lanes; chip_smoke.py
+#: times both)
+NARROW_TILE_COST = 1.15
+
+#: the plain version's (traits, p, K) numerator stays under this many bytes
+PLAIN_BUDGET_BYTES = 1024**3
+
+_F32 = torch.float32
+
+
+def prepare_trait_block(X0m, sqrtw_blk, Qblk, *, precision):
+    """``inv_xn`` (mb, p) float32: ``1 / |(I - P_t)(x_i * sw_t)|^2`` from
+    ``ops/bulkperm.py::perm_trait_marker_parts``, 0 where the marker is
+    masked (``xn = +inf`` there) or where ``1 / xn`` is not finite."""
+    _, xns = perm_trait_marker_parts(X0m, sqrtw_blk, Qblk, precision=precision)
+    inv = (1.0 / xns).to(_F32)
+    return torch.where(torch.isfinite(inv), inv, torch.zeros_like(inv)).contiguous()
+
+
+@with_highest_matmul()
+def prepare_chunk_inputs(sqrtw_blk, Qblk, wrn_blk, idx_blk):
+    """``S2`` (mb, n, Kc) float32 contiguous, from ``sqrtw_blk`` (mb, n),
+    ``Qblk`` (mb, c, n), ``wrn_blk`` (n, mb) and ``idx_blk`` (Kc, n). The
+    gathered block is residualized and scaled in place."""
+    # St[t, s, k] = wrn_blk[idx_blk[k, s], t], gathered in the kernel's layout
+    St = wrn_blk.T.to(_F32).contiguous()[:, idx_blk.T].contiguous()
+    Q = Qblk.to(_F32)
+    St -= Q.mT @ (Q @ St)
+    return St.mul_(sqrtw_blk.to(_F32)[:, :, None])
+
+
+def _check_operands(X0m, S2, inv_xn):
+    if X0m.ndim != 2 or S2.ndim != 3:
+        raise ValueError("bulkperm_maxr2_cuda: X0m must be (n, p) and S2 (mb, n, K)")
+    n, p = X0m.shape
+    mb, _, K = S2.shape
+    expected = {"X0m": (X0m, (n, p)), "S2": (S2, (mb, n, K)), "inv_xn": (inv_xn, (mb, p))}
+    for name, (t, shape) in expected.items():
+        if not t.is_cuda:
+            raise ValueError(f"bulkperm_maxr2_cuda: {name} lies on {t.device}, not on a CUDA device")
+        if t.device != X0m.device:
+            raise ValueError(f"bulkperm_maxr2_cuda: {name} lies on {t.device}, X0m on {X0m.device}")
+        if t.dtype != _F32:
+            raise TypeError(f"bulkperm_maxr2_cuda: {name} is {t.dtype}; the kernel takes float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"bulkperm_maxr2_cuda: {name} has shape {tuple(t.shape)}, expected {shape}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"bulkperm_maxr2_cuda: {name} must be contiguous")
+    if min(n, p, mb, K) == 0 or max(n, p, K) >= 2**31 or mb * -(-K // 64) >= 2**31:
+        raise ValueError(
+            "bulkperm_maxr2_cuda: the kernel takes non-empty samples, markers, "
+            "traits and permutations, each axis below 2^31 and traits x "
+            f"permutation tiles below 2^31; got n={n}, p={p}, mb={mb}, K={K}"
+        )
+    return n, p, mb, K
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from .build import load_library
+
+    lib = load_library()
+    fn = lib.bulklmm_bulkperm_maxr2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tile_width(K: int) -> int:
+    """Permutations per thread block, 64 or 128 (two instantiations of one
+    kernel template): the width whose padded lanes cost less. The wide tile
+    does more work per shared-memory load and reads the markers half as
+    often; the narrow one pads K less (24 columns fill 64 lanes, not 128)."""
+    narrow, wide = -(-K // 64) * 64, -(-K // 128) * 128
+    return 64 if narrow * NARROW_TILE_COST < wide else 128
+
+
+def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, tile_k=None):
+    """(mb, K) float32 max r^2 from the kernel's operands, on their CUDA
+    device: ``X0m`` (n, p), ``S2`` (mb, n, K), ``inv_xn`` (mb, p), all
+    float32 and contiguous. ``tile_k`` (64 or 128) overrides
+    :func:`tile_width`, for measurements.
+
+    Raises on a CPU tensor, a wrong dtype, shape or layout, a failed build
+    or a launch error. Does not synchronize.
+    """
+    global launches
+    n, p, mb, K = _check_operands(X0m, S2, inv_xn)
+    tile_k = tile_width(K) if tile_k is None else tile_k
+    if tile_k not in (64, 128):
+        raise ValueError(f"bulkperm_maxr2_cuda: tile_k must be 64 or 128, got {tile_k}")
+    lib = _library()
+    out = torch.empty((mb, K), dtype=_F32, device=X0m.device)
+    with torch.cuda.device(X0m.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.bulklmm_bulkperm_maxr2(
+            X0m.data_ptr(), S2.data_ptr(), inv_xn.data_ptr(), out.data_ptr(),
+            n, p, mb, K, tile_k, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "bulkperm kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
+        )
+    launches += 1
+    return out
+
+
+@with_highest_matmul()
+def bulkperm_maxr2_plain(X0m, S2, inv_xn):
+    """The kernel's function in plain torch, on any device (float32), over
+    sub-blocks of traits sized so that the (traits, p, K) numerator stays
+    under :data:`PLAIN_BUDGET_BYTES`."""
+    mb, _, K = S2.shape
+    p = X0m.shape[1]
+    step = max(1, PLAIN_BUDGET_BYTES // (4 * p * K))
+    Xt = X0m.T.contiguous()
+    out = torch.empty((mb, K), dtype=S2.dtype, device=S2.device)
+    for s in range(0, mb, step):
+        num = Xt @ S2[s : s + step]  # (traits, p, K)
+        r2 = num.square_().mul_(inv_xn[s : s + step, :, None])
+        out[s : s + step] = r2.max(1).values
+    return out
+
+
+def fused_perm_maxlods(X0m, S2, inv_xn, *, n: int):
+    """(mb, K) float32 genome-wide max LODs of a trait block: the CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors. ``n`` is the sample
+    count of the LOD factor."""
+    run = bulkperm_maxr2_cuda if S2.is_cuda else bulkperm_maxr2_plain
+    return maxr2_to_lod(run(X0m, S2, inv_xn), n)
+
+
+def fused_perm_maxlods_reference(X0m, S2, inv_xn, *, n: int):
+    """:func:`fused_perm_maxlods` through the plain version on any device."""
+    return maxr2_to_lod(bulkperm_maxr2_plain(X0m, S2, inv_xn), n)

@@ -49,6 +49,7 @@ from ..ops.stats import check_covar_full_rank
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
+from ..utils.device import resolve_device
 from .missing import _ncov_total, finite_flag, raise_if_missing, validate_missing_kwarg
 from .results import BulkScanResult
 from .scan import _apply_weights
@@ -205,8 +206,17 @@ def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, dev
     if engine == "pallas" and method != "alt-grid":
         raise ValueError(
             "engine='pallas' is only available for method='alt-grid' "
-            "(the null engines are XLA-only; docs/PERF.md 'Pallas status')"
+            "(the null methods have no engine choice: their LOD step follows "
+            "the precision preset, see the docstring of "
+            "bulklmm_tpu_torch.models.bulkscan)"
         )
+    return _traits_covar_grid(Y, covar, h2_grid, add_intercept, device)
+
+
+def _traits_covar_grid(Y, covar, h2_grid, add_intercept, device):
+    """(Y, covar, h2_grid, add_intercept) as tensors on ``device``: Y (n, m),
+    the default grid and the default intercept-only covariates filled in, a
+    rank-deficient covariate design refused."""
     Y = torch.as_tensor(Y, device=device)
     Y = Y[:, None] if Y.ndim == 1 else Y
     n = Y.shape[0]
@@ -306,13 +316,14 @@ def bulkscan(
     ``output_h2_panel=False`` returns ``h2_panel=None`` from alt-grid and
     drops the kernel's index carry. ``trait_chunk=None`` means one block of
     all traits (no sizing from device memory yet), an int runs trait blocks
-    of that width. ``device`` defaults to ``Y``'s when it is a tensor, else
-    the CPU.
+    of that width. ``device`` defaults to the first tensor's among ``Y``,
+    ``G``, ``K`` and ``covar``; with numpy inputs only it is the current CUDA
+    device, and without one the call raises (``device="cpu"`` runs the plain
+    versions on the CPU; ``utils/device.py::resolve_device``).
     """
     validate_missing_kwarg(missing)
     _check_output_effects(output_effects, method)
-    if device is None:
-        device = Y.device if torch.is_tensor(Y) else torch.device("cpu")
+    device = resolve_device(device, Y, G, K, covar)
     Y, covar, h2_grid, add_intercept = _scan_common_inputs(
         Y, covar, h2_grid, add_intercept, method=method, engine=engine, device=device
     )

@@ -1,6 +1,14 @@
 """Numerical primitives on torch tensors."""
 
 from .brent import brent_min, gridbrent
+from .bulkperm import (
+    max_r2_perms_plain,
+    maxr2_to_lod,
+    perm_state_from_numpy,
+    perm_trait_marker_parts,
+    perm_trait_parts,
+    permutation_indices,
+)
 from .kinship import calc_kinship
 from .liteqtl import (
     lods_per_trait,
@@ -54,8 +62,14 @@ __all__ = [
     "lods_per_trait",
     "lods_shared",
     "make_weights",
+    "max_r2_perms_plain",
+    "maxr2_to_lod",
     "p2lod",
     "pair_indices",
+    "perm_state_from_numpy",
+    "perm_trait_marker_parts",
+    "perm_trait_parts",
+    "permutation_indices",
     "r2lod",
     "residual_keep_mask",
     "residual_sq",

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
+from ..utils.device import resolve_device
 
 
 @with_highest_matmul()
@@ -25,10 +26,12 @@ def calc_kinship(
 
     ``marker_chunk`` > 0 accumulates the cross-product over marker blocks of
     that width, so the shifted panel never exists whole; 0 is one product.
-    ``device`` defaults to ``geno``'s when it is a tensor, else the CPU.
+    ``device`` defaults to ``geno``'s when it is a tensor, else the current
+    CUDA device (``utils/device.py::resolve_device``; ``device="cpu"`` for
+    the CPU).
     """
     dtype = precision.resolve_solve()
-    X = torch.as_tensor(geno, device=device).to(dtype)
+    X = torch.as_tensor(geno, device=resolve_device(device, geno)).to(dtype)
     p = X.shape[1]
     if marker_chunk and marker_chunk < p:
         XXt = torch.zeros((X.shape[0], X.shape[0]), dtype=dtype, device=X.device)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
+from ..utils.device import resolve_device
 from ..utils.host import to_numpy
 
 
@@ -80,7 +81,11 @@ def decomposition_from_numpy(Ut, lam, *, device, dtype) -> KinshipDecomposition:
 def decompose_kinship(
     K, decomp_scheme: str = "eigen", dtype=None, *, device=None
 ) -> KinshipDecomposition:
-    """Host eigendecomposition -> factors on ``device``, computed once."""
+    """Host eigendecomposition -> factors on ``device``, computed once.
+    ``device`` defaults to ``K``'s when it is a tensor, else the current CUDA
+    device (``utils/device.py::resolve_device``; ``device="cpu"`` for the
+    CPU)."""
+    device = resolve_device(device, K)
     Ut, lam = kinship_eigen(K, decomp_scheme)
     if dtype is None:
         dtype = DEFAULT_PRECISION.resolve_solve()
@@ -114,10 +119,11 @@ def transform_rotation(
 
     ``y``: (n,) or (n, m) traits; ``g``: (n, p) design (covariates already
     prepended, or just markers when ``add_intercept=True``). ``device``
-    defaults to ``y``'s when it is a tensor, else the CPU.
+    defaults to the first tensor's among ``y``, ``g`` and ``K``, else the
+    current CUDA device (``utils/device.py::resolve_device``;
+    ``device="cpu"`` for the CPU).
     """
-    if device is None:
-        device = y.device if torch.is_tensor(y) else torch.device("cpu")
+    device = resolve_device(device, y, g, K)
     dtype = precision.resolve_solve()
     y = torch.as_tensor(y, device=device).to(dtype)
     y2 = y[:, None] if y.ndim == 1 else y

@@ -10,6 +10,7 @@ from .config import (
     precision_by_name,
     with_highest_matmul,
 )
+from .device import resolve_device
 
 __all__ = [
     "BALANCED",
@@ -21,5 +22,6 @@ __all__ = [
     "PrecisionConfig",
     "default_float",
     "precision_by_name",
+    "resolve_device",
     "with_highest_matmul",
 ]

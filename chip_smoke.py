@@ -14,9 +14,14 @@ exits nonzero:
    kernel: c = 1, 2, 3 and 8 covariate columns, a ragged 70 x 45 tile edge,
    and n = 2,000 to cross many sample chunks. The alt-grid kernel: c = 1, 2
    and 3, g = 1 and 10, the ragged edge, n = 2,000, with the h2 panel on
-   and off. Bar: max |dLOD| <= 5e-5 (the JAX package's bar for its Pallas
-   kernels), scaled by n/48 above n = 79; at most 0.01 % of the pairs may
-   take another grid index (near-ties under another summation order).
+   and off. The bulk-permutation kernel (both of its permutation tiles):
+   c = 1, 2 and 3, K = 1 (the observed column alone), 24 and 130 (across a
+   tile edge), a ragged 70-marker x 5-trait block, n = 2,000, and a block
+   with one masked trait and one masked marker. Bar: max |dLOD| <= 5e-5
+   (the JAX package's bar for its Pallas kernels), scaled by n/48 above
+   n = 79, and max |d max r^2| <= 1e-5 for the permutation kernel; at most
+   0.01 % of the pairs may take another grid index (near-ties under another
+   summation order).
 4. The null-grid path at BXD scale (79 samples x 7,321 markers x 35,554
    traits, synthetic, seed 2026): BALANCED ``bulkscan`` on CUDA tensors must
    launch the LOD kernel and give a finite (7321, 35554) L; the kernel must
@@ -34,20 +39,43 @@ exits nonzero:
    "null-exact")`` must launch the LOD kernel and stay within 1e-4 of
    EXACT64 null-exact; the largest |dh2| and the Brent iterations are
    reported.
-7. Times, printed and not gated: the median of 5 runs after one warm-up,
-   by CUDA events around the work and then a checksum fetch, of each
-   BALANCED ``bulkscan`` (host eigendecomposition included), and of each
-   kernel alone and its plain version at the scan's shape.
+7. The permutation path at BXD scale: BALANCED ``bulkscan_perms`` with
+   1,000 permutations (1,001 columns) on CUDA tensors must launch the
+   bulk-permutation kernel and give a finite (35554, 1001) float32
+   ``maxlods`` on the card; column 0 must equal the per-trait maximum of
+   phase 4's L within 1e-4; the kernel must match its plain version on the
+   scan's own operands for the first 1,024-trait block; and ``maxlods`` must
+   stay within 1e-4 of the EXACT64 run (plain engine, float64, the same
+   shuffle indices) on the traits whose grid h2 agrees. The oracle runs
+   over blocks of 4,096 traits until 20 s are spent and prints how many
+   traits it covered. On the first 2,048 traits, trait blocks of 500 and
+   permutation chunks of 300 must give the default blocks' maxima within
+   5e-5, and ``method="null-exact"`` with 100 permutations must stay
+   within 1e-4 of its EXACT64 run. The medians over traits of
+   ``get_thresholds_bulk``'s thresholds and the peak device memory are
+   reported.
+8. Times, printed and not gated, by CUDA events around the work and then a
+   checksum fetch: the median of 5 runs after one warm-up of each BALANCED
+   ``bulkscan`` (host eigendecomposition included) and of the LOD and
+   alt-grid kernels alone and their plain versions at the scan's shape; the
+   median of 3 after a warm-up of BALANCED ``bulkscan_perms``, of the
+   bulk-permutation kernel alone and of its plain version, per trait block
+   and summed over all trait blocks (each block's operands prepared
+   outside the timed region).
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
-each kernel; the last is ``{"ok": true, "device": {...}}``. Imports nothing
-of JAX.
+each kernel, with its bound on this card: the larger of its bytes (each
+operand read once, each result written once) over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s. No single PyTorch call computes any of
+the three kernels' functions, so ``library_ms`` is null. The last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -58,8 +86,14 @@ import numpy as np
 import torch
 
 N, P, M = 79, 7321, 35554
+NPERMS = 1000
+PERM_BLOCK = 1024  # bulkscan_perms' trait block under the kernel's engine
+ORACLE_BLOCK, ORACLE_SECONDS = 4096, 20.0
+OPTION_TRAITS = 2048  # traits of the chunking and null-exact checks of the permutation path
 SEED = 2026
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: float32 SIMT, HBM3
 KERNEL_BAR = 5e-5  # max |dLOD|, kernel vs plain, n <= 79
+R2_BAR = 1e-5  # max |d max r^2|, permutation kernel vs plain
 ORACLE_BAR = 1e-4  # max |dLOD|, BALANCED vs EXACT64 on equal-h2 traits
 PARITY_BAR = 1e-5  # BASELINE.md's accuracy bar, reported
 JAX_ALTGRID_BAR = 2e-5  # the JAX package's bar for alt-grid, reported
@@ -116,8 +150,11 @@ def build() -> None:
     log = BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            entry = re.search(r"Compiling entry function '\w*\d([a-z_]+_kernelIL[ib]\d+E)", line)
+            if entry:
+                print("  ptxas:", entry.group(1))
+            elif "registers" in line or "spill" in line:
+                print("  ptxas:  ", line.replace("ptxas info    : ", "").strip())
 
 
 def _kernel_inputs(n, p, m, c, rng, dev):
@@ -184,6 +221,60 @@ def altgrid_checks(dev) -> None:
             check(torch.equal(other, out), "alt-grid L depends on the panel flag")
 
 
+def _perm_operands(n, p, mb, c, K, rng, dev):
+    """The permutation kernel's operands from random rotated data, through
+    the package's own preparation."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.ops import bulkperm as ob
+
+    Y0, X0m, C0, lam, h2 = _kernel_inputs(n, p, mb, c, rng, dev)
+    S, Q, wrn = ob.perm_trait_parts(Y0, C0, lam, h2, precision=bt.FAST32)
+    sw, Qs = S.T.contiguous(), torch.stack(Q, 0).permute(2, 0, 1).contiguous()
+    idx = ob.permutation_indices(n, K - 1, 5).to(dev)
+    S2 = bf.prepare_chunk_inputs(sw, Qs, wrn, idx)
+    return X0m.contiguous(), S2, bf.prepare_trait_block(X0m, sw, Qs, precision=bt.FAST32)
+
+
+def _perm_kernel_errors(ops, n, tile_k=None):
+    """(max |d max r^2|, max |dLOD|, kernel result, plain result)."""
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.ops.bulkperm import maxr2_to_lod
+
+    out = bf.bulkperm_maxr2_cuda(*ops, tile_k=tile_k)
+    torch.cuda.synchronize()
+    ref = bf.bulkperm_maxr2_plain(*ops)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and bool(torch.isfinite(out).all()), "max r^2 not finite")
+    lod_err = (maxr2_to_lod(out, n) - maxr2_to_lod(ref, n)).abs().max().item()
+    return (out - ref).abs().max().item(), lod_err, out, ref
+
+
+def bulkperm_checks(dev) -> None:
+    rng = np.random.default_rng(6)
+    cases = [(48, 96, 8, c, 24) for c in (1, 2, 3)] + [
+        (48, 96, 8, 1, 1), (48, 96, 8, 2, 130), (48, 70, 5, 2, 130), (2000, 96, 8, 2, 24),
+    ]
+    for n, p, mb, c, K in cases:
+        ops = _perm_operands(n, p, mb, c, K, rng, dev)
+        for tile_k in (64, 128):
+            r2_err, lod_err, _, _ = _perm_kernel_errors(ops, n, tile_k)
+            bar = KERNEL_BAR * max(1.0, n / 48)
+            print(f"  permutation kernel vs plain n={n} p={p} mb={mb} c={c} K={K} tile={tile_k}: "
+                  f"max|d r2| = {r2_err:.3e} (bar {R2_BAR:.0e}), max|dLOD| = {lod_err:.3e} (bar {bar:.2e})")
+            check(r2_err <= R2_BAR and lod_err <= bar,
+                  f"permutation kernel disagrees with its plain version at {(n, p, mb, c, K, tile_k)}")
+    # a masked trait (all-zero S2) gives 0 exactly; a masked marker cannot win
+    X, S2, inv = _perm_operands(48, 70, 5, 2, 130, rng, dev)
+    S2[1] = 0.0
+    inv[:, 3] = 0.0
+    for tile_k in (64, 128):
+        r2_err, _, out, ref = _perm_kernel_errors((X, S2, inv), 48, tile_k)
+        check(bool((out[1] == 0).all()) and bool((ref[1] == 0).all()), "a masked trait is not 0")
+        check(r2_err <= R2_BAR, "permutation kernel disagrees on the masked block")
+    print("  permutation kernel, masked trait and masked marker: max r2 = 0 exactly on the masked trait")
+
+
 def _max_abs_diff_cols(A, B, cols, block=4096):
     """max |A - B| over the columns ``cols``, in float64, block by block."""
     worst = 0.0
@@ -209,16 +300,18 @@ def _time_ms(fn) -> float:
 
 def _reset_counts():
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
-    lf.launches = af.launches = 0
+    lf.launches = af.launches = bf.launches = 0
 
 
 def _counts():
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
-    return {"liteqtl_lod": lf.launches, "altgrid": af.launches}
+    return {"liteqtl_lod": lf.launches, "altgrid": af.launches, "bulkperm_maxr2": bf.launches}
 
 
 def _drive(what, fn):
@@ -263,6 +356,7 @@ def slice_at_bxd(dev):
     check(tuple(res.L.shape) == (P, M), f"L has shape {tuple(res.L.shape)}")
     check(res.L.is_cuda and res.L.dtype == torch.float32, "L is not float32 on the card")
     check(bool(torch.isfinite(res.L).all()), "L is not finite")
+    lod_max = res.L.max(0).values  # the permutation phase's observed column
 
     # the kernel against its plain version on the scan's own inputs
     Y0, X0m, C0, lam = _rotated_bxd(K, Yd, Gd, dev)
@@ -289,7 +383,7 @@ def slice_at_bxd(dev):
           f"BASELINE.md's {PARITY_BAR:.0e}: {'met' if oerr <= PARITY_BAR else 'NOT met'})")
     check(oerr <= ORACLE_BAR, "BALANCED strays from the EXACT64 oracle")
     del exact
-    return Yd, Gd, K, ops, launches, kerr
+    return Yd, Gd, K, ops, launches, kerr, lod_max
 
 
 def altgrid_at_bxd(dev, Yd, Gd, K):
@@ -400,6 +494,175 @@ def times(card, Yd, Gd, K, lod_ops, alt_ops):
     return med
 
 
+def _perm_block_operands(prep, idx, lo, hi):
+    """The kernel's operands for traits lo..hi of ``_bulkperm_prep``'s state."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+
+    X0m, _, _, sqrtw, Qstack, wrn = prep
+    sw, Q = sqrtw[lo:hi], Qstack[lo:hi]
+    S2 = bf.prepare_chunk_inputs(sw, Q, wrn[:, lo:hi], idx)
+    inv_xn = bf.prepare_trait_block(X0m, sw, Q, precision=bt.BALANCED)
+    return X0m.to(torch.float32).contiguous(), S2, inv_xn
+
+
+def perms_at_bxd(dev, Yd, Gd, K, lod_max):
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.models import bulkperm as mp
+    from bulklmm_tpu_torch.ops.bulkperm import maxr2_to_lod, permutation_indices
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+
+    res, counts = _drive(
+        "BALANCED bulkscan_perms",
+        lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED),
+    )
+    launches = counts["bulkperm_maxr2"]
+    check(launches > 0, "the BALANCED bulkscan_perms did not launch the permutation kernel")
+    ml = res.maxlods
+    check(tuple(ml.shape) == (M, NPERMS + 1), f"maxlods has shape {tuple(ml.shape)}")
+    check(ml.is_cuda and ml.dtype == torch.float32, "maxlods is not float32 on the card")
+    check(bool(torch.isfinite(ml).all()), "maxlods is not finite")
+    check(tuple(res.log10_adj_pvals.shape) == (M,) and bool(torch.isfinite(res.log10_adj_pvals).all()),
+          "adjusted p-values are not finite")
+    obs_err = (res.lod_max.double() - lod_max.double()).abs().max().item()
+    print(f"  observed column vs the null-grid scan's per-trait max LOD: max|dLOD| = {obs_err:.3e} "
+          f"(bar {ORACLE_BAR:.0e})")
+    check(obs_err <= ORACLE_BAR, "column 0 strays from the null-grid scan's maxima")
+    thr = bt.get_thresholds_bulk(res.perm_maxima, [0.10, 0.05])
+    check(thr.thrs.shape == (2, M) and bool(np.isfinite(thr.thrs).all()), "thresholds not finite")
+    print(f"  genome-wide LOD thresholds, median over {M} traits: "
+          f"{np.median(thr.thrs[0]):.4f} (10 %), {np.median(thr.thrs[1]):.4f} (5 %); "
+          f"traits with an adjusted p <= 0.05: {int((res.log10_adj_pvals >= -np.log10(0.05)).sum())}")
+
+    # the kernel against its plain version on the scan's own operands,
+    # the first trait block
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    grid = torch.as_tensor(GRID, dtype=torch.float64, device=dev)
+    ones = torch.ones((N, 1), dtype=torch.float64, device=dev)
+    with with_highest_matmul():
+        prep = mp._bulkperm_prep(
+            Yd.double(), Gd.double(), ones, dec.Ut, dec.lam, grid, prior=PRIOR, reml=False,
+            method="null-grid", optim_interval=1, precision=bt.BALANCED,
+        )
+    idx = permutation_indices(N, NPERMS, 0).to(dev)
+    ops = _perm_block_operands(prep, idx, 0, PERM_BLOCK)
+    r2_err, kerr, out, _ = _perm_kernel_errors(ops, N)
+    same_as_scan = (maxr2_to_lod(out, N) - ml[:PERM_BLOCK]).abs().max().item()
+    print(f"  permutation kernel vs plain at BXD scale, traits 0..{PERM_BLOCK}: max|d r2| = {r2_err:.3e} "
+          f"(bar {R2_BAR:.0e}), max|dLOD| = {kerr:.3e} (bar {KERNEL_BAR:.0e}); "
+          f"kernel vs the scan's maxlods: {same_as_scan:.3e}")
+    check(r2_err <= R2_BAR and kerr <= KERNEL_BAR,
+          "permutation kernel disagrees with its plain version at BXD scale")
+    check(same_as_scan <= KERNEL_BAR, "the scan's maxlods are not the kernel's on its own operands")
+
+    # other block shapes and the other method, on the first traits: ragged
+    # trait blocks and permutation chunks must not show in the maxima
+    sub = slice(0, OPTION_TRAITS)
+    chunked = bt.bulkscan_perms(Yd[:, sub], Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED,
+                                trait_chunk=500, perm_chunk=300)
+    cerr = (chunked.maxlods - ml[sub]).abs().max().item()
+    exact_fit = bt.bulkscan_perms(Yd[:, sub], Gd, K, nperms=100, rndseed=0, method="null-exact",
+                                  precision=bt.BALANCED)
+    exact_ref = bt.bulkscan_perms(Yd[:, sub], Gd, K, nperms=100, rndseed=0, method="null-exact",
+                                  precision=bt.EXACT64)
+    nerr = (exact_fit.maxlods.double() - exact_ref.maxlods).abs().max().item()
+    dh2 = (exact_fit.h2_null_list - exact_ref.h2_null_list).abs().max().item()
+    print(f"  traits 0..{OPTION_TRAITS}: trait blocks of 500 and permutation chunks of 300 vs the "
+          f"default blocks: max|dLOD| = {cerr:.3e} (bar {KERNEL_BAR:.0e}); null-exact with 100 "
+          f"permutations, BALANCED vs EXACT64: max|dLOD| = {nerr:.3e} (bar {ORACLE_BAR:.0e}), "
+          f"max|dh2| = {dh2:.3e}")
+    check(cerr <= KERNEL_BAR, "the maxima depend on the trait and permutation chunking")
+    check(bool(torch.isfinite(exact_fit.maxlods).all()) and nerr <= ORACLE_BAR,
+          "null-exact bulkscan_perms strays from its EXACT64 run")
+    del chunked, exact_fit, exact_ref
+
+    # the float64 oracle, block by block until its time is spent
+    t0 = time.perf_counter()
+    oerr, nflip, done = 0.0, 0, 0
+    while done < M and time.perf_counter() - t0 < ORACLE_SECONDS:
+        hi = min(done + ORACLE_BLOCK, M)
+        exact = bt.bulkscan_perms(Yd[:, done:hi], Gd, K, nperms=NPERMS, rndseed=0,
+                                  precision=bt.EXACT64)
+        same = exact.h2_null_list == res.h2_null_list[done:hi].double()
+        nflip += int((~same).sum())
+        oerr = max(oerr, (ml[done:hi].double() - exact.maxlods)[same].abs().max().item())
+        done = hi
+    print(f"  BALANCED vs EXACT64 (plain engine, float64) on traits 0..{done} of {M} "
+          f"({time.perf_counter() - t0:.1f} s): {nflip} traits with a different grid h2; "
+          f"max|dLOD| on the rest = {oerr:.3e} (bar {ORACLE_BAR:.0e}; BASELINE.md's "
+          f"{PARITY_BAR:.0e}: {'met' if oerr <= PARITY_BAR else 'NOT met'})")
+    check(done >= min(ORACLE_BLOCK, M), "the EXACT64 oracle covered no trait block")
+    check(oerr <= ORACLE_BAR, "BALANCED bulkscan_perms strays from the EXACT64 oracle")
+    del exact, res, ml
+    return prep, idx, ops, launches, r2_err
+
+
+def _event_ms(fn) -> float:
+    """One run by CUDA events; the caller reads the result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def perm_times(card, Yd, Gd, K, prep, idx, first_ops):
+    """Median of 3 runs after one warm-up. The kernel and its plain version
+    run in turns on each trait block's operands, prepared outside the timed
+    region; the totals are sums over the blocks of one repeat."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+
+    scan = lambda: bt.bulkscan_perms(  # noqa: E731
+        Yd, Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED).maxlods
+    _time_ms(scan)
+    scan_ms = [_time_ms(scan) for _ in range(3)]
+
+    variants = {
+        "kernel": lambda ops: bf.bulkperm_maxr2_cuda(*ops),
+        "plain": lambda ops: bf.bulkperm_maxr2_plain(*ops),
+    }
+    first = {name: [] for name in variants}
+    first["kernel, 64-wide tile"] = []
+    total = {name: [0.0] * 3 for name in variants}
+    for lo in range(0, M, PERM_BLOCK):
+        ops = first_ops if lo == 0 else _perm_block_operands(prep, idx, lo, min(lo + PERM_BLOCK, M))
+        for rep in range(-1, 3):  # rep -1 warms up
+            for name, fn in variants.items():
+                ms = _event_ms(lambda: fn(ops))
+                if rep >= 0:
+                    total[name][rep] += ms
+                    if lo == 0:
+                        first[name].append(ms)
+            if lo == 0:
+                ms = _event_ms(lambda: bf.bulkperm_maxr2_cuda(*ops, tile_k=64))
+                if rep >= 0:
+                    first["kernel, 64-wide tile"].append(ms)
+        del ops
+    nblocks = -(-M // PERM_BLOCK)
+    med = statistics.median
+    flops = 2.0 * N * P * M * (NPERMS + 1)
+    print(f"  times on {card}, median of 3 (ms):")
+    print(f"    {'BALANCED bulkscan_perms':44s} {med(scan_ms):10.3f}   runs {[round(x, 3) for x in scan_ms]}")
+    for name, t in first.items():
+        print(f"    {name + ', traits 0..' + str(PERM_BLOCK):44s} {med(t):10.3f}   runs {[round(x, 3) for x in t]}")
+    for name, t in total.items():
+        print(f"    {name + ', all ' + str(nblocks) + ' trait blocks':44s} {med(t):10.3f}   runs {[round(x, 3) for x in t]}")
+    print(f"  permutation kernel: {flops / med(total['kernel']) / 1e9:.1f} TFLOP/s over all trait blocks "
+          f"({flops:.3e} flops; tile of {bf.tile_width(NPERMS + 1)} permutations)")
+    return {name: med(first[name]) for name in variants}
+
+
+def _bound(flops, operands, out_bytes):
+    """(bound_ms, bound_by): the larger of the bytes moved once over the
+    card's memory rate and the operations over its float32 peak."""
+    nbytes = out_bytes + sum(t.numel() * t.element_size() for t in operands)
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_ops else (by_ops, "operations")
+
+
 def main() -> None:
     import_port()
     print("[1] device check")
@@ -410,15 +673,19 @@ def main() -> None:
     print("[3] kernels vs their plain versions on the card")
     kernel_checks(dev)
     altgrid_checks(dev)
+    bulkperm_checks(dev)
     print(f"[4] BALANCED null-grid bulkscan at BXD scale ({N} x {P} x {M})")
-    Yd, Gd, K, lod_ops, lod_launches, lod_err = slice_at_bxd(dev)
+    Yd, Gd, K, lod_ops, lod_launches, lod_err, lod_max = slice_at_bxd(dev)
     print(f"[5] BALANCED alt-grid bulkscan at BXD scale ({N} x {P} x {M}, g = {len(GRID)})")
     alt_ops, alt_launches, alt_err = altgrid_at_bxd(dev, Yd, Gd, K)
     print(f"[6] BALANCED null-exact bulkscan at BXD scale ({N} x {P} x {M})")
     nullexact_at_bxd(dev, Yd, Gd, K)
-    print("[7] times")
+    print(f"[7] BALANCED bulkscan_perms at BXD scale ({N} x {P} x {M}, {NPERMS} permutations)")
+    prep, idx, perm_ops, perm_launches, perm_err = perms_at_bxd(dev, Yd, Gd, K, lod_max)
+    print("[8] times")
     med = times(card, Yd, Gd, K, lod_ops, alt_ops)
-    print(json.dumps({"kernels": [{
+    pmed = perm_times(card, Yd, Gd, K, prep, idx, perm_ops)
+    kernels = [{
         "name": "liteqtl_lod",
         "route": "cuda",
         "source": "bulklmm_tpu_torch/csrc/liteqtl_fused.cu",
@@ -427,6 +694,7 @@ def main() -> None:
         "max_abs_err": lod_err,
         "ms": med["LOD kernel alone"],
         "plain_ms": med["LOD plain version"],
+        "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
         "route": "cuda",
@@ -436,7 +704,25 @@ def main() -> None:
         "max_abs_err": alt_err,
         "ms": med["alt-grid kernel alone"],
         "plain_ms": med["alt-grid plain version"],
-    }]}))
+        "bound": _bound(2.0 * N * P * M * len(GRID), alt_ops, 8 * P * M),
+    }, {
+        "name": "bulkperm_maxr2",
+        "route": "cuda",
+        "source": "bulklmm_tpu_torch/csrc/bulkperm_fused.cu",
+        "replaces": "bulklmm_tpu/pallas/bulkperm_fused.py:141",
+        "launches": perm_launches,
+        "max_abs_err": perm_err,
+        "ms": pmed["kernel"],
+        "plain_ms": pmed["plain"],
+        "bound": _bound(2.0 * N * P * PERM_BLOCK * (NPERMS + 1), perm_ops, 4 * PERM_BLOCK * (NPERMS + 1)),
+    }]
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        k["library_ms"] = None  # no single PyTorch call computes this function
+        print(f"  {k['name']}: {k['ms']:.3f} ms per launch, bound {k['bound_ms']:.3f} ms by "
+              f"{k['bound_by']} (the kernel runs at {100 * k['bound_ms'] / k['ms']:.1f} % of the "
+              f"bound's rate), {k['launches']} launches on its path")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -130,7 +130,8 @@ def test_cuda_wrapper_refuses_cpu_tensors(rotated):
 def _run(data, preset, **kw):
     Y, G, K = data["Y"], data["G"], data["K"]
     ref = bl.bulkscan(Y, G, K, method="alt-grid", engine="xla", precision=getattr(jcfg, preset), **kw)
-    port = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.precision_by_name(preset), **kw)
+    port = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.precision_by_name(preset),
+                       device="cpu", **kw)
     return port, ref
 
 
@@ -185,9 +186,9 @@ def test_alias_and_engines_on_cpu(bxd_like):
     """``bulkscan_alt_grid`` is ``bulkscan(method="alt-grid")``; on CPU
     tensors "auto" is the plain path, as "xla" is, and launches nothing."""
     Y, G, K = bxd_like["Y"], bxd_like["G"], bxd_like["K"]
-    a = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.BALANCED)
-    b = bt.bulkscan_alt_grid(Y, G, K, precision=bt.BALANCED)
-    c = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.BALANCED, engine="xla")
+    a = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.BALANCED, device="cpu")
+    b = bt.bulkscan_alt_grid(Y, G, K, precision=bt.BALANCED, device="cpu")
+    c = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.BALANCED, engine="xla", device="cpu")
     for r in (b, c):
         assert torch.equal(a.L, r.L) and torch.equal(a.h2_panel, r.h2_panel)
     assert af.launches == 0
@@ -200,7 +201,7 @@ def test_float32_gemm_presets_take_the_kernel_entry_only_on_cuda(bxd_like, monke
     monkeypatch.setattr(mb, "fused_alt_grid", lambda *a, **k: calls.append(1))
     for preset in L_BAR:
         bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="alt-grid",
-                    precision=bt.precision_by_name(preset))
+                    precision=bt.precision_by_name(preset), device="cpu")
     assert calls == []
     assert mb._altgrid_uses_kernel("auto", bt.BALANCED, "cuda")
     assert mb._altgrid_uses_kernel("auto", bt.MIXED, "cuda")
@@ -228,7 +229,7 @@ def _both_raise(data, **kw):
     with pytest.raises(ValueError) as ej:
         bl.bulkscan(data["Y"], data["G"], data["K"], **kw)
     with pytest.raises(ValueError) as et:
-        bt.bulkscan(data["Y"], data["G"], data["K"], **kw)
+        bt.bulkscan(data["Y"], data["G"], data["K"], device="cpu", **kw)
     return str(ej.value), str(et.value)
 
 
@@ -239,7 +240,12 @@ def _both_raise(data, **kw):
 ], ids=["engine", "pallas-null-grid", "effects"])
 def test_same_value_errors_as_jax(bxd_like, kw):
     j, t = _both_raise(bxd_like, **kw)
-    assert t == j
+    if kw.get("engine") == "pallas":
+        # the same refusal; each package then points at its own record of why
+        head = "engine='pallas' is only available for method='alt-grid'"
+        assert t.startswith(head) and j.startswith(head)
+    else:
+        assert t == j
 
 
 @pytest.mark.parametrize("preset, match", [("BALANCED", "CUDA device"), ("EXACT64", "float64")])
@@ -248,5 +254,5 @@ def test_pallas_engine_refusals(bxd_like, preset, match):
     tensors, and under a float64 GEMM dtype."""
     with pytest.raises(ValueError, match=match):
         bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="alt-grid",
-                    engine="pallas", precision=bt.precision_by_name(preset))
+                    engine="pallas", precision=bt.precision_by_name(preset), device="cpu")
     assert af.launches == 0

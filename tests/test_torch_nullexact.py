@@ -252,7 +252,8 @@ def test_batched_fit_matches_single_fits(rotated_traits):
 def _run(data, preset, **kw):
     Y, G, K = data["Y"], data["G"], data["K"]
     ref = bl.bulkscan(Y, G, K, method="null-exact", precision=getattr(jcfg, preset), **kw)
-    port = bt.bulkscan(Y, G, K, method="null-exact", precision=bt.precision_by_name(preset), **kw)
+    port = bt.bulkscan(Y, G, K, method="null-exact", precision=bt.precision_by_name(preset),
+                       device="cpu", **kw)
     return port, ref
 
 
@@ -307,8 +308,8 @@ def test_options_match_jax(bxd_like, option, preset):
 
 def test_bulkscan_null_alias(bxd_like):
     Y, G, K = bxd_like["Y"], bxd_like["G"], bxd_like["K"]
-    a = bt.bulkscan(Y, G, K, method="null-exact", precision=bt.BALANCED)
-    b = bt.bulkscan_null(Y, G, K, precision=bt.BALANCED)
+    a = bt.bulkscan(Y, G, K, method="null-exact", precision=bt.BALANCED, device="cpu")
+    b = bt.bulkscan_null(Y, G, K, precision=bt.BALANCED, device="cpu")
     assert torch.equal(a.L, b.L) and torch.equal(a.h2_null_list, b.h2_null_list)
     assert lf.launches == 0
 
@@ -323,7 +324,7 @@ def test_float32_presets_take_the_kernel_entry(bxd_like, monkeypatch):
     for preset, expect in [("BALANCED", 1), ("FAST32", 1), ("THROUGHPUT", 1), ("MIXED", 0), ("EXACT64", 0)]:
         calls.clear()
         bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="null-exact",
-                    precision=bt.precision_by_name(preset))
+                    precision=bt.precision_by_name(preset), device="cpu")
         assert len(calls) == expect, preset
 
 
@@ -332,5 +333,5 @@ def test_unknown_solve_method_same_error_as_jax(bxd_like):
     with pytest.raises(ValueError) as ej:
         bl.bulkscan(Y, G, K, method="null-exact", solve_method="svd")
     with pytest.raises(ValueError) as et:
-        bt.bulkscan(Y, G, K, method="null-exact", solve_method="svd")
+        bt.bulkscan(Y, G, K, method="null-exact", solve_method="svd", device="cpu")
     assert str(et.value) == str(ej.value)

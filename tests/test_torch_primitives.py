@@ -131,7 +131,7 @@ def test_wls_ell(rng, c, prior, reml):
 def test_calc_kinship(rng, marker_chunk):
     G = rng.uniform(0.0, 1.0, (20, 50))
     ref = jk.calc_kinship(G, jcfg.EXACT64, marker_chunk=marker_chunk)
-    port = tk.calc_kinship(G, tcfg.EXACT64, marker_chunk=marker_chunk)
+    port = tk.calc_kinship(G, tcfg.EXACT64, marker_chunk=marker_chunk, device="cpu")
     assert port.dtype == torch.float64
     _close(port, ref)
     assert np.all(np.diag(port.numpy()) == 1.0)
@@ -160,14 +160,14 @@ def test_transform_rotation(rng):
     y, g = rng.normal(size=(n, 3)), rng.uniform(0, 1, (n, 5))
     K = np.cov(rng.normal(size=(n, 40))) + np.eye(n)
     ref = jrot.transform_rotation(y, g, K, precision=jcfg.EXACT64)
-    port = trot.transform_rotation(y, g, K, precision=tcfg.EXACT64)
+    port = trot.transform_rotation(y, g, K, precision=tcfg.EXACT64, device="cpu")
     for a, b in zip(port, ref):
         _close(a, b)
     dec = jrot.decompose_kinship(K)
     port_dec = trot.decomposition_from_numpy(dec.Ut_host, dec.lam_host, device="cpu", dtype=torch.float64)
     _close(trot.transform_rotation(y, g, port_dec, precision=tcfg.EXACT64).X0, ref.X0)
     with pytest.raises(ValueError, match="Dimension mismatch"):
-        trot.transform_rotation(y[:-1], g, K)
+        trot.transform_rotation(y[:-1], g, K, device="cpu")
 
 
 def test_r2lod_float64(rng):
