@@ -18,138 +18,357 @@
 // outside. The (traits x markers x permutations) tensor of num never
 // reaches device memory: only the (mb, K) maxima are written.
 //
-// Design. A block of 256 threads owns one trait and a tile of kTileK
-// permutations (64 or 128, a template parameter) and walks all markers, 64
-// at a time; for each marker tile it walks n in chunks of 16 samples staged
-// through shared memory, so n has no limit. The threads form a 16 x 16
-// grid: each owns 4 contiguous markers and kTileK/16 permutations (in
-// groups of 4 contiguous ones, 64 apart), read from shared memory as
-// float4. After each marker tile a thread folds num^2 * inv_xn of its 4
-// markers into its running maxima in registers; at the end one reduction
-// through shared memory across the 16 marker lanes, and one write of the
-// tile's maxima. No atomics and no zero-initialized output: the result is
-// deterministic. Plain float32 FMA over the samples in order: no TF32, no
-// tensor cores. Ragged p, K and n edges are masked: out-of-range samples,
-// markers and permutations stage as zeros and a marker past p gets
-// inv_xn = 0, so padding contributes r^2 = 0, the identity of the max
-// (every real r^2 is >= 0); permutations past K are not stored.
+// What bounds it on an H100: operations. 2 n p mb K flops (1.19e12 for 79 x
+// 7,321 markers, 1,024 traits and 1,001 columns) against 0.36 GB of
+// operands read once. Float32-grade products cost 17.7 ms a launch on the
+// CUDA cores (67 TFLOP/s) and 7.2 ms as three TF32 passes on the tensor
+// cores (mma_tf32x3.cuh), so the product runs there. Behind the arithmetic
+// stand what each block re-reads from L2 and what a warp must run beside
+// its products, so the design keeps the trait's operand in shared memory,
+// gives every read of X 256 permutations to work on, and leaves the
+// products to wgmma, which runs while the warps load and split.
 //
-// Every block re-reads all of X (n p 4 bytes, 2.3 MB at 79 x 7,321) from L2,
-// so the L2 traffic is mb ceil(K / kTileK) n p 4 bytes; the wider
-// permutation tile halves it and raises the FMAs per shared-memory load
-// from 16 per 2 float4 to 32 per 3. The operands must be finite: fmaxf
-// drops a NaN where a max that carries it is wanted.
+// Design. A block of 8 warps (two warpgroups) owns one trait and a tile of
+// 256 permutations and walks all markers, 64 at a time.
 //
-// Bound: compute on the CUDA cores, 2 n p mb K flops against 4 mb n K bytes
-// of S2 read once.
+// - The markers. Tiles of X arrive by cp.async into a ring of two stages, a
+//   row of inv_xn with them: the next tile loads while this one multiplies,
+//   and one barrier a step orders both. The rows of X are handed over
+//   16-byte aligned (the wrapper pads an odd p), so a tile is five 16-byte
+//   copies a thread, where 4-byte copies of an odd-p tile are twenty and
+//   showed as a fifth of a launch.
+// - The trait's operand, resident (bulkperm_wide_kernel, n <= 88). The
+//   block's S2 tile is read once, split into its two TF32 halves and kept in
+//   shared memory for all marker tiles, K-major, as wgmma's B operand (80 KB
+//   each half at n = 79). Each warpgroup takes 128 permutations and the same
+//   64 markers of a step: X is the A operand, loaded from the staged tile
+//   and split in registers while the asynchronous products of earlier depth
+//   steps run, 64 accumulator registers a thread. The small terms of all
+//   depth steps are added first and the leading terms after them: the
+//   tensor cores' float32 accumulation cuts where it should round, and this
+//   order takes a third as many sums at the result's full magnitude.
+// - Above that size (bulkperm_chunked_kernel) n is walked in chunks of 64
+//   samples: the chunk of S2 is staged raw beside the chunk of X, both are
+//   split in registers, and the products are mma.sync m16n8k8, each warp 64
+//   markers x 32 permutations. On this card mma.sync holds its warp's dispatch
+//   slot, so every load, split and epilogue instruction of a warp comes on
+//   top of its products' time; with the operand resident that layout took
+//   over twice what wgmma takes (PERF.md).
+// - The epilogue works on the accumulator layout: num^2 * inv_xn, each
+//   product rounded on its own as torch rounds it, folded into running
+//   maxima in registers. At the end the eight row groups of a warp are
+//   folded by shuffles (and a warpgroup's four warps through shared memory).
+//   No atomics, no zero-initialized output: the result is deterministic.
+// - Edges. Samples past n, markers past p and permutations past K stage as
+//   zeros, a marker past p gets inv_xn = 0, so padding contributes r^2 = 0,
+//   the identity of the max (every real r^2 is >= 0); permutations past K
+//   are not stored. The operands must be finite: fmaxf drops a NaN where a
+//   max that carries it is wanted.
+//
+// L2 reads a launch at the main path's shape: every block reads X once
+// (2.3 MB), 4,096 blocks: 9.5 GB, and S2 once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC, and never --use_fast_math.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 
-constexpr int kTileP = 64;    // markers per step
-constexpr int kChunkN = 16;   // samples staged per step
-constexpr int kThreads = 256;
-constexpr int kLanes = 16;    // threads along each tile edge
-constexpr int kRP = 4;        // markers per thread
+using namespace tf32x3;
 
-// kRK: permutations per thread, 4 or 8; the block's tile is 16 * kRK wide.
-template <int kRK>
-__global__ void __launch_bounds__(kThreads)
-bulkperm_kernel(const float* __restrict__ X,       // (n, p) rotated markers
-                const float* __restrict__ S2,      // (mb, n, K) trait operands
-                const float* __restrict__ inv_xn,  // (mb, p) 1 / marker norm^2, 0 = masked
-                float* __restrict__ out,           // (mb, K) max r^2
-                int n, int p, int K, int ktiles) {
-  constexpr int kTileK = kLanes * kRK;
-  constexpr int kGroups = kRK / 4;  // float4 groups of permutations per thread
-  __shared__ __align__(16) float xs[kChunkN][kTileP];
-  __shared__ __align__(16) float ss[kChunkN][kTileK];
+constexpr int kTileP = 64;    // markers per step
+constexpr int kTileK = 256;   // permutations per block
+constexpr int kThreads = 256;
+constexpr int kStages = 2;
+constexpr int kLdX = padded_stride(kTileP);
+constexpr int kSharedLimit = 232448;  // bytes of shared memory a block can use
+
+int padded_depth(int n) { return (n + 7) / 8 * 8; }
+
+// --- the resident operand: asynchronous warpgroup products --------------------
+//
+// The block's two warpgroups take 128 permutations each and the same 64
+// markers of a step. S2 lies in shared memory K-major, both TF32 halves
+// (kmajor_offset()), and is wgmma's B operand by descriptor; X is the A
+// operand, from registers. One accumulator: a second one, to fold one
+// tile's maxima while the next multiplies, does not fit the registers
+// (ptxas then serializes the products and the launch is slower).
+
+constexpr int kGroupK = 128;       // permutations per warpgroup
+constexpr int kResidentSteps = 11; // most depth steps of 8: the kernel is built for each count
+
+size_t resident_shared_bytes(int n) {
+  const int depth = padded_depth(n);
+  return 4 * (2 * (size_t)depth * kTileK + (size_t)kStages * (depth + 1) * kLdX);
+}
+
+bool is_resident(int n) {
+  return padded_depth(n) <= 8 * kResidentSteps && resident_shared_bytes(n) <= kSharedLimit;
+}
+
+// kSteps: depth steps of 8, n padded; a template parameter so that the depth
+// loops carry no branches (a run-time count cost 7 % of the launch).
+template <int kSteps>
+__global__ void __launch_bounds__(kThreads, 1)
+bulkperm_wide_kernel(const float* __restrict__ X,       // (n, ldx) rotated markers, zeros past p
+                     const float* __restrict__ S2,      // (mb, n, K) trait operands
+                     const float* __restrict__ inv_xn,  // (mb, p) 1 / marker norm^2, 0 = masked
+                     float* __restrict__ out,           // (mb, K) max r^2
+                     int n, int p, int ldx, int K, int ktiles, int wvec) {
+  constexpr int depth = 8 * kSteps;
+  extern __shared__ __align__(128) float4 wide_shared_raw[];
+  float* shared = reinterpret_cast<float*>(wide_shared_raw);
 
   const int tid = threadIdx.x;
-  const int tx = tid % kLanes;  // permutation lane
-  const int ty = tid / kLanes;  // marker lane
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int group = warp / 4;          // the warpgroup: permutations 128 group ..
+  const int wrow = 16 * (warp % 4);    // the warp's first marker of the step
   const int t = blockIdx.x / ktiles;
   const int k0 = (blockIdx.x % ktiles) * kTileK;
-  const float* St = S2 + (size_t)t * n * K;
-  const float* wt = inv_xn + (size_t)t * p;
 
-  float best[kRK];
-#pragma unroll
-  for (int j = 0; j < kRK; ++j) best[j] = 0.0f;
+  float* s_big = shared;  // K-major, kTileK columns, `depth` deep
+  float* s_small = s_big + depth * kTileK;
+  float* stages = s_small + depth * kTileK;
+  const int stage_len = (depth + 1) * kLdX;
 
-  for (int p0 = 0; p0 < p; p0 += kTileP) {
-    float acc[kRP][kRK];
-#pragma unroll
-    for (int i = 0; i < kRP; ++i)
-#pragma unroll
-      for (int j = 0; j < kRK; ++j) acc[i][j] = 0.0f;
+  auto start_copies = [&](int tile) {
+    float* xs = stages + (tile % kStages) * stage_len;
+    const int p0 = tile * kTileP;
+    stage_tile_vec<kTileP, 4>(xs, kLdX, X, n, ldx, 0, p0, depth, tid, kThreads);
+    stage_tile<kTileP>(xs + depth * kLdX, kLdX, inv_xn, t + 1, p, t, p0, 1, wvec, tid, kThreads);
+    cp_async_commit();
+  };
 
-    for (int n0 = 0; n0 < n; n0 += kChunkN) {
+  const int ntiles = (p + kTileP - 1) / kTileP;
+  start_copies(0);
+
+  {
+    // the block's S2 tile, read once, split, and laid out K-major
+    const float* St = S2 + (size_t)t * n * K;
+    for (int e = tid; e < depth * kTileK; e += kThreads) {
+      const int s = e / kTileK, c = e % kTileK;
+      const float v = (s < n && k0 + c < K) ? St[(size_t)s * K + k0 + c] : 0.0f;
+      uint32_t big, small;
+      split(v, big, small);
+      s_big[kmajor_offset(s, c, kTileK)] = __uint_as_float(big);
+      s_small[kmajor_offset(s, c, kTileK)] = __uint_as_float(small);
+    }
+    fence_proxy_async();
+  }
+
+  float best[32];  // of columns 8 j + 2 q + e, at best[2 j + e]
 #pragma unroll
-      for (int r = 0; r < (kChunkN * kTileP) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int row = e / kTileP, col = e % kTileP;
-        const int gn = n0 + row, gp = p0 + col;
-        xs[row][col] = (gn < n && gp < p) ? X[(size_t)gn * p + gp] : 0.0f;
+  for (int i = 0; i < 32; ++i) best[i] = 0.0f;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; the other stage is free
+    if (tile + 1 < ntiles) start_copies(tile + 1);
+
+    const float* xs = stages + (tile % kStages) * stage_len;
+    // The warp's A fragments: fragment row r is marker wrow + 2 (r % 8) + r / 8,
+    // so rows g and g + 8 load as one 64-bit word. Every depth step has its
+    // own registers, so nothing waits inside a tile: while the tensor cores
+    // work on one step's products the next steps are loaded and split.
+    // Two passes over the depth: the small terms of every step first, then
+    // the leading terms, so that only depth / 8 sums, not 3 depth / 8, are
+    // taken at the result's full magnitude (the tensor cores' float32
+    // accumulation cuts, it does not round).
+    uint32_t a_big[kSteps][4], a_small[kSteps][4];
+    const float* acol = xs + wrow + 2 * g;
+    pin_registers(acc);
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[2];
+        load_vec<2>(acol + (8 * ks + q + 4 * h) * kLdX, v);
+        split(v[0], a_big[ks][2 * h], a_small[ks][2 * h]);
+        split(v[1], a_big[ks][2 * h + 1], a_small[ks][2 * h + 1]);
       }
+      const int at = kmajor_offset(8 * ks, kGroupK * group, kTileK);
+      wgmma_fence();
+      // the tile's first product overwrites acc
+      wgmma_m64n128k8(acc, a_small[ks], kmajor_descriptor(s_big + at, kTileK), ks > 0);
+      wgmma_m64n128k8(acc, a_big[ks], kmajor_descriptor(s_small + at, kTileK), 1);
+      wgmma_commit();
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < (kChunkN * kTileK) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int row = e / kTileK, col = e % kTileK;
-        const int gn = n0 + row, gk = k0 + col;
-        ss[row][col] = (gn < n && gk < K) ? St[(size_t)gn * K + gk] : 0.0f;
-      }
-      __syncthreads();
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int at = kmajor_offset(8 * ks, kGroupK * group, kTileK);
+      wgmma_m64n128k8(acc, a_big[ks], kmajor_descriptor(s_big + at, kTileK), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_registers(acc);
 
+    float w[2];  // inv_xn of the thread's markers, fragment rows g and g + 8
+    load_vec<2>(xs + depth * kLdX + wrow + 2 * g, w);
 #pragma unroll
-      for (int s = 0; s < kChunkN; ++s) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[s][kRP * ty]);
-        const float x[kRP] = {xv.x, xv.y, xv.z, xv.w};
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          const float4 yv = *reinterpret_cast<const float4*>(&ss[s][64 * g + 4 * tx]);
-          const float y[4] = {yv.x, yv.y, yv.z, yv.w};
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int i = 0; i < kRP; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][4 * g + j] = fmaf(x[i], y[j], acc[i][4 * g + j]);
+        for (int e = 0; e < 2; ++e) {
+          const float num = acc[4 * j + 2 * h + e];
+          // each product rounded on its own, as torch forms (num * num) * inv_xn
+          best[2 * j + e] = fmaxf(best[2 * j + e], __fmul_rn(__fmul_rn(num, num), w[h]));
         }
-      }
-      __syncthreads();
+  }
+
+  // max over a warp's eight row groups by shuffles, over a warpgroup's four
+  // warps through shared memory (the stages are read no more)
+  __syncthreads();
+  float* red = stages;  // [8 warps][kGroupK]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float m = best[i];
+#pragma unroll
+    for (int d = 4; d < 32; d *= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+    if (g == 0) red[warp * kGroupK + 8 * (i / 2) + 2 * q + i % 2] = m;
+  }
+  __syncthreads();
+  {
+    const int grp = tid / kGroupK, c = tid % kGroupK;
+    const float* r = red + 4 * grp * kGroupK + c;
+    const float m = fmaxf(fmaxf(r[0], r[kGroupK]), fmaxf(r[2 * kGroupK], r[3 * kGroupK]));
+    const int k = k0 + tid;
+    if (k < K) out[(size_t)t * K + k] = m;
+  }
+}
+
+
+// --- the staged operand: mma.sync over chunks of n ------------------------------
+
+constexpr int kChunkN = 64;  // samples per step
+constexpr int kMT = kTileP / 16, kNT = 4;  // a warp's 64 markers x 32 permutations
+constexpr int kLdS = padded_stride(kTileK);
+// one stage: kChunkN rows of X, one row of inv_xn, kChunkN rows of S2
+constexpr int kChunkStage = (kChunkN + 1) * kLdX + kChunkN * kLdS;
+
+__global__ void __launch_bounds__(kThreads, 1)
+bulkperm_chunked_kernel(const float* __restrict__ X,       // (n, ldx) rotated markers
+                        const float* __restrict__ S2,      // (mb, n, K) trait operands
+                        const float* __restrict__ inv_xn,  // (mb, p) 1 / marker norm^2
+                        float* __restrict__ out,           // (mb, K) max r^2
+                        int n, int p, int ldx, int K, int ktiles,
+                        int nchunks,  // steps per marker tile
+                        int svec, int wvec) {
+  extern __shared__ float4 chunked_shared_raw[];
+  float* stages = reinterpret_cast<float*>(chunked_shared_raw);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int t = blockIdx.x / ktiles;
+  const int k0 = (blockIdx.x % ktiles) * kTileK;
+  const int wk = warp * 8 * kNT;  // the warp's first permutation in the tile
+
+  // one step's tiles: X, S2 and, on a marker tile's last chunk, the row of inv_xn
+  auto start_copies = [&](int step) {
+    float* xs = stages + (step % kStages) * kChunkStage;
+    const int tile = step / nchunks, chunk = step - tile * nchunks;
+    const int p0 = tile * kTileP, n0 = chunk * kChunkN;
+    stage_tile_vec<kTileP, 4>(xs, kLdX, X, n, ldx, n0, p0, kChunkN, tid, kThreads);
+    if (chunk == nchunks - 1)
+      stage_tile<kTileP>(xs + kChunkN * kLdX, kLdX, inv_xn, t + 1, p, t, p0, 1, wvec, tid,
+                         kThreads);
+    stage_tile<kTileK>(xs + (kChunkN + 1) * kLdX, kLdS, S2, (t + 1) * n, K, t * n + n0, k0,
+                       kChunkN, svec, tid, kThreads);
+    cp_async_commit();
+  };
+
+  const int nsteps = ((p + kTileP - 1) / kTileP) * nchunks;
+  start_copies(0);
+
+  float best[kNT][2];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) best[j][0] = best[j][1] = 0.0f;
+  float acc[kMT][kNT][4];
+
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's tiles have landed; the other stage is free
+    if (step + 1 < nsteps) start_copies(step + 1);
+
+    const int chunk = step % nchunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
     }
 
+    const float* xs = stages + (step % kStages) * kChunkStage;
+    warp_mma<kMT, kNT>(acc, xs, kLdX, xs + (kChunkN + 1) * kLdX + wk, kLdS, kChunkN, g, q);
+
+    if (chunk == nchunks - 1) {
+      const float* ws = xs + kChunkN * kLdX;
 #pragma unroll
-    for (int i = 0; i < kRP; ++i) {
-      const int gp = p0 + kRP * ty + i;
-      const float w = gp < p ? wt[gp] : 0.0f;
+      for (int i2 = 0; i2 < kMT / 2; ++i2) {
+        // inv_xn of the thread's four markers of tiles 2 i2 and 2 i2 + 1
+        float w[4];
+        load_vec<4>(ws + a_column(2 * i2, g), w);
 #pragma unroll
-      for (int j = 0; j < kRK; ++j) {
-        // each product rounded on its own, as torch forms (num * num) * inv_xn
-        const float r2 = __fmul_rn(__fmul_rn(acc[i][j], acc[i][j]), w);
-        best[j] = fmaxf(best[j], r2);
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float num = acc[2 * i2 + b][j][2 * h + e];
+                // each product rounded on its own, as torch forms (num * num) * inv_xn
+                const float r2 = __fmul_rn(__fmul_rn(num, num), w[2 * b + h]);
+                best[j][e] = fmaxf(best[j][e], r2);
+              }
       }
     }
   }
 
-  // max across the 16 marker lanes; ss is free after the last barrier
-  float (*red)[kTileK] = ss;
+  // max over the warp's eight row groups, then lanes 0..3 write 8 maxima each
 #pragma unroll
-  for (int g = 0; g < kGroups; ++g)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty][64 * g + 4 * tx + j] = best[4 * g + j];
-  __syncthreads();
-  if (tid < kTileK && k0 + tid < K) {
-    float m = red[0][tid];
+    for (int e = 0; e < 2; ++e) {
+      float m = best[j][e];
 #pragma unroll
-    for (int r = 1; r < kLanes; ++r) m = fmaxf(m, red[r][tid]);
-    out[(size_t)t * K + k0 + tid] = m;
+      for (int d = 4; d < 32; d *= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+      const int k = k0 + wk + b_column<kNT>(j, 2 * q + e);
+      if (g == 0 && k < K) out[(size_t)t * K + k] = m;
+    }
+}
+
+// Launches the resident kernel built for n's count of depth steps.
+template <int kSteps>
+cudaError_t launch_wide(dim3 grid, cudaStream_t stream, const float* X, const float* S2,
+                        const float* inv_xn, float* out, int n, int p, int ldx, int K, int ktiles,
+                        int wvec) {
+  if constexpr (kSteps == 0) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (padded_depth(n) != 8 * kSteps)
+      return launch_wide<kSteps - 1>(grid, stream, X, S2, inv_xn, out, n, p, ldx, K, ktiles, wvec);
+    const size_t bytes = resident_shared_bytes(n);
+    cudaError_t rc = cudaFuncSetAttribute(
+        bulkperm_wide_kernel<kSteps>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return rc;
+    bulkperm_wide_kernel<kSteps><<<grid, kThreads, bytes, stream>>>(X, S2, inv_xn, out, n, p, ldx,
+                                                                    K, ktiles, wvec);
+    return cudaGetLastError();
   }
 }
 
@@ -157,21 +376,37 @@ bulkperm_kernel(const float* __restrict__ X,       // (n, p) rotated markers
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers to contiguous float32 arrays.
-// tile_k is the permutation tile of a block, 64 or 128.
-int bulklmm_bulkperm_maxr2(const float* X, const float* S2, const float* inv_xn, float* out,
-                           int n, int p, int mb, int K, int tile_k, void* stream) {
-  if (n <= 0 || p <= 0 || mb <= 0 || K <= 0 || (tile_k != 64 && tile_k != 128))
+// 1 where a launch with n samples keeps the trait's operand in shared
+// memory, 0 where it walks n in chunks.
+int bulklmm_bulkperm_is_resident(int n) { return is_resident(n) ? 1 : 0; }
+
+// Launches the kernel on `stream` and returns the CUDA error of the launch
+// (0 on success). Pointers are device pointers to contiguous float32 arrays,
+// but X: its n rows are ldx >= p floats apart, ldx a multiple of 4 and X
+// 16-byte aligned, so that every row takes 16-byte copies, with zeros in
+// the columns past p.
+int bulklmm_bulkperm_maxr2(const float* X, int ldx, const float* S2, const float* inv_xn,
+                           float* out, int n, int p, int mb, int K, void* stream) {
+  const int ktiles = (K + kTileK - 1) / kTileK;
+  if (n <= 0 || p <= 0 || mb <= 0 || K <= 0 || (long long)mb * n > INT_MAX ||
+      (long long)mb * ktiles > INT_MAX || ldx < p || ldx % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(X) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int ktiles = (K + tile_k - 1) / tile_k;
-  if ((long long)mb * ktiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(mb * ktiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_k == 64)
-    bulkperm_kernel<4><<<grid, kThreads, 0, s>>>(X, S2, inv_xn, out, n, p, K, ktiles);
-  else
-    bulkperm_kernel<8><<<grid, kThreads, 0, s>>>(X, S2, inv_xn, out, n, p, K, ktiles);
+  const dim3 grid((unsigned)(mb * ktiles));
+  const int wvec = copy_width(inv_xn, p);
+  if (is_resident(n)) {
+    return (int)launch_wide<kResidentSteps>(grid, s, X, S2, inv_xn, out, n, p, ldx, K, ktiles,
+                                            wvec);
+  } else {
+    const size_t bytes = 4 * (size_t)kStages * kChunkStage;
+    cudaError_t rc = cudaFuncSetAttribute(
+        bulkperm_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    bulkperm_chunked_kernel<<<grid, kThreads, bytes, s>>>(
+        X, S2, inv_xn, out, n, p, ldx, K, ktiles, (n + kChunkN - 1) / kChunkN,
+        copy_width(S2, K), wvec);
+  }
   return (int)cudaGetLastError();
 }
 

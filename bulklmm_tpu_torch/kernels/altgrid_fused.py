@@ -14,9 +14,12 @@ Maximizing ``logL1_k = -(n/2) ln(1 - r_k^2) + ell0_k`` over k is minimizing
 trait factors ``cmat`` are formed once outside and the loop needs no log:
 ``LOD = -(n/2) log10(min_k u_k)``.
 
-What bounds it on an H100: 2 n p m g float32 FMA-flops on the CUDA cores
-against one 4 p m byte write of L (and of the index). At 79 samples x 7,321
-markers x 35,554 traits and the default 10-point grid that is ~4.1e11 flops.
+What bounds it on an H100: 2 n p m g float32-grade flops against one 4 p m
+byte write of L (and of the index). At 79 samples x 7,321 markers x 35,554
+traits and the default 10-point grid that is ~4.1e11 flops. The kernel takes
+the product on the tensor cores as three TF32 passes
+(``csrc/mma_tf32x3.cuh``), which is float32-grade but not bit-equal to the
+plain version's product.
 
 Layers:
 
@@ -28,7 +31,9 @@ Layers:
   its inputs, allocates the outputs, launches on the current stream, raises
   on a launch error and counts its launches in :data:`launches`.
 - :func:`altgrid_plain`: the same function in plain torch, one (p, n)(n, m)
-  product and the epilogue per grid step.
+  product and the epilogue per grid step, exact float32.
+  :func:`altgrid_split_reference` repeats the kernel's 3 x TF32 arithmetic
+  instead (``kernels/split.py``), for comparisons.
 - :func:`fused_alt_grid`: the kernel on CUDA tensors, its plain version on
   CPU tensors. :func:`fused_alt_grid_reference` always takes the plain
   version, for comparisons.
@@ -44,14 +49,15 @@ import torch
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
+from .split import matmul_tf32x3, rows_at_16_bytes
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the alt-grid path ran through the kernel
 launches = 0
 
-#: the most markers one launch takes: 65,535 blocks of 64 markers on the
+#: the most markers one launch takes: 65,535 blocks of 128 markers on the
 #: launch grid's y axis (the trait axis has no practical limit)
-MAX_MARKERS = 65535 * 64
+MAX_MARKERS = 65535 * 128
 
 _F32 = torch.float32
 _TINY = torch.finfo(_F32).tiny
@@ -106,10 +112,11 @@ def _check_operands(Xn, Yn, cmat):
             raise ValueError(f"altgrid_cuda: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"altgrid_cuda: {name} must be contiguous")
-    if min(g, n, p, m) == 0 or p > MAX_MARKERS:
+    if min(g, n, p, m) == 0 or p > MAX_MARKERS or max(g * n, m) >= 2**31:
         raise ValueError(
-            f"altgrid_cuda: the kernel takes 1 to {MAX_MARKERS} markers and a "
-            f"non-empty grid, samples and traits; got g={g}, n={n}, p={p}, m={m}"
+            f"altgrid_cuda: the kernel takes 1 to {MAX_MARKERS} markers, a "
+            "non-empty grid, samples and traits, and grid steps x samples and "
+            f"traits below 2^31; got g={g}, n={n}, p={p}, m={m}"
         )
     return g, n, p, m
 
@@ -120,7 +127,10 @@ def _library():
 
     lib = load_library()
     fn = lib.bulklmm_altgrid
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p,
+    ]
     fn.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
@@ -141,10 +151,11 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
     out = torch.empty((p, m), dtype=_F32, device=Xn.device)
     kidx = torch.empty((p, m), dtype=torch.int32, device=Xn.device) if panel else None
     with torch.cuda.device(Xn.device):
+        Xa, Ya = rows_at_16_bytes(Xn), rows_at_16_bytes(Yn)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_altgrid(
-            Xn.data_ptr(), Yn.data_ptr(), cmat.data_ptr(), out.data_ptr(),
-            kidx.data_ptr() if panel else None, g, n, p, m, stream,
+            Xa.data_ptr(), Xa.shape[-1], Ya.data_ptr(), Ya.shape[-1], cmat.data_ptr(),
+            out.data_ptr(), kidx.data_ptr() if panel else None, g, n, p, m, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -154,13 +165,12 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
     return out, kidx
 
 
-@with_highest_matmul()
-def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True):
-    """The kernel's function in plain torch, on any device (float32)."""
+def _min_over_grid(Xn, Yn, cmat, panel, product):
+    """(L, kidx) with the per-step correlations from ``product``."""
     g, n, _ = Xn.shape
     umin = kidx = None
     for k in range(g):
-        R = Xn[k].T @ Yn[k]  # (p, m)
+        R = product(Xn[k].T, Yn[k])  # (p, m)
         u = torch.clamp(torch.clamp(1.0 - R * R, min=_TINY) * cmat[k], min=_TINY)
         if k == 0:
             umin = u
@@ -171,6 +181,20 @@ def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True):
         if panel:
             kidx.masked_fill_(upd, k)
     return (-0.5 * n) * torch.log10(umin), kidx
+
+
+@with_highest_matmul()
+def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True):
+    """The kernel's function in plain torch, on any device: exact float32
+    products."""
+    return _min_over_grid(Xn, Yn, cmat, panel, torch.matmul)
+
+
+def altgrid_split_reference(Xn, Yn, cmat, *, panel: bool = True):
+    """The kernel's function with the kernel's arithmetic: each product as
+    three TF32 passes (``split.py::matmul_tf32x3``). On any device; no main
+    path takes it."""
+    return _min_over_grid(Xn, Yn, cmat, panel, matmul_tf32x3)
 
 
 def _finish(L, kidx, Y0, h2_grid):

@@ -12,9 +12,11 @@ permutations) tensor ever reaching device memory (at 79 samples x 7,321
 markers x 35,554 traits x 1,001 columns it would be ~1 TB). The monotone
 LOD transform runs outside (``ops/bulkperm.py::maxr2_to_lod``).
 
-What bounds it on an H100: 2 n p mb K float32 FMA-flops on the CUDA cores
-(4.1e13 over all 35,554 traits) against reading S2 (4 mb n K bytes) and
-inv_xn once; compute by two orders of magnitude.
+What bounds it on an H100: 2 n p mb K float32-grade flops (4.1e13 over all
+35,554 traits) against reading S2 (4 mb n K bytes) and inv_xn once;
+operations by two orders of magnitude. The kernel takes the product on the
+tensor cores as three TF32 passes (``csrc/mma_tf32x3.cuh``), which is
+float32-grade but not bit-equal to the plain version's product.
 
 Layers:
 
@@ -28,7 +30,11 @@ Layers:
 - :func:`bulkperm_maxr2_cuda`: the kernel's wrapper. CUDA tensors only; it
   checks its inputs, allocates the output, launches on the current stream,
   raises on a launch error and counts its launches in :data:`launches`.
-- :func:`bulkperm_maxr2_plain`: the same function in plain torch.
+- :func:`bulkperm_maxr2_plain`: the same function in plain torch, exact
+  float32. :func:`bulkperm_maxr2_split_reference` repeats the kernel's
+  3 x TF32 arithmetic instead (``kernels/split.py``), for comparisons.
+- :func:`kernel_path`: whether the trait's operand stays in shared memory
+  for the launch, from n.
 - :func:`fused_perm_maxlods`: max LODs through the kernel on CUDA tensors,
   through its plain version on CPU tensors.
   :func:`fused_perm_maxlods_reference` always takes the plain version (the
@@ -48,16 +54,20 @@ import torch
 
 from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
 from ..utils.config import with_highest_matmul
+from .split import matmul_tf32x3, rows_at_16_bytes
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the permutation path ran through the kernel
 launches = 0
 
-#: time of a 64-permutation tile's lane relative to a 128-wide tile's, at 79
-#: samples x 7,321 markers x 1,024 traits x 1,001 columns on an H100
-#: (44.8 ms against 38.8 ms for the same 1,024 padded lanes; chip_smoke.py
-#: times both)
-NARROW_TILE_COST = 1.15
+#: permutations per thread block of the kernel
+TILE_K = 256
+
+#: shared memory a block can use on sm_90, bytes
+SHARED_LIMIT_BYTES = 232_448
+
+#: the most depth steps of 8 samples the resident kernel is built for
+RESIDENT_STEPS = 11
 
 #: the plain version's (traits, p, K) numerator stays under this many bytes
 PLAIN_BUDGET_BYTES = 1024**3
@@ -105,11 +115,12 @@ def _check_operands(X0m, S2, inv_xn):
             )
         if not t.is_contiguous():
             raise ValueError(f"bulkperm_maxr2_cuda: {name} must be contiguous")
-    if min(n, p, mb, K) == 0 or max(n, p, K) >= 2**31 or mb * -(-K // 64) >= 2**31:
+    if min(n, p, mb, K) == 0 or max(p, K, mb * n, mb * -(-K // TILE_K)) >= 2**31:
         raise ValueError(
             "bulkperm_maxr2_cuda: the kernel takes non-empty samples, markers, "
-            "traits and permutations, each axis below 2^31 and traits x "
-            f"permutation tiles below 2^31; got n={n}, p={p}, mb={mb}, K={K}"
+            "traits and permutations, markers and permutations below 2^31 and "
+            "traits x samples and traits x permutation tiles below 2^31; got "
+            f"n={n}, p={p}, mb={mb}, K={K}"
         )
     return n, p, mb, K
 
@@ -120,43 +131,59 @@ def _library():
 
     lib = load_library()
     fn = lib.bulklmm_bulkperm_maxr2
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p,
+    ]
     fn.restype = ctypes.c_int
+    lib.bulklmm_bulkperm_is_resident.argtypes = [ctypes.c_int]
+    lib.bulklmm_bulkperm_is_resident.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def tile_width(K: int) -> int:
-    """Permutations per thread block, 64 or 128 (two instantiations of one
-    kernel template): the width whose padded lanes cost less. The wide tile
-    does more work per shared-memory load and reads the markers half as
-    often; the narrow one pads K less (24 columns fill 64 lanes, not 128)."""
-    narrow, wide = -(-K // 64) * 64, -(-K // 128) * 128
-    return 64 if narrow * NARROW_TILE_COST < wide else 128
+def padded_depth(n: int) -> int:
+    """n rounded up to the depth of one tensor-core step, 8; the padding
+    rows are zeros in shared memory."""
+    return -(-n // 8) * 8
 
 
-def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, tile_k=None):
+def resident_shared_bytes(n: int) -> int:
+    """Shared memory of a block that keeps its trait's operand resident:
+    both TF32 halves of the (padded n, 256) tile and two stages of 64
+    markers and a row of inv_xn, their rows 8 floats longer than the tile."""
+    depth = padded_depth(n)
+    return 4 * (2 * depth * TILE_K + 2 * (depth + 1) * (64 + 8))
+
+
+def kernel_path(n: int) -> str:
+    """"resident" where the trait's operand fits shared memory beside the
+    marker stages (n <= 88): asynchronous warpgroup products on it. Else
+    "chunked": the kernel walks n in staged chunks of 64 samples. The
+    launcher in ``csrc/bulkperm_fused.cu`` applies the same rule
+    (``bulklmm_bulkperm_is_resident``)."""
+    fits = padded_depth(n) <= 8 * RESIDENT_STEPS and resident_shared_bytes(n) <= SHARED_LIMIT_BYTES
+    return "resident" if fits else "chunked"
+
+
+def bulkperm_maxr2_cuda(X0m, S2, inv_xn):
     """(mb, K) float32 max r^2 from the kernel's operands, on their CUDA
     device: ``X0m`` (n, p), ``S2`` (mb, n, K), ``inv_xn`` (mb, p), all
-    float32 and contiguous. ``tile_k`` (64 or 128) overrides
-    :func:`tile_width`, for measurements.
+    float32 and contiguous.
 
     Raises on a CPU tensor, a wrong dtype, shape or layout, a failed build
     or a launch error. Does not synchronize.
     """
     global launches
     n, p, mb, K = _check_operands(X0m, S2, inv_xn)
-    tile_k = tile_width(K) if tile_k is None else tile_k
-    if tile_k not in (64, 128):
-        raise ValueError(f"bulkperm_maxr2_cuda: tile_k must be 64 or 128, got {tile_k}")
     lib = _library()
     out = torch.empty((mb, K), dtype=_F32, device=X0m.device)
     with torch.cuda.device(X0m.device):
+        Xa = rows_at_16_bytes(X0m)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_bulkperm_maxr2(
-            X0m.data_ptr(), S2.data_ptr(), inv_xn.data_ptr(), out.data_ptr(),
-            n, p, mb, K, tile_k, stream,
+            Xa.data_ptr(), Xa.shape[-1], S2.data_ptr(), inv_xn.data_ptr(), out.data_ptr(),
+            n, p, mb, K, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -166,21 +193,34 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, tile_k=None):
     return out
 
 
-@with_highest_matmul()
-def bulkperm_maxr2_plain(X0m, S2, inv_xn):
-    """The kernel's function in plain torch, on any device (float32), over
-    sub-blocks of traits sized so that the (traits, p, K) numerator stays
-    under :data:`PLAIN_BUDGET_BYTES`."""
+def _maxr2_by_blocks(X0m, S2, inv_xn, product):
+    """max over markers of ``product(X0m.T, S2)^2 inv_xn``, over sub-blocks of
+    traits sized so that the (traits, p, K) numerator stays under
+    :data:`PLAIN_BUDGET_BYTES`."""
     mb, _, K = S2.shape
     p = X0m.shape[1]
     step = max(1, PLAIN_BUDGET_BYTES // (4 * p * K))
     Xt = X0m.T.contiguous()
     out = torch.empty((mb, K), dtype=S2.dtype, device=S2.device)
     for s in range(0, mb, step):
-        num = Xt @ S2[s : s + step]  # (traits, p, K)
+        num = product(Xt, S2[s : s + step])  # (traits, p, K)
         r2 = num.square_().mul_(inv_xn[s : s + step, :, None])
         out[s : s + step] = r2.max(1).values
     return out
+
+
+@with_highest_matmul()
+def bulkperm_maxr2_plain(X0m, S2, inv_xn):
+    """The kernel's function in plain torch, on any device: exact float32
+    products."""
+    return _maxr2_by_blocks(X0m, S2, inv_xn, torch.matmul)
+
+
+def bulkperm_maxr2_split_reference(X0m, S2, inv_xn):
+    """The kernel's function with the kernel's arithmetic: the product as
+    three TF32 passes (``split.py::matmul_tf32x3``). On any device; no main
+    path takes it."""
+    return _maxr2_by_blocks(X0m, S2, inv_xn, matmul_tf32x3)
 
 
 def fused_perm_maxlods(X0m, S2, inv_xn, *, n: int):

@@ -1,0 +1,75 @@
+"""The 3 x TF32 split product in plain torch: the CPU twin of
+``csrc/mma_tf32x3.cuh``.
+
+The CUDA kernels take their float32 products on the tensor cores as three
+TF32 passes: every operand is written as ``big + small``, both rounded to
+TF32's 10 mantissa bits, and ``a * b`` is taken as
+``small_a * big_b + big_a * small_b + big_a * big_b`` with float32
+accumulation. This module repeats that arithmetic with float32 tensors on
+any device, so the split's accuracy is testable without a card and
+``chip_smoke.py`` can hold each kernel against it as a second yardstick. No
+main path calls it: the plain versions of the kernels stay exact float32.
+
+The sums are taken in another order than the kernels take them (three whole
+products here, depth-8 steps there), so a kernel agrees with its split
+reference to float32 rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.config import with_highest_matmul
+
+_LOW_BITS = 13  # float32's 23 mantissa bits less TF32's 10
+_HALF = 1 << (_LOW_BITS - 1)
+_KEEP = -(1 << _LOW_BITS)  # int32 mask of the sign, the exponent and 10 mantissa bits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 and held as float32: the 13 low
+    mantissa bits are zero. Round to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: half a unit is added to the magnitude's bit
+    pattern and the low bits are cut. Infinities stay as they are."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + _HALF) & _KEEP).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(big, small)`` with ``big = tf32_round(x)`` and
+    ``small = tf32_round(x - big)``; ``big + small`` restores ``x`` within
+    2^-21 |x|."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+@with_highest_matmul()
+def matmul_tf32x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` (float32, batched as ``torch.matmul``) as the three float32
+    products of the operands' TF32 halves, the small terms first. Each
+    elementwise product of two halves is exact in float32; only the sums
+    round."""
+    A_big, A_small = tf32_split(A)
+    B_big, B_small = tf32_split(B)
+    return (A_small @ B_big + A_big @ B_small) + A_big @ B_big
+
+
+@with_highest_matmul()
+def matmul_tf32x1(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """The leading term alone: what one TF32 pass gives. For comparisons."""
+    return tf32_round(A) @ tf32_round(B)
+
+
+def rows_at_16_bytes(X: torch.Tensor) -> torch.Tensor:
+    """``X`` (contiguous float32) with every row of its last axis starting at
+    a multiple of 16 bytes, as the kernels' 16-byte asynchronous copies need:
+    ``X`` itself where its row length is a multiple of 4 and its storage is
+    aligned, else a copy whose rows are padded with zeros to the next
+    multiple of 4. The kernels take the row length as the rows' stride."""
+    pad = -X.shape[-1] % 4
+    if pad == 0 and X.data_ptr() % 16 == 0:
+        return X
+    return F.pad(X, (0, pad)) if pad else X.clone()

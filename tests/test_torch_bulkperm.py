@@ -650,9 +650,13 @@ def test_engine_resolution():
     assert eng == "pallas" and cap == 64
 
 
-@pytest.mark.parametrize("K, width", [(1, 64), (24, 64), (64, 64), (65, 128), (128, 128),
-                                      (130, 64), (192, 64), (200, 128), (1001, 128)])
-def test_kernel_tile_width_follows_the_padding(K, width):
-    """The kernel's permutation tile is chosen from K: the wide tile unless
-    the narrow one pads enough fewer lanes to win."""
-    assert bf.tile_width(K) == width
+@pytest.mark.parametrize("n, K, path, blocks", [
+    (79, 1, "resident", 1), (79, 24, "resident", 1), (79, 256, "resident", 1),
+    (79, 257, "resident", 2), (79, 1001, "resident", 4), (88, 1001, "resident", 4),
+    (89, 1001, "chunked", 4), (2000, 130, "chunked", 1), (20000, 64, "chunked", 1)])
+def test_kernel_launch_shape_follows_n_and_K(n, K, path, blocks):
+    """The kernel's launch from its operands' shape: one 256-permutation tile
+    width, thread blocks per trait from K, and the trait's operand resident
+    in shared memory or walked in chunks, from n."""
+    assert bf.kernel_path(n) == path
+    assert -(-K // bf.TILE_K) == blocks

@@ -1,0 +1,292 @@
+"""The 3 x TF32 split product on the CPU: ``bulklmm_tpu_torch/kernels/split.py``
+(the plain-torch twin of ``csrc/mma_tf32x3.cuh``) and the two split
+references that repeat the CUDA kernels' arithmetic.
+
+The CUDA kernels themselves run only on the card, where chip_smoke.py holds
+each against its plain version and its split reference. Here the split's
+accuracy is held against float64, against the plain versions and against
+the JAX package's Pallas kernels in interpret mode, on inputs made with numpy
+from a seed, at small sizes; the rules that pick the permutation kernel's
+path and pad a row to 16 bytes are held case by case.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bulklmm_tpu.ops import bulkperm as jops
+from bulklmm_tpu.pallas import bulkperm_fused as jfused
+from bulklmm_tpu.pallas.altgrid_fused import fused_alt_grid as jax_fused_alt_grid
+import bulklmm_tpu_torch as bt
+from bulklmm_tpu_torch.kernels import altgrid_fused as af
+from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+from bulklmm_tpu_torch.kernels import split
+from bulklmm_tpu_torch.ops import bulkperm as tops
+
+torch.set_num_threads(1)
+
+GRID = np.arange(0.0, 0.91, 0.1)
+PRIOR = (1.0, 0.0)
+
+
+# --- the rounding and the split ------------------------------------------------
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_tf32_round_zeroes_the_low_bits_and_rounds_to_nearest():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-6, 7, 4096)).astype(np.float32))
+    r = split.tf32_round(x)
+    assert r.dtype == torch.float32 and r.shape == x.shape
+    assert bool(((_bits(r) & 0x1FFF) == 0).all())
+    # nearest: within half a unit of TF32's last place, 2^-11 relative
+    assert float(((r - x).abs() / x.abs()).max()) <= 2.0**-11
+    # idempotent, odd, and exact on values that are TF32 already
+    assert torch.equal(split.tf32_round(r), r)
+    assert torch.equal(split.tf32_round(-x), -r)
+
+
+@pytest.mark.parametrize("low, expected_low", [(0x0FFF, 0x0000), (0x1000, 0x2000), (0x1001, 0x2000)],
+                         ids=["below-half-down", "tie-away-from-zero", "above-half-up"])
+def test_tf32_round_at_the_half_way_point(low, expected_low):
+    one = 0x3F800000  # 1.0f
+    x = torch.tensor([one | low, (one | low) - 2**31], dtype=torch.int32).view(torch.float32)
+    want = torch.tensor([one + expected_low, one + expected_low - 2**31], dtype=torch.int32)
+    assert torch.equal(_bits(split.tf32_round(x)), want)
+
+
+def test_tf32_round_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32"):
+        split.tf32_round(torch.zeros(3, dtype=torch.float64))
+
+
+def test_tf32_split_restores_the_value():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-6, 7, 4096)).astype(np.float32))
+    big, small = split.tf32_split(x)
+    assert bool(((_bits(big) & 0x1FFF) == 0).all()) and bool(((_bits(small) & 0x1FFF) == 0).all())
+    rel = ((big.double() + small.double()) - x.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0**-21
+    assert float((small.abs() / x.abs()).max()) <= 2.0**-11
+
+
+def test_tf32_split_of_zeros_subnormals_and_infinities_stays_sane():
+    tiny = float(np.finfo(np.float32).tiny)
+    x = torch.tensor([0.0, -0.0, tiny, -tiny, tiny / 1024, 1e-45, np.inf, -np.inf], dtype=torch.float32)
+    big, small = split.tf32_split(x)
+    assert bool(torch.isfinite(big[:6]).all()) and bool(torch.isfinite(small[:6]).all())
+    assert torch.equal(big[:2], x[:2]) and bool((small[:2] == 0).all())
+    assert float(((big + small) - x)[2:6].abs().max()) <= tiny * 2.0**-10
+    assert torch.equal(big[6:], x[6:])
+
+
+# --- the product -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [52, 2000])
+def test_matmul_tf32x3_is_float32_grade_and_one_term_is_not(n):
+    """Against the float64 product: three terms stay within 4 x the exact
+    float32 product's own error; the leading term alone misses that bar by
+    more than 10 x, so the bar has force."""
+    rng = np.random.default_rng(n)
+    A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    exact = A.double() @ B.double()
+    err32 = float((A @ B - exact).abs().max())
+    err3 = float((split.matmul_tf32x3(A, B) - exact).abs().max())
+    err1 = float((split.matmul_tf32x1(A, B) - exact).abs().max())
+    assert err3 <= 4 * err32
+    assert err1 > 10 * 4 * err32
+
+
+def test_matmul_tf32x3_batches_like_matmul():
+    rng = np.random.default_rng(2)
+    A = torch.from_numpy(rng.normal(size=(30, 17)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(5, 17, 9)).astype(np.float32))
+    out = split.matmul_tf32x3(A, B)
+    assert tuple(out.shape) == (5, 30, 9) and out.dtype == torch.float32
+    for t in range(5):
+        assert torch.equal(out[t], split.matmul_tf32x3(A, B[t]))
+
+
+# --- the permutation kernel's split reference ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def perm_rotated():
+    """Rotated operands at n = 52, p = 96, m = 4, c up to 3 (the shape of
+    tests/test_torch_bulkperm.py), made with numpy from a seed."""
+    rng = np.random.default_rng(11)
+    n, p, m = 52, 96, 4
+    G = rng.choice([0.0, 0.5, 1.0], size=(n, p))
+    X = G - G.mean(0)
+    K = X @ X.T / p + 0.5 * np.eye(n)
+    lam, U = np.linalg.eigh(K)
+    Y = rng.normal(size=(n, m)) + G[:, [7]] * np.array([0.0, 2.0, 0.0, 1.0])
+    C = np.column_stack([np.ones(n), rng.normal(size=(n, 2))])
+    return dict(Y0=U.T @ Y, X0m=U.T @ G, C0=U.T @ C, lam=lam, h2=np.array([0.1, 0.8, 0.0, 0.55]))
+
+
+def _perm_operands(rot, c, nperms=24, seed=7):
+    """(X, S2, inv_xn) float32 on the CPU, through the package's preparation,
+    with the JAX package's shuffle indices."""
+    n = rot["Y0"].shape[0]
+    args = [torch.from_numpy(rot[k]).float() for k in ("Y0", "C0", "lam", "h2")]
+    args[1] = args[1][:, :c].contiguous()
+    S, Q, wrn = tops.perm_trait_parts(*args, precision=bt.FAST32)
+    sw, Qs = S.T.contiguous(), torch.stack(Q, 0).permute(2, 0, 1).contiguous()
+    idx = torch.from_numpy(np.array(jops.permutation_indices(n, nperms, seed)))
+    X = torch.from_numpy(rot["X0m"]).float()
+    S2 = bf.prepare_chunk_inputs(sw, Qs, wrn, idx)
+    return X, S2, bf.prepare_trait_block(X, sw, Qs, precision=bt.FAST32)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_bulkperm_split_reference_matches_plain(perm_rotated, c):
+    """The 3 x TF32 arithmetic against exact float32 on the kernel's own
+    operands: 1e-6 in max r^2, with a masked trait exactly 0 and a masked
+    marker out of the running."""
+    X, S2, inv = _perm_operands(perm_rotated, c)
+    S2[2] = 0.0
+    best = (torch.einsum("np,tnk->tpk", X, S2) ** 2 * inv[:, :, None]).argmax(1)[0, 0]
+    inv[0, best] = 0.0
+    plain = bf.bulkperm_maxr2_plain(X, S2, inv)
+    out = bf.bulkperm_maxr2_split_reference(X, S2, inv)
+    assert tuple(out.shape) == (4, 25) and out.dtype == torch.float32
+    assert float((out - plain).abs().max()) <= 1e-6
+    assert bool((out[2] == 0).all())
+    inv_full = inv.clone()
+    inv_full[0, best] = 1.0
+    assert out[0, 0] < bf.bulkperm_maxr2_split_reference(X, S2, inv_full)[0, 0]
+    assert bf.launches == 0
+
+
+@pytest.mark.parametrize("c, mb, K", [(1, 4, 25), (3, 3, 17)], ids=["c1", "c3-ragged"])
+def test_bulkperm_split_reference_matches_pallas_interpret(perm_rotated, c, mb, K):
+    """Against the Pallas kernel in interpret mode at HIGHEST (the default
+    of its wrapper), as tests/test_torch_bulkperm.py runs it: 1e-5 in LOD.
+    The Pallas wrapper needs 8-trait blocks, so its operands are zero-padded."""
+    X, S2, inv = _perm_operands(perm_rotated, c)
+    S2, inv = S2[:mb, :, :K].contiguous(), inv[:mb].contiguous()
+    pad = 8 - mb
+    ref = jfused.fused_perm_maxlods(
+        jnp.asarray(X.numpy()), jnp.pad(jnp.asarray(S2.numpy()), ((0, pad), (0, 0), (0, 0))),
+        jnp.pad(jnp.asarray(inv.numpy()), ((0, pad), (0, 0))), n=52, tile_p=32, interpret=True,
+    )[:mb]
+    lod = tops.maxr2_to_lod(bf.bulkperm_maxr2_split_reference(X, S2, inv), 52)
+    assert float(np.abs(lod.double().numpy() - np.asarray(ref, dtype=np.float64)).max()) < 1e-5
+
+
+def test_split_reference_sub_blocks_do_not_show(perm_rotated, monkeypatch):
+    X, S2, inv = _perm_operands(perm_rotated, 3)
+    whole = bf.bulkperm_maxr2_split_reference(X, S2, inv)
+    monkeypatch.setattr(bf, "PLAIN_BUDGET_BYTES", 4 * 96 * 25)  # one trait per sub-block
+    assert torch.equal(bf.bulkperm_maxr2_split_reference(X, S2, inv), whole)
+
+
+# --- the alt-grid kernel's split reference ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def alt_rotated():
+    """tests/test_pallas_altgrid.py's fixture: n = 40, p = 96, m = 48, c = 2."""
+    rng = np.random.default_rng(3)
+    n, p, m = 40, 96, 48
+    return dict(
+        Y0=rng.normal(size=(n, m)),
+        X0m=rng.normal(size=(n, p)),
+        C0=np.column_stack([np.ones(n), rng.normal(size=n)]),
+        lam=np.sort(rng.uniform(0.05, 3.0, n)),
+    )
+
+
+def _two_smallest_gap(Xn, Yn, cmat):
+    """Relative gap between the two smallest u_k of every pair, in float64."""
+    R = torch.einsum("gnp,gnm->gpm", Xn.double(), Yn.double())
+    u = torch.clamp(1.0 - R * R, min=1e-300) * cmat.double()[:, None, :]
+    two = torch.topk(u, 2, dim=0, largest=False).values
+    return (two[1] - two[0]) / two[1]
+
+
+@pytest.mark.parametrize("reml", [False, True])
+def test_altgrid_split_reference_matches_plain_and_pallas(alt_rotated, reml):
+    """5e-5 in L against the plain version and against the JAX package's
+    interpret run; the grid index may differ only where the two smallest u
+    lie within 1e-5 of each other (relative)."""
+    names = ("Y0", "X0m", "C0", "lam")
+    targs = [torch.from_numpy(alt_rotated[k]) for k in names] + [torch.from_numpy(GRID)]
+    ops = af.prepare_inputs(*targs, prior=PRIOR, reml=reml)
+    L_plain, k_plain = af.altgrid_plain(*ops)
+    L, k = af.altgrid_split_reference(*ops)
+    assert tuple(L.shape) == (96, 48) and L.dtype == torch.float32 and k.dtype == torch.int32
+    assert float((L - L_plain).abs().max()) < 5e-5
+    flips = k != k_plain
+    assert bool((_two_smallest_gap(*ops)[flips] < 1e-5).all())
+    L_none, none = af.altgrid_split_reference(*ops, panel=False)
+    assert none is None and torch.equal(L_none, L)
+
+    jargs = [jnp.asarray(alt_rotated[k]) for k in names] + [jnp.asarray(GRID)]
+    L_pl, h2_pl = jax_fused_alt_grid(*jargs, prior=PRIOR, reml=reml, interpret=True,
+                                     tile_p=32, tile_m=128)
+    assert float(np.abs(L.double().numpy() - np.asarray(L_pl, dtype=np.float64)).max()) < 5e-5
+    flips = torch.from_numpy(GRID)[k.long()].numpy() != np.asarray(h2_pl)
+    assert bool((_two_smallest_gap(*ops).numpy()[flips] < 1e-5).all())
+    assert af.launches == 0
+
+
+def test_altgrid_split_reference_single_grid_point(alt_rotated):
+    names = ("Y0", "X0m", "C0", "lam")
+    targs = [torch.from_numpy(alt_rotated[k]) for k in names] + [torch.tensor([0.3], dtype=torch.float64)]
+    ops = af.prepare_inputs(*targs, prior=PRIOR)
+    L, k = af.altgrid_split_reference(*ops)
+    assert bool((k == 0).all())
+    assert float((L - af.altgrid_plain(*ops)[0]).abs().max()) < 5e-5
+
+
+# --- the path rule and the padding helper ----------------------------------------------
+
+
+@pytest.mark.parametrize("n, depth", [(1, 8), (8, 8), (9, 16), (79, 80), (80, 80), (81, 88), (2000, 2000)])
+def test_padded_depth(n, depth):
+    assert bf.padded_depth(n) == depth
+
+
+@pytest.mark.parametrize("n, path", [(1, "resident"), (48, "resident"), (79, "resident"), (80, "resident"),
+                                     (81, "resident"), (88, "resident"), (89, "chunked"), (96, "chunked"),
+                                     (2000, "chunked"), (20000, "chunked")])
+def test_kernel_path_by_depth(n, path):
+    """The trait's operand stays in shared memory while both halves of its
+    (padded n, 256) tile fit beside two marker stages; above, n is walked in
+    chunks."""
+    assert bf.kernel_path(n) == path
+    assert (bf.resident_shared_bytes(n) <= bf.SHARED_LIMIT_BYTES) or path == "chunked"
+
+
+def test_resident_shared_bytes_at_the_main_path_shape():
+    # n = 79: two halves of 80 x 256 floats and two stages of 81 x 72
+    assert bf.resident_shared_bytes(79) == 4 * (2 * 80 * 256 + 2 * 81 * 72) == 210_496
+    assert bf.resident_shared_bytes(88) <= bf.SHARED_LIMIT_BYTES < bf.resident_shared_bytes(96)
+
+
+@pytest.mark.parametrize("cols, padded", [(1, 4), (4, 4), (5, 8), (7321, 7324), (35554, 35556), (1001, 1004)])
+def test_rows_at_16_bytes_pads_the_rows(cols, padded):
+    rng = np.random.default_rng(cols)
+    X = torch.from_numpy(rng.normal(size=(2, 3, cols)).astype(np.float32))
+    out = split.rows_at_16_bytes(X)
+    assert tuple(out.shape) == (2, 3, padded) and out.is_contiguous() and out.dtype == torch.float32
+    assert out.data_ptr() % 16 == 0
+    assert torch.equal(out[..., :cols], X) and bool((out[..., cols:] == 0).all())
+    if cols == padded:
+        assert out.data_ptr() == X.data_ptr()  # aligned rows are handed over as they are
+
+
+def test_rows_at_16_bytes_copies_a_misaligned_view():
+    base = torch.arange(64, dtype=torch.float32)
+    view = base[1:33].reshape(4, 8)  # contiguous, rows of 8, but 4 bytes off
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    out = split.rows_at_16_bytes(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
