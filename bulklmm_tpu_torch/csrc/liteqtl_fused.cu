@@ -1,4 +1,4 @@
-// Fused per-trait-weight correlation -> LOD kernel for Hopper (sm_90a).
+// Fused per-trait-weight correlation -> LOD kernels for Hopper (sm_90a).
 //
 // Replaces bulklmm_tpu/pallas/liteqtl_fused.py::fused_lods_per_trait (the
 // Pallas body `_kernel`). For every (marker i, trait j) it contracts over
@@ -20,54 +20,62 @@
 // Only the (p, m) LOD matrix is written: the (c+2) (p, m) products never
 // reach device memory.
 //
-// Design: a plain tiled SIMT kernel. A block of 256 threads owns a 64 x 64
-// (markers x traits) output tile; each thread owns a 4 x 4 micro-tile,
-// strided by 16 in both directions, so shared-memory reads are conflict
-// free and each warp's stores hit contiguous trait columns. The block
-// walks n in chunks of 16 samples staged through shared memory, so n has
-// no limit. Each thread keeps (c+2) x 16 float32 accumulators and forms
-// X*C_k and X*X from the staged tiles as it goes (plain FMA, no TF32, no
-// tensor cores). Ragged p, m and n edges are masked: out-of-range samples
-// stage as zeros and contribute nothing, out-of-range outputs are not
-// stored. Bound: compute on the CUDA cores, about 2 (c+2) n p m flops
-// against one 4 p m byte write.
+// What bounds it on an H100: 2 (c+2) n p m flops (1.23e11 at 79 x 7,321 x
+// 35,554, c = 1) against one 4 p m byte write (1.04 GB) and 25 MB of
+// operands: operations. Float32-grade products cost 1.84 ms on the CUDA
+// cores (67 TFLOP/s) and 0.75 ms as three TF32 passes on the tensor cores
+// (mma_tf32x3.cuh). Behind the products stand what every block re-reads
+// from L2 (the (c+2) products share one tile of X, so a block has few
+// operations for each byte of X that it reads) and an epilogue of two
+// divisions and a logarithm for every output, which in their exact forms are
+// more dispatch time than the products are tensor-core time.
+//
+// Two kernels; is_resident() picks one from n and c, and
+// kernels/liteqtl_fused.py::kernel_path states the same rule.
+//
+// The resident kernel (liteqtl_resident.cuh: n <= 88, c <= 3) takes the
+// products on the tensor cores as three TF32 passes, with the traits'
+// operands kept in shared memory for the whole launch and the marker tiles
+// copied asynchronously; one source file a covariate count, so that they
+// compile side by side.
+//
+// The general kernel (liteqtl_general_kernel: any n, c <= 8). A plain tiled
+// SIMT kernel: a block of 256 threads owns a 64 x 64 output tile, each
+// thread a 4 x 4 micro-tile strided by 16 both ways, n walked in chunks of
+// 16 samples through shared memory, (c+2) x 16 float32 fmaf accumulators a
+// thread, X * C_k and X * X formed from the staged tiles. It runs where the
+// accumulator sets or the operands do not fit the resident kernel.
+//
+// Ragged edges, both kernels: trait columns past m get scalars of 1 (no
+// division by zero in lanes never stored), out-of-range outputs are not
+// stored.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC, and never --use_fast_math (it would replace
 //        log10f and the IEEE division and flush subnormals).
 
-#include <cuda_runtime.h>
+#include "liteqtl_resident.cuh"
 
-#include <cfloat>
-#include <cstddef>
+namespace liteqtl {
 
-namespace {
+// --- the general kernel: float32 fmaf on staged chunks of n ----------------------
 
-constexpr int kTileP = 64;    // markers per block
-constexpr int kTileM = 64;    // traits per block
 constexpr int kChunkN = 16;   // samples staged per step
-constexpr int kThreads = 256;
 constexpr int kLanes = 16;    // threads along each tile edge
 constexpr int kRP = kTileP / kLanes;  // markers per thread
 constexpr int kRM = kTileM / kLanes;  // traits per thread
 
-// Row of L[(i, k)], i >= k, in the column-major packed lower triangle.
-__host__ __device__ constexpr int tri_row(int c, int i, int k) {
-  return k * c - (k * (k - 1)) / 2 + (i - k);
-}
-
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-liteqtl_lod_kernel(const float* __restrict__ X,     // (n, p) rotated markers
-                   const float* __restrict__ Cov,   // (n, C) rotated covariates
-                   const float* __restrict__ W,     // (n, m) per-trait weights
-                   const float* __restrict__ WY,    // (n, m) weighted traits
-                   const float* __restrict__ scal,  // (S, m) per-trait scalars
-                   float* __restrict__ out,         // (p, m) LOD
-                   int n, int p, int m) {
-  constexpr int kTri = C * (C + 1) / 2;
-  constexpr int kS = kTri + C + 1;  // rows: L entries | zeta | inv_nrm2
-  constexpr int kAcc = C + 2;       // B, D1, U_0 .. U_{C-1}
+liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
+                       const float* __restrict__ Cov,   // (n, C) rotated covariates
+                       const float* __restrict__ W,     // (n, m) per-trait weights
+                       const float* __restrict__ WY,    // (n, m) weighted traits
+                       const float* __restrict__ scal,  // (S, m) per-trait scalars
+                       float* __restrict__ out,         // (p, m) LOD
+                       int n, int p, int ldx, int m) {
+  constexpr int kS = scalar_rows(C);
+  constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
 
   __shared__ float xs[kChunkN][kTileP];
   __shared__ float ws[kChunkN][kTileM];
@@ -104,7 +112,7 @@ liteqtl_lod_kernel(const float* __restrict__ X,     // (n, p) rotated markers
       const int gn = n0 + row;
       const int gp = p0 + col, gm = m0 + col;
       const bool in_n = gn < n;
-      xs[row][col] = (in_n && gp < p) ? X[(size_t)gn * p + gp] : 0.0f;
+      xs[row][col] = (in_n && gp < p) ? X[(size_t)gn * ldx + gp] : 0.0f;
       ws[row][col] = (in_n && gm < m) ? W[(size_t)gn * m + gm] : 0.0f;
       wys[row][col] = (in_n && gm < m) ? WY[(size_t)gn * m + gm] : 0.0f;
     }
@@ -148,69 +156,73 @@ liteqtl_lod_kernel(const float* __restrict__ X,     // (n, p) rotated markers
     __syncthreads();
   }
 
-  const float eps = FLT_EPSILON;
   const float neg_half_n = -0.5f * (float)n;
 #pragma unroll
   for (int j = 0; j < kRM; ++j) {
     const int lm = tx + kLanes * j;
     const int gm = m0 + lm;
-    const float inv_nrm2 = ss[kTri + C][lm];
 #pragma unroll
     for (int i = 0; i < kRP; ++i) {
       const int gp = p0 + ty + kLanes * i;
-      float z[C];
-      float num = acc[0][i][j];
-      const float d1 = acc[1][i][j];
-      float d = d1;
+      float u[C];
 #pragma unroll
-      for (int k = 0; k < C; ++k) {
-        float t = acc[2 + k][i][j];
-#pragma unroll
-        for (int q = 0; q < k; ++q) t -= ss[tri_row(C, k, q)][lm] * z[q];
-        z[k] = t / ss[tri_row(C, k, k)][lm];
-        num -= z[k] * ss[kTri + k][lm];
-        d -= z[k] * z[k];
-      }
-      const bool keep = d > 1024.0f * eps * d1;
-      d = fmaxf(d, 4.0f * eps * d1);
-      const float r2 = keep ? num * num * inv_nrm2 / d : 0.0f;
-      const float one_minus = fmaxf(1.0f - r2, FLT_MIN);
-      if (gp < p && gm < m) out[(size_t)gp * m + gm] = neg_half_n * log10f(one_minus);
+      for (int k = 0; k < C; ++k) u[k] = acc[2 + k][i][j];
+      const float lod = lod_from_products<C, false>(
+          acc[0][i][j], acc[1][i][j], u, [&](int row) { return ss[row][lm]; }, neg_half_n);
+      if (gp < p && gm < m) out[(size_t)gp * m + gm] = lod;
     }
   }
 }
 
 template <int C>
-cudaError_t launch(const float* X, const float* Cov, const float* W, const float* WY,
-                   const float* scal, float* out, int n, int p, int m,
-                   cudaStream_t stream) {
-  const dim3 grid((m + kTileM - 1) / kTileM, (p + kTileP - 1) / kTileP);
-  liteqtl_lod_kernel<C><<<grid, kThreads, 0, stream>>>(X, Cov, W, WY, scal, out, n, p, m);
+cudaError_t launch_general(const Operands& o, cudaStream_t stream) {
+  if ((o.p + kTileP - 1) / kTileP > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((o.m + kTileM - 1) / kTileM, (o.p + kTileP - 1) / kTileP);
+  liteqtl_general_kernel<C><<<grid, kThreads, 0, stream>>>(o.X, o.Cov, o.W, o.WY, o.scal, o.out,
+                                                           o.n, o.p, o.ldx, o.m);
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace liteqtl
+
+using namespace liteqtl;
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers to contiguous float32 arrays;
-// c must be 1..8 (the instantiations below).
-int bulklmm_liteqtl_lod(const float* X, const float* Cov, const float* W,
-                        const float* WY, const float* scal, float* out, int n,
-                        int p, int m, int c, void* stream) {
-  if (n <= 0 || p <= 0 || m <= 0 || (p + kTileP - 1) / kTileP > 65535)
-    return (int)cudaErrorInvalidValue;
+// 1 where a launch with n samples and c covariate columns takes the
+// resident kernel, 0 where it takes the general one.
+int bulklmm_liteqtl_is_resident(int n, int c) { return is_resident(n, c) ? 1 : 0; }
+
+// Launches the kernel on `stream` and returns the CUDA error of the launch
+// (0 on success). Pointers are device pointers to contiguous float32 arrays,
+// but X: its n rows are ldx >= p floats apart. c must be 1..8. general != 0
+// takes the general kernel whatever the shape. The resident kernel needs
+// ldx a multiple of 4 and X 16-byte aligned, so that every row takes 16-byte
+// copies; the columns between p and ldx may hold anything finite or not
+// (their outputs are not stored).
+int bulklmm_liteqtl_lod(const float* X, int ldx, const float* Cov, const float* W,
+                        const float* WY, const float* scal, float* out, int n, int p, int m,
+                        int c, int general, void* stream) {
+  if (n <= 0 || p <= 0 || m <= 0 || ldx < p) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands o{X, Cov, W, WY, scal, out, n, p, ldx, m};
+  if (!general && is_resident(n, c)) {
+    switch (c) {
+      case 1: return (int)launch_resident_c1(o, s);
+      case 2: return (int)launch_resident_c2(o, s);
+      case 3: return (int)launch_resident_c3(o, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (c) {
-    case 1: return (int)launch<1>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 2: return (int)launch<2>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 3: return (int)launch<3>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 4: return (int)launch<4>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 5: return (int)launch<5>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 6: return (int)launch<6>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 7: return (int)launch<7>(X, Cov, W, WY, scal, out, n, p, m, s);
-    case 8: return (int)launch<8>(X, Cov, W, WY, scal, out, n, p, m, s);
+    case 1: return (int)launch_general<1>(o, s);
+    case 2: return (int)launch_general<2>(o, s);
+    case 3: return (int)launch_general<3>(o, s);
+    case 4: return (int)launch_general<4>(o, s);
+    case 5: return (int)launch_general<5>(o, s);
+    case 6: return (int)launch_general<6>(o, s);
+    case 7: return (int)launch_general<7>(o, s);
+    case 8: return (int)launch_general<8>(o, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

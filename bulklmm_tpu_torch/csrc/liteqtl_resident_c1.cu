@@ -1,0 +1,11 @@
+// The resident LOD kernel for 1 covariate column, every depth it is built for.
+
+#include "liteqtl_resident.cuh"
+
+namespace liteqtl {
+
+cudaError_t launch_resident_c1(const Operands& o, cudaStream_t stream) {
+  return launch_resident<1>(o, stream);
+}
+
+}  // namespace liteqtl

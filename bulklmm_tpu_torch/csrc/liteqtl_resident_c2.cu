@@ -1,0 +1,11 @@
+// The resident LOD kernel for 2 covariate columns, every depth it is built for.
+
+#include "liteqtl_resident.cuh"
+
+namespace liteqtl {
+
+cudaError_t launch_resident_c2(const Operands& o, cudaStream_t stream) {
+  return launch_resident<2>(o, stream);
+}
+
+}  // namespace liteqtl

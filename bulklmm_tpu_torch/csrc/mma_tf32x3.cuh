@@ -1,8 +1,8 @@
 // Float32-grade matrix products on Hopper's tensor cores: the 3 x TF32 split,
 // the warp-level m16n8k8 product (mma.sync) with its fragment loads from
-// depth-major shared tiles, the warpgroup-level 64 x 128 x 8 product (wgmma)
-// with its K-major tile and descriptor, and asynchronous tile copies. Device
-// functions only, shared by the kernels of this directory.
+// depth-major shared tiles, the warpgroup-level 64 x 128 x 8 and 64 x 64 x 8
+// products (wgmma) with their K-major tile and descriptor, and asynchronous
+// tile copies. Device functions only, shared by the kernels of this directory.
 //
 // The split. A float32 a is written as big + small with
 // big = tf32(a) (cvt.rna: round to nearest on the 13 low mantissa bits, ties
@@ -213,9 +213,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Keeps the compiler from moving accumulators across an asynchronous product.
-__device__ __forceinline__ void pin_registers(float (&d)[64]) {
+template <int kCount>
+__device__ __forceinline__ void pin_registers(float (&d)[kCount]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kCount; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d = (scale_d ? d : 0) + a * b for a 64 x 128 x 8 tile. d: 64 registers a
@@ -244,6 +245,29 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d = (scale_d ? d : 0) + a * b for a 64 x 64 x 8 tile: the narrow form of
+// wgmma_m64n128k8(), 32 registers a thread in the same layout (8 column
+// tiles), for kernels that keep several accumulator sets at once. desc_b:
+// kmajor_descriptor() of the 8 x 64 step.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

@@ -1,28 +1,36 @@
-"""Fused per-trait-weight correlation -> LOD: the CUDA kernel and its plain
+"""Fused per-trait-weight correlation -> LOD: the CUDA kernels and their plain
 version.
 
 Replaces ``bulklmm_tpu/pallas/liteqtl_fused.py::fused_lods_per_trait`` (the
-Pallas kernel ``_kernel``) with ``csrc/liteqtl_fused.cu``, a hand-written
-CUDA C++ kernel for sm_90a. It computes the float32 form of
+Pallas kernel ``_kernel``) with ``csrc/liteqtl_fused.cu``, hand-written CUDA
+C++ for sm_90a. It computes the float32 form of
 ``ops/liteqtl.py::lods_per_trait`` and writes only the (p, m) LOD matrix,
 so the (c+2) (p, m) products of the plain form never reach device memory.
 
-What bounds it on an H100: about 2 (c+2) n p m float32 FMA-flops on the
-CUDA cores against one 4 p m byte write. At 79 samples x 7,321 markers x
-35,554 traits with c = 1 that is ~1.2e11 flops and a 1.04 GB write, so it
-is bound by compute. The kernel keeps every product in registers, tiles
-64 x 64 outputs per 256-thread block, and walks n in chunks through shared
-memory (see the source for the design).
+What bounds it on an H100: 2 (c+2) n p m float32-grade flops against one
+4 p m byte write. At 79 samples x 7,321 markers x 35,554 traits with c = 1
+that is 1.23e11 flops and a 1.04 GB write, so it is bound by operations.
+Two kernels, picked by :func:`kernel_path` from n and c (the launcher in
+the source applies the same rule): the resident kernel (n <= 88, c <= 3;
+``csrc/liteqtl_resident.cuh``) takes the products on the tensor cores as
+three TF32 passes (``csrc/mma_tf32x3.cuh``) with the traits' operands kept
+in shared memory and the marker tiles copied asynchronously, float32-grade
+but not bit-equal to the plain version's products, and its epilogue takes
+reciprocals and the hardware's log2 where the plain version divides and
+calls log10; the general kernel (any n, c <= 8) is float32 ``fmaf`` on
+64 x 64 tiles with the exact epilogue (see the sources for both designs).
 
 Layers:
 
 - :func:`prepare_inputs`: the thin per-trait scalars (packed covariate
   Cholesky factor, zeta, masked 1/nrm2), in plain torch (the JAX wrapper's
-  lines 131-159).
-- :func:`liteqtl_lod_cuda`: the kernel's wrapper. CUDA tensors only; it
+  lines 131-159), and X with rows that start at multiples of 16 bytes.
+- :func:`liteqtl_lod_cuda`: the kernels' wrapper. CUDA tensors only; it
   checks its inputs, allocates the output, launches on the current stream,
   raises on a launch error and counts its launches in :data:`launches`.
-- :func:`liteqtl_lod_plain`: the same function in plain torch.
+- :func:`liteqtl_lod_plain`: the same function in plain torch, exact
+  float32. :func:`liteqtl_split_reference` repeats the resident kernel's
+  3 x TF32 arithmetic instead (``kernels/split.py``), for comparisons.
 - :func:`fused_lods_per_trait`: the kernel on CUDA tensors, its plain
   version on CPU tensors. :func:`fused_lods_per_trait_reference` always
   takes the plain version, for comparisons.
@@ -40,9 +48,23 @@ from ..ops.smallchol import (
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
+from .split import matmul_tf32x3, rows_at_16_bytes
 
-#: covariate columns (intercept included) the kernel is instantiated for
+#: covariate columns (intercept included) the general kernel is instantiated for
 MAX_COVARIATES = 8
+
+#: covariate columns the resident kernel is instantiated for: it keeps
+#: (c + 2) accumulator sets of 32 registers a thread
+RESIDENT_COVARIATES = 3
+
+#: the most depth steps of 8 samples the resident kernel is built for
+RESIDENT_STEPS = 11
+
+#: shared memory a block can use on sm_90, bytes
+SHARED_LIMIT_BYTES = 232_448
+
+#: markers a tile and traits a block of both kernels
+TILE_P = TILE_M = 64
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the main path ran through the kernel
@@ -56,20 +78,62 @@ def scalar_rows(c: int) -> int:
     return c * (c + 1) // 2 + c + 1
 
 
+def resident_steps(n: int) -> int:
+    """Depth steps of 8 samples that the resident kernel runs for n: even
+    counts up to 10, then 11 (the kernel is built for each count; the rows
+    between n and 8 steps are zeros in shared memory)."""
+    steps = -(-n // 8)
+    return steps if steps > 10 else steps + steps % 2
+
+
+def resident_shared_bytes(n: int, c: int) -> int:
+    """Shared memory of a block of the resident kernel: both TF32 halves of
+    its (depth, 64) tiles of W and WY, for each of its two warpgroups two
+    stages of 64 markers (rows 8 floats longer than the tile) and one
+    finished 64 x 64 tile (rows 4 floats longer), the covariates and the
+    scalar block."""
+    depth = 8 * resident_steps(n)
+    per_group = 2 * depth * (TILE_P + 8) + TILE_P * (TILE_M + 4)
+    return 4 * (4 * depth * TILE_M + 2 * per_group + c * depth + scalar_rows(c) * TILE_M)
+
+
+def kernel_path(n: int, c: int) -> str:
+    """"resident" where the traits' operands fit shared memory and the
+    (c + 2) accumulator sets fit the registers (n <= 88, c <= 3): 3 x TF32
+    warpgroup products. Else "general": float32 ``fmaf`` on staged chunks of
+    n, for any n and c <= :data:`MAX_COVARIATES`. The launcher in
+    ``csrc/liteqtl_fused.cu`` applies the same rule
+    (``bulklmm_liteqtl_is_resident``)."""
+    fits = (
+        1 <= c <= RESIDENT_COVARIATES
+        and resident_steps(n) <= RESIDENT_STEPS
+        and resident_shared_bytes(n, c) <= SHARED_LIMIT_BYTES
+    )
+    return "resident" if fits else "general"
+
+
 @with_highest_matmul()
 def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait):
-    """(X, C, W, WY, scal): the kernel's float32 contiguous operands.
+    """(X, C, W, WY, scal): the kernel's float32 operands.
 
     X (n, p), C (n, c), W and WY (n, m), and scal (S, m) with rows
     ``[L[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]``.
-    Weights are formed in the inputs' dtype and then rounded, like the
-    plain path's.
+    All are contiguous but X where p is no multiple of 4: it is then the
+    first p columns of a zero-padded (n, p + pad) array, so that its rows
+    start at multiples of 16 bytes as the resident kernel's copies need and
+    the wrapper has nothing to copy. Weights are formed in the inputs' dtype
+    and then rounded, like the plain path's.
     """
+    n, p = X0m.shape
     c = C0.shape[1]
     W = make_weights(h2_per_trait, lam).abs().T.to(_F32).contiguous()  # (n, m)
     Y = Y0.to(_F32)
     C = C0.to(_F32).contiguous()
-    X = X0m.to(_F32).contiguous()
+    if p % 4:
+        X = X0m.new_zeros((n, p + -p % 4), dtype=_F32)[:, :p]
+        X.copy_(X0m)
+    else:
+        X = X0m.to(_F32).contiguous()
     WY = (W * Y).contiguous()
 
     t = C.T @ WY  # (c, m)
@@ -105,7 +169,8 @@ def _check_operands(X, C, W, WY, scal):
             raise TypeError(f"liteqtl_lod_cuda: {name} is {t.dtype}; the kernel takes float32")
         if tuple(t.shape) != shape:
             raise ValueError(f"liteqtl_lod_cuda: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
+        # X may be the first p columns of an array with longer rows
+        if not (t.is_contiguous() or (t is X and p > 0 and X.stride(1) == 1 and X.stride(0) >= p)):
             raise ValueError(f"liteqtl_lod_cuda: {name} must be contiguous")
     if not 1 <= c <= MAX_COVARIATES:
         raise ValueError(
@@ -122,29 +187,38 @@ def _library():
 
     lib = load_library()
     fn = lib.bulklmm_liteqtl_lod
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5, ctypes.c_void_p,
+    ]
     fn.restype = ctypes.c_int
+    lib.bulklmm_liteqtl_is_resident.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bulklmm_liteqtl_is_resident.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def liteqtl_lod_cuda(X, C, W, WY, scal) -> torch.Tensor:
+def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False) -> torch.Tensor:
     """(p, m) float32 LOD from the kernel's operands, on their CUDA device.
 
-    Raises on a CPU tensor, a wrong dtype, shape or layout, more than
-    :data:`MAX_COVARIATES` covariate columns, a failed build or a launch
+    Takes the kernel that :func:`kernel_path` names for the shape;
+    ``general=True`` takes the general kernel whatever the shape (for
+    comparisons). Raises on a CPU tensor, a wrong dtype, shape or layout, more
+    than :data:`MAX_COVARIATES` covariate columns, a failed build or a launch
     error. Does not synchronize.
     """
     global launches
     n, p, m, c = _check_operands(X, C, W, WY, scal)
+    resident = not general and kernel_path(n, c) == "resident"
     lib = _library()
     out = torch.empty((p, m), dtype=_F32, device=X.device)
     with torch.cuda.device(X.device):
+        if resident and (X.stride(0) % 4 or X.data_ptr() % 16):
+            X = rows_at_16_bytes(X.contiguous())
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_liteqtl_lod(
-            X.data_ptr(), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
-            scal.data_ptr(), out.data_ptr(), n, p, m, c, stream,
+            X.data_ptr(), X.stride(0), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
+            scal.data_ptr(), out.data_ptr(), n, p, m, c, int(general), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -155,13 +229,10 @@ def liteqtl_lod_cuda(X, C, W, WY, scal) -> torch.Tensor:
     return out
 
 
-@with_highest_matmul()
-def liteqtl_lod_plain(X, C, W, WY, scal) -> torch.Tensor:
-    """The kernel's function in plain torch, on any device (float32)."""
-    n, c = C.shape
-    B = X.T @ WY
-    D1 = (X * X).T @ W
-    U = [(X * C[:, k : k + 1]).T @ W for k in range(c)]
+def _lod_from_products(B, D1, U, scal, n: int) -> torch.Tensor:
+    """The kernels' epilogue in plain torch: forward substitution, the
+    cancel-keep mask and floor, r2 and the LOD, from the (p, m) products."""
+    c = len(U)
     rows = iter(scal)
     Lc = {(i, k): next(rows) for k in range(c) for i in range(k, c)}
     zeta = [next(rows) for _ in range(c)]
@@ -179,6 +250,28 @@ def liteqtl_lod_plain(X, C, W, WY, scal) -> torch.Tensor:
     r2 = torch.where(keep, N * N * inv_nrm2 / D, 0.0)
     one_minus = torch.clamp(1.0 - r2, min=torch.finfo(_F32).tiny)
     return (-0.5 * n) * torch.log10(one_minus)
+
+
+def _lod_with_product(X, C, W, WY, scal, product) -> torch.Tensor:
+    n, c = C.shape
+    B = product(X.T, WY)
+    D1 = product((X * X).T, W)
+    U = [product((X * C[:, k : k + 1]).T, W) for k in range(c)]
+    return _lod_from_products(B, D1, U, scal, n)
+
+
+@with_highest_matmul()
+def liteqtl_lod_plain(X, C, W, WY, scal) -> torch.Tensor:
+    """The kernel's function in plain torch, on any device: exact float32
+    products."""
+    return _lod_with_product(X, C, W, WY, scal, torch.matmul)
+
+
+def liteqtl_split_reference(X, C, W, WY, scal) -> torch.Tensor:
+    """The kernel's function with the resident kernel's arithmetic: X, X * X
+    and X * C_k rounded to float32, then each product as three TF32 passes
+    (``split.py::matmul_tf32x3``). On any device; no main path takes it."""
+    return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3)
 
 
 def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:

@@ -11,8 +11,14 @@ exits nonzero:
 2. Build: compiles ``bulklmm_tpu_torch/csrc/*.cu`` for sm_90a from the
    checkout's sources and prints the build time.
 3. Each kernel vs its plain version on the card, at small shapes. The LOD
-   kernel: c = 1, 2, 3 and 8 covariate columns, a ragged 70 x 45 tile edge,
-   and n = 2,000 to cross many sample chunks. The alt-grid kernel: c = 1, 2
+   kernel: c = 1, 2 and 3 covariate columns on the resident kernel and 4 and
+   8 on the general one, a ragged 70 x 45 tile edge, n = 79, 80, 81, 88 (the
+   deepest resident operand) and 89 (the first general one), 129 and 321
+   markers x 65 and 130 traits (one past a tile each way, an odd row length
+   of the output, several marker groups), n = 2,000 to cross many sample
+   chunks, and the general kernel forced at a resident shape; the launcher's
+   resident-or-general rule must be the wrapper module's. The alt-grid
+   kernel: c = 1, 2
    and 3, g = 1 and 10, the ragged edge, n = 79, 80 and 81 (the last one
    past a sample chunk), 129 markers x 65 traits (one past a tile each way),
    n = 2,000, with the h2 panel on and off. The bulk-permutation kernel:
@@ -24,15 +30,17 @@ exits nonzero:
    module's. Bar: max |dLOD| <= 5e-5 (the JAX package's bar for its Pallas
    kernels), scaled by n/48 above n = 79, and max |d max r^2| <= 1e-5 for
    the permutation kernel; at most 0.01 % of the pairs may take another grid
-   index (near-ties under another summation order). The permutation and
-   alt-grid kernels take their products as three TF32 passes on the tensor
-   cores; each is also held, reported and not gated, against its split
-   reference, which repeats that arithmetic in plain torch.
+   index (near-ties under another summation order). The resident LOD
+   kernel, the permutation and the alt-grid kernels take their products as
+   three TF32 passes on the tensor cores; each is also held, reported and
+   not gated, against its split reference, which repeats that arithmetic in
+   plain torch.
 4. The null-grid path at BXD scale (79 samples x 7,321 markers x 35,554
    traits, synthetic, seed 2026): BALANCED ``bulkscan`` on CUDA tensors must
    launch the LOD kernel and give a finite (7321, 35554) L; the kernel must
    match its plain version on the scan's own rotated inputs and h2 within
-   5e-5; and L must stay within 1e-4 of the EXACT64 scan (the float64
+   5e-5 (its split reference and the general kernel are reported beside
+   it); and L must stay within 1e-4 of the EXACT64 scan (the float64
    oracle) on the traits whose grid h2 agrees.
 5. The alt-grid path at BXD scale, default 10-point grid: BALANCED
    ``bulkscan(method="alt-grid")`` must launch the alt-grid kernel and give
@@ -63,7 +71,10 @@ exits nonzero:
 8. Times, printed and not gated, by CUDA events around the work and then a
    checksum fetch: the median of 5 runs after one warm-up of each BALANCED
    ``bulkscan`` (host eigendecomposition included) and of the LOD and
-   alt-grid kernels alone and their plain versions at the scan's shape; the
+   alt-grid kernels alone and their plain versions at the scan's shape, the
+   general LOD kernel at that shape beside the resident one, and both with
+   2, 3 and 4 covariate columns (random operands; 4 takes the general
+   kernel alone); the
    median of 3 after a warm-up of BALANCED ``bulkscan_perms``, of the
    bulk-permutation kernel alone and of its plain version, per trait block
    and summed over all trait blocks (each block's operands prepared
@@ -79,9 +90,10 @@ operand read once, each result written once) over 3.35 TB/s and the least
 time either unit takes for float32-grade products of its operations, the
 smaller of flops over 67 TFLOP/s (CUDA cores) and 3 x flops over 495
 TFLOP/s (three TF32 passes on the tensor cores); ``bound_unit`` names the
-unit and ``simt_bound_ms`` keeps the CUDA cores' time. No single PyTorch
-call computes any of
-the three kernels' functions, so ``library_ms`` is null. The last line is
+unit and ``simt_bound_ms`` keeps the CUDA cores' time;
+``general_kernel_ms`` is the LOD step's general kernel at the same shape. No
+single PyTorch call computes any of the three kernels' functions, so
+``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -164,7 +176,8 @@ def build() -> None:
     log = BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            entry = re.search(r"Compiling entry function '\w*\d([a-z_]+_kernel(?:IL[ib]\d+E)?)E", line)
+            entry = re.search(
+                r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E)+)?)E", line)
             if entry:
                 print("  ptxas:", entry.group(1))
             elif "registers" in line or "spill" in line:
@@ -182,23 +195,33 @@ def _kernel_inputs(n, p, m, c, rng, dev):
 
 
 def kernel_checks(dev) -> None:
-    from bulklmm_tpu_torch.kernels.liteqtl_fused import (
-        liteqtl_lod_cuda, liteqtl_lod_plain, prepare_inputs,
-    )
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     rng = np.random.default_rng(3)
-    cases = [(48, 96, 64, c) for c in (1, 2, 3, 8)] + [(48, 70, 45, 1), (2000, 96, 64, 2)]
-    for n, p, m, c in cases:
-        ops = prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
-        out = liteqtl_lod_cuda(*ops)
+    cases = [(48, 96, 64, c, False) for c in (1, 2, 3, 4, 8)] + [
+        (48, 70, 45, 1, False), (79, 129, 65, 1, False), (80, 129, 65, 2, False),
+        (81, 129, 65, 3, False), (88, 321, 130, 1, False), (89, 96, 64, 1, False),
+        (79, 1000, 131, 2, False), (79, 129, 65, 3, True), (2000, 96, 64, 2, False),
+    ]
+    for n, p, m, c, general in cases:
+        path = lf.kernel_path(n, c)
+        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c)),
+              f"the launcher and kernel_path disagree on the LOD kernel at n={n}, c={c}")
+        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
+        out = lf.liteqtl_lod_cuda(*ops, general=general)
         torch.cuda.synchronize()
-        ref = liteqtl_lod_plain(*ops)
+        ref = lf.liteqtl_lod_plain(*ops)
+        split_err = (out - lf.liteqtl_split_reference(*ops)).abs().max().item()
         torch.cuda.synchronize()
         bar = KERNEL_BAR * max(1.0, n / 48)
         err = (out - ref).abs().max().item()
-        print(f"  LOD kernel vs plain n={n} p={p} m={m} c={c}: max|dLOD| = {err:.3e} (bar {bar:.2e})")
+        print(f"  LOD kernel ({'general' if general else path}) vs plain n={n} p={p} m={m} c={c}: "
+              f"max|dLOD| = {err:.3e} (bar {bar:.2e}); vs its split reference {split_err:.3e}")
         check(out.shape == (p, m) and bool(torch.isfinite(out).all()), "kernel output not finite")
         check(err <= bar, f"kernel disagrees with its plain version at {(n, p, m, c)}")
+    check(lf.kernel_path(88, 3) == "resident" and lf.kernel_path(89, 1) == "general"
+          and lf.kernel_path(79, 4) == "general",
+          "the resident limits moved: bring the shapes above up to date")
 
 
 def _index_flips(kk, kp) -> int:
@@ -396,10 +419,20 @@ def slice_at_bxd(dev):
     all_cols = torch.ones(M, dtype=torch.bool, device=dev)
     kerr = _max_abs_diff_cols(Lk, Lp, all_cols)
     same_as_scan = _max_abs_diff_cols(Lk, res.L, all_cols)
-    print(f"  kernel vs plain at BXD scale: max|dLOD| = {kerr:.3e} (bar {KERNEL_BAR:.0e}); "
+    path = lf.kernel_path(N, C0.shape[1])
+    print(f"  kernel ({path}) vs plain at BXD scale: max|dLOD| = {kerr:.3e} (bar {KERNEL_BAR:.0e}); "
           f"kernel vs the scan's L: {same_as_scan:.3e}")
+    check(path == "resident", "the main path's shape does not take the resident kernel")
     check(kerr <= KERNEL_BAR, "kernel disagrees with its plain version at BXD scale")
-    del Lp
+    Lg = lf.liteqtl_lod_cuda(*ops, general=True)
+    gerr = _max_abs_diff_cols(Lg, Lp, all_cols)
+    del Lg
+    Ls = lf.liteqtl_split_reference(*ops)
+    serr = _max_abs_diff_cols(Lk, Ls, all_cols)
+    print(f"  at BXD scale, reported: kernel vs its split reference {serr:.3e}; "
+          f"general kernel vs plain {gerr:.3e} (bar {KERNEL_BAR:.0e})")
+    check(gerr <= KERNEL_BAR, "the general kernel disagrees with the plain version at BXD scale")
+    del Lp, Ls
 
     exact = bt.bulkscan(Yd, Gd, K, precision=bt.EXACT64)
     torch.cuda.synchronize()
@@ -498,6 +531,7 @@ def times(card, Yd, Gd, K, lod_ops, alt_ops):
     runs = {
         "BALANCED null-grid bulkscan": lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED).L,
         "LOD kernel alone": lambda: lf.liteqtl_lod_cuda(*lod_ops),
+        "LOD general kernel alone": lambda: lf.liteqtl_lod_cuda(*lod_ops, general=True),
         "LOD plain version": lambda: lf.liteqtl_lod_plain(*lod_ops),
         "BALANCED alt-grid bulkscan": lambda: bt.bulkscan(
             Yd, Gd, K, method="alt-grid", precision=bt.BALANCED).L,
@@ -519,6 +553,17 @@ def times(card, Yd, Gd, K, lod_ops, alt_ops):
     flops = 2.0 * N * P * M * len(GRID)
     print(f"  alt-grid kernel: {flops / med['alt-grid kernel alone'] / 1e9:.1f} TFLOP/s "
           f"({flops:.3e} flops)")
+    # the LOD step with more covariate columns, random operands at the same shape
+    rng = np.random.default_rng(8)
+    for c in (2, 3, 4):
+        ops = lf.prepare_inputs(*_kernel_inputs(N, P, M, c, rng, Yd.device))
+        fns = {lf.kernel_path(N, c): lambda: lf.liteqtl_lod_cuda(*ops),
+               "general": lambda: lf.liteqtl_lod_cuda(*ops, general=True)}
+        for fn in fns.values():
+            _time_ms(fn)
+        took = {name: statistics.median(_time_ms(fn) for _ in range(5)) for name, fn in fns.items()}
+        print(f"    LOD kernel alone, c = {c}: "
+              + ", ".join(f"{name} {t:.3f} ms" for name, t in took.items()))
     return med
 
 
@@ -752,6 +797,7 @@ def main() -> None:
         "max_abs_err": lod_err,
         "ms": med["LOD kernel alone"],
         "plain_ms": med["LOD plain version"],
+        "general_kernel_ms": med["LOD general kernel alone"],
         "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
@@ -779,6 +825,7 @@ def main() -> None:
         k.update(k.pop("bound"))
         k["library_ms"] = None  # no single PyTorch call computes this function
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
+        k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
         share = 100 * k["bound_ms"] / k["ms"]
         print(f"  {k['name']}: {k['ms']:.3f} ms per launch, bound {k['bound_ms']:.3f} ms by "
               f"{k['bound_unit']} ({k['simt_bound_ms']:.3f} ms on the CUDA cores; the kernel runs "

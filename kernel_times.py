@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times of the bulk-permutation and alt-grid CUDA kernels of several
+"""Times of the LOD, bulk-permutation and alt-grid CUDA kernels of several
 checkouts of this repository, in turns on one card.
 
     python3 kernel_times.py --trees build/parent . . build/parent
@@ -9,9 +9,10 @@ Each tree is a checkout that holds ``bulklmm_tpu_torch/`` and
 build/parent``). For every tree in the order given, a fresh process imports
 the port from that tree, builds its kernels, prepares the operands of the
 main path at BXD scale with the tree's own preparation (79 samples x 7,321
-markers x 35,554 traits, seed 2026: the first 1,024-trait block x 1,001
-columns for the permutation kernel, the default 10-point grid for the
-alt-grid kernel), and times each kernel's wrapper alone: the median of 5
+markers x 35,554 traits, seed 2026: the BALANCED null-grid scan's own h2
+for the LOD kernel, the first 1,024-trait block x 1,001 columns for the
+permutation kernel, the default 10-point grid for the alt-grid kernel), and
+times each kernel's wrapper alone: the median of 5
 launches by CUDA events after one warm-up. The same tree named twice shows
 the spread. Prints the card's name and power limit and one line per run.
 Needs a CUDA device.
@@ -34,6 +35,7 @@ def time_tree(tree: Path) -> dict:
     import chip_smoke as cs
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
     from bulklmm_tpu_torch.models import bulkperm as mp
     from bulklmm_tpu_torch.ops.bulkperm import permutation_indices
     from bulklmm_tpu_torch.utils.config import with_highest_matmul
@@ -45,7 +47,10 @@ def time_tree(tree: Path) -> dict:
     G, K, Y = cs.synth_bxd()
     Gd, Yd = torch.from_numpy(G).to(dev), torch.from_numpy(Y).to(dev)
     grid = torch.as_tensor(cs.GRID, dtype=torch.float64, device=dev)
-    alt_ops = af.prepare_inputs(*cs._rotated_bxd(K, Yd, Gd, dev), grid, prior=cs.PRIOR)
+    rotated = cs._rotated_bxd(K, Yd, Gd, dev)
+    alt_ops = af.prepare_inputs(*rotated, grid, prior=cs.PRIOR)
+    h2 = bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED).h2_null_list
+    lod_ops = lf.prepare_inputs(*rotated, h2)
     dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
     ones = torch.ones((cs.N, 1), dtype=torch.float64, device=dev)
     with with_highest_matmul():
@@ -62,6 +67,7 @@ def time_tree(tree: Path) -> dict:
 
     return {
         "tree": str(tree),
+        "lod_ms": median_ms(lambda: lf.liteqtl_lod_cuda(*lod_ops)),
         "bulkperm_ms": median_ms(lambda: bf.bulkperm_maxr2_cuda(*perm_ops)),
         "altgrid_ms": median_ms(lambda: af.altgrid_cuda(*alt_ops)),
     }
@@ -85,8 +91,8 @@ def main() -> None:
         if run.returncode:
             raise SystemExit(f"{tree}: exit {run.returncode}\n{run.stderr[-3000:]}")
         res = json.loads(run.stdout.strip().splitlines()[-1])
-        print(f"{res['tree']:>16s}: permutation kernel {res['bulkperm_ms']:.3f} ms a launch, "
-              f"alt-grid kernel {res['altgrid_ms']:.3f} ms")
+        print(f"{res['tree']:>16s}: LOD kernel {res['lod_ms']:.3f} ms a launch, permutation kernel "
+              f"{res['bulkperm_ms']:.3f} ms, alt-grid kernel {res['altgrid_ms']:.3f} ms")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""The per-trait LOD step: the CUDA kernel's plain version and the plain
-``lods_per_trait`` against the JAX package, on CPU.
+"""The per-trait LOD step: the CUDA kernels' plain version, their split
+reference and the plain ``lods_per_trait`` against the JAX package, on CPU.
 
 Mirrors tests/test_pallas_fused.py: the same generator, shapes and 5e-5 bar
 (float32 products summed in different orders, scaled by n/2 in the LOD).
-The CUDA kernel itself runs only on the card, where chip_smoke.py holds it
-against the same plain version.
+The CUDA kernels themselves run only on the card, where chip_smoke.py holds
+them against the same plain version and split reference; the rule that
+picks the kernel from (n, c) and the operands' layout are held here.
 """
 
 import jax.numpy as jnp
@@ -85,17 +86,104 @@ def test_zero_marker_column_gives_zero_lod():
     assert _maxdiff(ref, jax_lods_per_trait(*jargs, precision=jcfg.FAST32)) < KERNEL_BAR
 
 
-def test_prepare_inputs_layout():
+@pytest.mark.parametrize("p, row", [(9, 12), (12, 12), (7321, 7324)])
+def test_prepare_inputs_layout(p, row):
     """The scalar block's rows are the packed factor, zeta and inv_nrm2;
-    every operand is float32 and contiguous, as the kernel's checks want."""
-    n, p, m, c = 20, 9, 11, 3
+    every operand is float32 and contiguous, as the kernel's checks want, but
+    X where p is no multiple of 4: its rows are then ``row`` floats apart,
+    zero-padded, so that each starts at a multiple of 16 bytes."""
+    n, m, c = 20, 11, 3
     _, targs = _both(_mk(n, p, m, c, dtype=np.float64))
     X, C, W, WY, scal = lf.prepare_inputs(*targs)
     assert [t.shape for t in (X, C, W, WY, scal)] == [
         (n, p), (n, c), (n, m), (n, m), (lf.scalar_rows(c), m)
     ]
-    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in (X, C, W, WY, scal))
+    assert all(t.dtype == torch.float32 for t in (X, C, W, WY, scal))
+    assert all(t.is_contiguous() for t in (C, W, WY, scal))
+    assert X.stride() == (row, 1) and X.data_ptr() % 16 == 0
+    assert torch.equal(X, targs[1].float())
+    if row > p:  # the padding behind every row is zeros
+        whole = torch.as_strided(X, (n, row), (row, 1))
+        assert bool((whole[:, p:] == 0).all())
     assert lf.scalar_rows(c) == 10
+
+
+def test_plain_version_takes_the_padded_view():
+    """The padded layout of X does not show in the result."""
+    _, targs = _both(_mk(20, 9, 11, 2))
+    ops = lf.prepare_inputs(*targs)
+    assert not ops[0].is_contiguous()
+    packed = (ops[0].contiguous(), *ops[1:])
+    assert torch.equal(lf.liteqtl_lod_plain(*ops), lf.liteqtl_lod_plain(*packed))
+    assert torch.equal(lf.liteqtl_split_reference(*ops), lf.liteqtl_split_reference(*packed))
+
+
+SPLIT_SHAPES = [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1),
+                (79, 96, 64, 1), (80, 96, 64, 2)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_reference_matches_plain(shape):
+    """The resident kernel's arithmetic (X, X * X and X * C_k rounded to
+    float32, then three TF32 passes) against exact float32 products: 5e-5
+    in LOD."""
+    n, p, m, c = shape
+    _, targs = _both(_mk(n, p, m, c))
+    ops = lf.prepare_inputs(*targs)
+    out = lf.liteqtl_split_reference(*ops)
+    assert out.shape == (p, m) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    assert float((out - lf.liteqtl_lod_plain(*ops)).abs().max()) < KERNEL_BAR
+    assert lf.launches == 0
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_reference_matches_jax(shape):
+    """The same arithmetic against the Pallas kernel (interpret mode) and
+    the XLA FAST32 path on the same numpy inputs: 5e-5 in LOD."""
+    n, p, m, c = shape
+    jargs, targs = _both(_mk(n, p, m, c))
+    out = lf.liteqtl_split_reference(*lf.prepare_inputs(*targs))
+    pallas = jax_fused(*jargs, tile_p=32, tile_m=32, interpret=True)
+    xla = jax_lods_per_trait(*jargs, precision=jcfg.FAST32)
+    assert _maxdiff(out, pallas) < KERNEL_BAR
+    assert _maxdiff(out, xla) < KERNEL_BAR
+
+
+def test_split_reference_zero_marker_column_gives_zero_lod():
+    args = _mk(p=40, m=30, c=2)
+    args[1][:, 7] = 0.0
+    _, targs = _both(args)
+    out = lf.liteqtl_split_reference(*lf.prepare_inputs(*targs))
+    assert bool(torch.isfinite(out).all()) and torch.all(out[7] == 0)
+
+
+@pytest.mark.parametrize("n", [1, 79, 80, 88, 89, 2000])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+def test_kernel_path_by_samples_and_covariates(n, c):
+    """The resident kernel takes n <= 88 (11 depth steps of 8) with at most
+    3 covariate columns ((c + 2) accumulator sets of 32 registers); every
+    other shape takes the general kernel."""
+    want = "resident" if n <= 88 and c <= 3 else "general"
+    assert lf.kernel_path(n, c) == want
+    if want == "resident":
+        assert lf.resident_shared_bytes(n, c) <= lf.SHARED_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("n, steps", [(1, 2), (8, 2), (17, 4), (48, 6), (49, 8), (72, 10), (79, 10),
+                                      (80, 10), (81, 11), (88, 11), (89, 12), (2000, 250)])
+def test_resident_steps(n, steps):
+    assert lf.resident_steps(n) == steps
+
+
+def test_resident_shared_bytes_at_the_main_path_shape():
+    # n = 79, c = 1: four 80 x 64 operand tiles, for each of two warpgroups two
+    # stages of 80 x 72 and a finished tile of 64 x 68, 80 covariate values and
+    # three rows of scalars
+    want = 4 * (4 * 80 * 64 + 2 * (2 * 80 * 72 + 64 * 68) + 80 + 3 * 64)
+    assert lf.resident_shared_bytes(79, 1) == want == 209_984
+    assert want <= 227 * 1024 == lf.SHARED_LIMIT_BYTES
+    assert lf.resident_shared_bytes(88, 3) <= lf.SHARED_LIMIT_BYTES
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -103,4 +191,9 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     ops = lf.prepare_inputs(*targs)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lf.liteqtl_lod_cuda(*ops)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        lf.liteqtl_lod_cuda(*ops, general=True)
+    assert lf.launches == 0
+    # the dispatching entry takes the plain version for them
+    assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
     assert lf.launches == 0

@@ -1,5 +1,5 @@
 """The 3 x TF32 split product on the CPU: ``bulklmm_tpu_torch/kernels/split.py``
-(the plain-torch twin of ``csrc/mma_tf32x3.cuh``) and the two split
+(the plain-torch twin of ``csrc/mma_tf32x3.cuh``) and the three split
 references that repeat the CUDA kernels' arithmetic.
 
 The CUDA kernels themselves run only on the card, where chip_smoke.py holds
@@ -21,6 +21,7 @@ from bulklmm_tpu.pallas.altgrid_fused import fused_alt_grid as jax_fused_alt_gri
 import bulklmm_tpu_torch as bt
 from bulklmm_tpu_torch.kernels import altgrid_fused as af
 from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 from bulklmm_tpu_torch.kernels import split
 from bulklmm_tpu_torch.ops import bulkperm as tops
 
@@ -245,6 +246,54 @@ def test_altgrid_split_reference_single_grid_point(alt_rotated):
     L, k = af.altgrid_split_reference(*ops)
     assert bool((k == 0).all())
     assert float((L - af.altgrid_plain(*ops)[0]).abs().max()) < 5e-5
+
+
+# --- the LOD kernel's split reference -----------------------------------------------------
+
+
+def _lod_operands(n, p, m, c, seed=5):
+    """The LOD kernel's operands from genotype-like markers (uniform on
+    [0, 1], so that with the intercept D = D1 - sum Z^2 cancels to about a
+    quarter of D1, the case that enlarges the products' error)."""
+    rng = np.random.default_rng(seed + n + c)
+    Y0 = rng.normal(size=(n, m))
+    X0m = rng.uniform(0.0, 1.0, size=(n, p))
+    C0 = np.column_stack([np.ones(n)] + [rng.normal(size=n) for _ in range(c - 1)])
+    lam = rng.uniform(0.1, 2.0, n)
+    h2 = rng.uniform(0.0, 0.9, m)
+    return lf.prepare_inputs(*[torch.from_numpy(a.astype(np.float32)) for a in (Y0, X0m, C0, lam, h2)])
+
+
+@pytest.mark.parametrize("n", [79, 80])
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_liteqtl_split_reference_under_cancellation(n, c):
+    """Three TF32 passes stay within 5e-5 in LOD of exact float32 where D
+    cancels; the leading pass alone misses that bar by more than 10 x, so
+    the bar has force."""
+    ops = _lod_operands(n, 70, 45, c)
+    plain = lf.liteqtl_lod_plain(*ops)
+    D1 = (ops[0] * ops[0]).T @ ops[2]
+    assert float(D1.min()) > 0
+    assert float((lf.liteqtl_split_reference(*ops) - plain).abs().max()) < 5e-5
+    one_pass = lf._lod_with_product(*ops, split.matmul_tf32x1)
+    assert float((one_pass - plain).abs().max()) > 10 * 5e-5
+    assert lf.launches == 0
+
+
+def test_liteqtl_split_reference_rounds_the_forms_first():
+    """X * X and X * C_k are rounded to float32 before they are split: the
+    reference's D1 is the split product of the rounded squares."""
+    X, C, W, WY, scal = _lod_operands(48, 16, 8, 2)
+    seen = []
+
+    def product(A, B):
+        seen.append(A)
+        return split.matmul_tf32x3(A, B)
+
+    lf._lod_with_product(X, C, W, WY, scal, product)
+    assert len(seen) == 4
+    assert torch.equal(seen[0], X.T) and torch.equal(seen[1], (X * X).T)
+    assert torch.equal(seen[3], (X * C[:, 1:2]).T)
 
 
 # --- the path rule and the padding helper ----------------------------------------------
