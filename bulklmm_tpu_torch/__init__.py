@@ -7,32 +7,59 @@ hand-written CUDA kernel (``csrc/liteqtl_fused.cu``) on CUDA tensors, and
 alt-grid, whose scan over the h2 grid is another
 (``csrc/altgrid_fused.cu``). ``bulkscan_perms`` gives every trait's
 genome-wide permutation maxima through a third (``csrc/bulkperm_fused.cu``),
-and ``get_thresholds_bulk`` their family-wise thresholds. Inputs and outputs
-keep the JAX package's layouts: Y (n, m), G (n, p), L (p, m).
+and ``get_thresholds_bulk`` their family-wise thresholds. The single-trait
+``scan`` (null and alt assumptions, permutations, effects, the profile
+likelihood) and ``scan_perms_lite`` run on plain torch products, as they do
+in the JAX package. Inputs and outputs keep the JAX package's layouts:
+Y (n, m), G (n, p), L (p, m).
 
 Entry points run on the current CUDA device when their inputs are numpy
 arrays and on a tensor input's device otherwise; ``device="cpu"`` asks for
 the CPU, where every kernel's plain PyTorch version runs instead.
 """
 
-from .analysis import Thresholds, get_thresholds, get_thresholds_bulk
+from .analysis import (
+    ProfileLL,
+    Thresholds,
+    bh_adjust,
+    getLL,
+    get_thresholds,
+    get_thresholds_bulk,
+    lod_fdr,
+    profile_LL,
+)
 from .models import (
     BulkPermResult,
     BulkScanResult,
+    ScanResult,
     bulkscan,
     bulkscan_alt_grid,
     bulkscan_null,
     bulkscan_null_grid,
     bulkscan_perms,
+    scan,
+    scan_perms_lite,
 )
 from .ops import (
     KinshipDecomposition,
     calc_kinship,
     decompose_kinship,
     decomposition_from_numpy,
+    fit_lmm,
+    gridbrent,
     lod2log10p,
+    lod2p,
+    make_weights,
+    p2lod,
+    r2lod,
+    resid,
+    rss,
+    transform_permute,
+    transform_reweight,
     transform_rotation,
+    wls_multivar,
 )
+from .ops.wls import wls
 from .utils.config import (
     BALANCED,
     DEFAULT_PRECISION,
@@ -41,6 +68,7 @@ from .utils.config import (
     MIXED,
     THROUGHPUT,
     PrecisionConfig,
+    enable_x64,
     precision_by_name,
 )
 
@@ -56,8 +84,12 @@ __all__ = [
     "KinshipDecomposition",
     "MIXED",
     "PrecisionConfig",
+    "ProfileLL",
+    "ScanResult",
     "THROUGHPUT",
     "Thresholds",
+    "__version__",
+    "bh_adjust",
     "bulkscan",
     "bulkscan_alt_grid",
     "bulkscan_null",
@@ -66,9 +98,27 @@ __all__ = [
     "calc_kinship",
     "decompose_kinship",
     "decomposition_from_numpy",
+    "enable_x64",
+    "fit_lmm",
+    "getLL",
     "get_thresholds",
     "get_thresholds_bulk",
+    "gridbrent",
     "lod2log10p",
+    "lod2p",
+    "lod_fdr",
+    "make_weights",
+    "p2lod",
     "precision_by_name",
+    "profile_LL",
+    "r2lod",
+    "resid",
+    "rss",
+    "scan",
+    "scan_perms_lite",
+    "transform_permute",
+    "transform_reweight",
     "transform_rotation",
+    "wls",
+    "wls_multivar",
 ]

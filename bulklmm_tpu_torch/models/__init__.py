@@ -1,13 +1,17 @@
 from .bulkperm import BulkPermResult, bulkscan_perms
 from .bulkscan import bulkscan, bulkscan_alt_grid, bulkscan_null, bulkscan_null_grid
-from .results import BulkScanResult
+from .results import BulkScanResult, ScanResult
+from .scan import scan, scan_perms_lite
 
 __all__ = [
     "BulkPermResult",
     "BulkScanResult",
+    "ScanResult",
     "bulkscan",
     "bulkscan_alt_grid",
     "bulkscan_null",
     "bulkscan_null_grid",
     "bulkscan_perms",
+    "scan",
+    "scan_perms_lite",
 ]

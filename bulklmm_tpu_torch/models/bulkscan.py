@@ -52,9 +52,8 @@ from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matm
 from ..utils.device import resolve_device
 from .missing import _ncov_total, finite_flag, raise_if_missing, validate_missing_kwarg
 from .results import BulkScanResult
-from .scan import _apply_weights
+from .scan import _TODO, _apply_weights, refuse_lowrank
 
-_TODO = 'not ported to bulklmm_tpu_torch yet (ROADMAP.md "Still to port" item {})'
 _LN10 = math.log(10.0)
 
 
@@ -249,8 +248,7 @@ def _refuse_unported(*, missing, K, output_effects):
         raise NotImplementedError("output_effects=True is " + _TODO.format(1))
     if missing != "error":
         raise NotImplementedError(f"missing={missing!r} is " + _TODO.format(3))
-    if hasattr(K, "U") and hasattr(K, "lam"):
-        raise NotImplementedError("a LowRankKinship is " + _TODO.format(4))
+    refuse_lowrank(K)
 
 
 def _altgrid_uses_kernel(engine: str, precision: PrecisionConfig, device) -> bool:

@@ -1,7 +1,8 @@
-"""Result container of the multi-trait scan.
+"""Result containers of the single-trait and multi-trait scans.
 
-Counterpart of ``bulklmm_tpu/models/results.py::BulkScanResult``; field
-names mirror the reference's returned named tuples (src/bulkscan.jl:62-84).
+Counterpart of ``bulklmm_tpu/models/results.py``; field names mirror the
+reference's returned named tuples (src/scan.jl:162-193,
+src/bulkscan.jl:62-84).
 """
 
 from __future__ import annotations
@@ -10,6 +11,26 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass
+class ScanResult:
+    """Single-trait scan output (null or alt assumption); tensors on the
+    scan's device, ``sigma2_e`` and ``h2_null`` 0-d."""
+
+    sigma2_e: torch.Tensor
+    h2_null: torch.Tensor
+    lod: torch.Tensor  # (p,)
+    h2_each_marker: Optional[torch.Tensor] = None  # (p,), alt only
+    L_perms: Optional[torch.Tensor] = None  # (p, nperms), permutation test only
+    beta: Optional[torch.Tensor] = None  # (p,) GLS marker effects, output_effects only
+    beta_se: Optional[torch.Tensor] = None  # (p,) Wald standard errors
+    log10pvals: Optional[torch.Tensor] = None  # (p,), float64
+    log10Pvals_perms: Optional[torch.Tensor] = None  # (p, nperms), float64
+    ll_list_null: Optional[torch.Tensor] = None  # profile-likelihood grid values
+    ll_list_alt: Optional[torch.Tensor] = None
+    h2_null_by_chrom: Optional[dict] = None  # LOCO scans (not ported yet)
+    sigma2_by_chrom: Optional[dict] = None
 
 
 @dataclasses.dataclass

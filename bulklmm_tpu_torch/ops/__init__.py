@@ -9,6 +9,7 @@ from .bulkperm import (
     perm_trait_parts,
     permutation_indices,
 )
+from .hostfit import HostFit, fit_lmm_host
 from .kinship import calc_kinship
 from .liteqtl import (
     lods_per_trait,
@@ -16,15 +17,19 @@ from .liteqtl import (
     weighted_correlation_per_trait,
     weighted_correlation_shared,
 )
-from .lmm import LMMResult, fit_h2_traits, fit_lmm, fit_lmm_traits
+from .lmm import LMMResult, fit_h2_markers, fit_h2_traits, fit_lmm, fit_lmm_traits
 from .lod import lod2log10p, lod2p, p2lod, r2lod
 from .rotation import (
     KinshipDecomposition,
+    ReweightedData,
     RotatedData,
     decompose_kinship,
     decomposition_from_numpy,
     kinship_eigen,
     resolve_kinship,
+    resolve_kinship_with_host,
+    transform_permute,
+    transform_reweight,
     transform_rotation,
 )
 from .smallchol import (
@@ -35,24 +40,40 @@ from .smallchol import (
     residual_sq,
     unrolled_cholesky,
 )
-from .stats import check_covar_full_rank
+from .stats import (
+    check_covar_full_rank,
+    col_center,
+    col_divide,
+    col_standardize,
+    row_center,
+    row_divide,
+    row_multiply,
+    shuffle_vector,
+)
 from .weights import make_weights
 # ``wls`` the function stays in ``ops.wls``: the name here is the module
-from .wls import WLSResult, wls_ell, wls_ell_columns
+from .wls import WLSResult, resid, rss, wls_ell, wls_ell_columns, wls_ell_markers, wls_multivar
 
 __all__ = [
+    "HostFit",
     "KinshipDecomposition",
     "LMMResult",
+    "ReweightedData",
     "RotatedData",
     "WLSResult",
     "brent_min",
     "calc_kinship",
     "cancel_keep_mask",
     "check_covar_full_rank",
+    "col_center",
+    "col_divide",
+    "col_standardize",
     "decompose_kinship",
     "decomposition_from_numpy",
+    "fit_h2_markers",
     "fit_h2_traits",
     "fit_lmm",
+    "fit_lmm_host",
     "fit_lmm_traits",
     "fwd_subst",
     "gridbrent",
@@ -71,13 +92,24 @@ __all__ = [
     "perm_trait_parts",
     "permutation_indices",
     "r2lod",
+    "resid",
     "residual_keep_mask",
     "residual_sq",
     "resolve_kinship",
+    "resolve_kinship_with_host",
+    "row_center",
+    "row_divide",
+    "row_multiply",
+    "rss",
+    "shuffle_vector",
+    "transform_permute",
+    "transform_reweight",
     "transform_rotation",
     "unrolled_cholesky",
     "weighted_correlation_per_trait",
     "weighted_correlation_shared",
     "wls_ell",
     "wls_ell_columns",
+    "wls_ell_markers",
+    "wls_multivar",
 ]

@@ -52,17 +52,21 @@ def _n_columns(nperms: int, original: bool) -> int:
     return nperms + int(bool(original))
 
 
-def permutation_indices(n: int, nperms: int, rndseed: int, *, original: bool = True):
+def permutation_indices(n: int, nperms: int, rndseed, *, original: bool = True):
     """(K, n) int64 shuffle indices on the CPU, K = nperms (+1 identity row
     first when ``original=True``); row k is applied as ``x[idx[k]]``.
 
     One ``torch.randperm`` per row from a CPU ``torch.Generator`` seeded
-    with ``rndseed``: deterministic in the seed and independent of the
-    device the scan runs on.
+    with ``rndseed`` (or ``rndseed`` itself when it is such a generator,
+    which the draws then advance): deterministic in the seed and
+    independent of the device the scan runs on.
     """
     _n_columns(nperms, original)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(rndseed))
+    if isinstance(rndseed, torch.Generator):
+        gen = rndseed
+    else:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(rndseed))
     rows = [torch.arange(n)] if original else []
     rows += [torch.randperm(n, generator=gen) for _ in range(nperms)]
     return torch.stack(rows)

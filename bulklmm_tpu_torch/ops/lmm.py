@@ -11,6 +11,10 @@ weighted model over h2 in [max(h20 - d, 0), min(h20 + d, 1)] by
   formed.
 - :func:`fit_lmm_traits`: that fit plus the WLS refit, per trait.
 - :func:`fit_lmm`: one trait, as in the JAX package.
+- :func:`fit_h2_markers`: the marker-axis twin of :func:`fit_h2_traits`:
+  one trait, each marker's design ``[C, x_j]`` at its own h2
+  (``wls_ell_markers``), the counterpart of ``vmap(fit_lmm)`` over markers
+  in the single-trait alt scan.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from .brent import gridbrent
 from .weights import make_weights
-from .wls import wls, wls_ell_columns
+from .wls import wls, wls_ell_columns, wls_ell_markers
 
 
 class LMMResult(NamedTuple):
@@ -58,6 +62,37 @@ def fit_h2_traits(
         batch_shape=(Y0.shape[1],), dtype=lam.dtype, device=lam.device,
     )
     return h2
+
+
+def fit_h2_markers(
+    y0,
+    C0,
+    X0m,
+    lam,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+    optim_interval: int = 1,
+    h20: float = 0.5,
+    d: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h2, ell), each (p,): marker j's h2 maximizing the (RE)ML likelihood
+    of the design ``[C0, x_j]``, and that likelihood at it.
+
+    y0: (n,) or (n, 1) rotated trait; C0: (n, c) rotated covariates; X0m:
+    (n, p) rotated markers; lam: (n,). One batched Brent over (p,
+    optim_interval + 1) lanes; ell is the objective's own value at the
+    optimum (the unrolled Cholesky), not a QR refit.
+    """
+
+    def neg_ll(h2):  # (p, L) -> (p, L)
+        return -wls_ell_markers(y0, C0, X0m, make_weights(h2, lam), prior, reml=reml)[0]
+
+    fmin, h2 = gridbrent(
+        neg_ll, max(h20 - d, 0.0), min(h20 + d, 1.0), optim_interval,
+        batch_shape=(X0m.shape[1],), dtype=lam.dtype, device=lam.device,
+    )
+    return h2, -fmin
 
 
 def fit_lmm_traits(

@@ -1,11 +1,17 @@
 """FaST-LMM decorrelation: kinship eigendecomposition and rotation.
 
-Counterpart of the rotation half of ``bulklmm_tpu/ops/rotation.py``
-(reference src/transform_helpers.jl:1-55). The O(n^3) symmetric
-eigendecomposition runs on the host in float64 LAPACK, so on the same K
-its factors are those of the JAX package exactly; the O(n^2 (p + c + m))
-rotation products run on the tensors' device. ``transform_reweight`` and
-``transform_permute`` belong to the single-trait engines and wait.
+Counterpart of ``bulklmm_tpu/ops/rotation.py`` (reference
+src/transform_helpers.jl):
+
+- ``transform_rotation`` (:1-55): the O(n^3) symmetric eigendecomposition
+  runs on the host in float64 LAPACK, so on the same K its factors are those
+  of the JAX package exactly; the O(n^2 (p + c + m)) rotation products run
+  on the tensors' device.
+- ``transform_reweight`` (:57-92): fit the null model on the covariates,
+  residualize, sqrt-weight, project the covariates out of the markers.
+- ``transform_permute`` (:94-102): shuffles of the weighted null residual,
+  iid under the null; the indices of ``ops/bulkperm.py::
+  permutation_indices`` or the caller's ``perm_idx``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,10 @@ import torch
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
 from ..utils.host import to_numpy
+from .bulkperm import check_permutation_indices
+from .stats import shuffle_vector
+from .weights import make_weights
+from .wls import resid
 
 
 class RotatedData(NamedTuple):
@@ -97,10 +107,31 @@ def resolve_kinship(K, decomp_scheme: str, dtype, device) -> Tuple[torch.Tensor,
     :class:`KinshipDecomposition`."""
     if isinstance(K, KinshipDecomposition):
         return K.Ut.to(device=device, dtype=dtype), K.lam.to(device=device, dtype=dtype)
-    Ut, lam = kinship_eigen(K, decomp_scheme)
+    return resolve_kinship_with_host(K, decomp_scheme, dtype, device)[:2]
+
+
+def host_factors(dec: KinshipDecomposition) -> Tuple[np.ndarray, np.ndarray]:
+    """A decomposition's host float64 ``(Ut, lam)``: the untruncated LAPACK
+    factors where it keeps them, else its device factors fetched."""
+    Ut_h = dec.Ut_host if dec.Ut_host is not None else to_numpy(dec.Ut, np.float64)
+    lam_h = dec.lam_host if dec.lam_host is not None else to_numpy(dec.lam, np.float64)
+    return Ut_h, lam_h
+
+
+def resolve_kinship_with_host(K, decomp_scheme: str, dtype, device):
+    """``(Ut, lam, Ut_host, lam_host)``: :func:`resolve_kinship`'s device
+    factors and the host float64 pair that feeds the host null fit
+    (``ops/hostfit.py``). A decomposition without host factors has its
+    device factors fetched once, here, before any product is queued."""
+    if isinstance(K, KinshipDecomposition):
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
+        return (Ut, lam) + host_factors(K)
+    Ut_h, lam_h = kinship_eigen(K, decomp_scheme)
     return (
-        torch.as_tensor(Ut, dtype=dtype, device=device),
-        torch.as_tensor(lam, dtype=dtype, device=device),
+        torch.as_tensor(Ut_h, dtype=dtype, device=device),
+        torch.as_tensor(lam_h, dtype=dtype, device=device),
+        Ut_h,
+        lam_h,
     )
 
 
@@ -135,3 +166,74 @@ def transform_rotation(
     X = torch.cat([torch.ones((n, 1), dtype=dtype, device=device), g], 1) if add_intercept else g
     Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
     return RotatedData(y0=Ut @ y2, X0=Ut @ X, lam=lam)
+
+
+class ReweightedData(NamedTuple):
+    r0: torch.Tensor  # (n, 1) weighted null residuals
+    X00: torch.Tensor  # (n, p) weighted markers with the covariates projected out
+    sigma2_e: torch.Tensor
+    h2_null: torch.Tensor
+
+
+@with_highest_matmul()
+def transform_reweight(
+    y0,
+    X0,
+    lam,
+    *,
+    n_covars: int = 1,
+    prior_a: float = 0.0,
+    prior_b: float = 0.0,
+    reml: bool = False,
+    method: str = "qr",
+    optim_interval: int = 1,
+) -> ReweightedData:
+    """Null-model fit -> residualize -> sqrt-weight -> project out the
+    covariates (reference transform_reweight, src/transform_helpers.jl:57-92).
+
+    ``y0`` (n,) or (n, 1) and ``X0`` (n, n_covars + p) are rotated tensors,
+    the covariates first; the null h2 comes from the device Brent
+    (``ops/lmm.py::fit_lmm``).
+    """
+    from .lmm import fit_lmm
+
+    if y0.ndim == 2 and y0.shape[1] != 1:
+        raise ValueError(
+            "transform_reweight is single-trait (the null h2 fit applies "
+            f"to one trait); got {y0.shape[1]} trait columns. Reweight one "
+            "column at a time, or use bulkscan/bulkscan_perms."
+        )
+    y0 = y0[:, None] if y0.ndim == 1 else y0
+    X0_cov = X0[:, :n_covars]
+    vc = fit_lmm(
+        y0, X0_cov, lam, (prior_a, prior_b),
+        reml=reml, method=method, optim_interval=optim_interval,
+    )
+    r0 = y0 - X0_cov @ vc.b
+    # abs guard: the reference's sqrt.(abs.(makeweights(...))) for slightly
+    # negative kinship eigenvalues (src/bulkscan_helpers.jl:138)
+    sqrtw = torch.sqrt(make_weights(vc.h2, lam).abs())
+    w_X0 = X0 * sqrtw[:, None]
+    X00 = resid(w_X0[:, n_covars:], w_X0[:, :n_covars], method=method)
+    return ReweightedData(r0=r0 * sqrtw[:, None], X00=X00, sigma2_e=vc.sigma2, h2_null=vc.h2)
+
+
+def transform_permute(
+    r0, *, nperms: int = 1024, rndseed=0, original: bool = True, perm_idx=None
+) -> torch.Tensor:
+    """(n, nperms [+1]) shuffles of the weighted residual ``r0`` (n,) or
+    (n, 1); column 0 is ``r0`` itself when ``original=True`` (reference
+    transform_permute, src/transform_helpers.jl:94-102).
+
+    The shuffles are :func:`~bulklmm_tpu_torch.ops.stats.shuffle_vector`'s
+    under ``rndseed``: deterministic, but not the JAX package's threefry
+    stream, so parity with it under a seed alone is distributional.
+    ``perm_idx`` ((K, n) integers, each row a permutation, the identity
+    first when ``original``) gives the shuffles instead, such as the JAX
+    package's ``ops.bulkperm.permutation_indices(n, nperms, rndseed)``.
+    """
+    col = r0[:, 0] if r0.ndim == 2 else r0
+    if perm_idx is not None:
+        idx = check_permutation_indices(perm_idx, col.shape[0], nperms, original=original)
+        return col[idx.to(col.device)].T
+    return shuffle_vector(rndseed, col, nperms, original=original)

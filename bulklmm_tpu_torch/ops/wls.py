@@ -10,11 +10,15 @@ formulas (2) and (3) of Kang 2008):
   reml:  ell += 1/2 [ p log sigma2 - logdet(X^T W X) ]
 
 - :func:`wls`: coefficients by QR or normal equations (Cholesky);
+- :func:`wls_multivar`: :func:`wls` with a matrix ``y`` (the reference's
+  per-column loop, src/wls.jl:103-180, is one solve here);
 - :func:`wls_ell` and :func:`wls_ell_columns`: the likelihood alone, with no
   linear-algebra primitive (the unrolled covariate Cholesky), for a shared
-  weight vector or a batch of them, and for one weight vector per column.
-
-``wls_multivar``, ``resid`` and ``rss`` wait for the engines that use them.
+  weight vector or a batch of them, and for one weight vector per column;
+- :func:`wls_ell_markers`: the likelihood of the design ``[C, x_j]`` for
+  every marker j at once, the objective of the single-trait alt scan;
+- :func:`resid` and :func:`rss`: OLS residuals and their sums of squares
+  (reference src/wls.jl:191-263).
 """
 
 from __future__ import annotations
@@ -167,3 +171,86 @@ def wls_ell_columns(
     rss0 = residual_sq((wy * yt).sum(-1), zeta)
     logdet = _chol_logdet(Lc, p) if reml else None
     return _likelihood(rss0, torch.log(w).sum(-1), logdet, n, p, prior, reml)
+
+
+def wls_multivar(
+    Y: torch.Tensor,
+    X: torch.Tensor,
+    w: torch.Tensor,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+    method: str = "qr",
+) -> WLSResult:
+    """Multi-trait WLS: one shared design, per-column sigma2 and ell; the
+    same computation as :func:`wls` with a matrix ``Y``."""
+    return wls(Y, X, w, prior, reml=reml, method=method)
+
+
+@with_highest_matmul()
+def wls_ell_markers(
+    y: torch.Tensor,
+    C: torch.Tensor,
+    Xm: torch.Tensor,
+    w: torch.Tensor,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ell, sigma2) of the design ``[C, x_j]`` for every marker j at once.
+
+    ``y``: (n,) or (n, 1), one trait; ``C``: (n, c) covariates; ``Xm``:
+    (n, p) markers; ``w``: (p, L, n) or (p, n), marker j's weight vectors
+    in ``w[j]``. Returns (p, L) or (p,). Every entry of the (c+1) x (c+1)
+    weighted Gram and of ``[C, x_j]^T W y`` is a weighted reduction over n,
+    solved with the unrolled Cholesky as in :func:`wls_ell`: no per-marker
+    QR. The torch form of the JAX package's ``vmap(fit_lmm)`` objective
+    over markers.
+    """
+    y = y.reshape(-1)
+    n, c = C.shape
+    W = w if w.ndim == 3 else w[:, None, :]  # (p, L, n)
+    Xt = Xm.T[:, None, :]  # (p, 1, n)
+    pairs = [(k, l) for k in range(c) for l in range(k, c)]
+    CC = torch.stack([C[:, k] * C[:, l] for k, l in pairs] + [C[:, k] * y for k in range(c)]
+                     + [y * y], dim=1)  # (n, npair + c + 1)
+    S = W @ CC  # (p, L, npair + c + 1): the covariate-only reductions
+    WX = W * Xt  # (p, L, n)
+    G = {kl: S[..., i] for i, kl in enumerate(pairs)}
+    xC = WX @ C  # (p, L, c)
+    for k in range(c):
+        G[(k, c)] = xC[..., k]
+    G[(c, c)] = (WX @ Xm.T[:, :, None])[..., 0]  # batched over markers, no (p, L, n) temporary
+    np_ = len(pairs)
+    t = [S[..., np_ + k] for k in range(c)] + [WX @ y]
+    Lc = unrolled_cholesky(G, c + 1)
+    zeta = fwd_subst(Lc, t, c + 1)
+    rss0 = residual_sq(S[..., -1], zeta)
+    logdet = _chol_logdet(Lc, c + 1) if reml else None
+    ell, sigma2 = _likelihood(rss0, torch.log(W).sum(-1), logdet, n, c + 1, prior, reml)
+    if w.ndim == 2:
+        return ell[:, 0], sigma2[:, 0]
+    return ell, sigma2
+
+
+@with_highest_matmul()
+def resid(y: torch.Tensor, X: torch.Tensor, *, method: str = "qr") -> torch.Tensor:
+    """Residuals of ``y`` (n,) or (n, q) after OLS on ``X`` (reference
+    ``resid``, src/wls.jl:221-263)."""
+    y2 = y[:, None] if y.ndim == 1 else y
+    if method == "qr":
+        Q = torch.linalg.qr(X, mode="reduced")[0]
+        out = y2 - Q @ (Q.T @ y2)
+    elif method == "cholesky":
+        out = y2 - X @ torch.linalg.solve(X.T @ X, X.T @ y2)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return out[:, 0] if y.ndim == 1 else out
+
+
+def rss(y: torch.Tensor, X: torch.Tensor, *, method: str = "qr") -> torch.Tensor:
+    """Residual sum of squares per column of ``y`` (reference ``rss``,
+    src/wls.jl:191-218)."""
+    r = resid(y, X, method=method)
+    r2 = r[:, None] if r.ndim == 1 else r
+    return (r2 * r2).sum(0)

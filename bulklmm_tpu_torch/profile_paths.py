@@ -4,13 +4,15 @@
 
 Runs each BALANCED entry point at the BXD shape (79 samples x 7,321 markers x
 35,554 traits, synthetic, seed 2026; ``bulkscan_perms`` with 1,000
-permutations) once to warm up, then ``--calls`` times under
+permutations; the single-trait ``scan``, null and alt, on trait 0) once to
+warm up, then ``--calls`` times under
 ``torch.profiler``, each call followed by a checksum fetch as a user's
 would be, first with the profiler off for the wall time on the host clock.
 Per call it prints that wall time, the time the device was busy (the sum
 of the device kernels' and copies' own times), the idle share, the kernel
-launches and the synchronizing runtime calls, and the device kernels that
-took most of the busy time. Needs a CUDA device; it never runs on the CPU.
+launches and the synchronizing runtime calls, the device kernels that took
+most of the busy time, and the host operators that took most of the host's
+own time. Needs a CUDA device; it never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 N, P, M, NPERMS, SEED = 79, 7321, 35554, 1000, 2026
-PATHS = ("null-grid", "alt-grid", "null-exact", "perms")
+PATHS = ("null-grid", "alt-grid", "null-exact", "perms", "scan-null", "scan-alt")
 
 
 def synth_bxd(n=N, p=P, m=M, seed=SEED):
@@ -74,6 +76,11 @@ def profile_path(name, fn, calls: int, top: int = 8) -> None:
     for e in sorted(on_device, key=_device_us, reverse=True)[:top]:
         ms = _device_us(e) / 1e3 / calls
         print(f"    {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  x{e.count / calls:<7.0f} {e.key[:90]}")
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    print("  host operators by their own time (profiler on):")
+    for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top // 2]:
+        ms = e.self_cpu_time_total / 1e3 / calls
+        print(f"    {ms:9.3f} ms  x{e.count / calls:<7.0f} {e.key[:90]}")
 
 
 def main() -> None:
@@ -91,12 +98,15 @@ def main() -> None:
     ).stdout.strip())
     G, K, Y = synth_bxd()
     Gd, Yd = torch.from_numpy(G).cuda(), torch.from_numpy(Y).cuda()
+    y = Y[:, 0].astype(np.float64)
     runs = {
         "null-grid": lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED).L,
         "alt-grid": lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.BALANCED).L,
         "null-exact": lambda: bt.bulkscan(Yd, Gd, K, method="null-exact", precision=bt.BALANCED).L,
         "perms": lambda: bt.bulkscan_perms(
             Yd, Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED).maxlods,
+        "scan-null": lambda: bt.scan(y, Gd, K, precision=bt.BALANCED).lod,
+        "scan-alt": lambda: bt.scan(y, Gd, K, assumption="alt", precision=bt.BALANCED).lod,
     }
     for name in args.paths:
         profile_path(f"BALANCED {name}", runs[name], args.calls)

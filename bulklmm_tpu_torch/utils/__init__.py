@@ -7,6 +7,7 @@ from .config import (
     THROUGHPUT,
     PrecisionConfig,
     default_float,
+    enable_x64,
     precision_by_name,
     with_highest_matmul,
 )
@@ -21,6 +22,7 @@ __all__ = [
     "THROUGHPUT",
     "PrecisionConfig",
     "default_float",
+    "enable_x64",
     "precision_by_name",
     "resolve_device",
     "with_highest_matmul",

@@ -11,7 +11,8 @@ same five presets, with torch dtypes in place of jnp dtypes.
 - ``kernel_dtype``: the (p x m)-scale combines of the correlation step.
 
 ``None`` dtypes resolve through :func:`default_float`, which follows
-``torch.get_default_dtype()`` (the counterpart of ``jax_enable_x64``).
+``torch.get_default_dtype()``; :func:`enable_x64` raises it to float64 (the
+counterpart of ``jax_enable_x64``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ def with_highest_matmul():
 def default_float() -> torch.dtype:
     """``torch.get_default_dtype()``: float32 unless the caller raised it."""
     return torch.get_default_dtype()
+
+
+def enable_x64() -> None:
+    """Make float64 torch's default float dtype, so that presets without an
+    explicit dtype (``DEFAULT_PRECISION``) resolve to it; call before
+    creating tensors."""
+    torch.set_default_dtype(torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)

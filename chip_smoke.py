@@ -82,6 +82,26 @@ exits nonzero:
    cuBLAS's batched float32 product alone at the permutation kernel's shape
    (36 traits' numerator, scaled to 1,024 traits), with TF32 off and on, as
    ``product_only_ms``: what the card's own products take for the same flops.
+9. The single-trait scans, which run no kernel of their own (plain torch
+   products, as in the JAX package), at BXD width (79 x 7,321; trait 0 of
+   phase 4's data with an effect planted at a marker drawn from the seed,
+   half of the trait's variance) and at cohort size (2,000 x 20,000 from
+   the same generator, its kinship by the port's ``calc_kinship``): under
+   BALANCED and under EXACT64, ``scan`` null with effects and p-values,
+   ``scan(assumption="alt")`` with effects,
+   ``scan(permutation_test=True)`` and ``scan_perms_lite`` with 1,024
+   permutations, and at BXD width the profile likelihood of the planted
+   marker. Every output must be finite and on the card; h2_null the same
+   float64 number under both presets; max |dLOD| <= 1e-4 against EXACT64
+   for the null, alt and every permutation column (reported against 1e-5;
+   the float32 products' gates scaled by n/79 at cohort size); the two
+   permutation entry points equal; column 0 within the gate of the null
+   scan; the planted marker the null scan's argmax. The largest |dh2| of
+   the alt scan and its Brent iterations are reported. Times, not gated:
+   the median of 5 after a warm-up of the BALANCED null, alt and
+   ``scan_perms_lite`` with a cached decomposition, at BXD width also the
+   median of 3 with the raw K, at cohort size the eigendecomposition once,
+   and the host null fit alone by the host clock.
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
@@ -126,6 +146,8 @@ JAX_ALTGRID_BAR = 2e-5  # the JAX package's bar for alt-grid, reported
 INDEX_FLIP_SHARE = 1e-4  # grid-index flips, kernel vs plain, share of pairs
 GRID = np.arange(0.0, 0.91, 0.1)  # bulkscan's default h2 grid
 PRIOR = (1.0, 0.0)  # bulkscan's default prior
+SCAN_NPERMS = 1024  # permutations of the single-trait scans
+COHORT_N, COHORT_P = 2000, 20000  # the single-trait cohort size
 
 
 def check(ok: bool, what: str) -> None:
@@ -749,6 +771,168 @@ def _product_only_ms(ops, traits=36):
     return out
 
 
+def _planted_trait(G, Y, seed=SEED):
+    """Trait 0 with an effect at one marker drawn from the seed, half of the
+    trait's variance: y + b (g_j - mean g_j) with b sd(g_j) = sd(y)."""
+    j = int(np.random.default_rng(seed).integers(G.shape[1]))
+    g = G[:, j].astype(np.float64)
+    y = Y[:, 0].astype(np.float64)
+    return y + (g - g.mean()) * (y.std() / g.std()), j
+
+
+def _single_trait_calls(y, Gd, K, precision, nperms=SCAN_NPERMS):
+    """The port's single-trait entry points as a user calls them."""
+    import bulklmm_tpu_torch as bt
+
+    return {
+        "null": lambda: bt.scan(y, Gd, K, precision=precision, output_effects=True,
+                                output_pvals=True),
+        "alt": lambda: bt.scan(y, Gd, K, assumption="alt", output_effects=True,
+                               precision=precision),
+        "perms": lambda: bt.scan(y, Gd, K, permutation_test=True, nperms=nperms,
+                                 prior_variance=1.0, precision=precision),
+        "perms_lite": lambda: bt.scan_perms_lite(y, Gd, np.ones((len(y), 0)), K, nperms=nperms,
+                                                 prior_variance=1.0, precision=precision),
+    }
+
+
+def _scan_finite(res, what):
+    for name in ("lod", "h2_each_marker", "L_perms", "beta", "beta_se", "log10pvals"):
+        t = getattr(res, name)
+        if t is not None:
+            check(t.is_cuda and bool(torch.isfinite(t).all()), f"{what}: {name} not finite on the card")
+    check(res.h2_null.dtype == torch.float64 and res.h2_null.ndim == 0, f"{what}: h2_null")
+
+
+def single_trait_at(dev, card, G, Gd, K, Y, label, lod_scale, profile=False):
+    """Phase 9 at one size: BALANCED and EXACT64 runs of every single-trait
+    entry point, their gates, and the times. At BXD width the runs take the
+    raw K (a host eigendecomposition each); above it the cached
+    decomposition, whose eigendecomposition is timed once on its own."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.ops import brent
+
+    n, p = G.shape
+    y, j = _planted_trait(G, Y)
+    t0 = time.perf_counter()
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    eigh_ms = 1e3 * (time.perf_counter() - t0)
+    Kin = K if n <= N else dec
+    bal = _single_trait_calls(y, Gd, Kin, bt.BALANCED)
+    ex = _single_trait_calls(y, Gd, Kin, bt.EXACT64)
+    out, iters = {}, {}
+    for name, fn in bal.items():
+        out[name], _ = _drive(f"{label}: BALANCED scan {name}", fn)
+        iters[name] = brent.iterations
+    ref = {}
+    for name, fn in ex.items():
+        ref[name] = fn()
+        iters[name + " EXACT64"] = brent.iterations
+    torch.cuda.synchronize()
+    bar = ORACLE_BAR * lod_scale
+    for name in bal:
+        _scan_finite(out[name], f"{label} {name}")
+        check(float(out[name].h2_null) == float(ref[name].h2_null),
+              f"{label} {name}: h2_null differs between BALANCED and EXACT64")
+        pairs = [("lod", out[name].lod, ref[name].lod)]
+        if out[name].L_perms is not None:
+            pairs.append(("L_perms", out[name].L_perms, ref[name].L_perms))
+        for what, a, b in pairs:
+            err = (a.double() - b.double()).abs().max().item()
+            scale = 1.0 if name == "alt" else lod_scale  # alt runs in float64 under both
+            print(f"  {label} {name} {what}: BALANCED vs EXACT64 max|dLOD| = {err:.3e} "
+                  f"(bar {ORACLE_BAR * scale:.2e}; BASELINE.md's {PARITY_BAR:.0e}: "
+                  f"{'met' if err <= PARITY_BAR else 'NOT met'})")
+            check(err <= ORACLE_BAR * scale, f"{label} {name} {what} strays from EXACT64")
+    dh2 = (out["alt"].h2_each_marker - ref["alt"].h2_each_marker).abs().max().item()
+    print(f"  {label} alt: max|dh2| BALANCED vs EXACT64 = {dh2:.3e}; Brent iterations "
+          f"{iters['alt']} (BALANCED), {iters['alt EXACT64']} (EXACT64); h2_null "
+          f"{float(out['null'].h2_null)!r} under both")
+    check(torch.equal(out["perms"].L_perms, out["perms_lite"].L_perms),
+          f"{label}: scan(permutation_test=True) and scan_perms_lite disagree")
+    c0 = (out["perms"].lod.double() - out["null"].lod.double()).abs().max().item()
+    print(f"  {label} permutation column 0 vs the null scan: max|dLOD| = {c0:.3e} (bar {bar:.2e}); "
+          f"planted marker {j}, null argmax {int(torch.argmax(out['null'].lod))}, its LOD "
+          f"{float(out['null'].lod[j]):.2f}, next best "
+          f"{float(torch.topk(out['null'].lod, 2).values[1]):.2f}")
+    check(c0 <= bar, f"{label}: permutation column 0 strays from the null scan")
+    check(int(torch.argmax(out["null"].lod)) == j, f"{label}: the planted marker is not the argmax")
+    if profile:
+        res, prof = bt.scan(y, Gd, K, profile_ll=True, marker_id=j + 1, precision=bt.BALANCED)
+        check(tuple(prof.ll_list_alt.shape) == (20,) and prof.ll_list_alt.is_cuda
+              and bool(torch.isfinite(prof.ll_list_alt).all())
+              and bool(torch.isfinite(prof.ll_list_null).all()), f"{label}: profile not finite")
+        check(bool((prof.ll_list_alt >= prof.ll_list_null).all()),
+              f"{label}: the planted marker's profile lies below the null's")
+        print(f"  {label} profile of marker {j}: max over the grid of ll_alt - ll_null = "
+              f"{(prof.ll_list_alt - prof.ll_list_null).max().item():.3f}")
+    del out, ref
+
+    cached = _single_trait_calls(y, Gd, dec, bt.BALANCED)
+    runs = {f"{name} (cached K)": cached[name] for name in ("null", "alt", "perms_lite")}
+    ms = {name: [] for name in runs}
+    for fn in runs.values():
+        _time_ms(lambda: fn().lod)
+    for _ in range(5):
+        for name, fn in runs.items():
+            ms[name].append(_time_ms(lambda: fn().lod))
+    host_fit = _host_fit_ms(y, dec)
+    if n <= N:
+        raw = {f"{name} (raw K)": bal[name] for name in ("null", "alt", "perms_lite")}
+        for name, fn in raw.items():
+            ms[name] = [_time_ms(lambda: fn().lod) for _ in range(3)]
+    else:
+        ms["decompose_kinship (host eigh, upload), once"] = [eigh_ms]
+    print(f"  {label} times on {card} (ms; median of 5 after a warm-up with the cached "
+          f"decomposition{', of 3 with the raw K' if n <= N else ''}):")
+    for name, t in ms.items():
+        print(f"    {name:42s} {statistics.median(t):10.3f}   runs {[round(x, 3) for x in t]}")
+    print(f"    {'host float64 null fit alone, host clock':42s} {statistics.median(host_fit):10.3f}   "
+          f"runs {[round(x, 3) for x in host_fit]}")
+
+
+def _host_fit_ms(y, dec, reps=5):
+    """The scans' host null fit alone (rotation of y and the intercept,
+    numpy Brent), by the host clock, after a warm-up."""
+    import importlib
+
+    scan_module = importlib.import_module("bulklmm_tpu_torch.models.scan")
+    C = np.ones((len(y), 1))
+    fit = lambda: scan_module._host_null_fit(  # noqa: E731
+        y[:, None], C, dec.Ut_host, dec.lam_host, (0.0, 0.0), False, 1)
+    fit()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fit()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def single_trait(dev, card, Gd, K, Y) -> None:
+    """Phase 9: the single-trait scans at BXD width and at cohort size. The
+    cohort's data come from synth_bxd's generator, its kinship (the same
+    formula) from the port's calc_kinship on the card."""
+    import bulklmm_tpu_torch as bt
+
+    t0 = time.perf_counter()
+    single_trait_at(dev, card, Gd.cpu().numpy(), Gd, K, Y, f"BXD {N} x {P}", 1.0, profile=True)
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    G2 = rng.uniform(0.0, 1.0, (COHORT_N, COHORT_P)).astype(np.float32)
+    Y2 = rng.normal(size=(COHORT_N, 1)).astype(np.float32)
+    G2d = torch.from_numpy(G2).to(dev)
+    K2 = bt.calc_kinship(G2d, precision=bt.EXACT64).cpu().numpy()
+    scale = COHORT_N / N
+    print(f"  cohort: LOD gates of the float32 products scaled by n/{N} = {scale:.2f}")
+    single_trait_at(dev, card, G2, G2d, K2, Y2, f"cohort {COHORT_N} x {COHORT_P}", scale)
+    print(f"  phase 9 took {t1 - t0:.1f} s at BXD width and {time.perf_counter() - t1:.1f} s "
+          "at cohort size, data included")
+    del G2, G2d, K2, Y2
+    torch.cuda.empty_cache()
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -788,6 +972,10 @@ def main() -> None:
     print("[8] times")
     med = times(card, Yd, Gd, K, lod_ops, alt_ops)
     pmed = perm_times(card, Yd, Gd, K, prep, idx, perm_ops)
+    print(f"[9] single-trait scan: BXD width ({N} x {P}) and cohort size ({COHORT_N} x {COHORT_P})")
+    del prep, idx
+    single_trait(dev, card, Gd, K, Yd[:, :1].cpu().numpy())
+    import_port()  # the single-trait path imported no jax either
     kernels = [{
         "name": "liteqtl_lod",
         "route": "cuda",
