@@ -37,6 +37,8 @@ from .models import (
     bulkscan_null,
     bulkscan_null_grid,
     bulkscan_perms,
+    bulkscan_perms_streamed,
+    bulkscan_streamed,
     scan,
     scan_perms_lite,
 )
@@ -95,6 +97,8 @@ __all__ = [
     "bulkscan_null",
     "bulkscan_null_grid",
     "bulkscan_perms",
+    "bulkscan_perms_streamed",
+    "bulkscan_streamed",
     "calc_kinship",
     "decompose_kinship",
     "decomposition_from_numpy",

@@ -18,7 +18,12 @@
 //     LOD = -(n/2) log10(max(1 - r2, FLT_MIN))
 //
 // Only the (p, m) LOD matrix is written: the (c+2) (p, m) products never
-// reach device memory.
+// reach device memory. The effects variant of both kernels (the template
+// parameter kEffects; bulkscan(output_effects=True)) writes two more (p, m)
+// matrices from the same products and residualization, the marker's effect
+// and its standard error as ops/liteqtl.py::_effects_from_nd defines them
+// (effect_from_products() in liteqtl_resident.cuh); its scalar block has one
+// more row, the trait's nrm2. Its LODs are the LOD-only kernel's.
 //
 // What bounds it on an H100: 2 (c+2) n p m flops (1.23e11 at 79 x 7,321 x
 // 35,554, c = 1) against one 4 p m byte write (1.04 GB) and 25 MB of
@@ -65,7 +70,7 @@ constexpr int kLanes = 16;    // threads along each tile edge
 constexpr int kRP = kTileP / kLanes;  // markers per thread
 constexpr int kRM = kTileM / kLanes;  // traits per thread
 
-template <int C>
+template <int C, bool kEffects>
 __global__ void __launch_bounds__(kThreads)
 liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
                        const float* __restrict__ Cov,   // (n, C) rotated covariates
@@ -73,8 +78,10 @@ liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated mark
                        const float* __restrict__ WY,    // (n, m) weighted traits
                        const float* __restrict__ scal,  // (S, m) per-trait scalars
                        float* __restrict__ out,         // (p, m) LOD
+                       float* __restrict__ beta_out,    // (p, m) effect (kEffects)
+                       float* __restrict__ se_out,      // (p, m) its standard error (kEffects)
                        int n, int p, int ldx, int m) {
-  constexpr int kS = scalar_rows(C);
+  constexpr int kS = scalar_rows(C, kEffects);
   constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
 
   __shared__ float xs[kChunkN][kTileP];
@@ -157,6 +164,7 @@ liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated mark
   }
 
   const float neg_half_n = -0.5f * (float)n;
+  const float dof = (float)max(n - C - 1, 1);
 #pragma unroll
   for (int j = 0; j < kRM; ++j) {
     const int lm = tx + kLanes * j;
@@ -167,9 +175,18 @@ liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated mark
       float u[C];
 #pragma unroll
       for (int k = 0; k < C; ++k) u[k] = acc[2 + k][i][j];
-      const float lod = lod_from_products<C, false>(
-          acc[0][i][j], acc[1][i][j], u, [&](int row) { return ss[row][lm]; }, neg_half_n);
+      auto scal_of = [&](int row) { return ss[row][lm]; };
+      const float lod =
+          lod_from_products<C, false>(acc[0][i][j], acc[1][i][j], u, scal_of, neg_half_n);
       if (gp < p && gm < m) out[(size_t)gp * m + gm] = lod;
+      if constexpr (kEffects) {
+        const Effect f =
+            effect_from_products<C, false>(acc[0][i][j], acc[1][i][j], u, scal_of, dof, 0.0f);
+        if (gp < p && gm < m) {
+          beta_out[(size_t)gp * m + gm] = f.beta;
+          se_out[(size_t)gp * m + gm] = f.se;
+        }
+      }
     }
   }
 }
@@ -178,8 +195,13 @@ template <int C>
 cudaError_t launch_general(const Operands& o, cudaStream_t stream) {
   if ((o.p + kTileP - 1) / kTileP > 65535) return cudaErrorInvalidValue;
   const dim3 grid((o.m + kTileM - 1) / kTileM, (o.p + kTileP - 1) / kTileP);
-  liteqtl_general_kernel<C><<<grid, kThreads, 0, stream>>>(o.X, o.Cov, o.W, o.WY, o.scal, o.out,
-                                                           o.n, o.p, o.ldx, o.m);
+  if (o.beta != nullptr) {
+    liteqtl_general_kernel<C, true><<<grid, kThreads, 0, stream>>>(
+        o.X, o.Cov, o.W, o.WY, o.scal, o.out, o.beta, o.se, o.n, o.p, o.ldx, o.m);
+  } else {
+    liteqtl_general_kernel<C, false><<<grid, kThreads, 0, stream>>>(
+        o.X, o.Cov, o.W, o.WY, o.scal, o.out, nullptr, nullptr, o.n, o.p, o.ldx, o.m);
+  }
   return cudaGetLastError();
 }
 
@@ -190,27 +212,36 @@ using namespace liteqtl;
 extern "C" {
 
 // 1 where a launch with n samples and c covariate columns takes the
-// resident kernel, 0 where it takes the general one.
-int bulklmm_liteqtl_is_resident(int n, int c) { return is_resident(n, c) ? 1 : 0; }
+// resident kernel, 0 where it takes the general one; effects != 0 for the
+// effects variant.
+int bulklmm_liteqtl_is_resident(int n, int c, int effects) {
+  return is_resident(n, c, effects != 0) ? 1 : 0;
+}
 
 // Launches the kernel on `stream` and returns the CUDA error of the launch
 // (0 on success). Pointers are device pointers to contiguous float32 arrays,
-// but X: its n rows are ldx >= p floats apart. c must be 1..8. general != 0
-// takes the general kernel whatever the shape. The resident kernel needs
-// ldx a multiple of 4 and X 16-byte aligned, so that every row takes 16-byte
-// copies; the columns between p and ldx may hold anything finite or not
-// (their outputs are not stored).
+// but X: its n rows are ldx >= p floats apart. c must be 1..8. beta and se
+// both null: the LOD alone; both given: the effects variant, whose scalar
+// block has the nrm2 row. general != 0 takes the general kernel whatever the
+// shape. The resident kernel needs ldx a multiple of 4 and X 16-byte aligned,
+// so that every row takes 16-byte copies; the columns between p and ldx may
+// hold anything finite or not (their outputs are not stored).
 int bulklmm_liteqtl_lod(const float* X, int ldx, const float* Cov, const float* W,
-                        const float* WY, const float* scal, float* out, int n, int p, int m,
-                        int c, int general, void* stream) {
+                        const float* WY, const float* scal, float* out, float* beta, float* se,
+                        int n, int p, int m, int c, int general, void* stream) {
   if (n <= 0 || p <= 0 || m <= 0 || ldx < p) return (int)cudaErrorInvalidValue;
+  if ((beta == nullptr) != (se == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool effects = beta != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Operands o{X, Cov, W, WY, scal, out, n, p, ldx, m};
-  if (!general && is_resident(n, c)) {
-    switch (c) {
+  const Operands o{X, Cov, W, WY, scal, out, beta, se, n, p, ldx, m};
+  if (!general && is_resident(n, c, effects)) {
+    switch (c + (effects ? 3 : 0)) {
       case 1: return (int)launch_resident_c1(o, s);
       case 2: return (int)launch_resident_c2(o, s);
       case 3: return (int)launch_resident_c3(o, s);
+      case 4: return (int)launch_resident_effects_c1(o, s);
+      case 5: return (int)launch_resident_effects_c2(o, s);
+      case 6: return (int)launch_resident_effects_c3(o, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -40,11 +40,23 @@
 //   groups only as far as is needed for about 16 waves of blocks, so that
 //   the last, partly empty wave costs little.
 //
+// - The effects variant (kEffects) writes the marker's effect and its
+//   standard error beside the LOD, from the same products and in the same
+//   pass: the LOD leaves through the finished tile as above, the effect and
+//   its standard error straight from the accumulator layout, a pair of
+//   traits a store, one column tile at a time, and with c = 2 no depth step
+//   in flight (as c = 3). Three passes through the one finished tile kept
+//   every accumulator live until the last pass, which cost 61 registers at
+//   c = 1 and spilled at c = 3; a finished tile each would not fit the
+//   shared memory at n = 88. The variant needs one more row of the scalar
+//   block (nrm2) and no more shared memory otherwise.
+//
 // The kernel is built for every (covariate columns, depth steps) pair it
 // takes; each count of covariate columns is its own source file
-// (liteqtl_resident_c<c>.cu), so that the files compile side by side. This
-// header also holds what the general kernel shares with it: tile sizes, the
-// scalar block's layout and the epilogue.
+// (liteqtl_resident_c<c>.cu, and liteqtl_resident_e<c>.cu for the effects
+// variant), so that the files compile side by side. This header also holds
+// what the general kernel shares with it: tile sizes, the scalar block's
+// layout and the epilogue.
 
 #pragma once
 
@@ -69,8 +81,11 @@ __host__ __device__ constexpr int tri_row(int c, int i, int k) {
   return k * c - (k * (k - 1)) / 2 + (i - k);
 }
 
-// Rows of the scalar block: L entries | zeta | inv_nrm2.
-__host__ __device__ constexpr int scalar_rows(int c) { return c * (c + 1) / 2 + c + 1; }
+// Rows of the scalar block: L entries | zeta | inv_nrm2, and nrm2 for the
+// effects variant.
+__host__ __device__ constexpr int scalar_rows(int c, bool effects = false) {
+  return c * (c + 1) / 2 + c + 1 + (effects ? 1 : 0);
+}
 
 // 1 / x within one unit of the last place, for a normal x; a subnormal x
 // counts as zero, and +-0 gives +-inf. The form that takes subnormals costs
@@ -93,6 +108,40 @@ __device__ __forceinline__ float log2_normal(float x) {
   return r;
 }
 
+// sqrt(x) by the special-function unit, for the effects variant's standard
+// error: a few units of the last place; a subnormal x counts as zero.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The forward substitution of one (marker, trait) pair: num = B and d = D1
+// residualized on the trait's covariate basis (u = U_0 .. U_{C-1}; scal(row)
+// is the trait's entry of the scalar block), then the keep test (returned)
+// and the floor of d. kReciprocals: the diagonal rows of the scalar block
+// hold 1 / L[(k, k)].
+template <int C, bool kReciprocals, class Scal>
+__device__ __forceinline__ bool residualize(float& num, float& d, float d1, const float (&u)[C],
+                                            Scal scal) {
+  constexpr int kTri = C * (C + 1) / 2;
+  float z[C];
+  d = d1;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    float t = u[k];
+#pragma unroll
+    for (int q = 0; q < k; ++q) t -= scal(tri_row(C, k, q)) * z[q];
+    z[k] = kReciprocals ? t * scal(tri_row(C, k, k)) : t / scal(tri_row(C, k, k));
+    num -= z[k] * scal(kTri + k);
+    d -= z[k] * z[k];
+  }
+  const float eps = FLT_EPSILON;
+  const bool keep = d > 1024.0f * eps * d1;
+  d = fmaxf(d, 4.0f * eps * d1);
+  return keep;
+}
+
 // The LOD of one (marker, trait) pair from its products: num = B, d1 = D1,
 // u = U_0 .. U_{C-1}; scal(row) is the trait's entry of the scalar block.
 // kReciprocals = false: IEEE divisions and log10f, as the plain version
@@ -106,20 +155,8 @@ template <int C, bool kReciprocals, class Scal>
 __device__ __forceinline__ float lod_from_products(float num, float d1, const float (&u)[C],
                                                    Scal scal, float neg_half_n) {
   constexpr int kTri = C * (C + 1) / 2;
-  float z[C];
-  float d = d1;
-#pragma unroll
-  for (int k = 0; k < C; ++k) {
-    float t = u[k];
-#pragma unroll
-    for (int q = 0; q < k; ++q) t -= scal(tri_row(C, k, q)) * z[q];
-    z[k] = kReciprocals ? t * scal(tri_row(C, k, k)) : t / scal(tri_row(C, k, k));
-    num -= z[k] * scal(kTri + k);
-    d -= z[k] * z[k];
-  }
-  const float eps = FLT_EPSILON;
-  const bool keep = d > 1024.0f * eps * d1;
-  d = fmaxf(d, 4.0f * eps * d1);
+  float d;
+  const bool keep = residualize<C, kReciprocals>(num, d, d1, u, scal);
   if constexpr (kReciprocals) {
     const float inv_d = reciprocal(d);
     const float r2 = keep ? num * num * scal(kTri + C) * inv_d : 0.0f;
@@ -128,6 +165,37 @@ __device__ __forceinline__ float lod_from_products(float num, float d1, const fl
   } else {
     const float r2 = keep ? num * num * scal(kTri + C) / d : 0.0f;
     return neg_half_n * log10f(fmaxf(1.0f - r2, FLT_MIN));
+  }
+}
+
+struct Effect {
+  float beta, se;
+};
+
+// The marker's effect and its standard error, from the same products and the
+// same residualization as the LOD, the way ops/liteqtl.py::_effects_from_nd
+// takes them: N masked by both keep tests (the trait's is inv_nrm2 > 0), D at
+// least FLT_MIN,
+//     beta = N / D,   SE = sqrt(max(nrm2 - N^2 / D, 0) / dof / D),
+// dof = max(n - c - 1, 1). kReciprocals = false: IEEE divisions and sqrtf
+// (the plain version's order). kReciprocals = true: D and dof inverted by
+// reciprocal() (inv_dof is 1 / dof) and sqrt_approx().
+template <int C, bool kReciprocals, class Scal>
+__device__ __forceinline__ Effect effect_from_products(float num, float d1, const float (&u)[C],
+                                                       Scal scal, float dof, float inv_dof) {
+  constexpr int kTri = C * (C + 1) / 2;
+  float d;
+  const bool keep = residualize<C, kReciprocals>(num, d, d1, u, scal) && scal(kTri + C) > 0.0f;
+  const float nk = keep ? num : 0.0f;
+  d = fmaxf(d, FLT_MIN);
+  const float nrm2 = scal(kTri + C + 1);
+  if constexpr (kReciprocals) {
+    const float inv_d = reciprocal(d);
+    const float rss = fmaxf(nrm2 - __fmul_rn(nk, nk) * inv_d, 0.0f);
+    return {nk * inv_d, sqrt_approx(rss * inv_dof * inv_d)};
+  } else {
+    const float rss = fmaxf(nrm2 - __fmul_rn(nk, nk) / d, 0.0f);
+    return {nk / d, sqrtf(rss / dof / d)};
   }
 }
 
@@ -151,15 +219,15 @@ __host__ __device__ constexpr int built_steps(int n) {
 
 // Floats of shared memory: four K-major operand tiles, two stages of X and
 // one finished tile a warpgroup, the covariates, the scalar block.
-__host__ __device__ constexpr size_t resident_shared_floats(int steps, int c) {
+__host__ __device__ constexpr size_t resident_shared_floats(int steps, int c, bool effects) {
   const size_t depth = 8 * (size_t)steps;
   return 4 * depth * kTileM + (size_t)kGroups * (kStages * depth * kLdX + kTileP * kLdOut) +
-         c * depth + (size_t)scalar_rows(c) * kTileM;
+         c * depth + (size_t)scalar_rows(c, effects) * kTileM;
 }
 
-inline bool is_resident(int n, int c) {
+inline bool is_resident(int n, int c, bool effects) {
   return c >= 1 && c <= kResidentC && built_steps(n) <= kResidentSteps &&
-         4 * resident_shared_floats(built_steps(n), c) <= (size_t)kSharedLimit;
+         4 * resident_shared_floats(built_steps(n), c, effects) <= (size_t)kSharedLimit;
 }
 
 // tf32x3::split() in integer arithmetic: the same bits (round to nearest on
@@ -214,11 +282,26 @@ __device__ __forceinline__ void make_forms(float (&f)[C + 2][4], const StepOpera
   }
 }
 
+// v[0], v[1] into dst[row, col], dst[row, col + 1] of a (p, m) output, as one
+// 8-byte store where both lie inside and the address allows; pairs = 1 where
+// the output's base is 8-byte aligned.
+__device__ __forceinline__ void store_pair(float* dst, int row, int col, const float (&v)[2],
+                                           int p, int m, int pairs) {
+  if (row >= p) return;
+  const size_t at = (size_t)row * m + col;
+  if (pairs && col + 1 < m && at % 2 == 0) {
+    __stcs(reinterpret_cast<float2*>(dst + at), make_float2(v[0], v[1]));
+  } else {
+    if (col < m) __stcs(dst + at, v[0]);
+    if (col + 1 < m) __stcs(dst + at + 1, v[1]);
+  }
+}
+
 // kSteps: depth steps of 8, n padded; a template parameter so that the depth
 // loops carry no branches. kInFlight: the depth steps whose products may
 // still run while the next step's fragments are made (each step in flight
 // holds its fragments' registers).
-template <int C, int kSteps, int kInFlight>
+template <int C, int kSteps, int kInFlight, bool kEffects>
 __global__ void __launch_bounds__(kThreads, 1)
 liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
                         const float* __restrict__ Cov,   // (n, C) rotated covariates
@@ -226,11 +309,13 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
                         const float* __restrict__ WY,    // (n, m) weighted traits
                         const float* __restrict__ scal,  // (S, m) per-trait scalars
                         float* __restrict__ out,         // (p, m) LOD
+                        float* __restrict__ beta_out,    // (p, m) effect (kEffects)
+                        float* __restrict__ se_out,      // (p, m) its standard error (kEffects)
                         int n, int p, int ldx, int m,
                         int group_tiles,  // marker tiles of one block
-                        int pairs) {      // 1: `out` is 8-byte aligned
+                        int pairs) {      // 1: every output is 8-byte aligned
   constexpr int depth = 8 * kSteps;
-  constexpr int kS = scalar_rows(C);
+  constexpr int kS = scalar_rows(C, kEffects);
   constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
   constexpr int kTileFloats = depth * kTileM;
   constexpr int kStageFloats = depth * kLdX;
@@ -326,6 +411,8 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
   if (staggered && group == 1) asm volatile("bar.sync 3, %0;" :: "n"(kThreads) : "memory");
 
   const float neg_half_n = -0.5f * (float)n;
+  const float dof = (float)max(n - C - 1, 1);  // the effects variant's
+  const float inv_dof = 1.0f / dof;
   for (int slot = 0; tile < last; tile += kGroups, slot ^= 1) {
     cp_async_wait<0>();
     __syncwarp();  // the warp's part of this tile has landed; its other stage is free
@@ -393,11 +480,15 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
     // the thread's outputs: markers wrow + 2 g + h, traits 8 j + 2 q + e of the tile
 #pragma unroll
     for (int j = 0; j < kTileM / 8; ++j) {
+      // the effects variant holds three outputs a pair: a compiler barrier
+      // keeps each column tile's work together (interleaved across tiles it
+      // spilled at c = 2)
+      if constexpr (kEffects) asm volatile("" ::: "memory");
       const int lm = 8 * j + 2 * q;
       float sv[kS][2];
 #pragma unroll
       for (int row = 0; row < kS; ++row) load_vec<2>(ss + row * kTileM + lm, sv[row]);
-      float lod[2][2];
+      float lod[2][2], beta[2][2], se[2][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -406,13 +497,28 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
           float u[C];
 #pragma unroll
           for (int k = 0; k < C; ++k) u[k] = acc[2 + k][i];
-          lod[h][e] = lod_from_products<C, true>(
-              acc[0][i], acc[1][i], u, [&](int row) { return sv[row][e]; }, neg_half_n);
+          auto scal_of = [&](int row) { return sv[row][e]; };
+          lod[h][e] = lod_from_products<C, true>(acc[0][i], acc[1][i], u, scal_of, neg_half_n);
+          if constexpr (kEffects) {
+            const Effect f =
+                effect_from_products<C, true>(acc[0][i], acc[1][i], u, scal_of, dof, inv_dof);
+            beta[h][e] = f.beta;
+            se[h][e] = f.se;
+          }
         }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(my_finished + (2 * g + h) * kLdOut + lm) =
             make_float2(lod[h][0], lod[h][1]);
+      if constexpr (kEffects) {
+        // straight from the accumulator layout, a pair of traits a store
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gp = tile * kTileP + wrow + 2 * g + h;
+          store_pair(beta_out, gp, m0 + lm, beta[h], p, m, pairs);
+          store_pair(se_out, gp, m0 + lm, se[h], p, m, pairs);
+        }
+      }
     }
 
     // The tile leaves through shared memory, a warp its 16 rows and a whole row
@@ -449,14 +555,17 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
 struct Operands {
   const float *X, *Cov, *W, *WY, *scal;
   float* out;
+  float *beta, *se;  // the effects variant's outputs; null for the LOD alone
   int n, p, ldx, m;
 };
 
-template <int C, int kSteps>
+inline bool aligned8(const float* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 8 == 0; }
+
+template <int C, int kSteps, bool kEffects>
 cudaError_t launch_resident_built(const Operands& o, cudaStream_t stream) {
   // one depth step in flight beside the one being made, while its fragments' registers fit
-  auto kernel = liteqtl_resident_kernel<C, kSteps, (C <= 2 ? 1 : 0)>;
-  const size_t bytes = 4 * resident_shared_floats(kSteps, C);
+  auto kernel = liteqtl_resident_kernel<C, kSteps, (C <= (kEffects ? 1 : 2) ? 1 : 0), kEffects>;
+  const size_t bytes = 4 * resident_shared_floats(kSteps, C, kEffects);
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return rc;
@@ -474,29 +583,33 @@ cudaError_t launch_resident_built(const Operands& o, cudaStream_t stream) {
   int group_tiles = (int)((ntiles + groups - 1) / groups);
   group_tiles += group_tiles % 2;
   const dim3 grid((unsigned)mtiles, (unsigned)((ntiles + group_tiles - 1) / group_tiles));
-  const int pairs = reinterpret_cast<uintptr_t>(o.out) % 8 == 0;
-  kernel<<<grid, kThreads, bytes, stream>>>(o.X, o.Cov, o.W, o.WY, o.scal, o.out, o.n, o.p, o.ldx,
-                                            o.m, group_tiles, pairs);
+  const int pairs = aligned8(o.out) && (!kEffects || (aligned8(o.beta) && aligned8(o.se)));
+  kernel<<<grid, kThreads, bytes, stream>>>(o.X, o.Cov, o.W, o.WY, o.scal, o.out, o.beta, o.se,
+                                            o.n, o.p, o.ldx, o.m, group_tiles, pairs);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool kEffects>
 cudaError_t launch_resident(const Operands& o, cudaStream_t stream) {
   if (o.ldx % 4 != 0 || reinterpret_cast<uintptr_t>(o.X) % 16 != 0) return cudaErrorInvalidValue;
   switch (built_steps(o.n)) {
-    case 2: return launch_resident_built<C, 2>(o, stream);
-    case 4: return launch_resident_built<C, 4>(o, stream);
-    case 6: return launch_resident_built<C, 6>(o, stream);
-    case 8: return launch_resident_built<C, 8>(o, stream);
-    case 10: return launch_resident_built<C, 10>(o, stream);
-    case 11: return launch_resident_built<C, 11>(o, stream);
+    case 2: return launch_resident_built<C, 2, kEffects>(o, stream);
+    case 4: return launch_resident_built<C, 4, kEffects>(o, stream);
+    case 6: return launch_resident_built<C, 6, kEffects>(o, stream);
+    case 8: return launch_resident_built<C, 8, kEffects>(o, stream);
+    case 10: return launch_resident_built<C, 10, kEffects>(o, stream);
+    case 11: return launch_resident_built<C, 11, kEffects>(o, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// launch_resident<c>, each defined in its own source file.
+// launch_resident<c, false> and launch_resident<c, true>, each defined in its
+// own source file.
 cudaError_t launch_resident_c1(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_c2(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_c3(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_effects_c1(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_effects_c2(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_effects_c3(const Operands& o, cudaStream_t stream);
 
 }  // namespace liteqtl

@@ -20,20 +20,30 @@ reciprocals and the hardware's log2 where the plain version divides and
 calls log10; the general kernel (any n, c <= 8) is float32 ``fmaf`` on
 64 x 64 tiles with the exact epilogue (see the sources for both designs).
 
+The effects variant of both kernels (``effects=True``; the path of
+``bulkscan(output_effects=True)`` under the float32 presets) writes, from
+the same products and the same residualization, the marker's effect and its
+standard error beside the LOD, as ``ops/liteqtl.py::_effects_from_nd``
+defines them: three (p, m) outputs, so at the shape above its bound is the
+3.1 GB write. Its LODs are those of the LOD-only kernel.
+
 Layers:
 
 - :func:`prepare_inputs`: the thin per-trait scalars (packed covariate
-  Cholesky factor, zeta, masked 1/nrm2), in plain torch (the JAX wrapper's
-  lines 131-159), and X with rows that start at multiples of 16 bytes.
+  Cholesky factor, zeta, masked 1/nrm2, and nrm2 for the effects variant),
+  in plain torch (the JAX wrapper's lines 131-159), and X with rows that
+  start at multiples of 16 bytes.
 - :func:`liteqtl_lod_cuda`: the kernels' wrapper. CUDA tensors only; it
-  checks its inputs, allocates the output, launches on the current stream,
-  raises on a launch error and counts its launches in :data:`launches`.
+  checks its inputs, allocates the outputs, launches on the current stream,
+  raises on a launch error and counts its launches in :data:`launches`
+  (:data:`effects_launches` for the effects variant).
 - :func:`liteqtl_lod_plain`: the same function in plain torch, exact
   float32. :func:`liteqtl_split_reference` repeats the resident kernel's
   3 x TF32 arithmetic instead (``kernels/split.py``), for comparisons.
-- :func:`fused_lods_per_trait`: the kernel on CUDA tensors, its plain
-  version on CPU tensors. :func:`fused_lods_per_trait_reference` always
-  takes the plain version, for comparisons.
+- :func:`fused_lods_per_trait` and :func:`fused_lods_and_effects_per_trait`:
+  the kernel on CUDA tensors, its plain version on CPU tensors.
+  :func:`fused_lods_per_trait_reference` always takes the plain version, for
+  comparisons.
 """
 
 from __future__ import annotations
@@ -70,12 +80,16 @@ TILE_P = TILE_M = 64
 #: reads it to show that the main path ran through the kernel
 launches = 0
 
+#: launches of the kernel's effects variant in this process, likewise
+effects_launches = 0
+
 _F32 = torch.float32
 
 
-def scalar_rows(c: int) -> int:
-    """Rows of the per-trait scalar block: packed L, zeta, inv_nrm2."""
-    return c * (c + 1) // 2 + c + 1
+def scalar_rows(c: int, effects: bool = False) -> int:
+    """Rows of the per-trait scalar block: packed L, zeta, inv_nrm2, and
+    nrm2 for the effects variant."""
+    return c * (c + 1) // 2 + c + 1 + int(effects)
 
 
 def resident_steps(n: int) -> int:
@@ -86,7 +100,7 @@ def resident_steps(n: int) -> int:
     return steps if steps > 10 else steps + steps % 2
 
 
-def resident_shared_bytes(n: int, c: int) -> int:
+def resident_shared_bytes(n: int, c: int, effects: bool = False) -> int:
     """Shared memory of a block of the resident kernel: both TF32 halves of
     its (depth, 64) tiles of W and WY, for each of its two warpgroups two
     stages of 64 markers (rows 8 floats longer than the tile) and one
@@ -94,30 +108,32 @@ def resident_shared_bytes(n: int, c: int) -> int:
     scalar block."""
     depth = 8 * resident_steps(n)
     per_group = 2 * depth * (TILE_P + 8) + TILE_P * (TILE_M + 4)
-    return 4 * (4 * depth * TILE_M + 2 * per_group + c * depth + scalar_rows(c) * TILE_M)
+    return 4 * (4 * depth * TILE_M + 2 * per_group + c * depth + scalar_rows(c, effects) * TILE_M)
 
 
-def kernel_path(n: int, c: int) -> str:
+def kernel_path(n: int, c: int, effects: bool = False) -> str:
     """"resident" where the traits' operands fit shared memory and the
     (c + 2) accumulator sets fit the registers (n <= 88, c <= 3): 3 x TF32
     warpgroup products. Else "general": float32 ``fmaf`` on staged chunks of
-    n, for any n and c <= :data:`MAX_COVARIATES`. The launcher in
-    ``csrc/liteqtl_fused.cu`` applies the same rule
+    n, for any n and c <= :data:`MAX_COVARIATES`. The effects variant's
+    scalar block is one row longer; it fits wherever the LOD-only kernel
+    does. The launcher in ``csrc/liteqtl_fused.cu`` applies the same rule
     (``bulklmm_liteqtl_is_resident``)."""
     fits = (
         1 <= c <= RESIDENT_COVARIATES
         and resident_steps(n) <= RESIDENT_STEPS
-        and resident_shared_bytes(n, c) <= SHARED_LIMIT_BYTES
+        and resident_shared_bytes(n, c, effects) <= SHARED_LIMIT_BYTES
     )
     return "resident" if fits else "general"
 
 
 @with_highest_matmul()
-def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait):
+def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False):
     """(X, C, W, WY, scal): the kernel's float32 operands.
 
     X (n, p), C (n, c), W and WY (n, m), and scal (S, m) with rows
-    ``[L[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]``.
+    ``[L[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]``,
+    and ``[nrm2]`` after them for the effects variant.
     All are contiguous but X where p is no multiple of 4: it is then the
     first p columns of a zero-padded (n, p + pad) array, so that its rows
     start at multiples of 16 bytes as the resident kernel's copies need and
@@ -148,17 +164,18 @@ def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait):
     inv_nrm2 = cancel_keep_mask(nrm2, yty) / torch.clamp(nrm2, min=torch.finfo(_F32).tiny)
     scal = torch.stack(
         [Lc[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]
+        + ([nrm2] if effects else [])
     ).contiguous()
     return X, C, W, WY, scal
 
 
-def _check_operands(X, C, W, WY, scal):
+def _check_operands(X, C, W, WY, scal, effects):
     n, p = X.shape
     c = C.shape[1]
     m = W.shape[1]
     expected = {
         "X": (X, (n, p)), "C": (C, (n, c)), "W": (W, (n, m)),
-        "WY": (WY, (n, m)), "scal": (scal, (scalar_rows(c), m)),
+        "WY": (WY, (n, m)), "scal": (scal, (scalar_rows(c, effects), m)),
     }
     for name, (t, shape) in expected.items():
         if not t.is_cuda:
@@ -188,18 +205,20 @@ def _library():
     lib = load_library()
     fn = lib.bulklmm_liteqtl_lod
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.bulklmm_liteqtl_is_resident.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bulklmm_liteqtl_is_resident.argtypes = [ctypes.c_int] * 3
     lib.bulklmm_liteqtl_is_resident.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False) -> torch.Tensor:
-    """(p, m) float32 LOD from the kernel's operands, on their CUDA device.
+def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool = False):
+    """(p, m) float32 LOD from the kernel's operands, on their CUDA device;
+    with ``effects=True`` (the effects variant, whose ``scal`` has the nrm2
+    row) the tuple (LOD, effect, standard error).
 
     Takes the kernel that :func:`kernel_path` names for the shape;
     ``general=True`` takes the general kernel whatever the shape (for
@@ -207,31 +226,38 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False) -> torch.Tenso
     than :data:`MAX_COVARIATES` covariate columns, a failed build or a launch
     error. Does not synchronize.
     """
-    global launches
-    n, p, m, c = _check_operands(X, C, W, WY, scal)
-    resident = not general and kernel_path(n, c) == "resident"
+    global launches, effects_launches
+    n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
+    resident = not general and kernel_path(n, c, effects) == "resident"
     lib = _library()
-    out = torch.empty((p, m), dtype=_F32, device=X.device)
+    outs = [torch.empty((p, m), dtype=_F32, device=X.device) for _ in range(3 if effects else 1)]
+    beta_ptr, se_ptr = (outs[1].data_ptr(), outs[2].data_ptr()) if effects else (None, None)
     with torch.cuda.device(X.device):
         if resident and (X.stride(0) % 4 or X.data_ptr() % 16):
             X = rows_at_16_bytes(X.contiguous())
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_liteqtl_lod(
             X.data_ptr(), X.stride(0), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
-            scal.data_ptr(), out.data_ptr(), n, p, m, c, int(general), stream,
+            scal.data_ptr(), outs[0].data_ptr(), beta_ptr, se_ptr, n, p, m, c, int(general), stream,
         )
     if rc != 0:
         raise RuntimeError(
             "liteqtl_lod kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
+    if effects:
+        effects_launches += 1
+        return tuple(outs)
     launches += 1
-    return out
+    return outs[0]
 
 
-def _lod_from_products(B, D1, U, scal, n: int) -> torch.Tensor:
-    """The kernels' epilogue in plain torch: forward substitution, the
-    cancel-keep mask and floor, r2 and the LOD, from the (p, m) products."""
+def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):
+    """The kernels' epilogue in plain torch, from the (p, m) products:
+    forward substitution, the cancel-keep mask and floor, r2 and the LOD;
+    with ``effects`` also the marker's effect and its standard error,
+    ``ops/liteqtl.py::_effects_from_nd`` on the same N and D (N masked by both
+    keep tests, the trait's being inv_nrm2 > 0; D at least FLT_MIN)."""
     c = len(U)
     rows = iter(scal)
     Lc = {(i, k): next(rows) for k in range(c) for i in range(k, c)}
@@ -244,34 +270,43 @@ def _lod_from_products(B, D1, U, scal, n: int) -> torch.Tensor:
         N = N - Z[k] * zeta[k]
         D = D - Z[k] * Z[k]
     eps = torch.finfo(_F32).eps
+    tiny = torch.finfo(_F32).tiny
     keep = D > 1024.0 * eps * D1
     D = torch.maximum(D, 4.0 * eps * D1)
     # where keep is False, r2 = 0 exactly (an all-zero marker has D = 0)
     r2 = torch.where(keep, N * N * inv_nrm2 / D, 0.0)
-    one_minus = torch.clamp(1.0 - r2, min=torch.finfo(_F32).tiny)
-    return (-0.5 * n) * torch.log10(one_minus)
+    one_minus = torch.clamp(1.0 - r2, min=tiny)
+    lod = (-0.5 * n) * torch.log10(one_minus)
+    if not effects:
+        return lod
+    nrm2 = next(rows)
+    Nk = torch.where(keep & (inv_nrm2 > 0), N, 0.0)
+    Dt = torch.clamp(D, min=tiny)
+    dof = float(max(n - c - 1, 1))
+    rss = torch.clamp(nrm2 - Nk * Nk / Dt, min=0.0)
+    return lod, Nk / Dt, torch.sqrt(rss / dof / Dt)
 
 
-def _lod_with_product(X, C, W, WY, scal, product) -> torch.Tensor:
+def _lod_with_product(X, C, W, WY, scal, product, effects=False):
     n, c = C.shape
     B = product(X.T, WY)
     D1 = product((X * X).T, W)
     U = [product((X * C[:, k : k + 1]).T, W) for k in range(c)]
-    return _lod_from_products(B, D1, U, scal, n)
+    return _lod_from_products(B, D1, U, scal, n, effects)
 
 
 @with_highest_matmul()
-def liteqtl_lod_plain(X, C, W, WY, scal) -> torch.Tensor:
+def liteqtl_lod_plain(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function in plain torch, on any device: exact float32
-    products."""
-    return _lod_with_product(X, C, W, WY, scal, torch.matmul)
+    products. ``effects`` as for :func:`liteqtl_lod_cuda`."""
+    return _lod_with_product(X, C, W, WY, scal, torch.matmul, effects)
 
 
-def liteqtl_split_reference(X, C, W, WY, scal) -> torch.Tensor:
+def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function with the resident kernel's arithmetic: X, X * X
     and X * C_k rounded to float32, then each product as three TF32 passes
     (``split.py::matmul_tf32x3``). On any device; no main path takes it."""
-    return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3)
+    return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3, effects)
 
 
 def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:
@@ -281,6 +316,16 @@ def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:
     if ops[0].is_cuda:
         return liteqtl_lod_cuda(*ops)
     return liteqtl_lod_plain(*ops)
+
+
+def fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_per_trait):
+    """(LOD, effect, standard error), each (p, m) float32, with per-trait h2:
+    the effects variant of the CUDA kernel on CUDA tensors, its plain version
+    on CPU tensors."""
+    ops = prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, effects=True)
+    if ops[0].is_cuda:
+        return liteqtl_lod_cuda(*ops, effects=True)
+    return liteqtl_lod_plain(*ops, effects=True)
 
 
 def fused_lods_per_trait_reference(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:

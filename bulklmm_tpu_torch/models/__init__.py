@@ -2,6 +2,7 @@ from .bulkperm import BulkPermResult, bulkscan_perms
 from .bulkscan import bulkscan, bulkscan_alt_grid, bulkscan_null, bulkscan_null_grid
 from .results import BulkScanResult, ScanResult
 from .scan import scan, scan_perms_lite
+from .streaming import bulkscan_perms_streamed, bulkscan_streamed
 
 __all__ = [
     "BulkPermResult",
@@ -12,6 +13,8 @@ __all__ = [
     "bulkscan_null",
     "bulkscan_null_grid",
     "bulkscan_perms",
+    "bulkscan_perms_streamed",
+    "bulkscan_streamed",
     "scan",
     "scan_perms_lite",
 ]

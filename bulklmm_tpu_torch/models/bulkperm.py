@@ -14,9 +14,12 @@ derivation, ``kernels/bulkperm_fused.py`` the fused kernel).
 Column 0 of ``maxlods`` is the observed (unpermuted) genome-wide max LOD of
 each trait; columns 1.. are the permutation null replicates.
 
-Not ported yet, each refused with a ``NotImplementedError`` naming its
-ROADMAP.md item: a ``LowRankKinship`` and ``missing="mask"/"drop"``. The
-streamed, sharded and LOCO permutation entry points wait too.
+``missing="mask"/"drop"`` runs each missingness pattern as its own sweep
+(``models/missing.py``), with its own checkpoint subdirectory. The marker-
+streamed form is ``models/streaming.py::bulkscan_perms_streamed``. Not
+ported yet, refused with a ``NotImplementedError`` naming its ROADMAP.md
+item: a ``LowRankKinship``; the sharded and LOCO permutation entry points
+wait too.
 """
 
 from __future__ import annotations
@@ -47,9 +50,12 @@ from ..ops.wls import wls_ell_columns
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
 from ..utils.host import to_numpy
-from .bulkscan import _refuse_unported, _traits_covar_grid, grid_null_ell
-from .missing import finite_flag, raise_if_missing, validate_missing_kwarg
-from .scan import _apply_weights
+from .bulkscan import _take_rows, _traits_covar_grid, grid_null_ell
+from .missing import (
+    finite_flag, group_checkpoint, maybe_masked, raise_if_missing, subset_kinship,
+    validate_missing_kwarg,
+)
+from .scan import _apply_weights, refuse_lowrank
 
 
 @dataclasses.dataclass
@@ -135,6 +141,22 @@ class _PermCheckpoint:
     def save(self, lo: int, hi: int, row) -> None:
         arr = to_numpy(row)  # waits for this chunk's device work
         self._atomic_write(f"maxlods_{lo}_{hi}.npy", lambda fh: np.save(fh, arr))
+
+    # the marker-streamed sweep's state: the (m, K) running maxima and how
+    # many marker blocks they hold
+
+    def save_state(self, maxima, blocks_done: int) -> None:
+        arr = to_numpy(maxima)  # waits for the blocks' device work
+        self._atomic_write(
+            "acc_state.npz", lambda fh: np.savez(fh, maxima=arr, blocks_done=blocks_done)
+        )
+
+    def load_state(self):
+        f = self.dir / "acc_state.npz"
+        if not f.is_file():
+            return None
+        z = np.load(f)
+        return z["maxima"], int(z["blocks_done"])
 
     def _atomic_write(self, name: str, write) -> None:
         fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
@@ -228,7 +250,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _perm_checkpoint(checkpoint, *, n, m, p, nperms, rndseed, method, reml,
                      original, trait_chunk, h2_grid, prior, precision, engine,
-                     data_digest):
+                     data_digest, rank="full"):
     """The checkpoint handle (or None) with the run's fingerprint. The
     precision (its three dtypes) and the resolved engine are part of it:
     resuming an EXACT64 sweep under FAST32, or a kernel sweep with the plain
@@ -241,7 +263,7 @@ def _perm_checkpoint(checkpoint, *, n, m, p, nperms, rndseed, method, reml,
         rndseed=int(rndseed), method=str(method), reml=bool(reml),
         original=bool(original), trait_chunk=int(trait_chunk),
         h2_grid=[float(v) for v in to_numpy(h2_grid).ravel()],
-        prior=[float(prior[0]), float(prior[1])], rank="full",
+        prior=[float(prior[0]), float(prior[1])], rank=str(rank),
         precision="/".join(_dtype_name(d) for d in (
             precision.resolve_solve(), precision.resolve_gemm(), precision.resolve_kernel()
         )),
@@ -281,7 +303,7 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
             )
     if engine == "pallas" or (engine == "auto" and cuda and float32):
         trait_chunk = 1024 if trait_chunk is None else trait_chunk
-        return "pallas", kernel_perm_chunk_cap(n, trait_chunk), trait_chunk
+        return "pallas", kernel_perm_chunk_cap(n, trait_chunk, device=device), trait_chunk
     trait_chunk = 16 if trait_chunk is None else trait_chunk
     cap = plain_perm_chunk_cap(
         n, p, trait_chunk=trait_chunk,
@@ -289,6 +311,17 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
         kernel_itemsize=precision.resolve_kernel().itemsize,
     )
     return "xla", cap, trait_chunk
+
+
+def shuffle_indices(perm_idx, n: int, nperms: int, rndseed, original: bool):
+    """The (K, n) shuffle indices of a sweep over n samples: drawn from
+    ``rndseed``, or the caller's ``perm_idx`` (an array, or a function of n
+    that returns one), checked."""
+    if perm_idx is None:
+        return permutation_indices(n, nperms, rndseed, original=original)
+    if callable(perm_idx):
+        perm_idx = perm_idx(n)
+    return check_permutation_indices(perm_idx, n, nperms, original=original)
 
 
 def _bulkperm_prep_traits(
@@ -396,7 +429,9 @@ def bulkscan_perms(
     coefficient solve is returned).
 
     ``perm_idx``: a (K, n) integer array that replaces the drawn shuffle
-    indices, K = nperms (+1 when ``original``; row 0 then the identity).
+    indices, K = nperms (+1 when ``original``; row 0 then the identity), or
+    a function of n that returns one (so that each missingness group of a
+    masked call, with its own n, takes its own).
     Without it the indices come from a CPU ``torch.Generator`` seeded with
     ``rndseed`` (the same on the CPU and on a card). The JAX package draws
     its indices with another generator, so for the same seed the two
@@ -405,7 +440,13 @@ def bulkscan_perms(
     indices are passed here.
 
     ``checkpoint``: a directory; completed trait chunks are saved there and
-    a repeated call resumes (:class:`_PermCheckpoint`).
+    a repeated call resumes (:class:`_PermCheckpoint`). With
+    ``missing="mask"/"drop"`` each pattern group keeps its own
+    subdirectory (``pattern_000``, ...).
+
+    ``missing``: "error" (default), "mask" or "drop", as for ``bulkscan``;
+    each pattern group is a sweep of its own rows, with the shuffle indices
+    of its own n.
 
     ``device`` defaults to the first tensor's among ``Y``, ``G``, ``K`` and
     ``covar``; with numpy inputs only it is the current CUDA device, and
@@ -423,8 +464,25 @@ def bulkscan_perms(
         raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
-    _refuse_unported(missing=missing, K=K, output_effects=False)
+    refuse_lowrank(K)
     device = resolve_device(device, Y, G, K, covar)
+    masked = maybe_masked(
+        Y, missing,
+        lambda Ys, rows, traits, gi: bulkscan_perms(
+            Ys, _take_rows(G, rows), subset_kinship(K, rows), _take_rows(covar, rows),
+            nperms=nperms, rndseed=rndseed, method=method, h2_grid=h2_grid,
+            add_intercept=add_intercept, weights=_take_rows(weights, rows),
+            prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
+            solve_method=solve_method, optim_interval=optim_interval,
+            decomp_scheme=decomp_scheme, precision=precision, engine=engine,
+            trait_chunk=trait_chunk, perm_chunk=perm_chunk, original=original,
+            tile_p=tile_p, interpret=interpret, checkpoint=group_checkpoint(checkpoint, gi),
+            _adj_pvals=_adj_pvals, perm_idx=perm_idx, device=device,
+        ),
+        covar=covar, weights=weights, add_intercept=add_intercept, what="bulkscan_perms",
+    )
+    if masked is not None:
+        return masked
     # digest of the raw inputs, before any conversion
     data_digest = (
         _data_fingerprint(Y, G, covar, weights, K) if checkpoint is not None else None
@@ -451,11 +509,7 @@ def bulkscan_perms(
         trait_chunk=trait_chunk,
     )
     perm_chunk = min(perm_chunk, cap)
-    if perm_idx is None:
-        idx = permutation_indices(n, nperms, rndseed, original=original)
-    else:
-        idx = check_permutation_indices(perm_idx, n, nperms, original=original)
-    idx = idx.to(device)
+    idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
 
     dtype = precision.resolve_solve()
     Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)

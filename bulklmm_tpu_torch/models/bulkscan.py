@@ -28,8 +28,16 @@ The alt-grid engine is chosen by ``engine``: "pallas" is the CUDA kernel
 ``ValueError``); "auto" takes it on CUDA tensors under a float32 GEMM dtype
 and the plain path otherwise; "xla" is always the plain path.
 
-What the port does not implement yet raises ``NotImplementedError`` naming
-its ROADMAP.md item ("Still to port").
+``output_effects=True`` (null methods) adds each (marker, trait) GLS effect
+and its standard error from the same LOD step: the kernel's effects variant
+under the float32 presets, ``ops/liteqtl.py::lods_and_effects_per_trait``
+otherwise. ``missing="mask"/"drop"`` runs each missingness pattern as its own
+call (``models/missing.py``). ``trait_chunk=None`` sizes the trait blocks
+from the device's free memory (``utils/memory.py``); a (p, m) result that
+cannot live on the device is assembled on the host from sequential trait
+blocks (:func:`_host_blocked_bulkscan`). A ``LowRankKinship`` is not ported
+yet and raises ``NotImplementedError`` naming its ROADMAP.md item ("Still
+to port").
 """
 
 from __future__ import annotations
@@ -40,17 +48,24 @@ import numpy as np
 import torch
 
 from ..kernels.altgrid_fused import fused_alt_grid
-from ..kernels.liteqtl_fused import MAX_COVARIATES, fused_lods_per_trait
-from ..ops.liteqtl import lods_per_trait, lods_shared
+from ..kernels.liteqtl_fused import (
+    MAX_COVARIATES, fused_lods_and_effects_per_trait, fused_lods_per_trait,
+)
+from ..ops.liteqtl import lods_and_effects_per_trait, lods_per_trait, lods_shared
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
-from ..ops.rotation import KinshipDecomposition, resolve_kinship
+from ..ops.rotation import KinshipDecomposition, decompose_kinship, resolve_kinship
 from ..ops.stats import check_covar_full_rank
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell
+from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
-from .missing import _ncov_total, finite_flag, raise_if_missing, validate_missing_kwarg
+from ..utils.host import PinnedCopies, to_numpy
+from .missing import (
+    _ncov_total, finite_flag, maybe_masked, raise_if_missing, subset_kinship,
+    validate_missing_kwarg,
+)
 from .results import BulkScanResult
 from .scan import _TODO, _apply_weights, refuse_lowrank
 
@@ -78,25 +93,48 @@ def _lod_step(Y0, X0m, C0, lam, h2_list, precision):
     return lods_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
 
 
-def _null_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
-    """(L, h2_list) for one block of traits.
+def _lod_effects_step(Y0, X0m, C0, lam, h2_list, precision):
+    """(L, beta, se), each (p, m), from one pass: the kernel's effects
+    variant where :func:`_lod_step` takes the kernel, the plain effects
+    otherwise."""
+    if _uses_kernel(precision):
+        return fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_list)
+    return lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
 
-    The grid likelihoods run in the kernel dtype, as in the JAX package
-    (float32 under BALANCED), so the h2 selection is the same.
-    """
+
+def _lod_outputs(Y0, X0m, C0, lam, h2_list, precision, effects):
+    """(L, h2_list), or (L, h2_list, beta, se) with ``effects``."""
+    if effects:
+        L, beta, se = _lod_effects_step(Y0, X0m, C0, lam, h2_list, precision)
+        return L, h2_list, beta, se
+    return _lod_step(Y0, X0m, C0, lam, h2_list, precision), h2_list
+
+
+def _grid_h2(Y0, C0, lam, h2_grid, *, prior, reml, precision):
+    """Each trait's grid h2: the grid likelihoods in the kernel dtype, as in
+    the JAX package (float32 under BALANCED), then the first argmax."""
     kdt = precision.resolve_kernel()
     ells = grid_null_ell(
         Y0.to(kdt), C0.to(kdt), lam.to(kdt), h2_grid.to(kdt), prior, reml=reml
     )
-    h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
-    return _lod_step(Y0, X0m, C0, lam, h2_list, precision), h2_list
+    return h2_grid[torch.argmax(ells, dim=0)]  # first max wins
 
 
-def _null_exact_impl(Y0, X0m, C0, lam, *, prior, reml, optim_interval, precision):
-    """(L, h2_list) for one block of traits: each trait's h2 from a Brent
-    fit in the solve dtype, then the LOD step."""
+def _null_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision, effects=False):
+    """(L, h2_list[, beta, se]) for one block of traits.
+
+    The grid likelihoods run in the kernel dtype, as in the JAX package
+    (float32 under BALANCED), so the h2 selection is the same.
+    """
+    h2_list = _grid_h2(Y0, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision)
+    return _lod_outputs(Y0, X0m, C0, lam, h2_list, precision, effects)
+
+
+def _null_exact_impl(Y0, X0m, C0, lam, *, prior, reml, optim_interval, precision, effects=False):
+    """(L, h2_list[, beta, se]) for one block of traits: each trait's h2
+    from a Brent fit in the solve dtype, then the LOD step."""
     h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
-    return _lod_step(Y0, X0m, C0, lam, h2_list, precision), h2_list
+    return _lod_outputs(Y0, X0m, C0, lam, h2_list, precision, effects)
 
 
 def _alt_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
@@ -153,10 +191,10 @@ def _rotate_and_run(impl, Y, Xm, C, Ut, trait_chunk):
 
 
 def _null_grid_pipeline(
-    Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None
+    Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None, effects=False
 ):
     """Rotation + grid fit + LOD step."""
-    kw = dict(prior=prior, reml=reml, precision=precision)
+    kw = dict(prior=prior, reml=reml, precision=precision, effects=effects)
     return _rotate_and_run(
         lambda Y0, X0m, C0: _null_grid_impl(Y0, X0m, C0, lam, h2_grid, **kw),
         Y, Xm, C, Ut, trait_chunk,
@@ -164,10 +202,14 @@ def _null_grid_pipeline(
 
 
 def _null_exact_pipeline(
-    Y, Xm, C, Ut, lam, *, prior, reml, optim_interval, precision, trait_chunk=None
+    Y, Xm, C, Ut, lam, *, prior, reml, optim_interval, precision, trait_chunk=None,
+    effects=False,
 ):
     """Rotation + Brent fit + LOD step."""
-    kw = dict(prior=prior, reml=reml, optim_interval=optim_interval, precision=precision)
+    kw = dict(
+        prior=prior, reml=reml, optim_interval=optim_interval, precision=precision,
+        effects=effects,
+    )
     return _rotate_and_run(
         lambda Y0, X0m, C0: _null_exact_impl(Y0, X0m, C0, lam, **kw),
         Y, Xm, C, Ut, trait_chunk,
@@ -196,6 +238,11 @@ def _alt_grid_pipeline(
 
 def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, device):
     """Argument checks and trait/covariate preparation (JAX :152-182)."""
+    _check_method_engine(method, engine)
+    return _traits_covar_grid(Y, covar, h2_grid, add_intercept, device)
+
+
+def _check_method_engine(method: str, engine: str) -> None:
     if method not in ("null-grid", "null-exact", "alt-grid"):
         raise ValueError(
             "method must be one of 'null-grid', 'null-exact', 'alt-grid'"
@@ -209,7 +256,6 @@ def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, dev
             "the precision preset, see the docstring of "
             "bulklmm_tpu_torch.models.bulkscan)"
         )
-    return _traits_covar_grid(Y, covar, h2_grid, add_intercept, device)
 
 
 def _traits_covar_grid(Y, covar, h2_grid, add_intercept, device):
@@ -243,12 +289,14 @@ def _check_output_effects(output_effects: bool, method: str) -> None:
         )
 
 
-def _refuse_unported(*, missing, K, output_effects):
-    if output_effects:
-        raise NotImplementedError("output_effects=True is " + _TODO.format(1))
-    if missing != "error":
-        raise NotImplementedError(f"missing={missing!r} is " + _TODO.format(3))
-    refuse_lowrank(K)
+def _take_rows(a, rows):
+    """Rows ``rows`` of an optional side input: a tensor stays on its
+    device, anything else becomes a host array."""
+    if a is None:
+        return None
+    if torch.is_tensor(a):
+        return a[torch.as_tensor(rows, device=a.device)]
+    return to_numpy(a)[rows]
 
 
 def _altgrid_uses_kernel(engine: str, precision: PrecisionConfig, device) -> bool:
@@ -312,20 +360,75 @@ def bulkscan(
     null-exact; ``solve_method`` ("qr"/"cholesky") only to coefficient
     solves, which no method returns, so it is checked and has no effect;
     ``output_h2_panel=False`` returns ``h2_panel=None`` from alt-grid and
-    drops the kernel's index carry. ``trait_chunk=None`` means one block of
-    all traits (no sizing from device memory yet), an int runs trait blocks
-    of that width. ``device`` defaults to the first tensor's among ``Y``,
-    ``G``, ``K`` and ``covar``; with numpy inputs only it is the current CUDA
-    device, and without one the call raises (``device="cpu"`` runs the plain
-    versions on the CPU; ``utils/device.py::resolve_device``).
+    drops the kernel's index carry. ``output_effects`` (null methods) adds
+    the (p, m) GLS effects and their standard errors at each trait's null h2
+    (``beta_mat``, ``beta_se_mat``).
+
+    ``trait_chunk``: an int runs trait blocks of that width (>= m: one
+    block). None sizes them from the device's free memory and a footprint
+    model (``utils/memory.py::auto_trait_chunk``): one block where the
+    whole problem fits, else the widest chunk of whole 64-trait tiles that
+    does. Where even the (p, m) results cannot live on the device, the call
+    runs sequential host trait blocks (``auto_host_block``): the kinship is
+    decomposed and G uploaded once, each block's outputs are copied to the
+    host while the next block runs, and the result holds host numpy arrays.
+
+    ``missing``: "error" (default) refuses a non-finite phenotype; "mask"
+    runs each missingness pattern of the traits on its own rows (its own
+    kinship subset and eigendecomposition) and stitches the traits back;
+    "drop" keeps the individuals observed in every trait
+    (``models/missing.py``, COMPAT.md #18).
+
+    ``device`` defaults to the first tensor's among ``Y``, ``G``, ``K`` and
+    ``covar``; with numpy inputs only it is the current CUDA device, and
+    without one the call raises (``device="cpu"`` runs the plain versions
+    on the CPU; ``utils/device.py::resolve_device``).
     """
     validate_missing_kwarg(missing)
+    _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
+    refuse_lowrank(K)
     device = resolve_device(device, Y, G, K, covar)
+    kw = dict(
+        method=method, h2_grid=h2_grid, add_intercept=add_intercept,
+        prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
+        optim_interval=optim_interval, decomp_scheme=decomp_scheme,
+        output_pvals=output_pvals, chisq_df=chisq_df, solve_method=solve_method,
+        precision=precision, engine=engine, output_effects=output_effects,
+        output_h2_panel=output_h2_panel, device=device,
+    )
+    masked = maybe_masked(
+        Y, missing,
+        lambda Ys, rows, traits, gi: bulkscan(
+            Ys, _take_rows(G, rows), subset_kinship(K, rows), _take_rows(covar, rows),
+            weights=_take_rows(weights, rows), trait_chunk=trait_chunk, **kw,
+        ),
+        covar=covar, weights=weights, add_intercept=add_intercept, what="bulkscan",
+    )
+    if masked is not None:
+        return masked
+    if trait_chunk is None:
+        shape = np.shape(Y)
+        dims = dict(
+            n=shape[0], p=np.shape(G)[1], grid=10 if h2_grid is None else len(h2_grid),
+            c=_ncov_total(covar, add_intercept),
+            itemsize=max(precision.resolve_solve().itemsize, precision.resolve_kernel().itemsize),
+            # the (p, m) results on the device: L, the h2 panel, beta and SE, p-values
+            n_outputs=1 + (method == "alt-grid") + 2 * int(output_effects) + int(output_pvals),
+            alt_grid=method == "alt-grid",
+        )
+        budget = memory.device_memory_budget(device)
+        try:
+            trait_chunk = memory.auto_trait_chunk(
+                m=1 if len(shape) == 1 else shape[1], budget=budget, **dims
+            )
+        except ValueError:
+            return _host_blocked_bulkscan(Y, G, K, covar, weights=weights, dims=dims,
+                                          budget=budget, **kw)
+
     Y, covar, h2_grid, add_intercept = _scan_common_inputs(
         Y, covar, h2_grid, add_intercept, method=method, engine=engine, device=device
     )
-    _refuse_unported(missing=missing, K=K, output_effects=output_effects)
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
     use_altgrid_kernel = method == "alt-grid" and _altgrid_uses_kernel(engine, precision, device)
@@ -360,22 +463,95 @@ def bulkscan(
     args = (Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam)
     kw = dict(prior=prior, reml=reml, precision=precision, trait_chunk=trait_chunk)
     if method == "null-grid":
-        L, h2_list = _null_grid_pipeline(*args, h2_grid.to(dtype), **kw)
-        result = BulkScanResult(L=L, h2_null_list=h2_list)
+        out = _null_grid_pipeline(*args, h2_grid.to(dtype), effects=output_effects, **kw)
     elif method == "null-exact":
-        L, h2_list = _null_exact_pipeline(*args, optim_interval=optim_interval, **kw)
-        result = BulkScanResult(L=L, h2_null_list=h2_list)
+        out = _null_exact_pipeline(
+            *args, optim_interval=optim_interval, effects=output_effects, **kw
+        )
     else:
         L, h2_panel = _alt_grid_pipeline(
             *args, h2_grid.to(dtype), use_kernel=use_altgrid_kernel,
             panel=output_h2_panel, **kw,
         )
         # the plain path computes the panel either way; the flag drops it
+        out = None
         result = BulkScanResult(L=L, h2_panel=h2_panel if output_h2_panel else None)
+    if out is not None:
+        result = BulkScanResult(L=out[0], h2_null_list=out[1])
+        if output_effects:
+            result.beta_mat, result.beta_se_mat = out[2], out[3]
     if output_pvals:
         result.log10Pvals_mat = lod2log10p(result.L, chisq_df)
         result.chisq_df = chisq_df
     raise_if_missing(finite, "bulkscan")
+    return result
+
+
+_RESULT_FIELDS = ("L", "h2_null_list", "h2_panel", "beta_mat", "beta_se_mat", "log10Pvals_mat")
+
+
+def _host_blocked_bulkscan(Y, G, K, covar, *, weights, dims, budget, decomp_scheme, device,
+                           add_intercept, **kw) -> BulkScanResult:
+    """Sequential host trait blocks, for a (p, m) result that cannot live on
+    the device (``utils/memory.py::auto_host_block``).
+
+    The kinship is decomposed once and G uploaded once; each block runs the
+    normal engine with a trait chunk fixed from the same budget (so no block
+    sizes itself again against the memory its predecessor still holds).
+    Each block's device outputs are copied into pinned host buffers by
+    non-blocking copies (``utils/host.py::PinnedCopies``) while the next
+    block is enqueued; the harvest waits on the copies' event and moves the
+    slab into the host result. Output dtypes are the first block's.
+    """
+    n, p = dims["n"], dims["p"]
+    m = 1 if np.ndim(Y) == 1 else np.shape(Y)[1]
+    mh = memory.auto_host_block(m=m, budget=budget, **dims)
+    block_chunk = memory.auto_trait_chunk(m=mh, budget=budget, **dims) or mh
+    if weights is not None:
+        # scale once on the host: every block then shares one decomposition
+        if isinstance(K, KinshipDecomposition):
+            raise ValueError(
+                "weights rescale the kinship matrix (K -> WKW); pass the raw "
+                "K, not a cached decomposition."
+            )
+        Yw = to_numpy(Y, np.float64)
+        Yw = Yw[:, None] if Yw.ndim == 1 else Yw
+        cv = np.ones((n, 1)) if covar is None else to_numpy(covar, np.float64)
+        cv = cv[:, None] if cv.ndim == 1 else cv
+        Y, G, covar, K, add_intercept = _apply_weights(
+            Yw, G, cv, K, weights, add_intercept and covar is not None
+        )
+    if not isinstance(K, KinshipDecomposition):
+        K = decompose_kinship(
+            to_numpy(K), decomp_scheme, kw["precision"].resolve_solve(), device=device
+        )
+    G = torch.as_tensor(G, device=device)
+    Yn = to_numpy(Y)
+    Yn = Yn[:, None] if Yn.ndim == 1 else Yn
+    copies = PinnedCopies(device)
+    host = {}
+
+    def harvest(ms, me, handle):
+        for f, a in copies.wait(handle).items():
+            if f not in host:
+                host[f] = np.empty(a.shape[:-1] + (m,), dtype=a.dtype)
+            host[f][..., ms:me] = a
+
+    pending = None
+    for ms in range(0, m, mh):
+        me = min(ms + mh, m)
+        res = bulkscan(Yn[:, ms:me], G, K, covar, trait_chunk=block_chunk, device=device,
+                       decomp_scheme=decomp_scheme, add_intercept=add_intercept, **kw)
+        handle = copies.start(
+            {f: getattr(res, f) for f in _RESULT_FIELDS if getattr(res, f) is not None}
+        )
+        if pending is not None:
+            harvest(*pending)  # the previous block's copies ran meanwhile
+        pending = (ms, me, handle)
+    harvest(*pending)
+    result = BulkScanResult(**{f: host.get(f) for f in _RESULT_FIELDS})
+    if kw["output_pvals"]:
+        result.chisq_df = kw["chisq_df"]
     return result
 
 

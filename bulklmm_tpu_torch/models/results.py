@@ -35,12 +35,14 @@ class ScanResult:
 
 @dataclasses.dataclass
 class BulkScanResult:
-    """Multi-trait scan output; tensors on the scan's device."""
+    """Multi-trait scan output: tensors on the scan's device, or host numpy
+    arrays where the result was assembled on the host (host trait blocks,
+    marker streaming)."""
 
     L: torch.Tensor  # (p, m) LOD matrix
     h2_null_list: Optional[torch.Tensor] = None  # (m,) null/grid methods
     h2_panel: Optional[torch.Tensor] = None  # (p, m) alt-grid argmax h2
-    beta_mat: Optional[torch.Tensor] = None  # (p, m) effects (not ported yet)
+    beta_mat: Optional[torch.Tensor] = None  # (p, m) GLS marker effects, output_effects only
     beta_se_mat: Optional[torch.Tensor] = None  # (p, m)
     log10Pvals_mat: Optional[torch.Tensor] = None  # (p, m), float64
     chisq_df: Optional[int] = None

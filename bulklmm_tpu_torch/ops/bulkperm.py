@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from .liteqtl import _fast_log
 from .smallchol import (
@@ -207,16 +208,21 @@ def plain_perm_chunk_cap(
     return max(64, int(budget_bytes // per_kc))
 
 
-def kernel_perm_chunk_cap(n: int, trait_chunk: int = 1024, budget_bytes: int = 2 * 1024**3) -> int:
+def kernel_perm_chunk_cap(n: int, trait_chunk: int = 1024, budget_bytes=None, *, device=None) -> int:
     """Permutation-chunk width bound for the fused kernel's engine.
 
     The kernel's dominant operand is the float32 (mb, n, Kc) block of
     shuffled, residualized, weight-folded residuals (S2), and the gather
     that forms it is as large again. Kc is bounded so that S2 stays inside
-    ``budget_bytes`` of device memory, and never below 64. At 79 samples and
-    1,024 traits the bound is far above any real number of permutations; at
-    20,000 samples it is what keeps a step from taking 164 GB.
+    ``budget_bytes``, by default a quarter of the device's memory budget
+    (``utils/memory.py::device_memory_budget``: S2 and its gather then take
+    half, the rest of the scan the other half), and never below 64. At 79
+    samples and 1,024 traits the bound is far above any real number of
+    permutations; at 20,000 samples it is what keeps a step from taking
+    164 GB.
     """
+    if budget_bytes is None:
+        budget_bytes = memory.device_memory_budget(device) // 4
     return max(64, int(budget_bytes // (4 * max(trait_chunk, 1) * max(n, 1))))
 
 

@@ -14,6 +14,11 @@ src/bulkscan_helpers.jl:47-64 and :22-24). With weights W[n, j] = w_j[n]:
   Z      = L^{-1} U,  N = B - sum_k Z_k zeta_k,  D = D1 - sum_k Z_k^2
   r      = N / sqrt(D * nrm2),   LOD = -(n/2) log10(1 - r^2)
 
+``lods_and_effects_per_trait`` adds each marker's GLS effect and its
+standard error from the same (N, D, nrm2) (``_effects_from_nd``):
+
+  beta = N / D,  SE = sqrt(max(nrm2 - N^2 / D, 0) / (n - c - 1) / D)
+
 This is the path of the MIXED and EXACT64 presets, which combine in
 float64, on every device; the float32 presets go through the fused kernel
 (``kernels/liteqtl_fused.py``), whose plain version computes the same
@@ -100,6 +105,18 @@ def weighted_correlation_per_trait(
     return N / torch.sqrt(den)
 
 
+def _effects_from_nd(N, D, nrm2, n: int, c: int):
+    """(beta, se): beta = N / D and its SE from the per-(marker, trait)
+    unbiased residual variance (nrm2 - N^2/D) / (n - c - 1), the convention
+    of the single-trait scan's effects (``models/scan.py``). D is floored at
+    the dtype's smallest normal number: an all-zero marker has N = D = 0."""
+    D = torch.clamp(D, min=torch.finfo(D.dtype).tiny)
+    beta = N / D
+    rss = torch.clamp(nrm2[None, :] - N * N / D, min=0.0)
+    dof = max(n - c - 1, 1)
+    return beta, torch.sqrt(rss / dof / D)
+
+
 def _fast_log(precision: PrecisionConfig) -> bool:
     """Take the log in float32 whenever the products ran in float32."""
     return precision.resolve_gemm() == torch.float32
@@ -111,6 +128,17 @@ def lods_per_trait(
     """(p, m) LOD scores with per-trait h2."""
     R = weighted_correlation_per_trait(Y0, X0m, C0, lam, h2_per_trait, precision=precision)
     return r2lod(R, Y0.shape[0], fast_log=_fast_log(precision))
+
+
+def lods_and_effects_per_trait(
+    Y0, X0m, C0, lam, h2_per_trait, *, precision: PrecisionConfig = DEFAULT_PRECISION
+):
+    """(lod, beta, se), each (p, m), from ONE parts computation."""
+    n, c = C0.shape
+    N, D, nrm2 = _nd_parts_per_trait(Y0, X0m, C0, lam, h2_per_trait, precision=precision)
+    den = torch.clamp(D * nrm2[None, :], min=torch.finfo(D.dtype).tiny)
+    lod = r2lod(N / torch.sqrt(den), n, fast_log=_fast_log(precision))
+    return (lod, *_effects_from_nd(N, D, nrm2, n, c))
 
 
 @with_highest_matmul()

@@ -34,7 +34,14 @@ exits nonzero:
    kernel, the permutation and the alt-grid kernels take their products as
    three TF32 passes on the tensor cores; each is also held, reported and
    not gated, against its split reference, which repeats that arithmetic in
-   plain torch.
+   plain torch. The LOD kernel's effects variant (LOD, effect and standard
+   error from the same products) at the same kind of shapes (c = 1, 2, 3
+   resident and 4, 8 general; n = 48, 79, 88, 89 and 2,000; the ragged edge;
+   the general kernel forced): max |dLOD| within the bar above, its LOD
+   within 1e-6 of the LOD-only kernel's on the same operands, |d effect| <=
+   1e-4 (|effect| + SE) and |dSE| <= 1e-4 SE. The run fails, at its end, if
+   ptxas reported a spill in any kernel or if the LOD-only instantiations'
+   registers or shared memory moved from LOD_ONLY_PTXAS.
 4. The null-grid path at BXD scale (79 samples x 7,321 markers x 35,554
    traits, synthetic, seed 2026): BALANCED ``bulkscan`` on CUDA tensors must
    launch the LOD kernel and give a finite (7321, 35554) L; the kernel must
@@ -103,6 +110,35 @@ exits nonzero:
    median of 3 with the raw K, at cohort size the eigendecomposition once,
    and the host null fit alone by the host clock.
 
+10. The bulk options at BXD scale (phase 4's data, BALANCED, EXACT64 as the
+    oracle): ``bulkscan(output_effects=True)`` must launch the effects
+    variant, give phase 4's L within 1e-6, and effects within the bars above
+    of EXACT64's on the equal-h2 traits; the effects variant's time beside
+    its plain version's (median of 5). ``missing="mask"`` with NaNs planted
+    in 5 % of the traits (1-4 individuals each, 8 patterns): within 1e-4 of
+    the EXACT64 masked run on the equal-h2 traits, its time beside the
+    unmasked call's; ``missing="drop"`` equal to the scan of the complete
+    individuals; masked ``bulkscan_perms`` (100 permutations, the first
+    2,048 traits) within 1e-4 of EXACT64. ``auto_trait_chunk``'s decisions
+    under the card's own budget, printed; ``bulkscan`` under a budget forced
+    to 2 GiB must take host blocks, give the one-block L within 5e-5 (phase
+    7's bar for other trait blocks) and keep the call's peak device memory
+    under the budget.
+    ``bulkscan_streamed`` alt-grid with the panel on the host in blocks of
+    2,048 markers: the alt-grid kernel once a block, phase 5's L within
+    1e-5, h2 panel flips within phase 3's share; ``bulkscan_perms_streamed``
+    (100 permutations, 2,048 traits) within 5e-5 of ``bulkscan_perms``.
+    Last of all, the memory model's live sets: each method's peak device
+    memory above its inputs in (p, m) float64 arrays at BXD width, and in
+    (n, m) ones at n = 2,000 with 64 markers (alt-grid's a grid point),
+    beside ``utils/memory.py``'s multipliers, which must cover them.
+11. Marker streaming at biobank n: null-grid, BALANCED, 2,000 samples x
+    100,000 markers (an 800 MB float32 host panel, never on the card) x
+    2,048 traits, the general LOD kernel, into an ``np.memmap`` in a
+    temporary directory: within 1e-4 x n / 79 of the in-memory scan of the
+    same data. Printed: both times (median of 3, host clock), their ratio
+    (the upload overlap) and the streamed call's device idle share.
+
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
 each kernel, with its bound on this card: the larger of its bytes (each
@@ -111,7 +147,10 @@ time either unit takes for float32-grade products of its operations, the
 smaller of flops over 67 TFLOP/s (CUDA cores) and 3 x flops over 495
 TFLOP/s (three TF32 passes on the tensor cores); ``bound_unit`` names the
 unit and ``simt_bound_ms`` keeps the CUDA cores' time;
-``general_kernel_ms`` is the LOD step's general kernel at the same shape. No
+``general_kernel_ms`` is the LOD step's general kernel at the same shape;
+``effects_ms``, ``effects_plain_ms`` and ``effects_bound_ms`` are its effects
+variant's time, its plain version's and its bound (the same operations,
+three (p, m) float32 outputs written). No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -144,6 +183,47 @@ ORACLE_BAR = 1e-4  # max |dLOD|, BALANCED vs EXACT64 on equal-h2 traits
 PARITY_BAR = 1e-5  # BASELINE.md's accuracy bar, reported
 JAX_ALTGRID_BAR = 2e-5  # the JAX package's bar for alt-grid, reported
 INDEX_FLIP_SHARE = 1e-4  # grid-index flips, kernel vs plain, share of pairs
+EFFECT_BAR = 1e-4  # |d effect| / (|effect| + SE) and |dSE| / SE
+SAME_LOD_BAR = 1e-6  # max |dLOD|, the effects variant vs the LOD-only kernel
+MASK_SHARE, MASK_PATTERNS = 0.05, 8  # phase 10's planted missing values
+MASK_NPERMS = 100  # permutations of phase 10's masked and streamed sweeps
+FORCED_BUDGET = 2 * 2**30  # phase 10's forced device memory budget, bytes
+STREAM_BLOCK = 2048  # phase 10's marker block
+STREAM_BAR = 1e-5  # max |dLOD|, streamed vs in-memory alt-grid
+CALIBRATION_TRAITS = 8192  # traits of phase 10's memory live-set calls
+BIOBANK_N, BIOBANK_P, BIOBANK_M = 2000, 100_000, 2048  # phase 11
+#: ptxas's (registers, spill stores, spill loads, static shared bytes) of the
+#: LOD kernel's LOD-only instantiations, as phase 2 printed them for the
+#: sources before the effects variant came (NVIDIA H100, CUDA 12.8's nvcc):
+#: the effects variant must leave them as they were
+LOD_ONLY_PTXAS = {
+    "liteqtl_general_kernelILi8ELb0E": (223, 0, 0, 24320),
+    "liteqtl_general_kernelILi7ELb0E": (220, 0, 0, 21952),
+    "liteqtl_general_kernelILi6ELb0E": (255, 0, 0, 19840),
+    "liteqtl_general_kernelILi5ELb0E": (244, 0, 0, 17984),
+    "liteqtl_general_kernelILi4ELb0E": (182, 0, 0, 16384),
+    "liteqtl_general_kernelILi3ELb0E": (128, 0, 0, 15040),
+    "liteqtl_general_kernelILi2ELb0E": (127, 0, 0, 13952),
+    "liteqtl_general_kernelILi1ELb0E": (80, 0, 0, 13120),
+    "liteqtl_resident_kernelILi1ELi11ELi1ELb0E": (187, 0, 0, 0),
+    "liteqtl_resident_kernelILi1ELi10ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelILi1ELi8ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelILi1ELi6ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelILi1ELi4ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelILi1ELi2ELi1ELb0E": (186, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi11ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi10ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi8ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi6ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi4ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi2ELi2ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi11ELi0ELb0E": (229, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi10ELi0ELb0E": (230, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi8ELi0ELb0E": (231, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi6ELi0ELb0E": (231, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi4ELi0ELb0E": (236, 0, 0, 0),
+    "liteqtl_resident_kernelILi3ELi2ELi0ELb0E": (240, 0, 0, 0),
+}
 GRID = np.arange(0.0, 0.91, 0.1)  # bulkscan's default h2 grid
 PRIOR = (1.0, 0.0)  # bulkscan's default prior
 SCAN_NPERMS = 1024  # permutations of the single-trait scans
@@ -189,7 +269,29 @@ def import_port():
     check("jax" not in sys.modules, "the port imported jax")
 
 
-def build() -> None:
+def ptxas_report(log: Path) -> dict:
+    """{kernel entry: (registers, spill stores, spill loads, static shared
+    bytes)} from a build log's ptxas report; the entry is the kernel's name
+    with its template arguments as mangled (``ILi1ELi10ELi1ELb0E``: c = 1,
+    10 depth steps, 1 step in flight, no effects)."""
+    out, entry = {}, None
+    for line in log.read_text().splitlines():
+        found = re.search(r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E)+)?)E", line)
+        if found:
+            entry = found.group(1)
+            out[entry] = [0, 0, 0, 0]
+        elif entry and (spills := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[entry][1:3] = [int(spills.group(1)), int(spills.group(2))]
+        elif entry and (regs := re.search(r"Used (\d+) registers", line)):
+            out[entry][0] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry][3] = int(smem.group(1)) if smem else 0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def build() -> dict:
+    """Builds the library and prints the build time and ptxas's report;
+    returns the report (:func:`ptxas_report`)."""
     from bulklmm_tpu_torch.kernels.build import BUILD_DIR, load_library
 
     t0 = time.perf_counter()
@@ -204,6 +306,19 @@ def build() -> None:
                 print("  ptxas:", entry.group(1))
             elif "registers" in line or "spill" in line:
                 print("  ptxas:  ", line.replace("ptxas info    : ", "").strip())
+        return ptxas_report(log)
+    return {}
+
+
+def check_ptxas(report: dict) -> None:
+    """No kernel spills, and the LOD-only instantiations' figures are
+    LOD_ONLY_PTXAS's. Checked at the end of the run, so that one run shows
+    every phase."""
+    spilled = sorted(k for k, (_, st, ld, _) in report.items() if st or ld)
+    moved = {k: (report.get(k), want) for k, want in LOD_ONLY_PTXAS.items() if report.get(k) != want}
+    print(f"  ptxas: kernels that spill {spilled}; LOD-only instantiations whose figures moved {moved}")
+    check(not spilled, f"ptxas spills in {spilled}")
+    check(not moved, f"the LOD-only instantiations' ptxas figures changed: {moved}")
 
 
 def _kernel_inputs(n, p, m, c, rng, dev):
@@ -227,7 +342,7 @@ def kernel_checks(dev) -> None:
     ]
     for n, p, m, c, general in cases:
         path = lf.kernel_path(n, c)
-        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c)),
+        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c, 0)),
               f"the launcher and kernel_path disagree on the LOD kernel at n={n}, c={c}")
         ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
         out = lf.liteqtl_lod_cuda(*ops, general=general)
@@ -244,6 +359,55 @@ def kernel_checks(dev) -> None:
     check(lf.kernel_path(88, 3) == "resident" and lf.kernel_path(89, 1) == "general"
           and lf.kernel_path(79, 4) == "general",
           "the resident limits moved: bring the shapes above up to date")
+
+
+def _effects_errors(eff, ref):
+    """(max |dLOD|, max |d effect| / (|effect| + SE), max |dSE| / SE) of the
+    kernel's effects variant against its plain version."""
+    (L, b, s), (Lr, br, sr) = eff, ref
+    lod = (L - Lr).abs().max().item()
+    beta = ((b.double() - br.double()).abs() / (br.double().abs() + sr.double())).max().item()
+    se = ((s.double() - sr.double()).abs() / sr.double()).max().item()
+    return lod, beta, se
+
+
+def effects_checks(dev) -> None:
+    """The LOD kernel's effects variant against its plain version and
+    against the LOD-only kernel on the same operands."""
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    rng = np.random.default_rng(9)
+    cases = [(48, 96, 64, c, False) for c in (1, 2, 3, 4, 8)] + [
+        (48, 70, 45, 1, False), (79, 129, 65, 1, False), (79, 1000, 131, 2, False),
+        (88, 321, 130, 3, False), (89, 96, 64, 1, False), (79, 129, 65, 3, True),
+        (2000, 96, 64, 2, False),
+    ]
+    for n, p, m, c, general in cases:
+        path = lf.kernel_path(n, c, effects=True)
+        check(path == lf.kernel_path(n, c), f"the effects variant takes another path at n={n}, c={c}")
+        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c, 1)),
+              f"the launcher and kernel_path disagree on the effects variant at n={n}, c={c}")
+        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
+        eff = lf.liteqtl_lod_cuda(*ops, general=general, effects=True)
+        only = lf.liteqtl_lod_cuda(*ops[:4], ops[4][:-1], general=general)
+        torch.cuda.synchronize()
+        ref = lf.liteqtl_lod_plain(*ops, effects=True)
+        split = lf.liteqtl_split_reference(*ops, effects=True)
+        torch.cuda.synchronize()
+        check(all(t.shape == (p, m) and bool(torch.isfinite(t).all()) for t in eff),
+              "effects variant output not finite")
+        lod_err, beta_err, se_err = _effects_errors(eff, ref)
+        split_errs = _effects_errors(eff, split)
+        same = (eff[0] - only).abs().max().item()
+        bar = KERNEL_BAR * max(1.0, n / 48)
+        print(f"  LOD kernel, effects variant ({'general' if general else path}) vs plain n={n} p={p} "
+              f"m={m} c={c}: max|dLOD| = {lod_err:.3e} (bar {bar:.2e}), max|d effect|/(|effect|+SE) "
+              f"= {beta_err:.3e}, max|dSE|/SE = {se_err:.3e} (bars {EFFECT_BAR:.0e}); its LOD vs the "
+              f"LOD-only kernel's {same:.3e} (bar {SAME_LOD_BAR:.0e}); vs its split reference "
+              + ", ".join(f"{e:.3e}" for e in split_errs))
+        check(lod_err <= bar and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
+              f"the effects variant disagrees with its plain version at {(n, p, m, c)}")
+        check(same <= SAME_LOD_BAR, f"the effects variant's LOD is not the LOD kernel's at {(n, p, m, c)}")
 
 
 def _index_flips(kk, kp) -> int:
@@ -376,7 +540,7 @@ def _reset_counts():
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
-    lf.launches = af.launches = bf.launches = 0
+    lf.launches = lf.effects_launches = af.launches = bf.launches = 0
 
 
 def _counts():
@@ -384,7 +548,8 @@ def _counts():
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
-    return {"liteqtl_lod": lf.launches, "altgrid": af.launches, "bulkperm_maxr2": bf.launches}
+    return {"liteqtl_lod": lf.launches, "liteqtl_lod_effects": lf.effects_launches,
+            "altgrid": af.launches, "bulkperm_maxr2": bf.launches}
 
 
 def _drive(what, fn):
@@ -933,6 +1098,334 @@ def single_trait(dev, card, Gd, K, Y) -> None:
     torch.cuda.empty_cache()
 
 
+def _effects_err_cols(eff, ref, cols, block=4096):
+    """(max |d effect| / (|effect| + SE), max |dSE| / SE) of the (p, m)
+    effects ``eff`` = (beta, se) against ``ref`` over the columns ``cols``,
+    in float64, block by block."""
+    worst_b = worst_s = 0.0
+    idx = torch.nonzero(cols).flatten()
+    for s in range(0, idx.numel(), block):
+        j = idx[s : s + block]
+        b, se = (t[:, j].double() for t in eff)
+        br, sr = (t[:, j].double() for t in ref)
+        worst_b = max(worst_b, ((b - br).abs() / (br.abs() + sr)).max().item())
+        worst_s = max(worst_s, ((se - sr).abs() / sr).max().item())
+    return worst_b, worst_s
+
+
+def _peak_over(fn):
+    """(result, the call's peak device memory above what was allocated
+    before it, bytes)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - before
+
+
+def _plant_nans(Y, rng, share=MASK_SHARE, patterns=MASK_PATTERNS):
+    """NaNs in ``share`` of the traits, each trait taking one of
+    ``patterns`` sets of 1-4 individuals."""
+    Ym = Y.copy()
+    n, m = Y.shape
+    sets = [rng.choice(n, size=int(rng.integers(1, 5)), replace=False) for _ in range(patterns)]
+    traits = rng.choice(m, size=int(share * m), replace=False)
+    for k, j in enumerate(traits):
+        Ym[sets[k % patterns], j] = np.nan
+    return Ym, traits
+
+
+def bulk_options_at_bxd(dev, card, Yd, Gd, K):
+    """Phase 10: output_effects, missing="mask"/"drop", memory sizing and
+    host blocks, and marker streaming, at BXD scale."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils import memory
+
+    t_phase = time.perf_counter()
+    base = bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED)  # phase 4's call
+    torch.cuda.synchronize()
+
+    # effects: the effects variant on the main path, its LOD the LOD kernel's
+    res, counts = _drive("BALANCED null-grid bulkscan, output_effects",
+                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED, output_effects=True))
+    check(counts["liteqtl_lod_effects"] > 0, "output_effects did not launch the effects variant")
+    check(all(t.is_cuda and t.dtype == torch.float32 and t.shape == (P, M)
+              for t in (res.L, res.beta_mat, res.beta_se_mat)), "effects outputs' shape or dtype")
+    check(bool(torch.isfinite(res.beta_mat).all()) and bool(torch.isfinite(res.beta_se_mat).all()),
+          "effects not finite")
+    all_cols = torch.ones(M, dtype=torch.bool, device=dev)
+    same = _max_abs_diff_cols(res.L, base.L, all_cols)
+    exact = bt.bulkscan(Yd, Gd, K, precision=bt.EXACT64, output_effects=True)
+    torch.cuda.synchronize()
+    eq = exact.h2_null_list == res.h2_null_list.double()
+    lod_err = _max_abs_diff_cols(res.L, exact.L, eq)
+    b_err, s_err = _effects_err_cols((res.beta_mat, res.beta_se_mat),
+                                     (exact.beta_mat, exact.beta_se_mat), eq)
+    print(f"  effects: L vs the LOD-only scan {same:.3e} (bar {SAME_LOD_BAR:.0e}); against EXACT64 on "
+          f"{int(eq.sum())} equal-h2 traits max|dLOD| = {lod_err:.3e} (bar {ORACLE_BAR:.0e}), "
+          f"max|d effect|/(|effect|+SE) = {b_err:.3e}, max|dSE|/SE = {s_err:.3e} (bars {EFFECT_BAR:.0e})")
+    check(same <= SAME_LOD_BAR, "the effects scan's L is not the LOD-only scan's")
+    check(lod_err <= ORACLE_BAR and b_err <= EFFECT_BAR and s_err <= EFFECT_BAR,
+          "BALANCED effects stray from EXACT64")
+    del res, exact
+
+    # the effects variant's kernel time beside its plain version, at the scan's shape
+    ops = lf.prepare_inputs(*_rotated_bxd(K, Yd, Gd, dev), base.h2_null_list, effects=True)
+    fns = {"kernel": lambda: lf.liteqtl_lod_cuda(*ops, effects=True)[2],
+           "plain": lambda: lf.liteqtl_lod_plain(*ops, effects=True)[2]}
+    for fn in fns.values():
+        _time_ms(fn)
+    ems = {name: [] for name in fns}
+    for _ in range(5):
+        for name, fn in fns.items():
+            ems[name].append(_time_ms(fn))
+    eff_times = {name: statistics.median(t) for name, t in ems.items()}
+    print(f"  effects variant on {card}, median of 5 (ms): kernel {eff_times['kernel']:.3f} "
+          f"runs {[round(x, 3) for x in ems['kernel']]}, plain {eff_times['plain']:.3f}")
+    eff_ops = ops
+    del ops
+
+    # missing="mask" and "drop": NaNs in 5 % of the traits, 8 patterns
+    rng = np.random.default_rng(SEED)
+    Ym, masked = _plant_nans(Yd.cpu().numpy(), rng)
+    Ymd = torch.from_numpy(Ym).to(dev)
+    masked_call = lambda: bt.bulkscan(Ymd, Gd, K, precision=bt.BALANCED, missing="mask")  # noqa: E731
+    res, counts = _drive("BALANCED null-grid bulkscan, missing='mask'", masked_call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masked_call()
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    check(counts["liteqtl_lod"] > 0 and bool(torch.isfinite(res.L).all()), "masked L")
+    ref = bt.bulkscan(Ymd, Gd, K, precision=bt.EXACT64, missing="mask")
+    torch.cuda.synchronize()
+    eq = ref.h2_null_list == res.h2_null_list.double()
+    mask_err = _max_abs_diff_cols(res.L, ref.L, eq)
+    t0 = time.perf_counter()
+    bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    groups = len(np.unique(np.isfinite(Ym).T, axis=0))
+    print(f"  missing='mask': {len(masked)} traits with NaNs, {groups} pattern groups; against the "
+          f"EXACT64 masked run on {int(eq.sum())} equal-h2 traits max|dLOD| = {mask_err:.3e} "
+          f"(bar {ORACLE_BAR:.0e}); {1e3 * mask_s:.1f} ms (second call, host clock) against "
+          f"{1e3 * plain_s:.1f} ms unmasked")
+    check(mask_err <= ORACLE_BAR, "masked BALANCED strays from the EXACT64 masked run")
+    rows = np.flatnonzero(np.isfinite(Ym).all(axis=1))
+    drop = bt.bulkscan(Ymd, Gd, K, precision=bt.BALANCED, missing="drop")
+    sub = bt.bulkscan(Ymd[torch.as_tensor(rows, device=dev)], Gd[torch.as_tensor(rows, device=dev)],
+                      K[np.ix_(rows, rows)], precision=bt.BALANCED)
+    check(_max_abs_diff_cols(drop.L, sub.L, all_cols) <= SAME_LOD_BAR,
+          "missing='drop' is not the scan of the complete individuals")
+    print(f"  missing='drop': {len(rows)} of {N} individuals kept, equal to the scan of those rows")
+    del res, ref, drop, sub
+
+    sub_m = slice(0, OPTION_TRAITS)
+    res, counts = _drive(
+        f"BALANCED bulkscan_perms, missing='mask', {MASK_NPERMS} permutations, {OPTION_TRAITS} traits",
+        lambda: bt.bulkscan_perms(Ymd[:, sub_m], Gd, K, nperms=MASK_NPERMS, precision=bt.BALANCED,
+                                  missing="mask"))
+    check(counts["bulkperm_maxr2"] > 0, "masked bulkscan_perms did not launch the permutation kernel")
+    ref = bt.bulkscan_perms(Ymd[:, sub_m], Gd, K, nperms=MASK_NPERMS, precision=bt.EXACT64,
+                            missing="mask")
+    eq = ref.h2_null_list == res.h2_null_list.double()
+    perr = (res.maxlods.double() - ref.maxlods)[eq].abs().max().item()
+    print(f"  masked bulkscan_perms: {int(np.isin(masked, np.arange(OPTION_TRAITS)).sum())} masked "
+          f"traits; against EXACT64 on {int(eq.sum())} equal-h2 traits max|dLOD| = {perr:.3e} "
+          f"(bar {ORACLE_BAR:.0e})")
+    check(bool(torch.isfinite(res.maxlods).all()) and perr <= ORACLE_BAR,
+          "masked bulkscan_perms strays from EXACT64")
+    del res, ref, Ymd
+
+    # memory sizing: the card's own budget, then a forced 2 GiB one
+    budget = memory.device_memory_budget(dev)
+    dims = dict(n=N, p=P, m=M, c=1, itemsize=8)
+    decisions = {f"{what}": memory.auto_trait_chunk(**dims, n_outputs=nout, budget=budget)
+                 for what, nout in (("null-grid", 1), ("alt-grid", 2), ("effects", 3))}
+    print(f"  device memory budget {budget / 2**30:.2f} GiB (free + reserved-but-unallocated, x "
+          f"{memory._USABLE_FRACTION}); auto_trait_chunk at BXD scale: {decisions} (None: one block)")
+    forced = FORCED_BUDGET
+    real_budget = memory.device_memory_budget
+    memory.device_memory_budget = lambda device=None: forced
+    try:
+        hb, peak = _peak_over(lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED))
+    finally:
+        memory.device_memory_budget = real_budget
+    check(isinstance(hb.L, np.ndarray), "the forced budget did not take host blocks")
+    mh = memory.auto_host_block(**dims, budget=forced)
+    herr = _max_abs_diff_cols(torch.from_numpy(hb.L).to(dev), base.L, all_cols)
+    print(f"  forced budget {forced / 2**30:.0f} GiB: host blocks of {mh} traits "
+          f"({-(-M // mh)} blocks); L vs the one-block scan max|dLOD| = {herr:.3e} (bar "
+          f"{KERNEL_BAR:.0e}, phase 7's for other blocks: the per-trait float32 scalars are summed "
+          f"by cuBLAS in an order that depends on the block's width); the call's peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    check(herr <= KERNEL_BAR, "host-blocked L strays from the one-block scan")
+    check(peak <= forced, "the host-blocked call's peak device memory passed its budget")
+    del hb
+
+    # marker streaming at BXD scale: alt-grid and the permutation sweep
+    G_host = Gd.cpu().numpy()
+    alt = bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.BALANCED)  # phase 5's call
+    res, counts = _drive(
+        f"BALANCED alt-grid bulkscan_streamed, blocks of {STREAM_BLOCK} markers",
+        lambda: bt.bulkscan_streamed(Yd, G_host, K, method="alt-grid", precision=bt.BALANCED,
+                                     marker_block=STREAM_BLOCK))
+    check(counts["altgrid"] == -(-P // STREAM_BLOCK), "the streamed alt-grid did not launch its kernel "
+          "once a block")
+    serr = _max_abs_diff_cols(torch.from_numpy(res.L).to(dev), alt.L, all_cols)
+    flips = int((torch.from_numpy(res.h2_panel).to(dev) != alt.h2_panel).sum())
+    print(f"  streamed alt-grid vs in-memory: max|dLOD| = {serr:.3e} (bar {STREAM_BAR:.0e}), "
+          f"h2 panel flips {flips} of {P * M}")
+    check(serr <= STREAM_BAR and flips <= INDEX_FLIP_SHARE * P * M,
+          "streamed alt-grid strays from the in-memory scan")
+    del alt, res
+    Ysub = Yd[:, sub_m]
+    inmem = bt.bulkscan_perms(Ysub, Gd, K, nperms=MASK_NPERMS, precision=bt.BALANCED)
+    res, counts = _drive(
+        f"BALANCED bulkscan_perms_streamed, {MASK_NPERMS} permutations, {OPTION_TRAITS} traits",
+        lambda: bt.bulkscan_perms_streamed(Ysub, G_host, K, nperms=MASK_NPERMS,
+                                           precision=bt.BALANCED, marker_block=STREAM_BLOCK))
+    check(counts["bulkperm_maxr2"] > 0, "the streamed sweep did not launch the permutation kernel")
+    perr = (res.maxlods - inmem.maxlods).abs().max().item()
+    print(f"  streamed permutation maxima vs bulkscan_perms: max|dLOD| = {perr:.3e} "
+          f"(bar {KERNEL_BAR:.0e})")
+    check(perr <= KERNEL_BAR, "streamed permutation maxima stray from bulkscan_perms")
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    del base, res, inmem
+    torch.cuda.empty_cache()
+    return eff_ops, eff_times
+
+
+def calibrate_memory(dev, Yd, Gd, K) -> None:
+    """The live sets behind utils/memory.py's multipliers: each call's peak
+    device memory above its inputs, in (p, m) arrays of the widest dtype at
+    BXD width (the (p,)-sized copies a trait holds), and in (n, m) arrays at
+    n = 2,000 with 64 markers (the (n,)-sized ones). Printed beside the
+    model's (p, m)-sized outputs and multipliers."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.utils import memory
+
+    m = CALIBRATION_TRAITS
+    Ys = Yd[:, :m].contiguous()
+    calls = [
+        (f"{name} {preset}{' effects' if eff else ''}", nout,
+         (lambda name=name, preset=preset, eff=eff: bt.bulkscan(
+             Ys, Gd, K, method=name, precision=bt.precision_by_name(preset), output_effects=eff,
+             trait_chunk=m)))
+        for name, preset, eff, nout in (
+            ("null-grid", "BALANCED", False, 1), ("null-grid", "BALANCED", True, 3),
+            ("null-grid", "EXACT64", False, 1), ("null-grid", "EXACT64", True, 3),
+            ("alt-grid", "BALANCED", False, 2), ("alt-grid", "EXACT64", False, 2),
+            ("null-exact", "BALANCED", False, 1))
+    ]
+    worst = 0.0
+    for what, nout, fn in calls:
+        _, extra = _peak_over(fn)
+        copies = extra / (8 * P * m) - nout
+        worst = max(worst, copies)
+        print(f"  live set of {what} at {N} x {P} x {m}: {extra / 2**30:.3f} GiB = "
+              f"{extra / (8 * P * m):.2f} (p, m) float64 arrays, {copies:.2f} beyond its {nout} outputs")
+    rng = np.random.default_rng(SEED)
+    n2 = COHORT_N
+    G2 = torch.from_numpy(rng.uniform(0.0, 1.0, (n2, 64)).astype(np.float32)).to(dev)
+    Y2 = torch.from_numpy(rng.normal(size=(n2, m)).astype(np.float32)).to(dev)
+    dec = bt.decompose_kinship(bt.calc_kinship(G2, precision=bt.EXACT64), dtype=torch.float64,
+                               device=dev)
+    worst_n = worst_alt = 0.0
+    for name, preset in (("null-grid", "BALANCED"), ("null-grid", "EXACT64"),
+                         ("null-exact", "BALANCED"), ("alt-grid", "BALANCED")):
+        _, extra = _peak_over(lambda: bt.bulkscan(
+            Y2, G2, dec, method=name, precision=bt.precision_by_name(preset), trait_chunk=m))
+        # the rotated traits (one (n, m) array) are the model's resident
+        copies = extra / (8 * n2 * m) - 1
+        if name == "alt-grid":
+            worst_alt = max(worst_alt, copies / len(GRID))
+        else:
+            worst_n = max(worst_n, copies)
+        print(f"  live set of {name} {preset} at {n2} x 64 x {m}: {extra / 2**30:.3f} GiB = "
+              f"{copies:.2f} (n, m) float64 arrays beyond the rotated traits")
+    print(f"  memory model: the most (p,)-sized copies a trait held {worst:.2f} (model "
+          f"{memory._P_CHUNK_COPIES}), the most (n,)-sized {worst_n:.2f} (model "
+          f"{memory._N_CHUNK_COPIES}), alt-grid {worst_alt:.2f} a grid point (model "
+          f"{memory._ALT_GRID_N_COPIES})")
+    check(worst <= memory._P_CHUNK_COPIES and worst_n <= memory._N_CHUNK_COPIES
+          and worst_alt <= memory._ALT_GRID_N_COPIES,
+          "a call's live set passed the memory model's multipliers")
+    del G2, Y2, dec
+
+
+def _busy_ms(fn) -> float:
+    """The device's busy time over one call of ``fn``, ms: the profiler's
+    sum of kernels' and copies' own times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bulklmm_tpu_torch.profile_paths import _device_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(busy > 0.0, "the profiler recorded no device time")
+    return busy / 1e3
+
+
+def streaming_at_biobank_n(dev, card) -> None:
+    """Phase 11: null-grid over a 2,000 x 100,000 host panel (800 MB float32)
+    and 2,048 traits, streamed into a memmap, against the in-memory scan."""
+    import tempfile
+
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    G = rng.random((BIOBANK_N, BIOBANK_P), dtype=np.float32)
+    Y = rng.standard_normal((BIOBANK_N, BIOBANK_M), dtype=np.float32)
+    Yd = torch.from_numpy(Y).to(dev)
+    K = bt.calc_kinship(torch.from_numpy(G).to(dev), precision=bt.EXACT64).cpu().numpy()
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    print(f"  data: {G.nbytes / 1e6:.0f} MB host panel, kinship and its decomposition in "
+          f"{time.perf_counter() - t_phase:.1f} s; LOD kernel path {lf.kernel_path(BIOBANK_N, 1)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = np.lib.format.open_memmap(Path(tmp) / "L.npy", mode="w+", dtype=np.float32,
+                                        shape=(BIOBANK_P, BIOBANK_M))
+        stream = lambda: bt.bulkscan_streamed(Yd, G, dec, precision=bt.BALANCED, out=out)  # noqa: E731
+        res, counts = _drive("BALANCED null-grid bulkscan_streamed at biobank n", stream)
+        check(counts["liteqtl_lod"] > 0 and res.L is out, "the streamed scan did not launch the LOD kernel")
+        check(bool(np.isfinite(out).all()), "streamed L is not finite")
+        Gd = torch.from_numpy(G).to(dev)
+        inmem = lambda: bt.bulkscan(Yd, Gd, dec, precision=bt.BALANCED)  # noqa: E731
+        ref, _ = _drive("BALANCED null-grid bulkscan in memory at biobank n", inmem)
+        all_cols = torch.ones(BIOBANK_M, dtype=torch.bool, device=dev)
+        err = _max_abs_diff_cols(torch.from_numpy(np.asarray(out)).to(dev), ref.L, all_cols)
+        bar = ORACLE_BAR * BIOBANK_N / N
+        print(f"  streamed vs in-memory: max|dLOD| = {err:.3e} (bar {bar:.2e})")
+        check(err <= bar, "the streamed scan strays from the in-memory one at biobank n")
+        del ref
+        times_s = {"streamed": [], "in memory": []}
+        for _ in range(3):
+            for name, fn in (("streamed", stream), ("in memory", inmem)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times_s[name].append(time.perf_counter() - t0)
+        med = {name: statistics.median(t) for name, t in times_s.items()}
+        busy = _busy_ms(stream)
+        print(f"  times on {card}, median of 3 after the first calls, host clock (ms): streamed "
+              f"{1e3 * med['streamed']:.1f} {[round(1e3 * x, 1) for x in times_s['streamed']]}, in "
+              f"memory {1e3 * med['in memory']:.1f} {[round(1e3 * x, 1) for x in times_s['in memory']]}; "
+              f"streamed / in memory {med['streamed'] / med['in memory']:.2f}; the streamed call's "
+              f"device busy {busy:.1f} ms (profiler on), idle {100 * (1 - busy / (1e3 * med['streamed'])):.0f} %")
+        del out, res
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    del G, Gd, Yd, dec
+    torch.cuda.empty_cache()
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -956,9 +1449,11 @@ def main() -> None:
     card = device_check()
     dev = torch.device("cuda", 0)
     print("[2] build")
-    build()
+    report = build()
+    check(bool(report), "the build left no ptxas report")
     print("[3] kernels vs their plain versions on the card")
     kernel_checks(dev)
+    effects_checks(dev)
     altgrid_checks(dev)
     bulkperm_checks(dev)
     print(f"[4] BALANCED null-grid bulkscan at BXD scale ({N} x {P} x {M})")
@@ -976,6 +1471,14 @@ def main() -> None:
     del prep, idx
     single_trait(dev, card, Gd, K, Yd[:, :1].cpu().numpy())
     import_port()  # the single-trait path imported no jax either
+    print(f"[10] bulk options at BXD scale ({N} x {P} x {M}): output_effects, missing, memory "
+          "sizing and host blocks, marker streaming")
+    eff_ops, eff_times = bulk_options_at_bxd(dev, card, Yd, Gd, K)
+    print(f"[11] marker streaming at biobank n ({BIOBANK_N} x {BIOBANK_P} x {BIOBANK_M})")
+    streaming_at_biobank_n(dev, card)
+    print("[10, last] the memory model's live sets")
+    calibrate_memory(dev, Yd, Gd, K)
+    import_port()
     kernels = [{
         "name": "liteqtl_lod",
         "route": "cuda",
@@ -986,6 +1489,10 @@ def main() -> None:
         "ms": med["LOD kernel alone"],
         "plain_ms": med["LOD plain version"],
         "general_kernel_ms": med["LOD general kernel alone"],
+        "effects_ms": eff_times["kernel"],
+        "effects_plain_ms": eff_times["plain"],
+        "effects_bound_ms": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), eff_ops,
+                                   3 * 4 * P * M)["bound_ms"],
         "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
@@ -1014,11 +1521,14 @@ def main() -> None:
         k["library_ms"] = None  # no single PyTorch call computes this function
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
+        for key in ("effects_ms", "effects_plain_ms", "effects_bound_ms"):
+            k.setdefault(key, None)  # the LOD kernel's effects variant
         share = 100 * k["bound_ms"] / k["ms"]
         print(f"  {k['name']}: {k['ms']:.3f} ms per launch, bound {k['bound_ms']:.3f} ms by "
               f"{k['bound_unit']} ({k['simt_bound_ms']:.3f} ms on the CUDA cores; the kernel runs "
               f"at {share:.1f} % of the bound's rate), {k['launches']} launches on its path")
         check(share <= 100.0, f"{k['name']} runs faster than its bound")
+    check_ptxas(report)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -431,12 +431,22 @@ def test_pallas_engine_refusals(perm_data, preset, match):
 @pytest.mark.parametrize("kw", [dict(missing="mask"), dict(missing="drop"), dict(lowrank=True)],
                          ids=["mask", "drop", "lowrank"])
 def test_unported_options_raise(perm_data, kw):
+    """A LowRankKinship is still to port and raises naming its ROADMAP.md
+    item; missing="mask"/"drop" run (tests/test_torch_missing.py holds them
+    against the JAX package)."""
     G, Y, K = perm_data
+    Y = np.array(Y, dtype=np.float64)
+    Y[2, 1] = np.nan
+    lam, U = np.linalg.eigh(K)
+    lowrank = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
     if kw.pop("lowrank", False):
-        lam, U = np.linalg.eigh(K)
-        K = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item'):
-        bt.bulkscan_perms(Y, G, K, nperms=4, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
+            bt.bulkscan_perms(Y, G, lowrank, nperms=4, device="cpu", missing="mask")
+        return
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
+        bt.bulkscan_perms(Y, G, lowrank, nperms=4, device="cpu", **kw)
+    res = bt.bulkscan_perms(Y, G, K, nperms=4, device="cpu", **kw)
+    assert res.maxlods.shape == (Y.shape[1], 5) and bool(torch.isfinite(res.maxlods).all())
 
 
 def test_numpy_inputs_without_a_device_raise_and_name_the_cpu(perm_data):
@@ -615,10 +625,19 @@ def test_data_fingerprint_over_the_cap_catches_single_cell_edits():
 # --- memory rules ---------------------------------------------------------------
 
 
-def test_perm_chunk_caps():
+@pytest.fixture
+def budget_8gib(monkeypatch):
+    """A device memory budget of 8 GiB, a quarter of which bounds S2."""
+    from bulklmm_tpu_torch.utils import memory
+
+    monkeypatch.setattr(memory, "device_memory_budget", lambda device=None: 8 * 1024**3)
+
+
+def test_perm_chunk_caps(budget_8gib):
     """The plain engine's cap is the JAX package's off-TPU rule
     (tests/test_bulkperm.py:572); the kernel's engine is bounded by the
-    device memory of S2 instead of the TPU's VMEM rule."""
+    device memory of S2 instead of the TPU's VMEM rule: a quarter of the
+    device's memory budget (2 GiB of the 8 GiB patched in)."""
     for args in [(79, 7321, 16, 8, 8), (79, 7321, 16, 4, 4), (30, 50, 16, 8, 8), (20000, 100000, 16, 4, 8)]:
         n, p, tc, gi, ki = args
         assert tops.plain_perm_chunk_cap(n, p, trait_chunk=tc, gemm_itemsize=gi, kernel_itemsize=ki) == \
@@ -633,7 +652,7 @@ def test_perm_chunk_caps():
     assert tops.kernel_perm_chunk_cap(20_000, 1024) == 64
 
 
-def test_engine_resolution():
+def test_engine_resolution(budget_8gib):
     res = tmodel._resolve_perm_engine
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     assert res("auto", 79, device=cpu, precision=bt.BALANCED, p=7321) == \

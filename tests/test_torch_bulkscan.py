@@ -184,12 +184,25 @@ def test_same_value_errors_as_jax(bxd_like, case):
     dict(missing="mask"), dict(missing="drop"), dict(output_effects=True), dict(lowrank=True),
 ], ids=["null-exact", "alt-grid", "mask", "drop", "effects", "lowrank"])
 def test_unported_options_raise(bxd_like, kw):
-    K = bxd_like["K"]
+    """Of these options only a LowRankKinship is still to port: it raises
+    naming its ROADMAP.md item, whatever else is asked, and the others run
+    (tests/test_torch_effects.py and test_torch_missing.py hold them
+    against the JAX package)."""
+    lam, U = np.linalg.eigh(bxd_like["K"])
+    lowrank = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
+    Y = bxd_like["Y"].copy()
+    Y[3, 2] = np.nan
     if kw.pop("lowrank", False):
-        lam, U = np.linalg.eigh(K)
-        K = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item'):
-        bt.bulkscan(bxd_like["Y"], bxd_like["G"], K, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
+            bt.bulkscan(Y, bxd_like["G"], lowrank, device="cpu", **kw)
+        return
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
+        bt.bulkscan(Y, bxd_like["G"], lowrank, device="cpu", **kw)
+    if "missing" not in kw:
+        Y = bxd_like["Y"]
+    res = bt.bulkscan(Y, bxd_like["G"], bxd_like["K"], device="cpu", **kw)
+    assert res.L.shape == (bxd_like["p"], bxd_like["m"]) and bool(torch.isfinite(res.L).all())
+    assert (res.beta_mat is not None) == bool(kw.get("output_effects"))
 
 
 def test_weights_refuse_cached_decomposition(bxd_like):
