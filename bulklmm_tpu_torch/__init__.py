@@ -10,8 +10,12 @@ genome-wide permutation maxima through a third (``csrc/bulkperm_fused.cu``),
 and ``get_thresholds_bulk`` their family-wise thresholds. The single-trait
 ``scan`` (null and alt assumptions, permutations, effects, the profile
 likelihood) and ``scan_perms_lite`` run on plain torch products, as they do
-in the JAX package. Inputs and outputs keep the JAX package's layouts:
-Y (n, m), G (n, p), L (p, m).
+in the JAX package. A ``LowRankKinship`` (top-k eigenpairs from
+``kinship_lowrank``, ``kinship_lowrank_from_geno`` or
+``kinship_lowrank_exact``) runs every one of these entry points on the
+rank-k engine, with no (n, n) array, on plain products as in the JAX
+package. Inputs and outputs keep the JAX package's layouts: Y (n, m),
+G (n, p), L (p, m).
 
 Entry points run on the current CUDA device when their inputs are numpy
 arrays and on a tensor input's device otherwise; ``device="cpu"`` asks for
@@ -44,11 +48,15 @@ from .models import (
 )
 from .ops import (
     KinshipDecomposition,
+    LowRankKinship,
     calc_kinship,
     decompose_kinship,
     decomposition_from_numpy,
     fit_lmm,
     gridbrent,
+    kinship_lowrank,
+    kinship_lowrank_exact,
+    kinship_lowrank_from_geno,
     lod2log10p,
     lod2p,
     make_weights,
@@ -84,6 +92,7 @@ __all__ = [
     "EXACT64",
     "FAST32",
     "KinshipDecomposition",
+    "LowRankKinship",
     "MIXED",
     "PrecisionConfig",
     "ProfileLL",
@@ -108,6 +117,9 @@ __all__ = [
     "get_thresholds",
     "get_thresholds_bulk",
     "gridbrent",
+    "kinship_lowrank",
+    "kinship_lowrank_exact",
+    "kinship_lowrank_from_geno",
     "lod2log10p",
     "lod2p",
     "lod_fdr",

@@ -16,10 +16,11 @@ each trait; columns 1.. are the permutation null replicates.
 
 ``missing="mask"/"drop"`` runs each missingness pattern as its own sweep
 (``models/missing.py``), with its own checkpoint subdirectory. The marker-
-streamed form is ``models/streaming.py::bulkscan_perms_streamed``. Not
-ported yet, refused with a ``NotImplementedError`` naming its ROADMAP.md
-item: a ``LowRankKinship``; the sharded and LOCO permutation entry points
-wait too.
+streamed form is ``models/streaming.py::bulkscan_perms_streamed``. A
+``LowRankKinship`` takes the rank-k engine (:func:`_bulkscan_perms_lowrank`:
+per-trait Woodbury whitening in standard coordinates, plain products, as in
+the JAX package, whose fused kernel assumes the rotated basis). The sharded
+and LOCO permutation entry points are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,10 +41,16 @@ from ..kernels.bulkperm_fused import (
     prepare_trait_block,
 )
 from ..ops.bulkperm import (
-    check_permutation_indices, kernel_perm_chunk_cap, max_r2_perms_plain, maxr2_to_lod,
-    perm_trait_marker_parts, perm_trait_parts, permutation_indices, plain_perm_chunk_cap,
+    check_permutation_indices, kernel_perm_chunk_cap, lowrank_perm_chunk_cap,
+    lowrank_perm_marker_parts, lowrank_perm_trait_marker_parts, max_r2_perms_lowrank,
+    max_r2_perms_plain, maxr2_to_lod, perm_trait_marker_parts, perm_trait_parts,
+    perm_trait_parts_lowrank, permutation_indices, plain_perm_chunk_cap,
 )
 from ..ops.lmm import fit_h2_traits
+from ..ops.lowrank import (
+    LowRankKinship, _parts_kwargs, _shared_parts, _trait_side_parts, as_lowrank,
+    fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank, null_sigma2_lowrank, refuse_pallas,
+)
 from ..ops.rotation import KinshipDecomposition, resolve_kinship
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell_columns
@@ -55,7 +62,7 @@ from .missing import (
     finite_flag, group_checkpoint, maybe_masked, raise_if_missing, subset_kinship,
     validate_missing_kwarg,
 )
-from .scan import _apply_weights, refuse_lowrank
+from .scan import _apply_weights, _refuse_weights_on_factors
 
 
 @dataclasses.dataclass
@@ -187,7 +194,8 @@ def _data_fingerprint(*arrays, max_bytes: int = 1 << 28):
     checksum. Integer arithmetic wraps identically everywhere, so the digest
     is stable across machines. Lazy containers (``np.memmap``) are sized
     from ``shape`` / ``dtype`` and read by slice only. A tensor is hashed by
-    its host copy; a ``KinshipDecomposition`` by its factors.
+    its host copy; a ``KinshipDecomposition`` or a ``LowRankKinship`` by its
+    factors.
     """
     h = hashlib.blake2b(digest_size=16)
 
@@ -198,6 +206,10 @@ def _data_fingerprint(*arrays, max_bytes: int = 1 << 28):
         if isinstance(a, KinshipDecomposition):
             feed(a.Ut_host if a.Ut_host is not None else a.Ut)
             feed(a.lam_host if a.lam_host is not None else a.lam)
+            return
+        if is_lowrank(a):
+            feed(a.U)
+            feed(a.lam)
             return
         if torch.is_tensor(a):
             a = to_numpy(a)
@@ -375,6 +387,83 @@ def _trait_block_lods(
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
 
+@with_highest_matmul()
+def _bulkperm_prep_traits_lowrank(Y, C, U, lam, h2_grid, *, n, prior, reml, method,
+                                  optim_interval, precision):
+    """Trait-side preparation on a rank-k kinship (nothing rotated): the
+    per-trait null fits on the Woodbury likelihood and the
+    standard-coordinate whitening parts. Returns ``(h2_list, sigma2_list,
+    sm1, Qstack, wrn)``."""
+    lr = LowRankKinship(U=U, lam=lam)
+    kw = _parts_kwargs(precision)
+    kdt = precision.resolve_kernel()
+    parts = {**_shared_parts(C, lr, **kw), **_trait_side_parts(Y, C, lr, **kw)}
+    lam_k = lam.to(kdt)
+    if method == "null-grid":
+        ells = grid_null_ell_lowrank(parts, lam_k, h2_grid.to(kdt), prior, n=n, reml=reml)
+        h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
+    else:
+        # Brent in the solve dtype (ops/lowrank.py's module docstring)
+        h2_list = fit_h2_lowrank(parts, lam, prior, n=n, reml=reml, optim_interval=optim_interval)
+    sigma2_list = null_sigma2_lowrank(parts, lam_k, h2_list.to(kdt), prior, n=n, reml=reml)
+    sm1, Qstack, wrn = perm_trait_parts_lowrank(Y, C, U, lam, h2_list, precision=precision)
+    return h2_list, sigma2_list, sm1, Qstack, wrn
+
+
+def _lowrank_block_lods(X, U, mparts, sm1_b, Q_b, wrn_b, idx, *, n, perm_chunk, precision):
+    """(mb, K) genome-wide max LODs of one trait block on a rank-k kinship,
+    its permutation chunks in turn. ``mparts`` is
+    ``ops/bulkperm.py::lowrank_perm_marker_parts``'s; the whitened marker
+    norms are formed once a block."""
+    UtX, UtX2, xsq = mparts
+    qXs, xns = lowrank_perm_trait_marker_parts(X, U, UtX, UtX2, xsq, sm1_b, Q_b,
+                                               precision=precision)
+    cols = [
+        maxr2_to_lod(max_r2_perms_lowrank(X, U, UtX, sm1_b, Q_b, qXs, xns, wrn_b,
+                                          idx[ks : ks + perm_chunk], precision=precision),
+                     n, precision=precision)
+        for ks in range(0, idx.shape[0], perm_chunk)
+    ]
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+
+
+def _bulkscan_perms_lowrank(Y, G, K, covar, idx, *, h2_grid, prior, reml, method, optim_interval,
+                            precision, trait_chunk, perm_chunk, ckpt_meta):
+    """The rank-k body of :func:`bulkscan_perms`: the same trait-chunk loop
+    and results, with the marker projections formed once, the whitened
+    marker norms once a trait block and the numerator products per (trait
+    block, permutation chunk). Returns ``(maxlods, h2_list, sigma2_list)``."""
+    n, m = Y.shape
+    dtype = precision.resolve_solve()
+    U, lam = as_lowrank(K, dtype, Y.device)
+    X = G.to(precision.resolve_kernel())  # every product below reads it so: cast once
+    trait_chunk = 16 if trait_chunk is None else trait_chunk
+    perm_chunk = min(perm_chunk, lowrank_perm_chunk_cap(
+        n, X.shape[1], trait_chunk, max(precision.resolve_gemm().itemsize,
+                                        precision.resolve_kernel().itemsize), device=Y.device))
+    ckpt = _perm_checkpoint(trait_chunk=trait_chunk, rank=f"lowrank{U.shape[1]}", engine="xla",
+                            **ckpt_meta)
+    h2_list, sigma2_list, sm1, Qstack, wrn = _bulkperm_prep_traits_lowrank(
+        Y.to(dtype), covar.to(dtype), U, lam, h2_grid.to(dtype), n=n, prior=prior, reml=reml,
+        method=method, optim_interval=optim_interval, precision=precision,
+    )
+    mparts = lowrank_perm_marker_parts(X, U, precision=precision)
+    rows = []
+    for ms in range(0, m, trait_chunk):
+        me = min(ms + trait_chunk, m)
+        done = ckpt.load(ms, me) if ckpt is not None else None
+        if done is not None:
+            rows.append(torch.as_tensor(done, device=Y.device))
+            continue
+        row = _lowrank_block_lods(X, U, mparts, sm1[ms:me], Qstack[ms:me], wrn[:, ms:me], idx,
+                                  n=n, perm_chunk=perm_chunk, precision=precision)
+        if ckpt is not None:
+            ckpt.save(ms, me, row)
+        rows.append(row)
+    maxlods = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    return maxlods, h2_list, sigma2_list
+
+
 def bulkscan_perms(
     Y,
     G,
@@ -439,6 +528,10 @@ def bulkscan_perms(
     their parity is distributional, and exact only when that package's
     indices are passed here.
 
+    ``K`` may be a ``LowRankKinship``: the rank-k engine
+    (:func:`_bulkscan_perms_lowrank`; plain products, trait blocks of 16 by
+    default, ``engine="pallas"`` refused as in the JAX package).
+
     ``checkpoint``: a directory; completed trait chunks are saved there and
     a repeated call resumes (:class:`_PermCheckpoint`). With
     ``missing="mask"/"drop"`` each pattern group keeps its own
@@ -464,7 +557,6 @@ def bulkscan_perms(
         raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
-    refuse_lowrank(K)
     device = resolve_device(device, Y, G, K, covar)
     masked = maybe_masked(
         Y, missing,
@@ -483,6 +575,9 @@ def bulkscan_perms(
     )
     if masked is not None:
         return masked
+    lowrank = is_lowrank(K)
+    if lowrank:
+        refuse_pallas(engine, perms=True)
     # digest of the raw inputs, before any conversion
     data_digest = (
         _data_fingerprint(Y, G, covar, weights, K) if checkpoint is not None else None
@@ -492,17 +587,29 @@ def bulkscan_perms(
     G = torch.as_tensor(G, device=device)
     n, m = Y.shape
     if weights is not None:
-        if isinstance(K, KinshipDecomposition):
-            raise ValueError(
-                "weights rescale the kinship matrix (K -> WKW); pass the raw "
-                "K, not a cached decomposition."
-            )
+        _refuse_weights_on_factors(K, " or rank-k factorization")
         Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)
         Y, G, covar = (torch.as_tensor(a, device=device) for a in (Y, G, covar))
     if add_intercept:
         covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
     prior = (float(prior_variance), float(prior_sample_size))
     p = G.shape[1]
+    ckpt_meta = dict(
+        checkpoint=checkpoint, n=n, m=m, p=p, nperms=nperms, rndseed=rndseed, method=method,
+        reml=reml, original=original, h2_grid=h2_grid, prior=prior, precision=precision,
+        data_digest=data_digest,
+    )
+    if lowrank:
+        idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
+        maxlods, h2_list, sigma2_list = _bulkscan_perms_lowrank(
+            Y, G, K, covar, idx, h2_grid=h2_grid, prior=prior, reml=reml, method=method,
+            optim_interval=optim_interval, precision=precision, trait_chunk=trait_chunk,
+            perm_chunk=perm_chunk, ckpt_meta=ckpt_meta,
+        )
+        res = BulkPermResult(maxlods=maxlods, h2_null_list=h2_list, sigma2_e_list=sigma2_list,
+                             nperms=nperms, original=original)
+        raise_if_missing(finite, "bulkscan_perms")
+        return _attach_adj_pvals(res) if _adj_pvals else res
 
     eng, cap, trait_chunk = _resolve_perm_engine(
         engine, n, device=device, precision=precision, interpret=interpret, p=p,
@@ -513,12 +620,7 @@ def bulkscan_perms(
 
     dtype = precision.resolve_solve()
     Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-    ckpt = _perm_checkpoint(
-        checkpoint, n=n, m=m, p=p, nperms=nperms, rndseed=rndseed,
-        method=method, reml=reml, original=original, trait_chunk=trait_chunk,
-        h2_grid=h2_grid, prior=prior, precision=precision, engine=eng,
-        data_digest=data_digest,
-    )
+    ckpt = _perm_checkpoint(trait_chunk=trait_chunk, engine=eng, **ckpt_meta)
 
     with with_highest_matmul():
         X0m, h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep(

@@ -35,9 +35,14 @@ otherwise. ``missing="mask"/"drop"`` runs each missingness pattern as its own
 call (``models/missing.py``). ``trait_chunk=None`` sizes the trait blocks
 from the device's free memory (``utils/memory.py``); a (p, m) result that
 cannot live on the device is assembled on the host from sequential trait
-blocks (:func:`_host_blocked_bulkscan`). A ``LowRankKinship`` is not ported
-yet and raises ``NotImplementedError`` naming its ROADMAP.md item ("Still
-to port").
+blocks (:func:`_host_blocked_bulkscan`).
+
+A ``LowRankKinship`` (``ops/lowrank.py``; anything with ``U`` and ``lam``)
+takes the rank-k engine in place of the rotation: all three methods,
+effects, trait chunks, masks and host blocks, on plain products (the JAX
+package's engine is XLA-only too, and ``engine="pallas"`` raises its
+``ValueError``). Its trait chunks are sized from the rank-k live set
+(``utils/memory.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from ..kernels.liteqtl_fused import (
 from ..ops.liteqtl import lods_and_effects_per_trait, lods_per_trait, lods_shared
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
+from ..ops.lowrank import _bulkscan_lowrank_core, as_lowrank, is_lowrank, refuse_pallas
 from ..ops.rotation import KinshipDecomposition, decompose_kinship, resolve_kinship
 from ..ops.stats import check_covar_full_rank
 from ..ops.weights import make_weights
@@ -67,7 +73,7 @@ from .missing import (
     validate_missing_kwarg,
 )
 from .results import BulkScanResult
-from .scan import _TODO, _apply_weights, refuse_lowrank
+from .scan import _TODO, _apply_weights, _refuse_weights_on_factors
 
 _LN10 = math.log(10.0)
 
@@ -350,8 +356,9 @@ def bulkscan(
     output_h2_panel: bool = True,
     device=None,
 ) -> BulkScanResult:
-    """Genome scan for many traits at once: Y (n, m), G (n, p), K (n, n) or
-    a :class:`KinshipDecomposition`; returns L as (p, m).
+    """Genome scan for many traits at once: Y (n, m), G (n, p), K (n, n), a
+    :class:`KinshipDecomposition` or a ``LowRankKinship``; returns L as
+    (p, m).
 
     The keyword surface is the JAX package's ``bulkscan``. ``method`` is
     "null-grid" (default), "null-exact" or "alt-grid"; ``engine`` ("auto",
@@ -379,6 +386,10 @@ def bulkscan(
     "drop" keeps the individuals observed in every trait
     (``models/missing.py``, COMPAT.md #18).
 
+    ``K`` may be a ``LowRankKinship`` (top-k eigenpairs, ``ops/lowrank.py``):
+    the rank-k engine then runs every method on unrotated data, with no
+    (n, n) array anywhere.
+
     ``device`` defaults to the first tensor's among ``Y``, ``G``, ``K`` and
     ``covar``; with numpy inputs only it is the current CUDA device, and
     without one the call raises (``device="cpu"`` runs the plain versions
@@ -387,7 +398,9 @@ def bulkscan(
     validate_missing_kwarg(missing)
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
-    refuse_lowrank(K)
+    lowrank = is_lowrank(K)
+    if lowrank:
+        refuse_pallas(engine)
     device = resolve_device(device, Y, G, K, covar)
     kw = dict(
         method=method, h2_grid=h2_grid, add_intercept=add_intercept,
@@ -415,7 +428,7 @@ def bulkscan(
             itemsize=max(precision.resolve_solve().itemsize, precision.resolve_kernel().itemsize),
             # the (p, m) results on the device: L, the h2 panel, beta and SE, p-values
             n_outputs=1 + (method == "alt-grid") + 2 * int(output_effects) + int(output_pvals),
-            alt_grid=method == "alt-grid",
+            alt_grid=method == "alt-grid", rank=np.shape(K.U)[1] if lowrank else None,
         )
         budget = memory.device_memory_budget(device)
         try:
@@ -431,10 +444,13 @@ def bulkscan(
     )
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
-    use_altgrid_kernel = method == "alt-grid" and _altgrid_uses_kernel(engine, precision, device)
+    use_altgrid_kernel = (
+        method == "alt-grid" and not lowrank and _altgrid_uses_kernel(engine, precision, device)
+    )
     finite = finite_flag(Y)
     if (
         method != "alt-grid"
+        and not lowrank
         and torch.device(device).type == "cuda"
         and _uses_kernel(precision)
         and _ncov_total(covar, add_intercept) > MAX_COVARIATES
@@ -447,11 +463,7 @@ def bulkscan(
     n = Y.shape[0]
 
     if weights is not None:
-        if isinstance(K, KinshipDecomposition):
-            raise ValueError(
-                "weights rescale the kinship matrix (K -> WKW); pass the raw "
-                "K, not a cached decomposition."
-            )
+        _refuse_weights_on_factors(K)
         Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)
         Y, G, covar = (torch.as_tensor(a, device=device) for a in (Y, G, covar))
 
@@ -459,24 +471,37 @@ def bulkscan(
     if add_intercept:
         covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
     dtype = precision.resolve_solve()
-    Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-    args = (Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam)
     kw = dict(prior=prior, reml=reml, precision=precision, trait_chunk=trait_chunk)
-    if method == "null-grid":
-        out = _null_grid_pipeline(*args, h2_grid.to(dtype), effects=output_effects, **kw)
-    elif method == "null-exact":
-        out = _null_exact_pipeline(
-            *args, optim_interval=optim_interval, effects=output_effects, **kw
+    if lowrank:
+        # no rotation: unrotated inputs and Woodbury weights (ops/lowrank.py)
+        lr = as_lowrank(K, dtype, device)
+        out = _bulkscan_lowrank_core(
+            Y.to(dtype), G.to(dtype), covar.to(dtype), lr.U, lr.lam, h2_grid.to(dtype), n=n,
+            method=method, optim_interval=optim_interval,
+            effects=output_effects and method != "alt-grid", **kw,
         )
+        if method == "alt-grid":
+            L, h2_panel = out
+            out = None
     else:
-        L, h2_panel = _alt_grid_pipeline(
-            *args, h2_grid.to(dtype), use_kernel=use_altgrid_kernel,
-            panel=output_h2_panel, **kw,
-        )
-        # the plain path computes the panel either way; the flag drops it
-        out = None
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
+        args = (Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam)
+        if method == "null-grid":
+            out = _null_grid_pipeline(*args, h2_grid.to(dtype), effects=output_effects, **kw)
+        elif method == "null-exact":
+            out = _null_exact_pipeline(
+                *args, optim_interval=optim_interval, effects=output_effects, **kw
+            )
+        else:
+            L, h2_panel = _alt_grid_pipeline(
+                *args, h2_grid.to(dtype), use_kernel=use_altgrid_kernel,
+                panel=output_h2_panel, **kw,
+            )
+            out = None
+    if out is None:
+        # the plain paths compute the panel either way; the flag drops it
         result = BulkScanResult(L=L, h2_panel=h2_panel if output_h2_panel else None)
-    if out is not None:
+    else:
         result = BulkScanResult(L=out[0], h2_null_list=out[1])
         if output_effects:
             result.beta_mat, result.beta_se_mat = out[2], out[3]
@@ -509,11 +534,7 @@ def _host_blocked_bulkscan(Y, G, K, covar, *, weights, dims, budget, decomp_sche
     block_chunk = memory.auto_trait_chunk(m=mh, budget=budget, **dims) or mh
     if weights is not None:
         # scale once on the host: every block then shares one decomposition
-        if isinstance(K, KinshipDecomposition):
-            raise ValueError(
-                "weights rescale the kinship matrix (K -> WKW); pass the raw "
-                "K, not a cached decomposition."
-            )
+        _refuse_weights_on_factors(K)
         Yw = to_numpy(Y, np.float64)
         Yw = Yw[:, None] if Yw.ndim == 1 else Yw
         cv = np.ones((n, 1)) if covar is None else to_numpy(covar, np.float64)
@@ -521,7 +542,9 @@ def _host_blocked_bulkscan(Y, G, K, covar, *, weights, dims, budget, decomp_sche
         Y, G, covar, K, add_intercept = _apply_weights(
             Yw, G, cv, K, weights, add_intercept and covar is not None
         )
-    if not isinstance(K, KinshipDecomposition):
+    if is_lowrank(K):
+        K = as_lowrank(K, kw["precision"].resolve_solve(), device)  # uploaded once
+    elif not isinstance(K, KinshipDecomposition):
         K = decompose_kinship(
             to_numpy(K), decomp_scheme, kw["precision"].resolve_solve(), device=device
         )

@@ -30,6 +30,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..ops.lowrank import LowRankKinship, as_lowrank, is_lowrank
 from ..ops.rotation import KinshipDecomposition, host_factors
 from ..utils.host import to_numpy
 
@@ -144,10 +145,32 @@ def _check_side_inputs(covar, weights, what: str) -> None:
 
 
 def subset_kinship(K, rows: np.ndarray):
-    """The kinship of the individuals ``rows``, as a host float64 (n', n')
-    array: ``K[rows][:, rows]`` of a raw K, or of the matrix a
-    :class:`KinshipDecomposition` factors (its host factors where it has
-    them). The engine decomposes the subset anew: its eigenvectors differ."""
+    """The kinship of the individuals ``rows``.
+
+    - a raw K or a :class:`KinshipDecomposition`: ``K[rows][:, rows]`` of
+      the matrix (from the decomposition's host factors where it has them)
+      as a host float64 (n', n') array; the engine decomposes the subset
+      anew, since its eigenvectors differ;
+    - a ``LowRankKinship``: the exact, rank-preserving refactorization of
+      ``U[rows] diag(lam) U[rows]^T``. With B = U[rows] sqrt(lam) and the
+      (k, k) float64 eigendecomposition B^T B = V diag(mu) V^T, the subset
+      is ``U' diag(mu) U'^T`` with orthonormal ``U' = B V mu^{-1/2}``
+      (near-zero mu dropped: rows can lower the rank). U keeps its dtype
+      and device.
+    """
+    if is_lowrank(K):
+        lr = as_lowrank(K)
+        U = to_numpy(lr.U, np.float64)[rows]
+        lam = np.maximum(to_numpy(lr.lam, np.float64), 0.0)
+        B = U * np.sqrt(lam)[None, :]
+        mu, V = np.linalg.eigh(B.T @ B)
+        keep = mu > 1e-12 * max(float(mu[-1]), 1.0)
+        mu, V = mu[keep][::-1], V[:, keep][:, ::-1]  # descending
+        Us = (B @ V) / np.sqrt(mu)[None, :]
+        return LowRankKinship(
+            U=torch.as_tensor(np.ascontiguousarray(Us), dtype=lr.U.dtype, device=lr.U.device),
+            lam=torch.as_tensor(np.ascontiguousarray(mu), dtype=lr.lam.dtype, device=lr.lam.device),
+        )
     if isinstance(K, KinshipDecomposition):
         Ut, lam = host_factors(K)
         return ((Ut.T * lam[None, :]) @ Ut)[np.ix_(rows, rows)]

@@ -28,6 +28,12 @@ kinship eigendecomposition, then:
      shuffled, against the weighted, covariate-residualized markers: one
      (p x K) product.
 
+A ``LowRankKinship`` (``ops/lowrank.py``) replaces steps 1-3 with the
+rank-k engine (:func:`_scan_lowrank`): nothing is rotated, the host float64
+null fit runs on the trait's (k,)-sized projections
+(``ops/hostfit.py::fit_lmm_host_lowrank``), and each engine takes Woodbury
+corrections in place of the rotation; permutations whiten explicitly.
+
 None of these is a kernel of the JAX package (no ``pallas_call``): they are
 plain products there and here.
 
@@ -53,7 +59,8 @@ import numpy as np
 import torch
 
 from ..analysis.profile_ll import ProfileLL, _profile_rotated, check_marker_id
-from ..ops.hostfit import HostFit, fit_lmm_host
+from ..ops import lowrank as lrmod
+from ..ops.hostfit import HostFit, fit_lmm_host, fit_lmm_host_lowrank
 from ..ops.liteqtl import _fast_log, lods_shared
 from ..ops.lmm import fit_h2_markers
 from ..ops.lod import lod2log10p, r2lod
@@ -70,13 +77,6 @@ from .results import ScanResult
 
 _LN10 = math.log(10.0)
 _TODO = 'not ported to bulklmm_tpu_torch yet (ROADMAP.md "Still to port" item {})'
-
-
-def refuse_lowrank(K) -> None:
-    """A ``LowRankKinship`` (anything with ``U`` and ``lam``) is not
-    ported yet."""
-    if hasattr(K, "U") and hasattr(K, "lam"):
-        raise NotImplementedError("a LowRankKinship is " + _TODO.format(4))
 
 
 @with_highest_matmul()
@@ -250,6 +250,16 @@ def _effects_alt_rotated(y0, X0m, C0, lam, h2s):
     return _wald(cov, residual_sq(xWx, Z), ny2, n, c)
 
 
+def _refuse_weights_on_factors(K, also: str = "") -> None:
+    """Weights rescale K itself (K -> WKW): a cached decomposition or a
+    rank-k factorization of K cannot follow them."""
+    if isinstance(K, KinshipDecomposition) or lrmod.is_lowrank(K):
+        raise ValueError(
+            "weights rescale the kinship matrix (K -> WKW); pass the raw K, not a "
+            f"cached decomposition{also}."
+        )
+
+
 def _apply_weights(y, g, covar, K, weights, add_intercept):
     """Pre-scale data for heteroskedastic residual variances.
 
@@ -327,7 +337,8 @@ def scan(
     device=None,
 ):
     """Genome scan for one quantitative trait: y (n,) or (n, 1), g (n, p),
-    K (n, n) or a :class:`KinshipDecomposition`.
+    K (n, n), a :class:`KinshipDecomposition` or a ``LowRankKinship``
+    (:func:`_scan_lowrank`).
 
     The keyword surface is the JAX package's ``scan`` (reference
     src/scan.jl:94-109): ``assumption`` "null" or "alt"; ``method`` "qr" or
@@ -357,7 +368,6 @@ def scan(
         raise ValueError(
             "Permutation test option currently is not supported for the alternative assumption."
         )
-    refuse_lowrank(K)
     validate_missing_kwarg(missing)  # a typo'd policy must not pass silently
     device = resolve_device(device, y, g, K, covar)
     y = _one_trait(y, "scan handles one trait; use bulkscan for multiple traits.")
@@ -367,7 +377,12 @@ def scan(
         )
         y = y.reshape(-1, 1)
     n = y.shape[0]
-    K_n = K.Ut.shape[0] if isinstance(K, KinshipDecomposition) else np.shape(K)[0]
+    lowrank = lrmod.is_lowrank(K)
+    K_n = (
+        K.Ut.shape[0] if isinstance(K, KinshipDecomposition)
+        else np.shape(K.U)[0] if lowrank
+        else np.shape(K)[0]
+    )
     if np.shape(g)[0] != n or K_n != n:
         raise ValueError(
             f"Dimension mismatch: y has {n} samples, g has {np.shape(g)[0]}, K has {K_n}."
@@ -382,11 +397,7 @@ def scan(
         covar = covar[:, None] if covar.ndim == 1 else covar
         check_covar_full_rank(covar, add_intercept)
     if weights is not None:
-        if isinstance(K, KinshipDecomposition):
-            raise ValueError(
-                "weights rescale the kinship matrix (K -> WKW); pass the raw "
-                "K, not a cached decomposition."
-            )
+        _refuse_weights_on_factors(K)
         y, g, covar, K, add_intercept = _apply_weights(y, g, covar, K, weights, add_intercept)
     g = torch.as_tensor(g, device=device)
     if add_intercept:
@@ -395,6 +406,15 @@ def scan(
         check_marker_id(marker_id, g.shape[1])
 
     prior = (float(prior_variance), float(prior_sample_size))
+    if lowrank:
+        return _scan_lowrank(
+            y, g, covar, K, prior=prior, reml=reml, assumption=assumption, method=method,
+            optim_interval=optim_interval, permutation_test=permutation_test, nperms=nperms,
+            rndseed=rndseed, profile_ll=profile_ll, marker_id=marker_id, h2_grid=h2_grid,
+            output_pvals=output_pvals, chisq_df=chisq_df, precision=precision,
+            compat_sqrt_weights=compat_sqrt_weights, output_effects=output_effects,
+            perm_idx=perm_idx, device=device,
+        )
     dtype = precision.resolve_solve()
     y0, X0m, C0, lam, (b, sigma2_e, h2, ell) = _rotated_with_null_fit(
         y, g, covar, K, decomp_scheme=decomp_scheme, prior=prior, reml=reml,
@@ -426,16 +446,102 @@ def scan(
     if not profile_ll:
         return result
 
-    # the reference asks the caller for the grid (src/scan.jl:104); these
-    # are the values of the JAX package's jnp.arange(0.0, 1.0, 0.05)
-    grid = np.arange(0.0, 1.0, 0.05) if h2_grid is None else h2_grid
-    if not torch.is_tensor(grid):
-        grid = np.asarray(to_numpy(grid), dtype=np.float64)
-    grid = torch.as_tensor(grid, device=device).to(dtype)
+    grid = _profile_grid(h2_grid, dtype, device)
     with with_highest_matmul():
         ll_null, ll_alt = _profile_rotated(
             y0, C0, X0m[:, marker_id - 1], lam, grid, prior, reml
         )
+    result.ll_list_null, result.ll_list_alt = ll_null, ll_alt
+    return result, ProfileLL(ll_list_null=ll_null, ll_list_alt=ll_alt)
+
+
+def _profile_grid(h2_grid, dtype, device) -> torch.Tensor:
+    """The profile likelihood's h2 grid on ``device``. The reference asks
+    the caller for it (src/scan.jl:104); the default is the values of the
+    JAX package's ``jnp.arange(0.0, 1.0, 0.05)``."""
+    grid = np.arange(0.0, 1.0, 0.05) if h2_grid is None else h2_grid
+    if not torch.is_tensor(grid):
+        grid = np.asarray(to_numpy(grid), dtype=np.float64)
+    return torch.as_tensor(grid, device=device).to(dtype)
+
+
+@with_highest_matmul()
+def _effects_lowrank_null(y, Xm, C, U, lam, h2, method):
+    """Effects under the null h2 on a rank-k kinship: explicit
+    ``Sigma^{-1/2}`` whitening (``ops/lowrank.py::whiten_lowrank``) feeds
+    the rotated path's Frisch-Waugh effects."""
+    return _effects_from_whitened(
+        *(lrmod.whiten_lowrank(a, U, lam, h2) for a in (y, Xm, C)), method=method
+    )
+
+
+def _scan_lowrank(
+    y, g, covar, K, *, prior, reml, assumption, method, optim_interval, permutation_test,
+    nperms, rndseed, profile_ll, marker_id, h2_grid, output_pvals, chisq_df, precision,
+    compat_sqrt_weights, output_effects, perm_idx, device,
+):
+    """The single-trait scan on a ``LowRankKinship``: the full-rank engines
+    with rank-k Woodbury corrections in place of the rotation
+    (``ops/lowrank.py``). The null h2 comes from the host float64 Brent run
+    on the trait's (k,)-sized projections, the null LODs from the rank-k
+    correlation step, the alt scan from a per-marker Brent on the (c+1)-dim
+    augmented Gram, permutations from explicit ``Sigma^{-1/2}`` whitening.
+    ``y`` and ``covar`` are host float64 (the intercept already in), ``g``
+    a tensor on ``device``."""
+    if compat_sqrt_weights:
+        raise ValueError(
+            "compat_sqrt_weights reproduces a quirk of the rotated full-rank "
+            "path (COMPAT.md #1); it does not apply to LowRankKinship."
+        )
+    dtype = precision.resolve_solve()
+    U, lam = lrmod.as_lowrank(K, dtype, device)
+    yd, C, Xm = _upload(y, dtype, device), _upload(covar, dtype, device), g.to(dtype)
+    n = yd.shape[0]
+    proj = lrmod._trait_projections_lowrank(yd, C, U, precision=precision)
+    fit = fit_lmm_host_lowrank(
+        {k: to_numpy(v, np.float64) for k, v in proj.items()}, to_numpy(lam, np.float64), n,
+        prior, reml=reml, optim_interval=optim_interval,
+    )
+    b, sigma2_e, h2, ell = _null_fit_on_device(fit, dtype, device)
+    result = ScanResult(sigma2_e=sigma2_e, h2_null=h2, lod=None)
+    if assumption == "alt":
+        out = lrmod._scan_alt_lowrank_core(
+            yd, Xm, C, U, lam, h2, n=n, prior=prior, reml=reml, optim_interval=optim_interval,
+            precision=precision, effects=output_effects,
+        )
+        ells, result.h2_each_marker, ell0_ml = out[:3]
+        # REML likelihoods are not comparable across designs: under REML
+        # both sides are ML at the fitted h2s; under ML the host fit's ell
+        # is the null reference
+        result.lod = (ells - (ell0_ml if reml else ell.to(ells.dtype))) / _LN10
+        if output_effects:
+            result.beta, result.beta_se = out[3], out[4]
+    elif permutation_test:
+        L = lrmod.scan_perms_lowrank_kernel(
+            yd, Xm, C, U, lam, b, h2, nperms=nperms, rndseed=rndseed, method=method,
+            precision=precision, n=n, perm_idx=perm_idx,
+        )
+        result.lod, result.L_perms = L[:, 0], L[:, 1:]
+        if output_effects:
+            result.beta, result.beta_se = _effects_lowrank_null(yd, Xm, C, U, lam, h2, method)
+    else:
+        out = lrmod._scan_null_lowrank_core(
+            yd, Xm, C, U, lam, h2, n=n, prior=prior, reml=reml, precision=precision,
+            effects=output_effects,
+        )
+        result.lod = out[0]
+        if output_effects:
+            result.beta, result.beta_se = out[1], out[2]
+    if output_pvals:
+        result.log10pvals = lod2log10p(result.lod, chisq_df)
+        if result.L_perms is not None:
+            result.log10Pvals_perms = lod2log10p(result.L_perms, chisq_df)
+    if not profile_ll:
+        return result
+    ll_null, ll_alt = lrmod._profile_ll_lowrank_core(
+        yd, Xm, C, U, lam, _profile_grid(h2_grid, dtype, device), marker_id - 1, n=n,
+        prior=prior, reml=reml, precision=precision,
+    )
     result.ll_list_null, result.ll_list_alt = ll_null, ll_alt
     return result, ProfileLL(ll_list_null=ll_null, ll_list_alt=ll_alt)
 
@@ -468,10 +574,10 @@ def scan_perms_lite(
 
     The reference's default ``prior_variance = 1.0`` here differs from
     ``scan``'s 0.0 (src/scan.jl:487 vs :98); both defaults are mirrored.
-    ``covar`` may have no column, (n, 0). ``perm_idx`` and ``device`` as
-    for :func:`scan`.
+    ``covar`` may have no column, (n, 0). ``K`` may be a ``LowRankKinship``
+    (the rank-k permutation scan of :func:`scan`). ``perm_idx`` and
+    ``device`` as for :func:`scan`.
     """
-    refuse_lowrank(K)
     validate_missing_kwarg(missing)
     device = resolve_device(device, y, g, K, covar)
     y = _one_trait(y, "Can only handle one trait.")
@@ -488,6 +594,15 @@ def scan_perms_lite(
         covar = np.concatenate([np.ones((n, 1)), covar], axis=1)
     dtype = precision.resolve_solve()
     prior = (float(prior_variance), float(prior_sample_size))
+    if lrmod.is_lowrank(K):
+        return _scan_lowrank(
+            y, torch.as_tensor(g, device=device), covar, K, prior=prior, reml=reml,
+            assumption="null", method=method, optim_interval=optim_interval,
+            permutation_test=True, nperms=nperms, rndseed=rndseed, profile_ll=False,
+            marker_id=0, h2_grid=None, output_pvals=output_pvals, chisq_df=chisq_df,
+            precision=precision, compat_sqrt_weights=False, output_effects=False,
+            perm_idx=perm_idx, device=device,
+        )
     y0, X0m, C0, lam, (b, sigma2_e, h2, _) = _rotated_with_null_fit(
         y, torch.as_tensor(g, device=device), covar, K, decomp_scheme=decomp_scheme,
         prior=prior, reml=reml, optim_interval=optim_interval, dtype=dtype, device=device,

@@ -22,7 +22,14 @@ the block's results go back to pinned buffers by non-blocking copies and are
 written into the host arrays while the next block computes. Two staging
 buffers alternate, and one is refilled only after its copy has finished.
 The last block is zero-padded to the block width; its padded rows are
-dropped. A ``LowRankKinship`` and ``mesh=`` are not ported yet.
+dropped.
+
+A ``LowRankKinship`` takes the rank-k engine (``ops/lowrank.py``): the
+trait-side projections and null fits once (:func:`_lr_trait_fit`), each
+block's marker projections and its X'Y then the rank-k LOD step or alt-grid
+scan (:func:`_lr_block`), and for permutations the standard-coordinate
+whitening of ``models/bulkperm.py`` a block at a time. ``mesh=`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,16 +38,23 @@ import numpy as np
 import torch
 
 from ..kernels.altgrid_fused import fused_alt_grid
+from ..ops.bulkperm import lowrank_perm_chunk_cap, lowrank_perm_marker_parts
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
+from ..ops.lowrank import (
+    LowRankKinship, _alt_grid_lowrank, _marker_side_parts, _parts_kwargs, _shared_parts,
+    _trait_side_parts, as_lowrank, fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank,
+    lods_and_effects_lowrank, lods_per_trait_lowrank, refuse_pallas,
+)
 from ..ops.rotation import resolve_kinship
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
 from ..utils.host import PinnedCopies, to_numpy
 from .bulkperm import (
-    BulkPermResult, _attach_adj_pvals, _bulkperm_prep_traits, _data_fingerprint,
-    _perm_checkpoint, _resolve_perm_engine, _trait_block_lods, shuffle_indices,
+    BulkPermResult, _attach_adj_pvals, _bulkperm_prep_traits, _bulkperm_prep_traits_lowrank,
+    _data_fingerprint, _lowrank_block_lods, _perm_checkpoint, _resolve_perm_engine,
+    _trait_block_lods, shuffle_indices,
 )
 from .bulkscan import (
     _alt_grid_impl, _altgrid_uses_kernel, _check_method_engine, _check_output_effects,
@@ -52,7 +66,6 @@ from .missing import (
     subset_kinship, validate_missing_kwarg,
 )
 from .results import BulkScanResult
-from .scan import refuse_lowrank
 
 
 def _refuse_mesh(mesh) -> None:
@@ -183,6 +196,47 @@ def _block_alt_grid(Y0, Xb, C0, Ut, lam, h2_grid, *, prior, reml, precision, use
     return {"L": L, "h2_panel": panel}
 
 
+@with_highest_matmul()
+def _lr_trait_fit(Y, C, U, lam, h2_grid, *, n, prior, reml, method, optim_interval, precision):
+    """The rank-k engine's trait-side and covariate-only parts and each
+    trait's null h2, once a streamed scan (zeros for alt-grid, which scans
+    the whole grid a marker)."""
+    kdt = precision.resolve_kernel()
+    kw = _parts_kwargs(precision)
+    lr = LowRankKinship(U=U, lam=lam)
+    base = {**_shared_parts(C, lr, **kw), **_trait_side_parts(Y, C, lr, **kw)}
+    lam_k = lam.to(kdt)
+    if method == "alt-grid":
+        h2_list = torch.zeros(Y.shape[1], dtype=kdt, device=Y.device)
+    elif method == "null-exact":
+        # Brent in the solve dtype (ops/lowrank.py's module docstring)
+        h2_list = fit_h2_lowrank(base, lam, prior, n=n, reml=reml, optim_interval=optim_interval)
+    else:
+        ells = grid_null_ell_lowrank(base, lam_k, h2_grid.to(kdt), prior, n=n, reml=reml)
+        h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
+    return base, h2_list
+
+
+@with_highest_matmul()
+def _lr_block(Xb, Y, C, U, lam, tbase, h2_or_grid, *, n, prior, reml, precision, alt, effects):
+    """One marker block's slabs on the rank-k engine: its marker-side
+    projections and X'Y joined to the trait-side parts, then the LOD step
+    (with effects) or the alt-grid scan."""
+    kw = _parts_kwargs(precision)
+    kdt = precision.resolve_kernel()
+    Xg = Xb.to(kw["gemm_dtype"])
+    parts = {**_marker_side_parts(Xg, C, LowRankKinship(U=U, lam=lam), **kw), **tbase,
+             "XtY": (Xg.T @ Y.to(kw["gemm_dtype"])).to(kdt)}
+    lam_k, h2k = lam.to(kdt), h2_or_grid.to(kdt)
+    if alt:
+        L, panel = _alt_grid_lowrank(parts, lam_k, h2k, prior, n=n, precision=precision, reml=reml)
+        return {"L": L, "h2_panel": panel}
+    if effects:
+        L, beta, se = lods_and_effects_lowrank(parts, lam_k, h2k, n, precision=precision)
+        return {"L": L, "beta_mat": beta, "beta_se_mat": se}
+    return {"L": lods_per_trait_lowrank(parts, lam_k, h2k, n, precision=precision)}
+
+
 def _default_out(p: int, m: int, precision: PrecisionConfig) -> np.ndarray:
     """The host LOD array when the caller gives none: the kernel dtype, so
     that EXACT64 runs keep float64."""
@@ -234,14 +288,18 @@ def bulkscan_streamed(
     The keyword surface is otherwise :func:`bulkscan`'s, with the same
     engines and numerics, minus ``weights`` (pre-scale with the in-memory
     API) and ``trait_chunk`` (size ``marker_block`` instead), plus
-    ``device`` (defaults as in :func:`bulkscan`). Returns a
-    :class:`BulkScanResult` of host arrays, ``L`` being ``out``.
+    ``device`` (defaults as in :func:`bulkscan`). ``K`` may be a
+    ``LowRankKinship`` (the rank-k engine; ``engine="pallas"`` raises as in
+    the JAX package). Returns a :class:`BulkScanResult` of host arrays,
+    ``L`` being ``out``.
     """
     _refuse_mesh(mesh)
-    refuse_lowrank(K)
     validate_missing_kwarg(missing)
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
+    lowrank = is_lowrank(K)
+    if lowrank:
+        refuse_pallas(engine)
     device = resolve_device(device, Y, K, covar)
     kwargs = dict(
         method=method, marker_block=marker_block, h2_grid=h2_grid,
@@ -283,6 +341,7 @@ def bulkscan_streamed(
         marker_block = memory.auto_marker_block(
             n, m, itemsize=dtype.itemsize,
             n_outputs=1 + 2 * int(output_effects) + int(output_pvals), device=device,
+            rank=np.shape(K.U)[1] if lowrank else None,
         )
     block = min(int(marker_block), p)
     L = _default_out(p, m, precision) if out is None else out
@@ -301,25 +360,42 @@ def bulkscan_streamed(
                     host[k] = np.empty((p, m), dtype=a.dtype)
                 host[k][lo:hi] = a[: hi - lo]
 
-    Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
     Yd, Cd, grid_d = Y.to(dtype), covar.to(dtype), h2_grid.to(dtype)
-    if method == "alt-grid":
+    alt = method == "alt-grid"
+    if lowrank:
+        U, lam = as_lowrank(K, dtype, device)
+        tbase, h2_list = _lr_trait_fit(
+            Yd, Cd, U, lam, grid_d, n=n, prior=prior, reml=reml, method=method,
+            optim_interval=optim_interval, precision=precision,
+        )
+
+        def compute(Xb):
+            return _lr_block(Xb, Yd, Cd, U, lam, tbase, grid_d if alt else h2_list, n=n,
+                             prior=prior, reml=reml, precision=precision, alt=alt,
+                             effects=output_effects)
+    elif alt:
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         use_kernel = _altgrid_uses_kernel(engine, precision, device)
         with with_highest_matmul():
             Y0, C0 = Ut @ Yd, Ut @ Cd
-        _stream_loop(G, p, block, dtype, device, lambda Xb: _block_alt_grid(
-            Y0, Xb, C0, Ut, lam, grid_d, prior=prior, reml=reml, precision=precision,
-            use_kernel=use_kernel,
-        ), write)
-        result = BulkScanResult(L=L, h2_panel=host["h2_panel"])
+
+        def compute(Xb):
+            return _block_alt_grid(Y0, Xb, C0, Ut, lam, grid_d, prior=prior, reml=reml,
+                                   precision=precision, use_kernel=use_kernel)
     else:
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         Y0, C0, h2_list = _fit_h2_rotated(
             Yd, Cd, Ut, lam, grid_d, prior=prior, reml=reml, method=method,
             optim_interval=optim_interval, precision=precision,
         )
-        _stream_loop(G, p, block, dtype, device, lambda Xb: _block_lods(
-            Y0, Xb, C0, Ut, lam, h2_list, precision=precision, effects=output_effects,
-        ), write)
+
+        def compute(Xb):
+            return _block_lods(Y0, Xb, C0, Ut, lam, h2_list, precision=precision,
+                               effects=output_effects)
+    _stream_loop(G, p, block, dtype, device, compute, write)
+    if alt:
+        result = BulkScanResult(L=L, h2_panel=host["h2_panel"])
+    else:
         result = BulkScanResult(L=L, h2_null_list=to_numpy(h2_list))
         if output_effects:
             result.beta_mat, result.beta_se_mat = host["beta_mat"], host["beta_se_mat"]
@@ -386,14 +462,16 @@ def _assemble_perm_acc(acc: dict, m: int, trait_chunk: int) -> torch.Tensor:
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
 
 
-def _stream_perm_ckpt(checkpoint, acc, *, m, trait_chunk, block, perm_chunk, device, **meta):
+def _stream_perm_ckpt(checkpoint, acc, *, m, trait_chunk, block, perm_chunk, device,
+                      rank="full", **meta):
     """The checkpoint handle of a streamed sweep and the marker blocks it has
     folded in: the persisted (m, K) running maxima are loaded into ``acc``.
-    The block width and permutation chunk are part of the fingerprint."""
+    The kinship's kind (``rank``), the block width and the permutation chunk
+    are part of the fingerprint."""
     if checkpoint is None:
         return None, 0
     ck = _perm_checkpoint(checkpoint, m=m, trait_chunk=trait_chunk,
-                          rank=f"full-streamed-b{block}-pc{perm_chunk}", **meta)
+                          rank=f"{rank}-streamed-b{block}-pc{perm_chunk}", **meta)
     state = ck.load_state()
     if state is None:
         return ck, 0
@@ -451,10 +529,10 @@ def bulkscan_perms_streamed(
     resumes after the last saved block (a changed configuration or input is
     refused). Each save reads the maxima back to the host.
     ``missing="mask"/"drop"`` runs each pattern group as its own sweep, with
-    its own checkpoint subdirectory.
+    its own checkpoint subdirectory. ``K`` may be a ``LowRankKinship``: each
+    block then takes the rank-k engine of :func:`bulkscan_perms`.
     """
     _refuse_mesh(mesh)
-    refuse_lowrank(K)
     validate_missing_kwarg(missing)
     if checkpoint_every < 1:
         raise ValueError("checkpoint_every must be >= 1")
@@ -491,43 +569,71 @@ def bulkscan_perms_streamed(
     prior = (float(prior_variance), float(prior_sample_size))
     dtype = precision.resolve_solve()
     if marker_block is None:
-        marker_block = memory.auto_marker_block(n, m, itemsize=dtype.itemsize, device=device)
+        marker_block = memory.auto_marker_block(n, m, itemsize=dtype.itemsize, device=device,
+                                                rank=np.shape(K.U)[1] if is_lowrank(K) else None)
     block = min(int(marker_block), p)
-    eng, cap, trait_chunk = _resolve_perm_engine(
-        engine, n, device=device, precision=precision, interpret=interpret, p=block,
-        trait_chunk=trait_chunk,
-    )
+    lowrank = is_lowrank(K)
+    if lowrank:
+        refuse_pallas(engine, perms=True)
+        eng, trait_chunk = "xla", 16 if trait_chunk is None else trait_chunk
+        cap = lowrank_perm_chunk_cap(n, block, trait_chunk, max(
+            precision.resolve_gemm().itemsize, precision.resolve_kernel().itemsize), device=device)
+    else:
+        eng, cap, trait_chunk = _resolve_perm_engine(
+            engine, n, device=device, precision=precision, interpret=interpret, p=block,
+            trait_chunk=trait_chunk,
+        )
     perm_chunk = min(perm_chunk, cap)
     idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
 
-    Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-    with with_highest_matmul():
-        h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep_traits(
-            Y.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype), prior=prior, reml=reml,
+    if lowrank:
+        U, lam = as_lowrank(K, dtype, device)
+        h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep_traits_lowrank(
+            Y.to(dtype), covar.to(dtype), U, lam, h2_grid.to(dtype), n=n, prior=prior, reml=reml,
             method=method, optim_interval=optim_interval, precision=precision,
         )
+    else:
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
+        with with_highest_matmul():
+            h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep_traits(
+                Y.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype), prior=prior,
+                reml=reml, method=method, optim_interval=optim_interval, precision=precision,
+            )
     acc = {}
     spans = list(_blocks(p, block))
     ck, blocks_done = _stream_perm_ckpt(
         checkpoint, acc, m=m, trait_chunk=trait_chunk, block=block, perm_chunk=perm_chunk,
         device=device, n=n, p=p, nperms=nperms, rndseed=rndseed, method=method, reml=reml,
         original=original, h2_grid=h2_grid, prior=prior, precision=precision, engine=eng,
-        data_digest=data_digest,
+        data_digest=data_digest, rank=f"lowrank{U.shape[1]}" if lowrank else "full",
     )
     uploads = _BlockUploads(G, spans, block, device)
     handle = uploads.start(blocks_done) if blocks_done < len(spans) else None
     for bi in range(blocks_done, len(spans)):
-        X0b = _rotate_block(Ut, uploads.take(handle).to(dtype))
+        Xb = uploads.take(handle).to(dtype)
         if bi + 1 < len(spans):
             handle = uploads.start(bi + 1)
-        X32 = X0b.to(torch.float32).contiguous() if eng == "pallas" else None
+        if lowrank:
+            # every product reads the block in the kernel dtype: cast once;
+            # zero-padded columns have zero norms and numerators: r^2 = 0
+            Xb = Xb.to(precision.resolve_kernel())
+            mparts = lowrank_perm_marker_parts(Xb, U, precision=precision)
+        else:
+            X0b = _rotate_block(Ut, Xb)
+            X32 = X0b.to(torch.float32).contiguous() if eng == "pallas" else None
         with with_highest_matmul():
             for ms in range(0, m, trait_chunk):
                 me = min(ms + trait_chunk, m)
-                blk = _trait_block_lods(
-                    X0b, X32, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx, engine=eng,
-                    n=n, perm_chunk=perm_chunk, precision=precision, interpret=interpret,
-                )
+                if lowrank:
+                    blk = _lowrank_block_lods(
+                        Xb, U, mparts, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx, n=n,
+                        perm_chunk=perm_chunk, precision=precision,
+                    )
+                else:
+                    blk = _trait_block_lods(
+                        X0b, X32, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx, engine=eng,
+                        n=n, perm_chunk=perm_chunk, precision=precision, interpret=interpret,
+                    )
                 acc[ms] = blk if ms not in acc else torch.maximum(acc[ms], blk)
         if ck is not None and ((bi + 1) % checkpoint_every == 0 or bi == len(spans) - 1):
             ck.save_state(_assemble_perm_acc(acc, m, trait_chunk), bi + 1)

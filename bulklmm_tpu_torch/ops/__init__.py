@@ -9,7 +9,7 @@ from .bulkperm import (
     perm_trait_parts,
     permutation_indices,
 )
-from .hostfit import HostFit, fit_lmm_host
+from .hostfit import HostFit, fit_lmm_host, fit_lmm_host_lowrank
 from .kinship import calc_kinship
 from .liteqtl import (
     lods_per_trait,
@@ -19,6 +19,13 @@ from .liteqtl import (
 )
 from .lmm import LMMResult, fit_h2_markers, fit_h2_traits, fit_lmm, fit_lmm_traits
 from .lod import lod2log10p, lod2p, p2lod, r2lod
+from .lowrank import (
+    LowRankKinship,
+    as_lowrank,
+    kinship_lowrank,
+    kinship_lowrank_exact,
+    kinship_lowrank_from_geno,
+)
 from .rotation import (
     KinshipDecomposition,
     ReweightedData,
@@ -58,9 +65,11 @@ __all__ = [
     "HostFit",
     "KinshipDecomposition",
     "LMMResult",
+    "LowRankKinship",
     "ReweightedData",
     "RotatedData",
     "WLSResult",
+    "as_lowrank",
     "brent_min",
     "calc_kinship",
     "cancel_keep_mask",
@@ -74,10 +83,14 @@ __all__ = [
     "fit_h2_traits",
     "fit_lmm",
     "fit_lmm_host",
+    "fit_lmm_host_lowrank",
     "fit_lmm_traits",
     "fwd_subst",
     "gridbrent",
     "kinship_eigen",
+    "kinship_lowrank",
+    "kinship_lowrank_exact",
+    "kinship_lowrank_from_geno",
     "lod2log10p",
     "lod2p",
     "lods_per_trait",

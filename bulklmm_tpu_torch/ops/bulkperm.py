@@ -250,3 +250,141 @@ def perm_state_from_numpy(sqrtw, Qstack, wrn, perm_idx, *, device, dtype):
     )
     idx = torch.tensor(np.asarray(perm_idx), dtype=torch.int64, device=device)
     return sw, Q, w, idx
+
+
+# ---------------------------------------------------------------------------
+# rank-k kinship: whitening in standard coordinates
+# ---------------------------------------------------------------------------
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted dtype of the two, as a JAX product of
+    mixed operands computes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def lowrank_perm_chunk_cap(n: int, p: int, trait_chunk: int = 16, itemsize: int = 4,
+                           budget_bytes=None, *, device=None) -> int:
+    """Permutation-chunk width bound for the rank-k engine.
+
+    The (mb, Kc, n) shuffled residuals and the (mb, Kc, p) numerator both
+    grow linearly in Kc; each is bounded by half of ``budget_bytes``, by
+    default a quarter of the device's memory budget
+    (``utils/memory.py::device_memory_budget``, as for
+    :func:`kernel_perm_chunk_cap`; the JAX package takes a fixed 2 GiB),
+    and Kc never below 64.
+    """
+    if budget_bytes is None:
+        budget_bytes = memory.device_memory_budget(device) // 4
+    half = budget_bytes // 2
+    per_kc = itemsize * max(trait_chunk, 1)
+    return max(64, int(min(half // (per_kc * max(n, 1)), half // (per_kc * max(p, 1)))))
+
+
+@with_highest_matmul()
+def perm_trait_parts_lowrank(Y, C, U, lam, h2_list, *, precision: PrecisionConfig = DEFAULT_PRECISION):
+    """Per-trait whitening quantities on a rank-k kinship, in standard
+    coordinates (nothing rotated, no (n, n) kinship).
+
+    The whitening operator is ``A_j = I + U diag(sqrt(w_j) - 1) U^T`` with
+    ``w_i = 1/(delta_j lam_i + 1)`` (``ops/lowrank.py::whiten_lowrank``; the
+    complement of U has eigenvalue 0, weight 1). Under the null ``A_j y`` has
+    iid coordinates in the standard basis, so shuffling them is the rank-k
+    analog of the full-rank path's shuffle of the rotated, reweighted
+    residual (:func:`perm_trait_parts`).
+
+    Returns ``(sm1, Qstack, wrn)``: ``sm1`` (m, k) per-trait ``sqrt(w) - 1``;
+    ``Qstack`` (m, c, n) each trait's orthonormal basis of the whitened
+    covariates (unrolled Gram Cholesky); ``wrn`` (n, m) the unit-normalized
+    whitened null residuals ``(I - Q_j Q_j^T) A_j y_j``. Mixed dtypes
+    promote as in the JAX package (``sm1`` keeps ``lam``'s).
+    """
+    from .lowrank import _correction_weights
+
+    sdt = precision.resolve_kernel()
+    c = C.shape[1]
+    Ck, Yk, Uk = C.to(sdt), Y.to(sdt), U.to(sdt)
+
+    dm1 = _correction_weights(h2_list, lam)  # (m, k): w - 1
+    sm1 = torch.sqrt(1.0 + dm1) - 1.0  # (m, k): sqrt(w) - 1
+    UtC = Uk.T @ Ck  # (k, c)
+    UtY = Uk.T @ Yk  # (k, m)
+
+    # A_j C[:, a] = C[:, a] + U (sm1_j * UtC[:, a]), one (n, m) panel a column
+    Cw = [Ck[:, a : a + 1] + _mm(Uk, sm1.T * UtC[:, a : a + 1]) for a in range(c)]
+    Gv = {ab: (Cw[ab[0]] * Cw[ab[1]]).sum(0) for ab in pair_indices(c)}
+    Lc = unrolled_cholesky(Gv, c)
+    Q = fwd_subst(Lc, Cw, c)  # c x (n, m)
+
+    Yw = Yk + _mm(Uk, sm1.T * UtY)  # (n, m)
+    wr = Yw
+    for a in range(c):
+        wr = wr - Q[a] * (Q[a] * Yw).sum(0)[None, :]
+    nrm2 = (wr * wr).sum(0)
+    # fully covariate-explained traits -> r = 0, not normalized noise
+    keep = residual_keep_mask(nrm2, (Yw * Yw).sum(0), eps=torch.finfo(sdt).eps)
+    wrn = (wr * keep[None, :]) / torch.sqrt(torch.clamp(nrm2, min=torch.finfo(sdt).tiny))[None, :]
+    Qstack = torch.stack(Q, dim=0).permute(2, 0, 1).contiguous()  # (m, c, n)
+    return sm1, Qstack, wrn
+
+
+@with_highest_matmul()
+def lowrank_perm_marker_parts(X, U, *, precision: PrecisionConfig = DEFAULT_PRECISION):
+    """Trait- and permutation-independent marker projections of the rank-k
+    permutation engine, formed once a scan: ``U^T X`` (k, p), its square and
+    the raw marker norms (p,)."""
+    sdt = precision.resolve_kernel()
+    Xk = X.to(sdt)
+    UtX = U.to(sdt).T @ Xk  # (k, p)
+    return UtX, UtX * UtX, (Xk * Xk).sum(0)
+
+
+@with_highest_matmul()
+def lowrank_perm_trait_marker_parts(X, U, UtX, UtX2, xsq, sm1, Qstack, *,
+                                    precision: PrecisionConfig = DEFAULT_PRECISION):
+    """Permutation-independent whitened-marker quantities of one trait
+    block, reused by every permutation chunk: the covariate-basis
+    projections ``qX`` (mb, c, p) and the residual norms ``xn`` (mb, p) of
+    the whitened, covariate-residualized markers, ``+inf`` where a marker is
+    collinear with the covariates (``num^2 / xn`` exactly 0, COMPAT.md #15).
+    ``sm1`` (mb, k), ``Qstack`` (mb, c, n): one block's rows."""
+    sdt = precision.resolve_kernel()
+    Xk, Uk = X.to(sdt), U.to(sdt)
+    dm1 = sm1 * sm1 + 2.0 * sm1  # (mb, k): w - 1
+    qU = _mm(Qstack, Uk)  # (mb, c, k)
+    qX = _mm(Qstack, Xk) + _mm(qU * sm1[:, None, :], UtX)  # (mb, c, p)
+    # ||(I - QQ^T) A_j x||^2 with the rank-k scan's cancellation floor;
+    # its noise is linear in eps (cancel_keep_mask)
+    d1 = xsq[None, :] + _mm(dm1, UtX2)  # (mb, p): ||A_j x||^2
+    xn = residual_sq(d1, [qX[:, a] for a in range(qX.shape[1])])
+    keep = cancel_keep_mask(xn, d1, eps=torch.finfo(sdt).eps)
+    return qX, torch.where(keep > 0, xn, torch.full_like(xn, torch.inf))
+
+
+@with_highest_matmul()
+def max_r2_perms_lowrank(X, U, UtX, sm1, Qstack, qXs, xns, wrn, perm_idx, *,
+                         precision: PrecisionConfig = DEFAULT_PRECISION):
+    """(mb, Kc) max-over-markers squared correlation under rank-k whitening,
+    one (trait block, permutation chunk) step (the JAX package's
+    ``max_r2_perms_lowrank_xla``).
+
+    ``X`` (n, p) unrotated markers; ``U`` (n, k); ``UtX`` (k, p); ``sm1``
+    (mb, k); ``Qstack`` (mb, c, n); ``qXs`` / ``xns`` from
+    :func:`lowrank_perm_trait_marker_parts`; ``wrn`` (n, mb); ``perm_idx``
+    (Kc, n). No per-trait whitened marker panel is formed: each whitened
+    inner product is the raw product plus a rank-k correction through the
+    shared ``U^T X``, less the covariate-basis term.
+    """
+    sdt = precision.resolve_kernel()
+    gdt = precision.resolve_gemm()
+    Xk, Uk = X.to(sdt), U.to(sdt)
+    sp = wrn.T[:, perm_idx]  # (mb, Kc, n): sp[j, k] = wrn[perm_idx[k], j]
+    spU = _mm(sp, Uk)  # (mb, Kc, k)
+    num = (
+        (sp.to(gdt) @ Xk.to(gdt)).to(sdt)
+        + ((spU * sm1[:, None, :]).to(gdt) @ UtX.to(gdt)).to(sdt)
+    )
+    num = num - _mm(_mm(sp, Qstack.mT), qXs)  # (mb, Kc, p)
+    r2 = (num * num) / torch.clamp(xns, min=torch.finfo(sdt).tiny)[:, None, :]
+    return r2.max(2).values

@@ -1,7 +1,7 @@
 """Host float64 null-model fit for the single-trait scans.
 
-Counterpart of ``bulklmm_tpu/ops/hostfit.py`` (its full-rank half), kept in
-numpy with the same operations in the same order, so that the two packages
+Counterpart of ``bulklmm_tpu/ops/hostfit.py``, kept in numpy with the same
+operations in the same order, so that the two packages
 give bit-identical h2, coefficients, sigma2 and ell from the same inputs,
 whatever device the scan then runs on. The profile likelihood is flat near
 its optimum, so a device Brent would converge to points up to ~1e-4 apart on
@@ -9,6 +9,8 @@ different backends and move single-trait LODs by as much; this fit removes
 that. It evaluates the (RE)ML objective of ``ops/wls.py`` (reference
 src/wls.jl:69-93, src/lmm.jl:56-86) with a deterministic bounded Brent on
 Python floats: O(n c^2) an iteration, ~50 iterations.
+:func:`fit_lmm_host_lowrank` is the same fit on a rank-k kinship's
+likelihood, from the trait's (k,)-sized projections.
 """
 
 from __future__ import annotations
@@ -170,3 +172,82 @@ def fit_lmm_host(
         best_f, best_x = fx, x
     coef, sigma2, ell = _wls(y0, X0, _make_weights(best_x, lam), prior, reml)
     return HostFit(b=coef, sigma2=sigma2, h2=best_x, ell=ell)
+
+
+def _wls_lowrank(parts, lam, h2, prior, reml, n):
+    """float64 Woodbury WLS for one trait from k-dim projections.
+
+    Same identities as ops/lowrank.py::null_ell_lowrank, evaluated in numpy:
+    every quadratic form is a base Gram plus a rank-k correction with
+    dm1_i = 1/(delta lam_i + 1) - 1.
+    """
+    CtC, CtY, yty, R, Q = (
+        parts["CtC"], parts["CtY"], parts["yty"], parts["R"], parts["Q"]
+    )
+    c = CtC.shape[0]
+    prior_a, prior_b = prior
+    delta = h2 / (1.0 - h2) if h2 < 1.0 else _MAX_DELTA
+    delta = min(max(delta, -_MAX_DELTA), _MAX_DELTA)
+    dm1 = 1.0 / (delta * lam + 1.0) - 1.0  # (k,)
+    Qd = dm1 * Q
+    yWy = float(yty + Q @ Qd)
+    t = CtY + R.T @ Qd  # (c,)
+    G = CtC + (R * dm1[:, None]).T @ R  # (c, c)
+    try:
+        L = np.linalg.cholesky(G)
+    except np.linalg.LinAlgError:
+        # singular covariate Gram: jitter to the smallest SPD neighbor so
+        # the Brent objective stays finite instead of raising mid-fit
+        jit = 1e-12 * max(float(np.trace(G)) / max(c, 1), 1.0)
+        L = np.linalg.cholesky(G + jit * np.eye(c))
+    z = np.linalg.solve(L, t)
+    rss0 = max(yWy - float(z @ z), 0.0)
+    logw_sum = float(np.sum(np.log1p(dm1)))
+    prior_df = prior_b + 2.0 if prior_b > 0.0 else prior_b
+    denom = (n - c if reml else n) + prior_df
+    sigma2 = max((rss0 + prior_a * prior_b) / denom, _SIGMA2_FLOOR)
+    ell = -0.5 * (
+        (n + prior_b) * math.log(sigma2) - logw_sum
+        + (rss0 + prior_a * prior_b) / sigma2
+    )
+    if reml:
+        logdet = 2.0 * float(np.sum(np.log(np.abs(np.diag(L)))))
+        ell = ell + 0.5 * (c * math.log(sigma2) - logdet)
+    b = np.linalg.solve(L.T, z)[:, None]  # (c, 1)
+    return b, sigma2, ell
+
+
+def fit_lmm_host_lowrank(
+    parts,
+    lam,
+    n: int,
+    prior: Tuple[float, float] = (0.0, 0.0),
+    *,
+    reml: bool = False,
+    optim_interval: int = 1,
+) -> HostFit:
+    """Backend-deterministic float64 null fit on the RANK-K likelihood.
+
+    ``parts`` holds the trait's k-dim projections as numpy float64
+    (CtC (c,c), CtY (c,), yty scalar, R (k,c), Q (k,)); ``lam`` the top-k
+    eigenvalues. Only (k,)-scale data ever reaches the host — the (n, k)
+    factor stays on device.
+    """
+    lam = np.asarray(lam, dtype=np.float64)
+    parts = {k: np.asarray(v, dtype=np.float64) for k, v in parts.items()}
+
+    def neg_ll(h2):
+        return -_wls_lowrank(parts, lam, h2, prior, reml, n)[2]
+
+    pts = np.linspace(0.0, 1.0, optim_interval + 1)
+    best_f, best_x = math.inf, 0.5
+    for lo, hi in zip(pts[:-1], pts[1:]):
+        fmin, xmin = _brent_bounded(neg_ll, float(lo), float(hi))
+        if fmin < best_f:
+            best_f, best_x = fmin, xmin
+    x = float(pts[0])  # LOWER endpoint candidate only (COMPAT.md #19 —
+    fx = neg_ll(x)     # h2=1 is an open boundary; never select the clamp)
+    if math.isfinite(fx) and fx < best_f:
+        best_f, best_x = fx, x
+    b, sigma2, ell = _wls_lowrank(parts, lam, best_x, prior, reml, n)
+    return HostFit(b=b, sigma2=sigma2, h2=best_x, ell=ell)

@@ -10,8 +10,9 @@ def resolve_device(device, *arrays) -> torch.device:
 
     - ``device`` given: that device.
     - ``device=None`` and one of ``arrays`` is a tensor (or a cached
-      ``KinshipDecomposition``, which lies where its factors lie): the first
-      such tensor's device (a CPU tensor is the caller asking for the CPU).
+      ``KinshipDecomposition`` or a ``LowRankKinship``, which lie where
+      their factors lie): the first such tensor's device (a CPU tensor is
+      the caller asking for the CPU).
     - ``device=None`` and only numpy arrays or lists: the current CUDA
       device. Without one this raises instead of running on the CPU
       unasked; ``device="cpu"`` runs the plain PyTorch versions there.
@@ -19,7 +20,8 @@ def resolve_device(device, *arrays) -> torch.device:
     if device is not None:
         return torch.device(device)
     for a in arrays:
-        a = getattr(a, "Ut", a)
+        a = getattr(a, "Ut", a)  # KinshipDecomposition
+        a = getattr(a, "U", a)  # LowRankKinship
         if torch.is_tensor(a):
             return a.device
     if torch.cuda.is_available():

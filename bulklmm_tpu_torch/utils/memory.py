@@ -58,6 +58,20 @@ _N_CHUNK_COPIES = 12
 #: grid point
 _ALT_GRID_N_COPIES = 5
 
+#: (p,)-sized live copies a trait of a chunk holds on the rank-k engine
+#: (``ops/lowrank.py``) beyond its outputs, in the widest dtype: the (p, m)
+#: base product X'Y and the Woodbury corrections, (c + 2) panels with their
+#: combines, or alt-grid's running maxima and one grid step's panels.
+#: Measured on an NVIDIA H100 (chip_smoke.py phase 12, 79 x 7,321 x 8,192,
+#: rank 79): at most 8.57, EXACT64 alt-grid (BALANCED 3.54)
+_LR_P_CHUNK_COPIES = 10
+
+#: (k,)-sized live copies a trait holds on the rank-k engine: its
+#: projections and corrections, and null-exact's Brent lanes (a factor
+#: vector a lane and its products). Measured as above at 2,000 x 64 x 8,192,
+#: rank 2,000: at most 3.16, BALANCED null-exact
+_LR_K_CHUNK_COPIES = 4
+
 #: trait tile of the CUDA kernels: chunks are whole tiles
 TRAIT_QUANTUM = 64
 
@@ -101,14 +115,42 @@ def bulkscan_chunk_bytes(n: int, p: int, mc: int, grid: int, c: int, itemsize: i
     )
 
 
+def lowrank_static_bytes(n: int, p: int, m: int, c: int, k: int, itemsize: int, *,
+                         n_outputs: int = 1) -> int:
+    """Chunk-independent device residents of the rank-k engine: the marker
+    panel and its cast (2 x (n, p)), the factor U (n, k), the traits and
+    their cast (2 x (n, m)), the covariates, the marker-side parts (U'X
+    (k, p), X'C and the marker norms) and ``n_outputs`` (p, m) results. No
+    (n, n) array exists."""
+    return itemsize * (2 * n * p + n * k + 2 * n * m + 2 * n * c + k * p + (c + 1) * p
+                       + n_outputs * p * m)
+
+
+def lowrank_chunk_bytes(n: int, p: int, k: int, mc: int, grid: int, itemsize: int) -> int:
+    """Modelled live temporaries of one trait chunk of ``mc`` traits on the
+    rank-k engine."""
+    return itemsize * mc * (_LR_P_CHUNK_COPIES * p + _LR_K_CHUNK_COPIES * k + 2 * n + grid)
+
+
+def _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank):
+    """(static bytes, bytes of a chunk of ``mc`` traits as a function) of
+    the rotated engine, or of the rank-k engine when ``rank`` is given."""
+    if rank is None:
+        static = bulkscan_static_bytes(n, p, m, c, itemsize, n_outputs=n_outputs)
+        return static, lambda mc: bulkscan_chunk_bytes(n, p, mc, grid, c, itemsize, alt_grid=alt_grid)
+    static = lowrank_static_bytes(n, p, m, c, rank, itemsize, n_outputs=n_outputs)
+    return static, lambda mc: lowrank_chunk_bytes(n, p, rank, mc, grid, itemsize)
+
+
 def _whole_tiles(width: int, m: int) -> int:
     return min((width // TRAIT_QUANTUM) * TRAIT_QUANTUM, m)
 
 
 def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, itemsize: int = 4,
                      n_outputs: int = 1, alt_grid: bool = False, budget: int | None = None,
-                     device=None) -> int | None:
-    """Trait-chunk width of the in-memory ``bulkscan``.
+                     device=None, rank: int | None = None) -> int | None:
+    """Trait-chunk width of the in-memory ``bulkscan``; ``rank`` (k) sizes
+    the rank-k engine's instead of the rotated one's.
 
     None when the whole problem fits in one block; else the widest chunk of
     whole 64-trait tiles (the CUDA kernels' trait tile; no wider quantum is
@@ -119,10 +161,11 @@ def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, item
     """
     if budget is None:
         budget = device_memory_budget(device)
-    static = int(bulkscan_static_bytes(n, p, m, c, itemsize, n_outputs=n_outputs) * _STATIC_HEADROOM)
-    if static + bulkscan_chunk_bytes(n, p, m, grid, c, itemsize, alt_grid=alt_grid) <= budget:
+    static, chunk = _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank)
+    static = int(static * _STATIC_HEADROOM)
+    if static + chunk(m) <= budget:
         return None
-    mc = int((budget - static) // bulkscan_chunk_bytes(n, p, 1, grid, c, itemsize, alt_grid=alt_grid))
+    mc = int((budget - static) // chunk(1))
     if mc < TRAIT_QUANTUM:
         raise ValueError(
             f"bulkscan at n={n}, p={p}, m={m} needs ~{static / 1e9:.1f} GB of "
@@ -136,16 +179,17 @@ def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, item
 
 def auto_host_block(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, itemsize: int = 4,
                     n_outputs: int = 1, alt_grid: bool = False, budget: int | None = None,
-                    device=None) -> int:
+                    device=None, rank: int | None = None) -> int:
     """Traits of one sequential device call when the (p, m) result lives on
     the host. The device holds the marker-side residents and the whole
     trait matrix, and per trait of a block its chunk temporaries and
     ``n_outputs`` (p,) results of TWO blocks: the one being copied to the
-    host and the next one, running."""
+    host and the next one, running. ``rank`` as for :func:`auto_trait_chunk`."""
     if budget is None:
         budget = device_memory_budget(device)
-    base = int((bulkscan_static_bytes(n, p, 0, c, itemsize) + 2 * n * m * itemsize) * _STATIC_HEADROOM)
-    per_trait = bulkscan_chunk_bytes(n, p, 1, grid, c, itemsize, alt_grid=alt_grid) + int(
+    static, chunk = _footprint(n, p, 0, c, itemsize, n_outputs, grid, alt_grid, rank)
+    base = int((static + 2 * n * m * itemsize) * _STATIC_HEADROOM)
+    per_trait = chunk(1) + int(
         2 * n_outputs * p * itemsize * _STATIC_HEADROOM
     )
     mh = int((budget - base) // per_trait)
@@ -158,17 +202,25 @@ def auto_host_block(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, items
 
 
 def auto_marker_block(n: int, m: int, *, itemsize: int = 4, n_outputs: int = 1,
-                      budget: int | None = None, default: int = 32_768, device=None) -> int:
+                      budget: int | None = None, default: int = 32_768, device=None,
+                      rank: int | None = None) -> int:
     """Marker-block width of the streamed engines. The device holds the
     trait-side residents (the eigenvectors and four (n, m) copies) and, per
     marker of a block, the uploaded and rotated block of two blocks in
     flight (2 x 2 x (n,)), ``n_outputs`` (m,) output rows and about four
-    more (m,)-sized kernel temporaries. The familiar default when it fits;
-    else multiples of 1,024 markers, never fewer."""
+    more (m,)-sized kernel temporaries. On the rank-k engine (``rank`` = k)
+    the (n, k) factor takes the eigenvectors' place and a marker holds its
+    (k,) projection and the rank-k step's (m,)-sized live set
+    (:data:`_LR_P_CHUNK_COPIES`). The familiar default when it fits; else
+    multiples of 1,024 markers, never fewer."""
     if budget is None:
         budget = device_memory_budget(device)
-    trait_side = itemsize * (n * n + 4 * n * m)
-    per_marker = itemsize * (2 * 2 * n + (n_outputs + 4) * m)
+    if rank is None:
+        trait_side = itemsize * (n * n + 4 * n * m)
+        per_marker = itemsize * (2 * 2 * n + (n_outputs + 4) * m)
+    else:
+        trait_side = itemsize * (n * rank + 4 * n * m + rank * m)
+        per_marker = itemsize * (2 * 2 * n + rank + (n_outputs + _LR_P_CHUNK_COPIES) * m)
     if budget - trait_side < per_marker * 1024:
         raise ValueError(
             f"bulkscan_streamed trait-side residents at n={n}, m={m} need "

@@ -138,6 +138,36 @@ exits nonzero:
     temporary directory: within 1e-4 x n / 79 of the in-memory scan of the
     same data. Printed: both times (median of 3, host clock), their ratio
     (the upload overlap) and the streamed call's device idle share.
+12. The low-rank kinship engine (``LowRankKinship``), which runs no kernel
+    in either package (plain products; every launch count must stay 0).
+    (a) At k = n on phase 4's data (``kinship_lowrank_exact(K, 79)``):
+    BALANCED ``bulkscan`` null-grid, null-exact and alt-grid within 1e-4 of
+    the rotated engine's EXACT64 scans (null-grid on the equal-h2 traits);
+    ``bulkscan_perms`` on phase 10's cut (2,048 traits, 100 permutations,
+    the port's indices of seed 0) within 1e-4 of its EXACT64 sweep on the
+    same factors, its column 0 within 1e-4 of the rotated EXACT64 scan's
+    per-trait maxima (the other columns shuffle whitened residuals in sample
+    coordinates: a rank-k statistic). (b) benchmarks/lowrank_cohort.py's
+    cohort, drawn on the card from a generator seeded with 2026 (0/1
+    genotypes whose frequencies follow 8 ancestry directions through a
+    sigmoid load, normal traits): 20,000 samples x 50,000 markers x 2,000
+    traits at k = 2,048. ``kinship_lowrank_from_geno`` under BALANCED (a
+    float64 panel), its time and its Rayleigh residual max_i ||K u_i -
+    lam_i u_i|| / lam_1 through K applied a marker block at a time (<= 0.05,
+    tests/test_lowrank.py's bar); BALANCED ``bulkscan`` null-grid,
+    null-exact (its Brent iterations and the launches of one call, counted
+    by the profiler), alt-grid and null-grid with effects, each within
+    1e-4 x n/79 of EXACT64 on the same factors, the effects' errors
+    reported; ``scan`` of trait 0 with 1,024 permutations, every column
+    within the same bar; ``bulkscan_perms`` cut to 256 traits x 100
+    permutations within it, column 0 within it of the scan's maxima; and
+    ``bulkscan_streamed`` with the panel on the host in blocks of 8,192
+    markers within it of the in-memory null-grid. Times of a second call by
+    the host clock and the peak device memory. Last, the rank-k live sets
+    (at BXD width, rank 79, in (p, m) float64 arrays; at 2,000 x 64 x 8,192,
+    rank 2,000, against the model's whole footprint) must stay within
+    ``utils/memory.py``'s rank-k multipliers. Cuts, to keep the phase near
+    40 s: the permutation sweeps' traits and permutations, as stated.
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
@@ -228,6 +258,13 @@ GRID = np.arange(0.0, 0.91, 0.1)  # bulkscan's default h2 grid
 PRIOR = (1.0, 0.0)  # bulkscan's default prior
 SCAN_NPERMS = 1024  # permutations of the single-trait scans
 COHORT_N, COHORT_P = 2000, 20000  # the single-trait cohort size
+#: phase 12 (b): benchmarks/lowrank_cohort.py's cohort, its rank and ancestry
+LR_N, LR_P, LR_M, LR_RANK, LR_ANCESTRY = 20_000, 50_000, 2_000, 2_048, 8
+LR_PERM_TRAITS, LR_NPERMS = 256, 100  # phase 12 (b)'s bulkscan_perms cut
+LR_STREAM_BLOCK = 8192  # phase 12 (b)'s marker block
+RAYLEIGH_BAR = 0.05  # max_i ||K u_i - lam_i u_i|| / lam_1 (tests/test_lowrank.py:96)
+#: phase 12's live sets: markers and rank of the (k,)-sized calls
+LR_CAL_P, LR_CAL_RANK = 64, 2000
 
 
 def check(ok: bool, what: str) -> None:
@@ -1426,6 +1463,346 @@ def streaming_at_biobank_n(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+def _host_ms(fn) -> float:
+    """One call by the host clock, the device synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _no_kernel(counts, what) -> None:
+    """The rank-k engine runs none of the three kernels, in either package."""
+    check(not any(counts.values()), f"{what} launched a kernel: {counts}")
+
+
+def _null_errors(res, ref, method):
+    """(max |dLOD|, what it was taken over, max |dh2|) of a null-method scan
+    against its oracle: null-grid on the traits whose grid h2 agrees,
+    null-exact (a continuous h2) on all of them."""
+    dh2 = (res.h2_null_list.double() - ref.h2_null_list).abs().max().item()
+    if method == "null-exact":
+        cols = torch.ones_like(ref.h2_null_list, dtype=torch.bool)
+        return _max_abs_diff_cols(res.L, ref.L, cols), "on all traits", dh2
+    same = ref.h2_null_list == res.h2_null_list.double()
+    err = _max_abs_diff_cols(res.L, ref.L, same) if bool(same.any()) else 0.0
+    return err, f"on the equal-h2 traits ({int((~same).sum())} with another h2)", dh2
+
+
+def lowrank_at_bxd(dev, Yd, Gd, K) -> None:
+    """Phase 12 (a): the rank-k engine at k = n on phase 4's data, against
+    the rotated engine's EXACT64 scans."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.ops.bulkperm import permutation_indices
+
+    n, m = Yd.shape
+    p = Gd.shape[1]
+    lr = bt.kinship_lowrank_exact(K, n, dtype=torch.float64, device=dev)
+    all_cols = torch.ones(m, dtype=torch.bool, device=dev)
+    for method in ("null-grid", "null-exact", "alt-grid"):
+        call = lambda method=method: bt.bulkscan(Yd, Gd, lr, method=method,  # noqa: E731
+                                                 precision=bt.BALANCED)
+        res, counts = _drive(f"BALANCED rank-{n} {method} bulkscan", call)
+        _no_kernel(counts, f"the rank-{n} {method} scan")
+        check(tuple(res.L.shape) == (p, m) and res.L.device.type == dev.type and bool(torch.isfinite(res.L).all()),
+              f"rank-{n} {method} L is not finite of shape ({p}, {m}) on the card")
+        ms = _host_ms(call)
+        ref = bt.bulkscan(Yd, Gd, K, method=method, precision=bt.EXACT64)
+        torch.cuda.synchronize()
+        if method == "alt-grid":
+            err = _max_abs_diff_cols(res.L, ref.L, all_cols)
+            flips = int((res.h2_panel != ref.h2_panel).sum())
+            extra = f"on all pairs; h2 panel flips {flips} of {p * m}"
+        else:
+            err, over, dh2 = _null_errors(res, ref, method)
+            extra = f"{over}, max|dh2| = {dh2:.3e}"
+        print(f"  rank-{n} {method} BALANCED vs the rotated engine's EXACT64: max|dLOD| = "
+              f"{err:.3e} {extra} (bar {ORACLE_BAR:.0e}); second call {ms:.1f} ms (host clock)")
+        check(err <= ORACLE_BAR, f"rank-{n} {method} strays from the rotated EXACT64 scan")
+        if method == "null-grid":
+            rot_h2, rot_max = ref.h2_null_list, ref.L.max(0).values
+        del res, ref
+
+    # permutations: phase 10's cut and indices; column 0 is the scan's
+    # per-trait maximum, the others a rank-k statistic (whitening in sample
+    # coordinates), held against the rank-k EXACT64 sweep
+    sub = slice(0, OPTION_TRAITS)
+    idx = permutation_indices(n, MASK_NPERMS, 0)
+    call = lambda: bt.bulkscan_perms(Yd[:, sub], Gd, lr, nperms=MASK_NPERMS, perm_idx=idx,  # noqa: E731
+                                     precision=bt.BALANCED)
+    res, counts = _drive(f"BALANCED rank-{n} bulkscan_perms, {MASK_NPERMS} permutations, "
+                         f"{OPTION_TRAITS} traits", call)
+    _no_kernel(counts, f"the rank-{n} bulkscan_perms")
+    check(bool(torch.isfinite(res.maxlods).all()), "rank-k maxlods are not finite")
+    ms = _host_ms(call)
+    ref = bt.bulkscan_perms(Yd[:, sub], Gd, lr, nperms=MASK_NPERMS, perm_idx=idx,
+                            precision=bt.EXACT64)
+    same = ref.h2_null_list == res.h2_null_list.double()
+    err = (res.maxlods.double() - ref.maxlods)[same].abs().max().item()
+    same_rot = rot_h2[sub] == res.h2_null_list.double()
+    obs = (res.maxlods[:, 0].double() - rot_max[sub])[same_rot].abs().max().item()
+    print(f"  rank-{n} bulkscan_perms BALANCED vs its EXACT64 sweep: max|dLOD| = {err:.3e} on "
+          f"{int(same.sum())} equal-h2 traits; column 0 vs the rotated EXACT64 scan's maxima "
+          f"{obs:.3e} on {int(same_rot.sum())} (bar {ORACLE_BAR:.0e}); second call {ms:.1f} ms")
+    check(err <= ORACLE_BAR and obs <= ORACLE_BAR, "rank-k bulkscan_perms strays from EXACT64")
+    del res, ref, lr
+
+
+def _lowrank_cohort(dev, n, p, m, ancestry=LR_ANCESTRY, seed=SEED, block=8192):
+    """benchmarks/lowrank_cohort.py's cohort, drawn on the card: 0/1
+    genotypes whose frequencies follow ``ancestry`` directions through a
+    sigmoid load, and normal traits. Returns (G, Y), float32."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    F = torch.randn((n, ancestry), generator=gen, device=dev)
+    W = torch.randn((ancestry, p), generator=gen, device=dev)
+    G = torch.empty((n, p), device=dev)
+    for s in range(0, p, block):
+        load = torch.sigmoid(0.5 * (F @ W[:, s : s + block]))
+        G[:, s : s + block] = (torch.rand(load.shape, generator=gen, device=dev) < load).float()
+    Y = torch.randn((n, m), generator=gen, device=dev)
+    return G, Y
+
+
+def _rayleigh_residual(G, lr, block=8192) -> float:
+    """max_i ||K u_i - lam_i u_i|| / lam_1 for K = calc_kinship(G) (2 X X'/p
+    + 0.5, X = G - 0.5, unit diagonal), applied a block of markers at a time
+    in float64: the (n, n) matrix is never formed."""
+    n, p = G.shape
+    U, lam = lr.U.double(), lr.lam.double()
+    XXtU = torch.zeros_like(U)
+    sq = torch.zeros(n, dtype=torch.float64, device=U.device)
+    for s in range(0, p, block):
+        X = G[:, s : s + block].double() - 0.5
+        XXtU += X @ (X.T @ U)
+        sq += (X * X).sum(1)
+    KU = (2.0 / p) * XXtU + 0.5 * U.sum(0, keepdim=True) + (0.5 - 2.0 * sq / p)[:, None] * U
+    return ((KU - U * lam).norm(dim=0).max() / lam[0]).item()
+
+
+def _where_time_goes(what, fn, wall_ms, top=3) -> None:
+    """Prints one call's device busy time and idle share against ``wall_ms``
+    (a call with the profiler off), its kernel launches and its ``top``
+    device kernels by time, from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bulklmm_tpu_torch.profile_paths import _device_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                       key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in on_device) / 1e3
+    launches = int(sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")))
+    tops = "; ".join(f"{_device_us(e) / 1e3:.1f} ms x{e.count} {e.key[:48]}" for e in on_device[:top])
+    print(f"    {what}: device busy {busy:.1f} ms (profiler on) of {wall_ms:.1f} ms, idle "
+          f"{100 * (1 - busy / wall_ms):.0f} %, {launches} kernel launches; top: {tops}")
+
+
+def lowrank_cohort(dev, card, n=LR_N, p=LR_P, m=LR_M, k=LR_RANK) -> None:
+    """Phase 12 (b): the cohort the rank-k engine exists for, from the
+    genotypes to the scans, each BALANCED call against EXACT64 on the same
+    factors."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.ops import brent
+
+    t_phase = time.perf_counter()
+    G, Y = _lowrank_cohort(dev, n, p, m)
+    torch.cuda.synchronize()
+    print(f"  cohort {n} x {p} x {m} drawn on the card in {time.perf_counter() - t_phase:.1f} s "
+          f"({G.numel() * 4 / 1e9:.1f} GB float32 panel)")
+    peak = 0.0
+    bar = ORACLE_BAR * n / N
+    t0 = time.perf_counter()
+    lr, counts = _drive(f"BALANCED kinship_lowrank_from_geno, k = {k}",
+                        lambda: bt.kinship_lowrank_from_geno(G, k, precision=bt.BALANCED))
+    construct_s = time.perf_counter() - t0
+    _where_time_goes("kinship_lowrank_from_geno", lambda: bt.kinship_lowrank_from_geno(
+        G, k, precision=bt.BALANCED), 1e3 * construct_s)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _no_kernel(counts, "kinship_lowrank_from_geno")
+    check(lr.U.shape == (n, k) and lr.U.device.type == dev.type and lr.U.dtype == torch.float64,
+          "the factors are not (n, k) float64 on the card")
+    check(bool(torch.isfinite(lr.U).all()) and bool((lr.lam[:-1] >= lr.lam[1:]).all()),
+          "the factors are not finite or their eigenvalues not descending")
+    res_k = _rayleigh_residual(G, lr)
+    print(f"  constructor {construct_s:.2f} s (first call, host clock); lam_1 = "
+          f"{lr.lam[0].item():.2f}, lam_k = {lr.lam[-1].item():.4f}; Rayleigh residual "
+          f"max_i ||K u_i - lam_i u_i|| / lam_1 = {res_k:.3e} (bar {RAYLEIGH_BAR})")
+    check(res_k <= RAYLEIGH_BAR, "the randomized factors are not eigenpairs of K")
+
+    all_cols = torch.ones(m, dtype=torch.bool, device=dev)
+    times_ms = {}
+    for method, eff in (("null-grid", False), ("null-exact", False), ("alt-grid", False),
+                        ("null-grid", True)):
+        what = f"{method}{' effects' if eff else ''}"
+        call = lambda method=method, eff=eff: bt.bulkscan(  # noqa: E731
+            Y, G, lr, method=method, precision=bt.BALANCED, output_effects=eff)
+        res, counts = _drive(f"BALANCED rank-{k} {what} bulkscan", call)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        _no_kernel(counts, f"the rank-{k} {what} scan")
+        check(tuple(res.L.shape) == (p, m) and res.L.device.type == dev.type and bool(torch.isfinite(res.L).all()),
+              f"rank-{k} {what} L is not finite of shape ({p}, {m}) on the card")
+        iters = brent.iterations
+        times_ms[what] = _host_ms(call)
+        ref = bt.bulkscan(Y, G, lr, method=method, precision=bt.EXACT64, output_effects=eff)
+        torch.cuda.synchronize()
+        if method == "alt-grid":
+            err = _max_abs_diff_cols(res.L, ref.L, all_cols)
+            flips = int((res.h2_panel != ref.h2_panel).sum())
+            extra = f"on all pairs; h2 panel flips {flips} of {p * m}"
+        else:
+            err, over, dh2 = _null_errors(res, ref, method)
+            extra = f"{over}, max|dh2| = {dh2:.3e}"
+        if method == "null-exact":
+            extra += f"; Brent iterations {iters}"
+        if eff:
+            same = ref.h2_null_list == res.h2_null_list.double()
+            eb, es = _effects_err_cols((res.beta_mat, res.beta_se_mat),
+                                       (ref.beta_mat, ref.beta_se_mat), same)
+            extra += f"; |d effect| / (|effect| + SE) {eb:.3e}, |dSE| / SE {es:.3e}"
+            check(_max_abs_diff_cols(res.L, lod_ng, all_cols) <= SAME_LOD_BAR,
+                  "the effects scan's L is not the null-grid scan's")
+        print(f"  rank-{k} {what} BALANCED vs EXACT64: max|dLOD| = {err:.3e} {extra} "
+              f"(bar {bar:.2e}); second call {times_ms[what]:.1f} ms (host clock)")
+        _where_time_goes(what, call, times_ms[what])
+        check(err <= bar, f"rank-{k} {what} strays from EXACT64")
+        if method == "null-grid" and not eff:
+            lod_ng = res.L
+        del res, ref
+
+    # the single-trait permutation scan of trait 0
+    y = Y[:, :1]
+    call = lambda: bt.scan(y, G, lr, permutation_test=True, nperms=SCAN_NPERMS,  # noqa: E731
+                           precision=bt.BALANCED)
+    res, counts = _drive(f"BALANCED rank-{k} scan, {SCAN_NPERMS} permutations", call)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _no_kernel(counts, "the rank-k permutation scan")
+    check(tuple(res.L_perms.shape) == (p, SCAN_NPERMS) and bool(torch.isfinite(res.L_perms).all())
+          and bool(torch.isfinite(res.lod).all()), "the rank-k permutation scan is not finite")
+    times_ms["scan perms"] = _host_ms(call)
+    ref = bt.scan(y, G, lr, permutation_test=True, nperms=SCAN_NPERMS, precision=bt.EXACT64)
+    err = max((res.lod.double() - ref.lod).abs().max().item(),
+              (res.L_perms.double() - ref.L_perms).abs().max().item())
+    print(f"  rank-{k} scan with {SCAN_NPERMS} permutations BALANCED vs EXACT64: max|dLOD| = "
+          f"{err:.3e} over every column (bar {bar:.2e}); h2_null {float(res.h2_null):.6f} vs "
+          f"{float(ref.h2_null):.6f}; second call {times_ms['scan perms']:.1f} ms")
+    check(err <= bar, "the rank-k permutation scan strays from EXACT64")
+    _where_time_goes("scan perms", call, times_ms["scan perms"])
+    del res, ref
+
+    sub = slice(0, LR_PERM_TRAITS)
+    call = lambda: bt.bulkscan_perms(Y[:, sub], G, lr, nperms=LR_NPERMS,  # noqa: E731
+                                     precision=bt.BALANCED)
+    res, counts = _drive(f"BALANCED rank-{k} bulkscan_perms, {LR_PERM_TRAITS} traits x "
+                         f"{LR_NPERMS} permutations", call)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _no_kernel(counts, "the rank-k bulkscan_perms")
+    check(bool(torch.isfinite(res.maxlods).all()), "rank-k maxlods are not finite")
+    times_ms["bulkscan_perms"] = _host_ms(call)
+    ref = bt.bulkscan_perms(Y[:, sub], G, lr, nperms=LR_NPERMS, precision=bt.EXACT64)
+    same = ref.h2_null_list == res.h2_null_list.double()
+    err = (res.maxlods.double() - ref.maxlods)[same].abs().max().item()
+    obs = (res.maxlods[:, 0] - lod_ng[:, sub].max(0).values).abs().max().item()
+    print(f"  rank-{k} bulkscan_perms BALANCED vs EXACT64: max|dLOD| = {err:.3e} on "
+          f"{int(same.sum())} equal-h2 traits (bar {bar:.2e}); column 0 vs the scan's maxima "
+          f"{obs:.3e}; second call {times_ms['bulkscan_perms']:.1f} ms")
+    check(err <= bar and obs <= bar, "the rank-k bulkscan_perms strays")
+    _where_time_goes("bulkscan_perms", call, times_ms["bulkscan_perms"])
+    del res, ref
+
+    G_host = G.cpu().numpy()
+    call = lambda: bt.bulkscan_streamed(Y, G_host, lr, precision=bt.BALANCED,  # noqa: E731
+                                        marker_block=LR_STREAM_BLOCK)
+    res, counts = _drive(f"BALANCED rank-{k} bulkscan_streamed, host panel in blocks of "
+                         f"{LR_STREAM_BLOCK}", call)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _no_kernel(counts, "the rank-k streamed scan")
+    times_ms["streamed"] = _host_ms(call)
+    err = _max_abs_diff_cols(torch.from_numpy(res.L).to(dev), lod_ng, all_cols)
+    print(f"  rank-{k} streamed vs in-memory null-grid: max|dLOD| = {err:.3e} (bar {bar:.2e}); "
+          f"second call {times_ms['streamed']:.1f} ms against {times_ms['null-grid']:.1f} ms in memory")
+    check(err <= bar, "the rank-k streamed scan strays from the in-memory one")
+    _where_time_goes("streamed", call, times_ms["streamed"])
+    print(f"  phase 12 (b) on {card}: peak device memory {peak / 2**30:.2f} GiB; times (ms, host "
+          f"clock, second call): {json.dumps({w: round(t, 1) for w, t in times_ms.items()})}; "
+          f"the whole part {time.perf_counter() - t_phase:.1f} s")
+    del G, Y, G_host, lr, lod_ng, res
+    torch.cuda.empty_cache()
+
+
+def calibrate_lowrank_memory(dev, Yd, Gd, K) -> None:
+    """The rank-k engine's live sets against utils/memory.py's model: each
+    call's peak device memory above its inputs, at BXD width in (p, m)
+    arrays of the widest dtype (the (p,)-sized copies a trait holds), and
+    at n = 2,000 with 64 markers and rank 2,000 against the model's whole
+    footprint, with the (k,)-sized copies a trait holds beside it."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.utils import memory
+
+    m = CALIBRATION_TRAITS
+    n, p = Gd.shape
+    Ys = Yd[:, :m].contiguous()
+    lr = bt.kinship_lowrank_exact(K, n, dtype=torch.float64, device=dev)
+    worst = 0.0
+    for name, preset, eff, nout in (
+            ("null-grid", "BALANCED", False, 1), ("null-grid", "BALANCED", True, 3),
+            ("null-grid", "EXACT64", False, 1), ("null-grid", "EXACT64", True, 3),
+            ("alt-grid", "BALANCED", False, 2), ("alt-grid", "EXACT64", False, 2),
+            ("null-exact", "BALANCED", False, 1)):
+        _, extra = _peak_over(lambda: bt.bulkscan(
+            Ys, Gd, lr, method=name, precision=bt.precision_by_name(preset), output_effects=eff,
+            trait_chunk=m))
+        copies = extra / (8 * p * m) - nout
+        worst = max(worst, copies)
+        print(f"  rank-{n} live set of {name} {preset}{' effects' if eff else ''} at {n} x {p} x "
+              f"{m}: {extra / 2**30:.3f} GiB, {copies:.2f} (p, m) float64 arrays beyond its "
+              f"{nout} outputs")
+    rng = np.random.default_rng(SEED)
+    n2, p2, k2 = COHORT_N, LR_CAL_P, LR_CAL_RANK
+    G2 = torch.from_numpy(rng.uniform(0.0, 1.0, (n2, p2)).astype(np.float32)).to(dev)
+    Y2 = torch.from_numpy(rng.normal(size=(n2, m)).astype(np.float32)).to(dev)
+    lr2 = bt.kinship_lowrank_exact(bt.calc_kinship(G2, precision=bt.EXACT64), k2,
+                                   dtype=torch.float64, device=dev)
+    worst_k, fits = 0.0, True
+    for name, preset in (("null-grid", "BALANCED"), ("null-grid", "EXACT64"),
+                         ("null-exact", "BALANCED"), ("alt-grid", "BALANCED")):
+        _, extra = _peak_over(lambda: bt.bulkscan(
+            Y2, G2, lr2, method=name, precision=bt.precision_by_name(preset), trait_chunk=m))
+        nout = 2 if name == "alt-grid" else 1
+        model = (memory.lowrank_static_bytes(n2, p2, m, 1, k2, 8, n_outputs=nout)
+                 + memory.lowrank_chunk_bytes(n2, p2, k2, m, len(GRID), 8))
+        # beyond the model's (n,)-sized terms (the traits, their cast and two
+        # more copies a trait) and (p,)-sized ones, per (k,) of a trait
+        k_copies = (extra / (8 * m) - 4 * n2 - (memory._LR_P_CHUNK_COPIES + nout) * p2) / k2
+        worst_k = max(worst_k, k_copies)
+        fits = fits and extra <= model
+        print(f"  rank-{k2} live set of {name} {preset} at {n2} x {p2} x {m}: {extra / 2**30:.3f} "
+              f"GiB against the model's {model / 2**30:.3f} GiB; {k_copies:.2f} (k,)-sized float64 "
+              f"copies a trait beyond the (n,)- and (p,)-sized terms")
+    print(f"  rank-k memory model: the most (p,)-sized copies a trait held {worst:.2f} (model "
+          f"{memory._LR_P_CHUNK_COPIES}), the most (k,)-sized {worst_k:.2f} (model "
+          f"{memory._LR_K_CHUNK_COPIES})")
+    check(worst <= memory._LR_P_CHUNK_COPIES and worst_k <= memory._LR_K_CHUNK_COPIES and fits,
+          "a rank-k call's live set passed the memory model")
+    del G2, Y2, lr2, lr, Ys
+    torch.cuda.empty_cache()
+
+
+def lowrank_engine(dev, card, Yd, Gd, K) -> None:
+    """Phase 12: the rank-k kinship engine (no kernel in either package)."""
+    t_phase = time.perf_counter()
+    lowrank_at_bxd(dev, Yd, Gd, K)
+    print(f"  phase 12 (a) took {time.perf_counter() - t_phase:.1f} s")
+    lowrank_cohort(dev, card)
+    calibrate_lowrank_memory(dev, Yd, Gd, K)
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -1478,6 +1855,9 @@ def main() -> None:
     streaming_at_biobank_n(dev, card)
     print("[10, last] the memory model's live sets")
     calibrate_memory(dev, Yd, Gd, K)
+    print(f"[12] the low-rank engine: rank {N} at BXD scale, rank {LR_RANK} at {LR_N} x {LR_P} x "
+          f"{LR_M}")
+    lowrank_engine(dev, card, Yd, Gd, K)
     import_port()
     kernels = [{
         "name": "liteqtl_lod",

@@ -431,20 +431,24 @@ def test_pallas_engine_refusals(perm_data, preset, match):
 @pytest.mark.parametrize("kw", [dict(missing="mask"), dict(missing="drop"), dict(lowrank=True)],
                          ids=["mask", "drop", "lowrank"])
 def test_unported_options_raise(perm_data, kw):
-    """A LowRankKinship is still to port and raises naming its ROADMAP.md
-    item; missing="mask"/"drop" run (tests/test_torch_missing.py holds them
-    against the JAX package)."""
+    """missing="mask"/"drop" run, and a LowRankKinship runs the rank-k
+    engine with missing="mask", equal to the JAX package's under EXACT64
+    given its shuffle indices (tests/test_torch_missing.py and
+    test_torch_lowrank.py hold the rest against the JAX package)."""
     G, Y, K = perm_data
     Y = np.array(Y, dtype=np.float64)
     Y[2, 1] = np.nan
     lam, U = np.linalg.eigh(K)
     lowrank = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
     if kw.pop("lowrank", False):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
-            bt.bulkscan_perms(Y, G, lowrank, nperms=4, device="cpu", missing="mask")
+        ref = bl.bulkscan_perms(Y, G, lowrank, nperms=4, missing="mask", precision=jcfg.EXACT64)
+        port = bt.bulkscan_perms(
+            Y, G, lowrank, nperms=4, device="cpu", missing="mask", precision=bt.EXACT64,
+            perm_idx=lambda n: np.asarray(jops.permutation_indices(n, 4, 0)),
+        )
+        assert np.max(np.abs(port.maxlods.numpy() - np.asarray(ref.maxlods))) < 1e-8
+        assert np.array_equal(port.h2_null_list.numpy(), np.asarray(ref.h2_null_list))
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
-        bt.bulkscan_perms(Y, G, lowrank, nperms=4, device="cpu", **kw)
     res = bt.bulkscan_perms(Y, G, K, nperms=4, device="cpu", **kw)
     assert res.maxlods.shape == (Y.shape[1], 5) and bool(torch.isfinite(res.maxlods).all())
 

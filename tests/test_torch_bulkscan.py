@@ -184,22 +184,33 @@ def test_same_value_errors_as_jax(bxd_like, case):
     dict(missing="mask"), dict(missing="drop"), dict(output_effects=True), dict(lowrank=True),
 ], ids=["null-exact", "alt-grid", "mask", "drop", "effects", "lowrank"])
 def test_unported_options_raise(bxd_like, kw):
-    """Of these options only a LowRankKinship is still to port: it raises
-    naming its ROADMAP.md item, whatever else is asked, and the others run
-    (tests/test_torch_effects.py and test_torch_missing.py hold them
-    against the JAX package)."""
+    """Every option also runs on a LowRankKinship, the rank-k engine, and
+    matches the JAX package's under EXACT64 (the option alone in the
+    "lowrank" case, with a planted missing value under missing="mask");
+    the dense K runs each option too (tests/test_torch_effects.py,
+    test_torch_missing.py and test_torch_lowrank.py hold them against the
+    JAX package). Bars: 1e-8, and 2e-7 for null-exact, whose Brent fits
+    stop elsewhere inside their window on sums taken in another order
+    (test_torch_lowrank.py's BRENT_BAR)."""
     lam, U = np.linalg.eigh(bxd_like["K"])
     lowrank = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
     Y = bxd_like["Y"].copy()
     Y[3, 2] = np.nan
-    if kw.pop("lowrank", False):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
-            bt.bulkscan(Y, bxd_like["G"], lowrank, device="cpu", **kw)
-        return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
-        bt.bulkscan(Y, bxd_like["G"], lowrank, device="cpu", **kw)
+    only_lowrank = kw.pop("lowrank", False)
+    if only_lowrank:
+        kw = dict(missing="mask")
     if "missing" not in kw:
         Y = bxd_like["Y"]
+    ref = bl.bulkscan(Y, bxd_like["G"], lowrank, precision=jcfg.EXACT64, **kw)
+    port = bt.bulkscan(Y, bxd_like["G"], lowrank, precision=bt.EXACT64, device="cpu", **kw)
+    bar = 2e-7 if kw.get("method") == "null-exact" else 1e-8
+    for f in ("L", "h2_null_list", "h2_panel", "beta_mat", "beta_se_mat"):
+        a, b = getattr(port, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert np.max(np.abs(a.numpy() - np.asarray(b))) < bar, f
+    if only_lowrank:
+        return
     res = bt.bulkscan(Y, bxd_like["G"], bxd_like["K"], device="cpu", **kw)
     assert res.L.shape == (bxd_like["p"], bxd_like["m"]) and bool(torch.isfinite(res.L).all())
     assert (res.beta_mat is not None) == bool(kw.get("output_effects"))

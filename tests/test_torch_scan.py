@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import bulklmm_tpu as bl
+from bulklmm_tpu.ops.bulkperm import permutation_indices as jax_permutation_indices
 from bulklmm_tpu.ops.hostfit import fit_lmm_host as jax_fit_lmm_host
 from bulklmm_tpu.ops.lowrank import LowRankKinship
 from bulklmm_tpu.utils import config as jcfg
@@ -354,10 +355,20 @@ def test_refusals(data):
         bt.scan(y, G, bt.decompose_kinship(K, device="cpu"), weights=np.ones(n))
     lam, U = np.linalg.eigh(K)
     lr = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
-    for call in (lambda: bt.scan(y, G, lr, device="cpu"),
-                 lambda: bt.scan_perms_lite(y, G, np.ones((n, 0)), lr, device="cpu")):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md "Still to port" item 4'):
-            call()
+    # a LowRankKinship runs: the JAX package's refusals, then its results
+    with pytest.raises(ValueError, match="cached decomposition"):
+        bt.scan(y, G, lr, weights=np.ones(n), device="cpu")
+    with pytest.raises(ValueError, match="compat_sqrt_weights"):
+        bt.scan(y, G, lr, assumption="alt", compat_sqrt_weights=True, device="cpu")
+    ref = bl.scan(y, G, lr, precision=jcfg.EXACT64)
+    port = bt.scan(y, G, lr, precision=bt.EXACT64, device="cpu")
+    assert float(port.h2_null) == float(ref.h2_null)
+    assert np.max(np.abs(port.lod.numpy() - np.asarray(ref.lod))) < 1e-10
+    ref = bl.scan_perms_lite(y, G, np.ones((n, 0)), lr, nperms=4, precision=jcfg.EXACT64)
+    idx = np.asarray(jax_permutation_indices(n, 4, 0))
+    port = bt.scan_perms_lite(y, G, np.ones((n, 0)), lr, nperms=4, perm_idx=idx,
+                              precision=bt.EXACT64, device="cpu")
+    assert np.max(np.abs(port.L_perms.numpy() - np.asarray(ref.L_perms))) < 1e-10
 
 
 def test_numpy_inputs_without_a_device_raise_and_name_the_cpu(data):

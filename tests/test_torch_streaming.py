@@ -95,9 +95,20 @@ def test_streamed_guards(cohort):
         bt.bulkscan_streamed(Y, G, K, method="null-grid", engine="pallas", **kw)
     lam, U = np.linalg.eigh(K)
     lr = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
-    for call in (bt.bulkscan_streamed, bt.bulkscan_perms_streamed):
-        with pytest.raises(NotImplementedError, match='"Still to port" item 4'):
-            call(Y, G, lr, **kw)
+    # a LowRankKinship runs the rank-k engine: the JAX package's refusal of
+    # engine="pallas", then its results under EXACT64
+    for call, jcall, extra, method in (
+        (bt.bulkscan_streamed, bl.bulkscan_streamed, {}, "alt-grid"),
+        (bt.bulkscan_perms_streamed, bl.bulkscan_perms_streamed, dict(nperms=4), "null-grid"),
+    ):
+        with pytest.raises(ValueError, match="not available for LowRankKinship"):
+            call(Y, G, lr, engine="pallas", method=method, **extra, **kw)
+        ref = jcall(Y, G, lr, precision=jcfg.EXACT64, marker_block=16, **extra)
+        if extra:
+            extra["perm_idx"] = np.asarray(jax_permutation_indices(Y.shape[0], 4, 0))
+        got = call(Y, G, lr, precision=bt.EXACT64, marker_block=16, **extra, **kw)
+        f = "maxlods" if extra else "L"
+        assert _max(getattr(got, f), getattr(ref, f)) < 1e-8
         with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             call(Y, G, K, mesh=object(), **kw)
 
