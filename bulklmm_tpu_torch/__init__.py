@@ -14,14 +14,20 @@ in the JAX package. A ``LowRankKinship`` (top-k eigenpairs from
 ``kinship_lowrank``, ``kinship_lowrank_from_geno`` or
 ``kinship_lowrank_exact``) runs every one of these entry points on the
 rank-k engine, with no (n, n) array, on plain products as in the JAX
-package. Inputs and outputs keep the JAX package's layouts: Y (n, m),
-G (n, p), L (p, m).
+package. ``bulkscan_loco``, ``scan_loco`` and ``bulkscan_perms_loco`` scan
+each chromosome against the kinship of all the others (the same kernels, a
+launch or trait block per chromosome). ``io`` reads and writes the
+GeneNetwork CSV formats (a native multithreaded parser where it builds),
+and ``python -m bulklmm_tpu_torch kinship|scan|bulkscan`` runs the scans
+from files (``cli.py``). Inputs and outputs keep the JAX package's layouts:
+Y (n, m), G (n, p), L (p, m).
 
 Entry points run on the current CUDA device when their inputs are numpy
 arrays and on a tensor input's device otherwise; ``device="cpu"`` asks for
 the CPU, where every kernel's plain PyTorch version runs instead.
 """
 
+from . import io
 from .analysis import (
     ProfileLL,
     Thresholds,
@@ -38,13 +44,27 @@ from .models import (
     ScanResult,
     bulkscan,
     bulkscan_alt_grid,
+    bulkscan_loco,
     bulkscan_null,
     bulkscan_null_grid,
     bulkscan_perms,
+    bulkscan_perms_loco,
     bulkscan_perms_streamed,
     bulkscan_streamed,
+    loco_kinship,
     scan,
+    scan_loco,
     scan_perms_lite,
+)
+from .io import (
+    read_bxd_geno,
+    read_bxd_pheno,
+    read_geno_prob,
+    read_geno_prob_exclude_complements,
+    read_gmap,
+    read_helium_matrix,
+    read_phenocovar,
+    write_to_file,
 )
 from .ops import (
     KinshipDecomposition,
@@ -103,9 +123,11 @@ __all__ = [
     "bh_adjust",
     "bulkscan",
     "bulkscan_alt_grid",
+    "bulkscan_loco",
     "bulkscan_null",
     "bulkscan_null_grid",
     "bulkscan_perms",
+    "bulkscan_perms_loco",
     "bulkscan_perms_streamed",
     "bulkscan_streamed",
     "calc_kinship",
@@ -117,24 +139,35 @@ __all__ = [
     "get_thresholds",
     "get_thresholds_bulk",
     "gridbrent",
+    "io",
     "kinship_lowrank",
     "kinship_lowrank_exact",
     "kinship_lowrank_from_geno",
     "lod2log10p",
     "lod2p",
     "lod_fdr",
+    "loco_kinship",
     "make_weights",
     "p2lod",
     "precision_by_name",
     "profile_LL",
     "r2lod",
+    "read_bxd_geno",
+    "read_bxd_pheno",
+    "read_geno_prob",
+    "read_geno_prob_exclude_complements",
+    "read_gmap",
+    "read_helium_matrix",
+    "read_phenocovar",
     "resid",
     "rss",
     "scan",
+    "scan_loco",
     "scan_perms_lite",
     "transform_permute",
     "transform_reweight",
     "transform_rotation",
     "wls",
     "wls_multivar",
+    "write_to_file",
 ]

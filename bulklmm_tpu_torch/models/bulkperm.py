@@ -19,8 +19,9 @@ each trait; columns 1.. are the permutation null replicates.
 streamed form is ``models/streaming.py::bulkscan_perms_streamed``. A
 ``LowRankKinship`` takes the rank-k engine (:func:`_bulkscan_perms_lowrank`:
 per-trait Woodbury whitening in standard coordinates, plain products, as in
-the JAX package, whose fused kernel assumes the rotated basis). The sharded
-and LOCO permutation entry points are not ported yet.
+the JAX package, whose fused kernel assumes the rotated basis). The LOCO
+form is ``models/loco.py::bulkscan_perms_loco``; the sharded one is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ class BulkPermResult:
     nperms: int = 0
     original: bool = True
     log10_adj_pvals: Optional[torch.Tensor] = None  # (m,) genome-wide adjusted
-    h2_null_by_chrom: Optional[dict] = None  # LOCO (not ported yet)
-    sigma2_by_chrom: Optional[dict] = None  # LOCO (not ported yet)
+    h2_null_by_chrom: Optional[dict] = None  # LOCO: chrom -> (m,) h2s
+    sigma2_by_chrom: Optional[dict] = None  # LOCO: chrom -> (m,) sigma2_e
 
     @property
     def perm_maxima(self) -> torch.Tensor:

@@ -293,8 +293,9 @@ def stitch_results(pairs, m: int):
 
     Arrays scatter on their traits axis: axis 0 for ``maxlods`` (the
     permutation engines' (m, K) maxima), the last axis everywhere else
-    ((p, m_g) matrices, (m_g,) vectors). Scalar fields must agree across
-    groups and pass through.
+    ((p, m_g) matrices, (m_g,) vectors). Dict fields (LOCO's per-chromosome
+    maps) scatter value by value; scalar fields must agree across groups
+    and pass through.
     """
     first = pairs[0][1]
     if not dataclasses.is_dataclass(first):
@@ -306,6 +307,8 @@ def stitch_results(pairs, m: int):
         axis = 0 if f.name == "maxlods" else -1
         if v0 is None:
             out[f.name] = None
+        elif isinstance(v0, dict):
+            out[f.name] = {k: _scatter([(t, v[k]) for t, v in vals], m, axis) for k in v0}
         elif np.ndim(v0) == 0 and not torch.is_tensor(v0):
             if not all(v == v0 for _, v in vals):
                 raise ValueError(

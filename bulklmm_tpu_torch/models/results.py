@@ -29,8 +29,8 @@ class ScanResult:
     log10Pvals_perms: Optional[torch.Tensor] = None  # (p, nperms), float64
     ll_list_null: Optional[torch.Tensor] = None  # profile-likelihood grid values
     ll_list_alt: Optional[torch.Tensor] = None
-    h2_null_by_chrom: Optional[dict] = None  # LOCO scans (not ported yet)
-    sigma2_by_chrom: Optional[dict] = None
+    h2_null_by_chrom: Optional[dict] = None  # LOCO scans: chrom -> h2
+    sigma2_by_chrom: Optional[dict] = None  # LOCO scans: chrom -> sigma2_e
 
 
 @dataclasses.dataclass
@@ -46,3 +46,4 @@ class BulkScanResult:
     beta_se_mat: Optional[torch.Tensor] = None  # (p, m)
     log10Pvals_mat: Optional[torch.Tensor] = None  # (p, m), float64
     chisq_df: Optional[int] = None
+    h2_null_by_chrom: Optional[dict] = None  # LOCO scans: chrom -> (m,) h2s, (p_c, m) alt-grid

@@ -49,7 +49,7 @@ from ..ops.lowrank import (
 from ..ops.rotation import resolve_kinship
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
-from ..utils.device import resolve_device
+from ..utils.device import refuse_mesh, resolve_device
 from ..utils.host import PinnedCopies, to_numpy
 from .bulkperm import (
     BulkPermResult, _attach_adj_pvals, _bulkperm_prep_traits, _bulkperm_prep_traits_lowrank,
@@ -66,14 +66,6 @@ from .missing import (
     subset_kinship, validate_missing_kwarg,
 )
 from .results import BulkScanResult
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the device mesh) is not ported to bulklmm_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 14, multi-GPU)"
-        )
 
 
 def _blocks(p: int, block: int):
@@ -293,7 +285,7 @@ def bulkscan_streamed(
     the JAX package). Returns a :class:`BulkScanResult` of host arrays,
     ``L`` being ``out``.
     """
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
@@ -532,7 +524,7 @@ def bulkscan_perms_streamed(
     its own checkpoint subdirectory. ``K`` may be a ``LowRankKinship``: each
     block then takes the rank-k engine of :func:`bulkscan_perms`.
     """
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
     if checkpoint_every < 1:
         raise ValueError("checkpoint_every must be >= 1")

@@ -11,7 +11,7 @@ from .config import (
     precision_by_name,
     with_highest_matmul,
 )
-from .device import resolve_device
+from .device import refuse_mesh, resolve_device
 
 __all__ = [
     "BALANCED",
@@ -24,6 +24,7 @@ __all__ = [
     "default_float",
     "enable_x64",
     "precision_by_name",
+    "refuse_mesh",
     "resolve_device",
     "with_highest_matmul",
 ]

@@ -32,3 +32,12 @@ def resolve_device(device, *arrays) -> torch.device:
         "PyTorch versions on the CPU (or pass tensors that lie on the device "
         "you want)"
     )
+
+
+def refuse_mesh(mesh) -> None:
+    """Refuse a device mesh: the sharded engines are not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the device mesh) is not ported to bulklmm_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 14, multi-GPU)"
+        )

@@ -168,10 +168,37 @@ exits nonzero:
     rank 2,000, against the model's whole footprint) must stay within
     ``utils/memory.py``'s rank-k multipliers. Cuts, to keep the phase near
     40 s: the permutation sweeps' traits and permutations, as stated.
+13. LOCO, the file readers and the CLI at BXD scale: phase 4's data with
+    20 contiguous chromosomes ("1".."19", "X"), their marker counts in
+    proportion to the mouse chromosomes' lengths (170 to 542 markers, none
+    a multiple of 64). (a) ``loco_kinship`` within 1e-12 of
+    ``calc_kinship`` of each leave-out panel. (b) BALANCED
+    ``bulkscan_loco``, null-grid, alt-grid and null-exact on all traits:
+    exactly 20 launches of its kernel (the LOD kernel, the alt-grid kernel),
+    float64 L, each chromosome's rows within 1e-6 of its own ``bulkscan``
+    on its leave-out kinship (the h2 flips printed), and within 1e-4 of the
+    EXACT64 LOCO call (null-grid on the equal-h2 traits). (c)
+    ``bulkscan_perms_loco`` with 1,000 permutations on all traits: 35 x 20
+    permutation-kernel launches, the maxima within 1e-6 of the elementwise
+    max of the per-chromosome ``bulkscan_perms`` runs at seeds 0..19, and
+    on phase 10's cut (2,048 traits, 100 permutations) within 1e-4 of
+    EXACT64. (d) ``scan_loco`` of trait 0 with 1,000 permutations within
+    1e-4 of EXACT64. (e) ``lowrank_k = 79`` LOCO null-grid within 1e-4 of
+    the dense EXACT64 LOCO call (no kernel). (f) the genotype
+    probabilities as complement pairs (79 x 14,642), a phenotype CSV of the
+    first 2,048 traits (the cut: a compressed 35,554-trait ``.npz`` of
+    float64 L would take most of the phase) and a marker map in a
+    temporary directory; the native CSV parser must have built, and both
+    parsers are timed and must agree; ``python3 -m bulklmm_tpu_torch
+    bulkscan --loco --nperms 100``, ``kinship`` and ``scan --loco`` run in
+    processes of their own, side by side, and their outputs must equal the
+    same calls in this process on the parsed arrays (1e-6; kinship 1e-12).
+    Second-call times of the LOCO calls beside the whole-genome calls'.
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
-each kernel, with its bound on this card: the larger of its bytes (each
+each kernel, with its bound on this card (``loco_launches`` is its launch
+count on phase 13's LOCO path: the null-grid call for the LOD kernel): the larger of its bytes (each
 operand read once, each result written once) over 3.35 TB/s and the least
 time either unit takes for float32-grade products of its operations, the
 smaller of flops over 67 TFLOP/s (CUDA cores) and 3 x flops over 495
@@ -265,6 +292,15 @@ LR_STREAM_BLOCK = 8192  # phase 12 (b)'s marker block
 RAYLEIGH_BAR = 0.05  # max_i ||K u_i - lam_i u_i|| / lam_1 (tests/test_lowrank.py:96)
 #: phase 12's live sets: markers and rank of the (k,)-sized calls
 LR_CAL_P, LR_CAL_RANK = 64, 2000
+#: phase 13: the mouse chromosomes (GRCm38 lengths in Mb, 1..19 and X); the
+#: BXD markers are split among them in proportion
+MOUSE_CHROMS = tuple(str(i) for i in range(1, 20)) + ("X",)
+MOUSE_MB = (195, 182, 160, 157, 152, 150, 145, 129, 125, 131, 122, 120, 120, 125, 104, 98, 95, 91,
+            61, 171)
+LOCO_BAR = 1e-6  # max |dLOD|, a LOCO call vs its per-chromosome calls, and the CLI vs in-process
+KINSHIP_BAR = 1e-12  # max |dK|, leave-out kinships vs calc_kinship of the subset panel
+CLI_TRAITS, CLI_NPERMS = 2048, 100  # phase 13 (f): the CLI run's traits and permutations
+CLI_SECONDS = 600  # a CLI subprocess's time limit
 
 
 def check(ok: bool, what: str) -> None:
@@ -1803,6 +1839,320 @@ def lowrank_engine(dev, card, Yd, Gd, K) -> None:
     print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def loco_chromosomes(p=P):
+    """(p,) labels of 20 contiguous chromosomes, their marker counts in
+    proportion to the mouse chromosomes' lengths (largest remainders)."""
+    share = p * np.asarray(MOUSE_MB, dtype=np.float64) / sum(MOUSE_MB)
+    counts = np.floor(share).astype(np.int64)
+    counts[np.argsort(counts - share)[: p - int(counts.sum())]] += 1
+    return np.repeat(MOUSE_CHROMS, counts)
+
+
+def _masks(chrom, dev):
+    return {c: torch.as_tensor(chrom == c, device=dev) for c in MOUSE_CHROMS}
+
+
+def loco_bulkscan(dev, card, Yd, Gd, K, chrom, Ks, method):
+    """Phase 13 (b), one method: the LOCO call's launches, its rows against
+    its per-chromosome ``bulkscan`` calls, and EXACT64."""
+    import bulklmm_tpu_torch as bt
+
+    counter = "altgrid" if method == "alt-grid" else "liteqtl_lod"
+    call = lambda: bt.bulkscan_loco(Yd, Gd, chrom, method=method, precision=bt.BALANCED)  # noqa: E731
+    res, counts = _drive(f"BALANCED {method} bulkscan_loco", call)
+    nchrom = len(MOUSE_CHROMS)
+    check(counts[counter] == nchrom and sum(counts.values()) == nchrom,
+          f"{method} bulkscan_loco launched {counts}, not {nchrom} {counter} launches")
+    check(tuple(res.L.shape) == (P, M) and res.L.is_cuda and res.L.dtype == torch.float64,
+          f"{method} LOCO L is not float64 ({P}, {M}) on the card")
+    check(bool(torch.isfinite(res.L).all()), f"{method} LOCO L is not finite")
+    check(list(res.h2_null_by_chrom) == list(MOUSE_CHROMS), "h2_null_by_chrom's chromosomes")
+    loco_ms = _host_ms(call)
+    whole_ms = _host_ms(lambda: bt.bulkscan(Yd, Gd, K, method=method, precision=bt.BALANCED))
+
+    masks = _masks(chrom, dev)
+    comp, flips = 0.0, 0
+    for c in MOUSE_CHROMS:
+        one = bt.bulkscan(Yd, Gd[:, masks[c]], Ks[c], method=method, precision=bt.BALANCED)
+        comp = max(comp, (res.L[masks[c]] - one.L.double()).abs().max().item())
+        h2 = one.h2_null_list if one.h2_null_list is not None else one.h2_panel
+        flips += int((h2 != res.h2_null_by_chrom[c]).sum())
+        del one
+    print(f"  {method} LOCO vs its {nchrom} per-chromosome bulkscan calls on the leave-out "
+          f"kinships: max|dLOD| = {comp:.3e} (bar {LOCO_BAR:.0e}), h2 flips {flips}")
+    check(comp <= LOCO_BAR, f"{method} LOCO rows differ from the per-chromosome scans")
+
+    exact = bt.bulkscan_loco(Yd, Gd, chrom, method=method, precision=bt.EXACT64)
+    torch.cuda.synchronize()
+    err, other, dh2 = 0.0, 0, 0.0
+    for c in MOUSE_CHROMS:
+        hb, he = res.h2_null_by_chrom[c].double(), exact.h2_null_by_chrom[c]
+        Lb, Le = res.L[masks[c]], exact.L[masks[c]]
+        if method == "null-grid":  # the traits whose grid h2 agrees
+            same = hb == he
+            other += int((~same).sum())
+            err = max(err, _max_abs_diff_cols(Lb, Le, same) if bool(same.any()) else 0.0)
+        else:
+            err = max(err, (Lb - Le).abs().max().item())
+            other += int((hb != he).sum()) if method == "alt-grid" else 0
+            dh2 = max(dh2, (hb - he).abs().max().item())
+    what = {"null-grid": f"on the equal-h2 traits ({other} chromosome-trait pairs with another "
+                         f"grid h2)",
+            "alt-grid": f"on all pairs; h2 panel flips {other} of {P * M}",
+            "null-exact": f"on all pairs; max|dh2| = {dh2:.3e}"}[method]
+    print(f"  {method} LOCO BALANCED vs EXACT64: max|dLOD| = {err:.3e} {what} (bar "
+          f"{ORACLE_BAR:.0e}; BASELINE.md's {PARITY_BAR:.0e}: "
+          f"{'met' if err <= PARITY_BAR else 'NOT met'})")
+    check(err <= ORACLE_BAR, f"{method} LOCO BALANCED strays from the EXACT64 LOCO call")
+    print(f"  {method} on {card}: bulkscan_loco {loco_ms:.1f} ms (second call, host clock; "
+          f"{nchrom} chromosomes) against the whole-genome bulkscan's {whole_ms:.1f} ms")
+    return res, exact, counts[counter], loco_ms, whole_ms
+
+
+def loco_perms(dev, card, Yd, Gd, K, chrom, Ks):
+    """Phase 13 (c): ``bulkscan_perms_loco`` with 1,000 permutations on
+    every trait, and on phase 10's cut against EXACT64."""
+    import bulklmm_tpu_torch as bt
+
+    call = lambda: bt.bulkscan_perms_loco(Yd, Gd, chrom, nperms=NPERMS, rndseed=0,  # noqa: E731
+                                          precision=bt.BALANCED)
+    res, counts = _drive(f"BALANCED bulkscan_perms_loco, {NPERMS} permutations", call)
+    nchrom = len(MOUSE_CHROMS)
+    want = -(-M // PERM_BLOCK) * nchrom
+    check(counts["bulkperm_maxr2"] == want and sum(counts.values()) == want,
+          f"bulkscan_perms_loco launched {counts}, not {want} permutation-kernel launches")
+    ml = res.maxlods
+    check(tuple(ml.shape) == (M, NPERMS + 1) and ml.is_cuda and bool(torch.isfinite(ml).all()),
+          "LOCO maxlods are not finite (M, 1 + nperms) on the card")
+    check(bool(torch.isfinite(res.log10_adj_pvals).all()), "LOCO adjusted p-values are not finite")
+    loco_ms = _host_ms(call)
+    whole_ms = _host_ms(lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0,
+                                                  precision=bt.BALANCED))
+    masks = _masks(chrom, dev)
+    stitched = None
+    for i, c in enumerate(MOUSE_CHROMS):
+        one = bt.bulkscan_perms(Yd, Gd[:, masks[c]], Ks[c], nperms=NPERMS, rndseed=i,
+                                precision=bt.BALANCED).maxlods
+        stitched = one if stitched is None else torch.maximum(stitched, one)
+    comp = (stitched - ml).abs().max().item()
+    print(f"  LOCO maxima vs the elementwise max of the {nchrom} per-chromosome bulkscan_perms "
+          f"runs at seeds 0..{nchrom - 1}: max|dLOD| = {comp:.3e} (bar {LOCO_BAR:.0e})")
+    check(comp <= LOCO_BAR, "the LOCO maxima are not the per-chromosome runs' maxima")
+    del stitched, res, ml
+
+    sub = slice(0, OPTION_TRAITS)
+    kw = dict(nperms=MASK_NPERMS, rndseed=0)
+    bal = bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, precision=bt.BALANCED, **kw)
+    ex = bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, precision=bt.EXACT64, **kw)
+    same = torch.stack([bal.h2_null_by_chrom[c].double() == ex.h2_null_by_chrom[c]
+                        for c in MOUSE_CHROMS]).all(0)
+    err = (bal.maxlods.double() - ex.maxlods)[same].abs().max().item()
+    print(f"  bulkscan_perms_loco BALANCED vs EXACT64 on traits 0..{OPTION_TRAITS}, {MASK_NPERMS} "
+          f"permutations: max|dLOD| = {err:.3e} on the {int(same.sum())} traits whose grid h2 "
+          f"agrees on every chromosome (bar {ORACLE_BAR:.0e})")
+    check(err <= ORACLE_BAR, "bulkscan_perms_loco strays from its EXACT64 run")
+    print(f"  permutations on {card}: bulkscan_perms_loco {loco_ms:.1f} ms (second call, host "
+          f"clock) against the whole-genome bulkscan_perms' {whole_ms:.1f} ms")
+    return counts["bulkperm_maxr2"], loco_ms, whole_ms
+
+
+def _write_csvs(tmp: Path, G, Y, chrom):
+    """The genotype probabilities as complement pairs (p, 1 - p) with a
+    marker header and strain ids, a phenotype file with a sex column, and
+    the marker map."""
+    n, p = G.shape
+    pairs = np.empty((n, 2 * p), dtype=np.float64)
+    pairs[:, 0::2], pairs[:, 1::2] = G, 1.0 - G.astype(np.float64)
+    with open(tmp / "geno.csv", "w") as f:
+        f.write("id," + ",".join(f"rs{j}_{a}" for j in range(p) for a in "BD") + "\n")
+        for i, row in enumerate(pairs):
+            f.write(f"BXD{i}," + ",".join(map("{:.9g}".format, row.tolist())) + "\n")
+    with open(tmp / "pheno.csv", "w") as f:
+        f.write("id," + ",".join(f"t{j}" for j in range(Y.shape[1])) + ",sex\n")
+        for i, row in enumerate(Y):
+            f.write(f"BXD{i}," + ",".join(map("{:.9g}".format, row.tolist())) + f",{i % 2}\n")
+    with open(tmp / "gmap.csv", "w") as f:
+        f.write("Locus,Chr,cM,Mb\n")
+        for j, c in enumerate(chrom):
+            f.write(f"rs{j},{c},{j * 0.01:.2f},{j * 0.3:.3f}\n")
+
+
+def _cli(tmp: Path, *argv):
+    """``python3 -m bulklmm_tpu_torch`` of this checkout, started in ``tmp``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    return subprocess.Popen([sys.executable, "-m", "bulklmm_tpu_torch", *map(str, argv)],
+                            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, what):
+    try:
+        out, err = proc.communicate(timeout=CLI_SECONDS)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"the CLI's {what} exited {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def io_and_cli(dev, card, Gd, Yd, chrom):
+    """Phase 13 (f): the CSV files, both parsers, and three CLI runs in
+    processes of their own against the same calls in this one."""
+    import tempfile
+
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch import _native
+    from bulklmm_tpu_torch import io as bio
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as name:
+        tmp = Path(name)
+        t0 = time.perf_counter()
+        _write_csvs(tmp, Gd.cpu().numpy(), Yd[:, :CLI_TRAITS].cpu().numpy(), chrom)
+        print(f"  wrote geno.csv ({(tmp / 'geno.csv').stat().st_size / 1e6:.1f} MB, {N} x {2 * P} "
+              f"probabilities), pheno.csv ({CLI_TRAITS} traits) and gmap.csv in "
+              f"{time.perf_counter() - t0:.1f} s")
+        geno, pheno, gmap = tmp / "geno.csv", tmp / "pheno.csv", tmp / "gmap.csv"
+        common = ("--geno", geno, "--exclude-complements")
+        procs = {
+            "bulkscan": _cli(tmp, "bulkscan", *common, "--pheno", pheno, "--loco", "--gmap", gmap,
+                             "--nperms", CLI_NPERMS, "-o", tmp / "out.npz"),
+            "kinship": _cli(tmp, "kinship", *common, "-o", tmp / "K.csv"),
+            "scan": _cli(tmp, "scan", *common, "--pheno", pheno, "--loco", "--gmap", gmap,
+                         "--trait", 0, "-o", tmp / "scan.npz"),
+        }
+        t_cli = time.perf_counter()
+
+        check(_native.fastcsv_available(), "the native CSV parser did not build")
+        t0 = time.perf_counter()
+        G = bio.read_geno_prob_exclude_complements(geno)
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        available = _native.fastcsv_available
+        _native.fastcsv_available = lambda: False  # the pure-Python parser, timed
+        try:
+            t0 = time.perf_counter()
+            G_py = bio.read_geno_prob_exclude_complements(geno)
+            python_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            _native.fastcsv_available = available
+        check(G.shape == (N, P) and np.array_equal(G, G_py), "the two CSV parsers disagree")
+        print(f"  parsing geno.csv on the host of {card}: native {native_ms:.1f} ms, pure Python "
+              f"{python_ms:.1f} ms ({python_ms / native_ms:.1f}x); equal arrays")
+        Y = bio.read_bxd_pheno(pheno)
+        labels = bio.read_gmap(gmap).chromosome
+        check(Y.shape == (N, CLI_TRAITS) and np.array_equal(labels, chrom), "pheno.csv or gmap.csv")
+        check(np.abs(G - Gd.cpu().numpy()).max() < 1e-7, "geno.csv does not hold phase 4's panel")
+
+        res = bt.bulkscan_loco(Y, G, labels, precision=bt.BALANCED, device=dev)
+        pr = bt.bulkscan_perms_loco(Y, G, labels, nperms=CLI_NPERMS, rndseed=0,
+                                    precision=bt.BALANCED, device=dev)
+        thr = bt.get_thresholds_bulk(pr.perm_maxima, [0.10, 0.05, 0.01])
+        K = bt.calc_kinship(G, bt.BALANCED, device=dev).cpu().numpy()
+        one = bt.scan_loco(Y[:, 0], G, labels, precision=bt.BALANCED, device=dev)
+        torch.cuda.synchronize()
+
+        outs = {what: _finish(proc, what) for what, proc in procs.items()}
+        cli_s = time.perf_counter() - t_cli
+        z = np.load(tmp / "out.npz")
+        want = {"L": res.L, "perm_maxlods": pr.maxlods, "thresholds": thr.thrs,
+                "log10_adj_pvals": pr.log10_adj_pvals,
+                **{f"h2_null_chr{c}": v for c, v in res.h2_null_by_chrom.items()}}
+        check(sorted(z.files) == sorted(want), f"out.npz holds {sorted(z.files)}")
+        err = max(np.abs(z[k].astype(np.float64) - np.asarray(
+            v.cpu() if torch.is_tensor(v) else v, dtype=np.float64)).max() for k, v in want.items())
+        kerr = np.abs(np.loadtxt(tmp / "K.csv", delimiter=",") - K).max()
+        meta = json.loads(outs["scan"].strip().splitlines()[-1])
+        serr = max(np.abs(np.load(tmp / "scan.npz")["lod"] - one.lod.cpu().numpy()).max(),
+                   abs(meta["h2_null"] - float(one.h2_null)),
+                   max(abs(meta["h2_null_by_chrom"][c] - one.h2_null_by_chrom[c])
+                       for c in MOUSE_CHROMS))
+        print(f"  CLI in processes of their own vs the same calls here, on the parsed arrays: "
+              f"bulkscan --loco --nperms {CLI_NPERMS} ({CLI_TRAITS} traits; L, thresholds, "
+              f"maxima, h2_null_chr*) max|d| = {err:.3e}, kinship {kerr:.3e}, scan --loco "
+              f"{serr:.3e} (bars {LOCO_BAR:.0e}, {KINSHIP_BAR:.0e}, {LOCO_BAR:.0e}); the three "
+              f"runs side by side took {cli_s:.1f} s on {card}")
+        check(err <= LOCO_BAR and serr <= LOCO_BAR, "the CLI's scans differ from the in-process calls")
+        check(kerr <= KINSHIP_BAR, "the CLI's kinship differs from calc_kinship")
+
+
+def loco_io_cli(dev, card, Yd, Gd, K):
+    """Phase 13: LOCO, the file readers and the CLI at BXD scale."""
+    import bulklmm_tpu_torch as bt
+
+    t_phase = time.perf_counter()
+    chrom = loco_chromosomes(Gd.shape[1])
+    sizes = [int((chrom == c).sum()) for c in MOUSE_CHROMS]
+    print(f"  {len(MOUSE_CHROMS)} chromosomes of {min(sizes)} to {max(sizes)} markers "
+          f"(sum {sum(sizes)}; none a multiple of 64: {all(s % 64 for s in sizes)})")
+
+    # (a) the leave-out kinships, all 20, against the subset panels' kinships
+    Ks = bt.loco_kinship(Gd, chrom, bt.BALANCED)
+    masks = _masks(chrom, dev)
+    kerr = max((Ks[c] - bt.calc_kinship(Gd[:, ~masks[c]], bt.BALANCED)).abs().max().item()
+               for c in MOUSE_CHROMS)
+    check(all(Ks[c].dtype == torch.float64 and Ks[c].is_cuda for c in MOUSE_CHROMS),
+          "the leave-out kinships are not float64 on the card")
+    print(f"  loco_kinship vs calc_kinship of each leave-out panel: max|dK| = {kerr:.3e} "
+          f"(bar {KINSHIP_BAR:.0e})")
+    check(kerr <= KINSHIP_BAR, "loco_kinship differs from calc_kinship of the subset panel")
+
+    # (b) bulkscan_loco, each method
+    launches, wall = {}, {}
+    for method in ("null-grid", "alt-grid", "null-exact"):
+        res, exact, launches[method], loco_ms, whole_ms = loco_bulkscan(
+            dev, card, Yd, Gd, K, chrom, Ks, method)
+        wall[method] = (loco_ms, whole_ms)
+        if method == "null-grid":
+            exact_grid = exact
+        del res, exact
+    torch.cuda.empty_cache()
+
+    # (c) permutations
+    launches["perms"], *wall["perms"] = loco_perms(dev, card, Yd, Gd, K, chrom, Ks)
+
+    # (d) the single-trait scan of trait 0, permutations included
+    call = lambda prec: bt.scan_loco(Yd[:, 0], Gd, chrom, permutation_test=True,  # noqa: E731
+                                     nperms=NPERMS, rndseed=0, precision=prec)
+    one, counts = _drive(f"BALANCED scan_loco of trait 0, {NPERMS} permutations",
+                         lambda: call(bt.BALANCED))
+    _no_kernel(counts, "scan_loco")
+    ref = call(bt.EXACT64)
+    err = max((one.lod - ref.lod).abs().max().item(),
+              (one.L_perms.double() - ref.L_perms.double()).abs().max().item())
+    dh2 = max(abs(one.h2_null_by_chrom[c] - ref.h2_null_by_chrom[c]) for c in MOUSE_CHROMS)
+    print(f"  scan_loco BALANCED vs EXACT64: max|dLOD| = {err:.3e} over the LODs and all "
+          f"{NPERMS} permutation columns (bar {ORACLE_BAR:.0e}), max|dh2| = {dh2:.3e}")
+    check(err <= ORACLE_BAR, "scan_loco strays from its EXACT64 run")
+    del one, ref
+
+    # (e) the rank-k engine per chromosome at k = n against the dense LOCO oracle
+    low, counts = _drive(f"BALANCED rank-{N} null-grid bulkscan_loco",
+                         lambda: bt.bulkscan_loco(Yd, Gd, chrom, lowrank_k=N, precision=bt.BALANCED))
+    _no_kernel(counts, "the rank-k bulkscan_loco")
+    err, other = 0.0, 0
+    for c in MOUSE_CHROMS:
+        same = low.h2_null_by_chrom[c].double() == exact_grid.h2_null_by_chrom[c]
+        other += int((~same).sum())
+        if bool(same.any()):
+            err = max(err, _max_abs_diff_cols(low.L[masks[c]], exact_grid.L[masks[c]], same))
+    print(f"  rank-{N} LOCO null-grid vs the dense EXACT64 LOCO call: max|dLOD| = {err:.3e} on the "
+          f"equal-h2 traits ({other} chromosome-trait pairs with another grid h2; bar "
+          f"{ORACLE_BAR:.0e})")
+    check(err <= ORACLE_BAR, "the rank-k LOCO scan strays from the dense EXACT64 LOCO scan")
+    del low, exact_grid, Ks
+    torch.cuda.empty_cache()
+
+    # (f) the files and the command line
+    io_and_cli(dev, card, Gd, Yd, chrom)
+    print(f"  phase 13 on {card}: second calls (ms, host clock), LOCO against whole-genome: "
+          + "; ".join(f"{k} {a:.1f} vs {b:.1f}" for k, (a, b) in wall.items()))
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -1858,6 +2208,9 @@ def main() -> None:
     print(f"[12] the low-rank engine: rank {N} at BXD scale, rank {LR_RANK} at {LR_N} x {LR_P} x "
           f"{LR_M}")
     lowrank_engine(dev, card, Yd, Gd, K)
+    print(f"[13] LOCO, the file readers and the CLI at BXD scale ({N} x {P} x {M}, "
+          f"{len(MOUSE_CHROMS)} chromosomes)")
+    loco = loco_io_cli(dev, card, Yd, Gd, K)
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -1865,6 +2218,7 @@ def main() -> None:
         "source": "bulklmm_tpu_torch/csrc/liteqtl_fused.cu",
         "replaces": "bulklmm_tpu/pallas/liteqtl_fused.py:106",
         "launches": lod_launches,
+        "loco_launches": loco["null-grid"],
         "max_abs_err": lod_err,
         "ms": med["LOD kernel alone"],
         "plain_ms": med["LOD plain version"],
@@ -1880,6 +2234,7 @@ def main() -> None:
         "source": "bulklmm_tpu_torch/csrc/altgrid_fused.cu",
         "replaces": "bulklmm_tpu/pallas/altgrid_fused.py:177",
         "launches": alt_launches,
+        "loco_launches": loco["alt-grid"],
         "max_abs_err": alt_err,
         "ms": med["alt-grid kernel alone"],
         "plain_ms": med["alt-grid plain version"],
@@ -1890,6 +2245,7 @@ def main() -> None:
         "source": "bulklmm_tpu_torch/csrc/bulkperm_fused.cu",
         "replaces": "bulklmm_tpu/pallas/bulkperm_fused.py:141",
         "launches": perm_launches,
+        "loco_launches": loco["perms"],
         "max_abs_err": perm_err,
         "ms": pmed["kernel"],
         "plain_ms": pmed["plain"],
