@@ -19,7 +19,10 @@ each chromosome against the kinship of all the others (the same kernels, a
 launch or trait block per chromosome). ``io`` reads and writes the
 GeneNetwork CSV formats (a native multithreaded parser where it builds),
 and ``python -m bulklmm_tpu_torch kinship|scan|bulkscan`` runs the scans
-from files (``cli.py``). Inputs and outputs keep the JAX package's layouts:
+from files (``cli.py``). ``parallel`` runs the bulk engines on a grid of
+devices (each (trait shard, marker or permutation shard) tile through the
+same kernels on its device) and across a pod of processes joined by
+``torch.distributed``. Inputs and outputs keep the JAX package's layouts:
 Y (n, m), G (n, p), L (p, m).
 
 Entry points run on the current CUDA device when their inputs are numpy
@@ -27,7 +30,7 @@ arrays and on a tensor input's device otherwise; ``device="cpu"`` asks for
 the CPU, where every kernel's plain PyTorch version runs instead.
 """
 
-from . import io
+from . import io, parallel
 from .analysis import (
     ProfileLL,
     Thresholds,
@@ -149,6 +152,7 @@ __all__ = [
     "loco_kinship",
     "make_weights",
     "p2lod",
+    "parallel",
     "precision_by_name",
     "profile_LL",
     "r2lod",

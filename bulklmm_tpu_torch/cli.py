@@ -18,10 +18,20 @@ the kinship of the others.
 ``JAX_PLATFORMS``) names the device the scans run on; by default the
 current CUDA device. Without one the CLI exits with a message naming
 ``--device cpu``, which runs the plain PyTorch versions of the kernels on
-the CPU; it never switches to the CPU by itself. The device mesh options
-(``--sharded``, ``--marker-shards``) and the pod subcommands (``podscan``,
-``merge-shards``) are parsed as in the JAX CLI and refused: multi-GPU is
-not ported yet (ROADMAP.md Queue 1 item 14).
+the CPU; it never switches to the CPU by itself.
+
+``bulkscan --sharded`` runs on a device mesh (``parallel/sharding.py``)
+over every visible CUDA device, or, with ``--device``, over that device
+named once for each marker shard; ``--marker-shards`` splits off a markers
+axis; both compose with ``--stream-markers``, ``--loco`` and ``--nperms``.
+``podscan`` is one process of a pod (``parallel/distributed.py``): every
+process runs it with the same ``--coordinator host:port`` and ``--nproc``
+and its own ``--pid``, and writes its own shard file; ``merge-shards``
+assembles them.
+
+  python -m bulklmm_tpu_torch podscan --geno geno.csv --pheno pheno.csv \\
+      --coordinator localhost:29500 --nproc 2 --pid 0 --save-shards shards -o pod.npz
+  python -m bulklmm_tpu_torch merge-shards --shards-dir shards -o lods.npz
 """
 
 from __future__ import annotations
@@ -35,11 +45,6 @@ import torch
 from .utils.config import precision_by_name
 from .utils.host import to_numpy
 
-_NOT_PORTED = (
-    "{} is not ported to bulklmm_tpu_torch yet: it needs the device mesh "
-    "(ROADMAP.md Queue 1 item 14, multi-GPU)"
-)
-
 
 def _device(args) -> torch.device:
     """The device of ``--device``, else the current CUDA device; without
@@ -52,6 +57,19 @@ def _device(args) -> torch.device:
         "no CUDA device was found: pass --device cpu to run the plain PyTorch "
         "versions on the CPU"
     )
+
+
+def _cli_mesh(args, device):
+    """The mesh of ``--sharded``: every visible CUDA device, or with
+    ``--device`` that device alone, named once for each of
+    ``--marker-shards``' positions (a virtual mesh); ``--marker-shards``
+    splits off the markers axis."""
+    from .parallel import make_mesh
+
+    shards = args.marker_shards or None
+    if args.device is not None:
+        return make_mesh(devices=[device] * (shards or 1), marker_shards=shards)
+    return make_mesh(marker_shards=shards)
 
 
 def _load_geno(args):
@@ -202,6 +220,7 @@ def _bulkscan(args):
         bulkscan_streamed, decompose_kinship, get_thresholds_bulk, kinship_lowrank_from_geno,
     )
     from .ops.lowrank import is_lowrank
+    from .parallel import bulkscan_perms_sharded, bulkscan_sharded
 
     precision = precision_by_name(args.precision)
     if not args.output.endswith(".npz"):
@@ -233,10 +252,11 @@ def _bulkscan(args):
                 "--checkpoint-every needs a checkpoint directory; add "
                 "--resume DIR or drop the flag"
             )
-    if args.sharded or args.marker_shards:
-        raise SystemExit(_NOT_PORTED.format("--sharded/--marker-shards"))
     _refuse_loco_with_kinship(args)
     device = _device(args)
+    mesh = _cli_mesh(args, device) if args.sharded else None
+    # where the calls run: the mesh's entry points take no device
+    where = dict(device=device) if mesh is None else dict(mesh=mesh)
     G = _load_geno(args)
     Y = _load_pheno(args)
     kwargs = dict(
@@ -247,12 +267,11 @@ def _bulkscan(args):
         output_pvals=args.pvals,
         output_effects=args.effects,
         missing=args.missing,
-        device=device,
     )
     K = None
     chrom = _loco_chrom(args, G.shape[1]) if args.loco else None
     if args.loco:
-        res = bulkscan_loco(Y, G, chrom, lowrank_k=args.lowrank_k, **kwargs)
+        res = bulkscan_loco(Y, G, chrom, lowrank_k=args.lowrank_k, **where, **kwargs)
     else:
         if args.lowrank_k and not args.kinship:
             # rank-k engine (ops/lowrank.py): no n x n kinship, no host eigh
@@ -264,12 +283,15 @@ def _bulkscan(args):
                 # engine below: a raw K would pay the O(n^3) eigh twice
                 K = decompose_kinship(K, dtype=precision.resolve_solve(), device=device)
         if stream:
-            # host-resident genotype panel streamed in marker blocks
+            # host-resident genotype panel streamed in marker blocks; on a
+            # mesh each block's tiles run on the mesh
             skw = dict(kwargs)
             skw.pop("trait_chunk")  # size marker blocks instead
-            res = bulkscan_streamed(Y, G, K, marker_block=stream, **skw)
+            res = bulkscan_streamed(Y, G, K, marker_block=stream, **where, **skw)
+        elif mesh is not None:
+            res = bulkscan_sharded(Y, G, K, mesh=mesh, **kwargs)
         else:
-            res = bulkscan(Y, G, K, **kwargs)
+            res = bulkscan(Y, G, K, device=device, **kwargs)
     out = {"L": to_numpy(res.L)}
     if args.effects:
         out["beta"] = to_numpy(res.beta_mat)
@@ -298,7 +320,7 @@ def _bulkscan(args):
             reml=args.reml,
             precision=precision,
             missing=args.missing,
-            device=device,
+            **where,
         )
         if args.resume:
             perm_kwargs["checkpoint"] = args.resume
@@ -311,6 +333,8 @@ def _bulkscan(args):
             pr = bulkscan_perms_loco(Y, G, chrom, lowrank_k=args.lowrank_k, **perm_kwargs)
         elif stream:
             pr = bulkscan_perms_streamed(Y, G, K, marker_block=stream, **perm_kwargs)
+        elif mesh is not None:
+            pr = bulkscan_perms_sharded(Y, G, K, **perm_kwargs)
         else:
             # K from the scan branch above: a decomposition, or rank-k
             # factors with --lowrank-k (the Woodbury whitening path)
@@ -323,11 +347,95 @@ def _bulkscan(args):
     print(f"bulkscan {out['L'].shape} ({args.method}) -> {args.output}")
 
 
-def _not_ported(what):
-    def refuse(args):
-        raise SystemExit(_NOT_PORTED.format(what))
+def _podscan(args):
+    """One process of a pod: the process group's handshake, this process's
+    trait block in, its shard file out (no process gathers the whole
+    matrix). Every process runs the same command with its own --pid."""
+    from pathlib import Path
 
-    return refuse
+    from . import kinship_lowrank_from_geno
+    from .models.missing import subset_kinship
+    from .parallel import (
+        bulkscan_distributed, bulkscan_perms_distributed, init_distributed, local_trait_slice,
+        make_global_mesh,
+    )
+
+    precision = precision_by_name(args.precision)
+    given = {args.coordinator is not None, args.nproc is not None, args.pid is not None}
+    if len(given) != 1:
+        raise SystemExit(
+            "--coordinator/--nproc/--pid must be given together (or all "
+            "omitted for a single-process run)"
+        )
+    if args.loco or args.gmap:
+        raise SystemExit(
+            "podscan does not support --loco/--gmap yet; run per-chromosome "
+            "pods or use bulkscan --loco --sharded on one host"
+        )
+    device = _device(args)
+    pid = init_distributed(args.coordinator, args.nproc, args.pid)
+    save_dir = args.save_shards or str(Path(args.output).parent)
+    G = _load_geno(args)
+    Y = _load_pheno(args)
+    drop_rows = None
+    finite = np.isfinite(np.asarray(Y, dtype=np.float64))
+    if args.missing != "error" and not finite.all():
+        if args.missing == "mask":
+            raise SystemExit(
+                "podscan supports --missing drop only: per-trait pattern masking "
+                "changes the row geometry per trait, which does not compose with "
+                "the pod's fixed trait sharding. Run bulkscan --missing mask on one "
+                "host, or --missing drop here."
+            )
+        # listwise drop from the FULL trait matrix: every process reads the
+        # same phenotype file, so the row set is the same across the pod
+        drop_rows = np.flatnonzero(finite.all(axis=1))
+        Y, G = np.asarray(Y)[drop_rows], np.asarray(G)[drop_rows]
+    mesh = make_global_mesh(None if args.device is None else [device])
+    sl = local_trait_slice(Y.shape[1], mesh)
+    if args.lowrank_k and not args.kinship:
+        # rank-k factors straight from the genotypes (of the kept rows): the
+        # cohorts a pod is for are where a dense kinship stops being an option
+        K = kinship_lowrank_from_geno(G, args.lowrank_k, precision=precision, device=device)
+    else:
+        K = _load_kinship(args, G, precision, device)
+        kn = K.U.shape[0] if hasattr(K, "U") else np.shape(K)[0]
+        if drop_rows is not None and kn != G.shape[0]:
+            # a --kinship file covers the whole cohort: its kept rows
+            K = subset_kinship(K, drop_rows)
+    if args.nperms > 0:
+        _, lo, hi = bulkscan_perms_distributed(
+            Y[:, sl], G, K, m_total=Y.shape[1], mesh=mesh, save_dir=save_dir,
+            nperms=args.nperms, rndseed=args.seed, method=args.method, reml=args.reml,
+            precision=precision,
+        )
+        shard = f"perm_shard_{pid:05d}.npz"
+    else:
+        res = bulkscan_distributed(
+            Y[:, sl], G, K, m_total=Y.shape[1], mesh=mesh, method=args.method,
+            reml=args.reml, precision=precision, save_dir=save_dir,
+        )
+        lo, hi = res.trait_lo, res.trait_hi
+        shard = f"lod_shard_{pid:05d}.npz"
+    print(json.dumps({
+        "pid": pid, "traits": [int(lo), int(hi)], "shard": str(Path(save_dir) / shard),
+    }))
+
+
+def _merge_shards(args):
+    from . import get_thresholds_bulk
+    from .parallel import merge_perm_shards, merge_shards
+
+    if args.perms:
+        maxlods = merge_perm_shards(args.shards_dir)
+        # (m, 1 + nperms), the unpermuted column first: replicates are 1:
+        thr = get_thresholds_bulk(maxlods[:, 1:], [0.10, 0.05, 0.01])
+        np.savez_compressed(args.output, perm_maxlods=maxlods, thresholds=to_numpy(thr.thrs))
+        print(f"merged perm maxima {maxlods.shape} -> {args.output}")
+    else:
+        L = merge_shards(args.shards_dir)
+        np.savez_compressed(args.output, L=L)
+        print(f"merged LODs {L.shape} -> {args.output}")
 
 
 def main(argv=None):
@@ -433,25 +541,28 @@ def main(argv=None):
     )
     b.add_argument(
         "--sharded", action="store_true",
-        help="run on a device mesh over all visible devices (not ported "
-        "yet: refused)",
+        help="run on a device mesh over all visible CUDA devices (with "
+        "--device: that device, once a marker shard); traits data-parallel, "
+        "see --marker-shards",
     )
     b.add_argument(
         "--marker-shards", type=int, default=0,
-        help="with --sharded: split off a model-parallel markers axis (not "
-        "ported yet: refused)",
+        help="with --sharded: split off a model-parallel markers axis "
+        "(must divide the device count; 0 = traits-only mesh)",
     )
     b.add_argument(
         "--stream-markers", type=int, default=0, metavar="BLOCK",
         help="stream the genotype panel through the device in marker "
-        "blocks of this width (for p beyond one device's memory)",
+        "blocks of this width (for p beyond one device's memory); composes "
+        "with --sharded",
     )
     b.set_defaults(fn=_bulkscan)
 
     pd = sub.add_parser(
         "podscan",
-        help="one process of a multi-host (pod) bulkscan (not ported yet: "
-        "refused)",
+        help="one process of a multi-host (pod) bulkscan: every process runs "
+        "this with the same --coordinator/--nproc and its own --pid, each "
+        "writes its own LOD shard; assemble with merge-shards",
     )
     common(pd)
     pd.add_argument(
@@ -459,22 +570,34 @@ def main(argv=None):
         default="null-grid",
     )
     pd.add_argument("--reml", action="store_true")
-    pd.add_argument("--coordinator", default=None, help="host:port of process 0")
+    pd.add_argument(
+        "--coordinator", default=None,
+        help="host:port of process 0's rendezvous (torch.distributed, gloo); "
+        "omit for a single-process run",
+    )
     pd.add_argument("--nproc", type=int, default=None)
     pd.add_argument("--pid", type=int, default=None)
-    pd.add_argument("--save-shards", default=None)
-    pd.add_argument("--nperms", type=int, default=0)
+    pd.add_argument(
+        "--save-shards", default=None,
+        help="directory for per-process lod_shard_<pid>.npz files "
+        "(default: the -o directory)",
+    )
+    pd.add_argument(
+        "--nperms", type=int, default=0,
+        help=">0 runs the distributed permutation engine instead, writing "
+        "perm_shard_<pid>.npz per process",
+    )
     pd.add_argument("--seed", type=int, default=0)
-    pd.set_defaults(fn=_not_ported("podscan"))
+    pd.set_defaults(fn=_podscan)
 
     mg = sub.add_parser(
         "merge-shards",
-        help="assemble podscan shard files into one .npz (not ported yet: refused)",
+        help="assemble podscan shard files into one .npz",
     )
     mg.add_argument("--shards-dir", required=True)
     mg.add_argument("-o", "--output", required=True)
     mg.add_argument("--perms", action="store_true")
-    mg.set_defaults(fn=_not_ported("merge-shards"))
+    mg.set_defaults(fn=_merge_shards)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -54,6 +55,9 @@ from .split import matmul_tf32x3, rows_at_16_bytes
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the alt-grid path ran through the kernel
 launches = 0
+
+#: the counts are read-modify-written by the host threads of a mesh's devices
+_count_lock = threading.Lock()
 
 #: the most markers one launch takes: 65,535 blocks of 128 markers on the
 #: launch grid's y axis (the trait axis has no practical limit)
@@ -161,7 +165,8 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
         raise RuntimeError(
             "altgrid kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out, kidx
 
 

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -33,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: one build at a time in a process: the tiles of a mesh launch their first
+#: kernels from one host thread a device, all at once
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -70,7 +74,7 @@ def library_path() -> Path:
 def _build(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    stem = f"{lib.stem}.{os.getpid()}"
+    stem = f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
     tmp = lib.with_name(f"{stem}.tmp.so")
     objs = {src: lib.with_name(f"{stem}.{src.stem}.o") for src in _sources()[0]}
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in objs.items()]
@@ -102,8 +106,11 @@ def _build(lib: Path) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if its sources changed."""
-    lib = library_path()
-    if not lib.exists():
-        _build(lib)
+    """The kernels' shared library, built first if its sources changed.
+    Threads that ask at once wait for one build (``_BUILD_LOCK``); other
+    processes build to names of their own and rename atomically."""
+    with _BUILD_LOCK:
+        lib = library_path()
+        if not lib.exists():
+            _build(lib)
     return ctypes.CDLL(str(lib))

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -59,6 +60,9 @@ from .split import matmul_tf32x3, rows_at_16_bytes
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the permutation path ran through the kernel
 launches = 0
+
+#: the counts are read-modify-written by the host threads of a mesh's devices
+_count_lock = threading.Lock()
 
 #: permutations per thread block of the kernel
 TILE_K = 256
@@ -189,7 +193,8 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn):
         raise RuntimeError(
             "bulkperm kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 

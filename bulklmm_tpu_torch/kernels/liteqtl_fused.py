@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -82,6 +83,9 @@ launches = 0
 
 #: launches of the kernel's effects variant in this process, likewise
 effects_launches = 0
+
+#: the counts are read-modify-written by the host threads of a mesh's devices
+_count_lock = threading.Lock()
 
 _F32 = torch.float32
 
@@ -246,9 +250,11 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
     if effects:
-        effects_launches += 1
+        with _count_lock:
+            effects_launches += 1
         return tuple(outs)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return outs[0]
 
 

@@ -17,11 +17,13 @@ each trait; columns 1.. are the permutation null replicates.
 ``missing="mask"/"drop"`` runs each missingness pattern as its own sweep
 (``models/missing.py``), with its own checkpoint subdirectory. The marker-
 streamed form is ``models/streaming.py::bulkscan_perms_streamed``. A
-``LowRankKinship`` takes the rank-k engine (:func:`_bulkscan_perms_lowrank`:
+``LowRankKinship`` takes the rank-k engine (:func:`_lowrank_block_lods`:
 per-trait Woodbury whitening in standard coordinates, plain products, as in
 the JAX package, whose fused kernel assumes the rotated basis). The LOCO
-form is ``models/loco.py::bulkscan_perms_loco``; the sharded one is not
-ported yet.
+form is ``models/loco.py::bulkscan_perms_loco``. :func:`bulkscan_perms_sharded`
+runs the same sweep (:func:`_bulkscan_perms_on_mesh`) on a device mesh
+(``tiles.py``), and ``bulkscan_perms`` is that sweep on a mesh of one
+position.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..ops.lowrank import (
 from ..ops.rotation import KinshipDecomposition, resolve_kinship
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell_columns
+from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
 from ..utils.host import to_numpy
@@ -64,6 +67,7 @@ from .missing import (
     validate_missing_kwarg,
 )
 from .scan import _apply_weights, _refuse_weights_on_factors
+from .tiles import MARKERS_AXIS, TRAITS_AXIS, Mesh, _PermTiles, _per_device, make_mesh
 
 
 @dataclasses.dataclass
@@ -285,11 +289,14 @@ def _perm_checkpoint(checkpoint, *, n, m, p, nperms, rndseed, method, reml,
     return _PermCheckpoint(checkpoint, meta)
 
 
-def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, trait_chunk=None):
+def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, trait_chunk=None,
+                         budget_bytes=None):
     """``(eng, cap, trait_chunk)``: the engine ("pallas", the fused CUDA
     kernel, or "xla", the plain engine), its permutation-chunk bound and the
     trait-block width (1,024 for the kernel and 16 for the plain engine
-    when ``trait_chunk`` is None).
+    when ``trait_chunk`` is None). ``budget_bytes`` bounds the kernel's
+    permutation chunk in place of a quarter of ``device``'s budget
+    (``ops/bulkperm.py::kernel_perm_chunk_cap``).
 
     "auto" takes the kernel on a CUDA device under a float32 GEMM dtype and
     the plain engine otherwise. An explicit "pallas" raises instead of
@@ -316,7 +323,8 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
             )
     if engine == "pallas" or (engine == "auto" and cuda and float32):
         trait_chunk = 1024 if trait_chunk is None else trait_chunk
-        return "pallas", kernel_perm_chunk_cap(n, trait_chunk, device=device), trait_chunk
+        cap = kernel_perm_chunk_cap(n, trait_chunk, budget_bytes, device=device)
+        return "pallas", cap, trait_chunk
     trait_chunk = 16 if trait_chunk is None else trait_chunk
     cap = plain_perm_chunk_cap(
         n, p, trait_chunk=trait_chunk,
@@ -428,41 +436,201 @@ def _lowrank_block_lods(X, U, mparts, sm1_b, Q_b, wrn_b, idx, *, n, perm_chunk, 
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
 
-def _bulkscan_perms_lowrank(Y, G, K, covar, idx, *, h2_grid, prior, reml, method, optim_interval,
-                            precision, trait_chunk, perm_chunk, ckpt_meta):
-    """The rank-k body of :func:`bulkscan_perms`: the same trait-chunk loop
-    and results, with the marker projections formed once, the whitened
-    marker norms once a trait block and the numerator products per (trait
-    block, permutation chunk). Returns ``(maxlods, h2_list, sigma2_list)``."""
-    n, m = Y.shape
-    dtype = precision.resolve_solve()
-    U, lam = as_lowrank(K, dtype, Y.device)
-    X = G.to(precision.resolve_kernel())  # every product below reads it so: cast once
-    trait_chunk = 16 if trait_chunk is None else trait_chunk
-    perm_chunk = min(perm_chunk, lowrank_perm_chunk_cap(
-        n, X.shape[1], trait_chunk, max(precision.resolve_gemm().itemsize,
-                                        precision.resolve_kernel().itemsize), device=Y.device))
-    ckpt = _perm_checkpoint(trait_chunk=trait_chunk, rank=f"lowrank{U.shape[1]}", engine="xla",
-                            **ckpt_meta)
-    h2_list, sigma2_list, sm1, Qstack, wrn = _bulkperm_prep_traits_lowrank(
-        Y.to(dtype), covar.to(dtype), U, lam, h2_grid.to(dtype), n=n, prior=prior, reml=reml,
-        method=method, optim_interval=optim_interval, precision=precision,
+def _mesh_perm_tiling(mesh: Mesh, *, engine, n, p, precision, interpret, trait_chunk,
+                      perm_chunk):
+    """Engine choice and tiling of a dense-kinship permutation sweep on a
+    mesh (one position for ``bulkscan_perms``): the one place that computes
+    them, shared by :func:`_bulkscan_perms_on_mesh` and the streamed sweep
+    (``streaming.py``) so that their tilings agree.
+
+    The engine follows the mesh's first device. ``trait_chunk`` is the
+    global trait block (default: the single-device engine's block, 1,024
+    for the kernel and 16 for the plain engine, on every trait shard),
+    rounded up to the trait quantum, the traits axis; the permutation-row
+    quantum is the markers axis. The per-device permutation width is
+    ``perm_chunk`` capped by the engine's memory rule for one device's
+    trait block, the kernel's against one mesh position's budget
+    (``utils/memory.py::mesh_position_budget``). The JAX package's TPU
+    quanta (8 traits a shard for the Pallas output tiles, 128 permutation
+    rows a shard) have no counterpart here.
+
+    Returns ``(eng, trait_chunk, pc_dev, quantum, row_quant)``.
+    """
+    tshards, mshards = mesh.shape[TRAITS_AXIS], mesh.shape[MARKERS_AXIS]
+    block = None if trait_chunk is None else -(-max(int(trait_chunk), 1) // tshards)
+    eng, cap, block = _resolve_perm_engine(
+        engine, n, device=mesh.first, precision=precision, interpret=interpret, p=p,
+        trait_chunk=block, budget_bytes=memory.mesh_position_budget(mesh.flat) // 4,
     )
-    mparts = lowrank_perm_marker_parts(X, U, precision=precision)
+    return eng, block * tshards, min(perm_chunk, cap), tshards, mshards
+
+
+def _lowrank_perm_tiling(mesh: Mesh, n, p, precision, trait_chunk, perm_chunk):
+    """``(trait_chunk, pc_dev)`` of the rank-k sweep on a mesh: 16 traits a
+    shard by default, the per-device permutation width capped by the rank-k
+    memory rule for one device's trait block and one position's budget."""
+    tshards = mesh.shape[TRAITS_AXIS]
+    trait_chunk = 16 * tshards if trait_chunk is None else trait_chunk
+    trait_chunk += (-trait_chunk) % tshards
+    itemsize = max(precision.resolve_gemm().itemsize, precision.resolve_kernel().itemsize)
+    cap = lowrank_perm_chunk_cap(n, p, trait_chunk // tshards, itemsize,
+                                 budget_bytes=memory.mesh_position_budget(mesh.flat) // 4)
+    return trait_chunk, min(perm_chunk, cap)
+
+
+def _full_rank_block_lods(mesh: Mesh, X0m, *, eng, n, pc_dev, precision, interpret):
+    """``block_lods`` of ``tiles.py::_PermTiles.row`` on a rotated marker
+    panel (a block of one, in the streamed sweep): the panel placed once a
+    device, the permutation kernel's chunks (or the plain engine's) on each
+    tile."""
+    X = _per_device(mesh, lambda d: X0m.to(d))
+    # the kernel reads a contiguous float32 panel; the plain engine none
+    X32 = {d: x.to(torch.float32).contiguous() if eng == "pallas" else None for d, x in X.items()}
+
+    def block_lods(dev, sw_b, Q_b, wrn_b, idx):
+        return _trait_block_lods(X[dev], X32[dev], sw_b, Q_b, wrn_b, idx, engine=eng, n=n,
+                                 perm_chunk=pc_dev, precision=precision, interpret=interpret)
+
+    return block_lods
+
+
+def _lowrank_block_lods_on(mesh: Mesh, X, U, *, n, pc_dev, precision):
+    """``block_lods`` of ``tiles.py::_PermTiles.row`` on a rank-k kinship:
+    the markers (in the kernel dtype) and the factor placed once a device,
+    the marker projections formed once a device."""
+    Xd = _per_device(mesh, lambda d: X.to(d))
+    Ud = _per_device(mesh, lambda d: U.to(d))
+    mparts = {d: lowrank_perm_marker_parts(Xd[d], Ud[d], precision=precision) for d in Xd}
+
+    def block_lods(dev, sm1_b, Q_b, wrn_b, idx):
+        return _lowrank_block_lods(Xd[dev], Ud[dev], mparts[dev], sm1_b, Q_b, wrn_b, idx, n=n,
+                                   perm_chunk=pc_dev, precision=precision)
+
+    return block_lods
+
+
+def _check_perm_args(method, engine, solve_method) -> None:
+    if method not in ("null-grid", "null-exact"):
+        raise ValueError("method must be one of 'null-grid', 'null-exact'")
+    if engine not in ("auto", "xla", "pallas"):
+        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
+    if method == "null-exact" and solve_method not in ("qr", "cholesky"):
+        raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
+
+
+def _bulkscan_perms_on_mesh(
+    Y, G, K, covar, *, mesh: Mesh, sharded: bool, nperms, rndseed, method, h2_grid,
+    add_intercept, weights, prior_variance, prior_sample_size, reml, solve_method,
+    optim_interval, decomp_scheme, precision, engine, trait_chunk, perm_chunk, original, tile_p,
+    interpret, checkpoint, _adj_pvals, missing, perm_idx,
+) -> BulkPermResult:
+    """The sweep of :func:`bulkscan_perms` (a mesh of one position) and
+    :func:`bulkscan_perms_sharded` (``sharded``: its name in errors, and the
+    checkpoint rank keys "full-sharded" / "lowrank<k>-sharded" in place of
+    "full" / "lowrank<k>").
+
+    The trait-side preparation (rotation, null fits, whitening parts) runs
+    once, on the mesh's first device; then device (i, j) computes trait
+    shard i x permutation shard j of every global trait block against the
+    replicated marker panel (``tiles.py::_PermTiles``; the permutation
+    kernel's chunks on CUDA tiles under the float32 presets). The rows stay
+    on the device and every step is enqueued without a host read (unless
+    checkpointing); one concatenation at the end.
+    """
+    what = "bulkscan_perms_sharded" if sharded else "bulkscan_perms"
+    validate_missing_kwarg(missing)
+    _check_perm_args(method, engine, solve_method)
+    lowrank = is_lowrank(K)
+    if lowrank:
+        refuse_pallas(engine, perms=True)
+    kw = dict(
+        mesh=mesh, sharded=sharded, nperms=nperms, rndseed=rndseed, method=method,
+        h2_grid=h2_grid, add_intercept=add_intercept, prior_variance=prior_variance,
+        prior_sample_size=prior_sample_size, reml=reml, solve_method=solve_method,
+        optim_interval=optim_interval, decomp_scheme=decomp_scheme, precision=precision,
+        engine=engine, trait_chunk=trait_chunk, perm_chunk=perm_chunk, original=original,
+        tile_p=tile_p, interpret=interpret, _adj_pvals=_adj_pvals, perm_idx=perm_idx,
+    )
+    masked = maybe_masked(
+        Y, missing,
+        lambda Ys, rows, traits, gi: _bulkscan_perms_on_mesh(
+            Ys, _take_rows(G, rows), subset_kinship(K, rows), _take_rows(covar, rows),
+            weights=_take_rows(weights, rows), checkpoint=group_checkpoint(checkpoint, gi),
+            missing="error", **kw,
+        ),
+        covar=covar, weights=weights, add_intercept=add_intercept, what=what,
+    )
+    if masked is not None:
+        return masked
+    dev0 = mesh.first
+    # digest of the raw inputs, before any conversion
+    data_digest = (
+        _data_fingerprint(Y, G, covar, weights, K) if checkpoint is not None else None
+    )
+    Y, covar, h2_grid, add_intercept = _traits_covar_grid(Y, covar, h2_grid, add_intercept, dev0)
+    finite = finite_flag(Y)
+    G = torch.as_tensor(G, device=dev0)
+    n, m = Y.shape
+    if weights is not None:
+        _refuse_weights_on_factors(K, " or rank-k factorization")
+        Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)
+        Y, G, covar = (torch.as_tensor(a, device=dev0) for a in (Y, G, covar))
+    if add_intercept:
+        covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=dev0), covar], 1)
+    prior = (float(prior_variance), float(prior_sample_size))
+    p = G.shape[1]
+    dtype = precision.resolve_solve()
+    idx = shuffle_indices(perm_idx, n, nperms, rndseed, original)
+    prep_kw = dict(prior=prior, reml=reml, method=method, optim_interval=optim_interval,
+                   precision=precision)
+    suffix = "-sharded" if sharded else ""
+    if lowrank:
+        U, lam = as_lowrank(K, dtype, dev0)
+        h2_list, sigma2_list, *trait_ops = _bulkperm_prep_traits_lowrank(
+            Y.to(dtype), covar.to(dtype), U, lam, h2_grid.to(dtype), n=n, **prep_kw,
+        )
+        trait_chunk, pc_dev = _lowrank_perm_tiling(mesh, n, p, precision, trait_chunk, perm_chunk)
+        eng, rank, row_quant = "xla", f"lowrank{U.shape[1]}{suffix}", mesh.shape[MARKERS_AXIS]
+        # every product reads the markers in the kernel dtype: cast once
+        block_lods = _lowrank_block_lods_on(mesh, G.to(precision.resolve_kernel()), U, n=n,
+                                            pc_dev=pc_dev, precision=precision)
+    else:
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
+        with with_highest_matmul():
+            X0m, h2_list, sigma2_list, *trait_ops = _bulkperm_prep(
+                Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype),
+                **prep_kw,
+            )
+        eng, trait_chunk, pc_dev, _, row_quant = _mesh_perm_tiling(
+            mesh, engine=engine, n=n, p=p, precision=precision, interpret=interpret,
+            trait_chunk=trait_chunk, perm_chunk=perm_chunk,
+        )
+        rank = f"full{suffix}"
+        block_lods = _full_rank_block_lods(mesh, X0m, eng=eng, n=n, pc_dev=pc_dev,
+                                           precision=precision, interpret=interpret)
+    ckpt = _perm_checkpoint(
+        checkpoint, n=n, m=m, p=p, nperms=nperms, rndseed=rndseed, method=method, reml=reml,
+        original=original, trait_chunk=trait_chunk, h2_grid=h2_grid, prior=prior, rank=rank,
+        precision=precision, engine=eng, data_digest=data_digest,
+    )
+    tiles = _PermTiles(mesh, idx, trait_ops, row_quant=row_quant)
     rows = []
     for ms in range(0, m, trait_chunk):
         me = min(ms + trait_chunk, m)
         done = ckpt.load(ms, me) if ckpt is not None else None
         if done is not None:
-            rows.append(torch.as_tensor(done, device=Y.device))
+            rows.append(torch.as_tensor(done, device=dev0))
             continue
-        row = _lowrank_block_lods(X, U, mparts, sm1[ms:me], Qstack[ms:me], wrn[:, ms:me], idx,
-                                  n=n, perm_chunk=perm_chunk, precision=precision)
+        row = tiles.row(ms, me, block_lods)
         if ckpt is not None:
             ckpt.save(ms, me, row)
         rows.append(row)
-    maxlods = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
-    return maxlods, h2_list, sigma2_list
+    res = BulkPermResult(
+        maxlods=rows[0] if len(rows) == 1 else torch.cat(rows, dim=0),
+        h2_null_list=h2_list, sigma2_e_list=sigma2_list, nperms=nperms, original=original,
+    )
+    raise_if_missing(finite, what)
+    return _attach_adj_pvals(res) if _adj_pvals else res
 
 
 def bulkscan_perms(
@@ -530,7 +698,7 @@ def bulkscan_perms(
     indices are passed here.
 
     ``K`` may be a ``LowRankKinship``: the rank-k engine
-    (:func:`_bulkscan_perms_lowrank`; plain products, trait blocks of 16 by
+    (:func:`_lowrank_block_lods`; plain products, trait blocks of 16 by
     default, ``engine="pallas"`` refused as in the JAX package).
 
     ``checkpoint``: a directory; completed trait chunks are saved there and
@@ -551,107 +719,77 @@ def bulkscan_perms(
     the permutation-adjusted genome-wide p-value of each trait,
     ``(1 + #{null max >= observed}) / (nperms + 1)``.
     """
+    _check_perm_args(method, engine, solve_method)
     validate_missing_kwarg(missing)
-    if method not in ("null-grid", "null-exact"):
-        raise ValueError("method must be one of 'null-grid', 'null-exact'")
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
-    if method == "null-exact" and solve_method not in ("qr", "cholesky"):
-        raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
     device = resolve_device(device, Y, G, K, covar)
-    masked = maybe_masked(
-        Y, missing,
-        lambda Ys, rows, traits, gi: bulkscan_perms(
-            Ys, _take_rows(G, rows), subset_kinship(K, rows), _take_rows(covar, rows),
-            nperms=nperms, rndseed=rndseed, method=method, h2_grid=h2_grid,
-            add_intercept=add_intercept, weights=_take_rows(weights, rows),
-            prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
-            solve_method=solve_method, optim_interval=optim_interval,
-            decomp_scheme=decomp_scheme, precision=precision, engine=engine,
-            trait_chunk=trait_chunk, perm_chunk=perm_chunk, original=original,
-            tile_p=tile_p, interpret=interpret, checkpoint=group_checkpoint(checkpoint, gi),
-            _adj_pvals=_adj_pvals, perm_idx=perm_idx, device=device,
-        ),
-        covar=covar, weights=weights, add_intercept=add_intercept, what="bulkscan_perms",
+    return _bulkscan_perms_on_mesh(
+        Y, G, K, covar, mesh=Mesh.single(device), sharded=False, nperms=nperms,
+        rndseed=rndseed, method=method, h2_grid=h2_grid, add_intercept=add_intercept,
+        weights=weights, prior_variance=prior_variance, prior_sample_size=prior_sample_size,
+        reml=reml, solve_method=solve_method, optim_interval=optim_interval,
+        decomp_scheme=decomp_scheme, precision=precision, engine=engine, trait_chunk=trait_chunk,
+        perm_chunk=perm_chunk, original=original, tile_p=tile_p, interpret=interpret,
+        checkpoint=checkpoint, _adj_pvals=_adj_pvals, missing=missing, perm_idx=perm_idx,
     )
-    if masked is not None:
-        return masked
-    lowrank = is_lowrank(K)
-    if lowrank:
-        refuse_pallas(engine, perms=True)
-    # digest of the raw inputs, before any conversion
-    data_digest = (
-        _data_fingerprint(Y, G, covar, weights, K) if checkpoint is not None else None
-    )
-    Y, covar, h2_grid, add_intercept = _traits_covar_grid(Y, covar, h2_grid, add_intercept, device)
-    finite = finite_flag(Y)
-    G = torch.as_tensor(G, device=device)
-    n, m = Y.shape
-    if weights is not None:
-        _refuse_weights_on_factors(K, " or rank-k factorization")
-        Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)
-        Y, G, covar = (torch.as_tensor(a, device=device) for a in (Y, G, covar))
-    if add_intercept:
-        covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
-    prior = (float(prior_variance), float(prior_sample_size))
-    p = G.shape[1]
-    ckpt_meta = dict(
-        checkpoint=checkpoint, n=n, m=m, p=p, nperms=nperms, rndseed=rndseed, method=method,
-        reml=reml, original=original, h2_grid=h2_grid, prior=prior, precision=precision,
-        data_digest=data_digest,
-    )
-    if lowrank:
-        idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
-        maxlods, h2_list, sigma2_list = _bulkscan_perms_lowrank(
-            Y, G, K, covar, idx, h2_grid=h2_grid, prior=prior, reml=reml, method=method,
-            optim_interval=optim_interval, precision=precision, trait_chunk=trait_chunk,
-            perm_chunk=perm_chunk, ckpt_meta=ckpt_meta,
-        )
-        res = BulkPermResult(maxlods=maxlods, h2_null_list=h2_list, sigma2_e_list=sigma2_list,
-                             nperms=nperms, original=original)
-        raise_if_missing(finite, "bulkscan_perms")
-        return _attach_adj_pvals(res) if _adj_pvals else res
 
-    eng, cap, trait_chunk = _resolve_perm_engine(
-        engine, n, device=device, precision=precision, interpret=interpret, p=p,
-        trait_chunk=trait_chunk,
+
+def bulkscan_perms_sharded(
+    Y,
+    G,
+    K,
+    covar=None,
+    *,
+    mesh: Optional[Mesh] = None,
+    nperms: int = 1000,
+    rndseed: int = 0,
+    method: str = "null-grid",
+    h2_grid=None,
+    add_intercept: bool = True,
+    weights=None,
+    prior_variance: float = 1.0,
+    prior_sample_size: float = 0.0,
+    reml: bool = False,
+    solve_method: str = "qr",
+    optim_interval: int = 1,
+    decomp_scheme: str = "eigen",
+    precision: PrecisionConfig = DEFAULT_PRECISION,
+    engine: str = "auto",
+    trait_chunk: Optional[int] = None,
+    perm_chunk: int = 2048,
+    original: bool = True,
+    tile_p: int = 256,
+    interpret: bool = False,
+    checkpoint=None,
+    _adj_pvals: bool = True,
+    missing: str = "error",
+    perm_idx=None,
+) -> BulkPermResult:
+    """All-trait permutation maxima sharded over the device mesh.
+
+    The sweep of :func:`bulkscan_perms` (:func:`_bulkscan_perms_on_mesh`)
+    on ``mesh`` (default ``make_mesh()``): device (i, j) computes trait
+    shard i x permutation shard j of every global trait block against the
+    replicated marker panel (the permutation kernel's chunks on CUDA tiles
+    under the float32 presets), with no collective. ``trait_chunk`` is the
+    global trait block (:func:`_mesh_perm_tiling`); ``perm_chunk`` is the
+    PER-DEVICE permutation width, so that one step's memory matches the
+    single-device engine at the same value, where the keyword is the global
+    width; results are unaffected. ``K`` may be a ``LowRankKinship`` (the
+    rank-k engine, ``engine="pallas"`` refused). ``checkpoint`` saves and
+    resumes global trait blocks as ``bulkscan_perms`` does (the run's rank
+    key "full-sharded" or "lowrank<k>-sharded"); ``missing``, ``weights``,
+    ``perm_idx`` as there. The result's tensors lie on the mesh's first
+    device.
+    """
+    _check_perm_args(method, engine, solve_method)
+    if mesh is None:
+        mesh = make_mesh()
+    return _bulkscan_perms_on_mesh(
+        Y, G, K, covar, mesh=mesh, sharded=True, nperms=nperms, rndseed=rndseed,
+        method=method, h2_grid=h2_grid, add_intercept=add_intercept, weights=weights,
+        prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
+        solve_method=solve_method, optim_interval=optim_interval, decomp_scheme=decomp_scheme,
+        precision=precision, engine=engine, trait_chunk=trait_chunk, perm_chunk=perm_chunk,
+        original=original, tile_p=tile_p, interpret=interpret, checkpoint=checkpoint,
+        _adj_pvals=_adj_pvals, missing=missing, perm_idx=perm_idx,
     )
-    perm_chunk = min(perm_chunk, cap)
-    idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
-
-    dtype = precision.resolve_solve()
-    Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-    ckpt = _perm_checkpoint(trait_chunk=trait_chunk, engine=eng, **ckpt_meta)
-
-    with with_highest_matmul():
-        X0m, h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep(
-            Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype),
-            prior=prior, reml=reml, method=method, optim_interval=optim_interval,
-            precision=precision,
-        )
-        X32 = X0m.to(torch.float32).contiguous() if eng == "pallas" else None
-        # the rows stay on the device and every step is enqueued without a
-        # host read (unless checkpointing); one concatenation at the end
-        rows = []
-        for ms in range(0, m, trait_chunk):
-            me = min(ms + trait_chunk, m)
-            done = ckpt.load(ms, me) if ckpt is not None else None
-            if done is not None:
-                rows.append(torch.as_tensor(done, device=device))
-                continue
-            row = _trait_block_lods(
-                X0m, X32, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx,
-                engine=eng, n=n, perm_chunk=perm_chunk, precision=precision,
-                interpret=interpret,
-            )
-            if ckpt is not None:
-                ckpt.save(ms, me, row)
-            rows.append(row)
-        maxlods = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
-
-    res = BulkPermResult(
-        maxlods=maxlods, h2_null_list=h2_list, sigma2_e_list=sigma2_list,
-        nperms=nperms, original=original,
-    )
-    raise_if_missing(finite, "bulkscan_perms")
-    return _attach_adj_pvals(res) if _adj_pvals else res

@@ -8,8 +8,8 @@ products, then its engine, over blocks of traits when ``trait_chunk`` is an
 int:
 
 - **null-grid** (src/bulkscan.jl:321-397): the (g x m) null log-likelihood
-  grid in the kernel dtype, a per-trait argmax over h2, then the
-  per-trait-weight correlation -> LOD step;
+  grid in the kernel dtype, a per-trait argmax over h2 (:func:`_null_h2`),
+  then the per-trait-weight correlation -> LOD step;
 - **null-exact** (src/bulkscan.jl:188-313): a batched Brent fit of every
   trait's h2 (``ops/lmm.py::fit_h2_traits``), then the same LOD step;
 - **alt-grid** (src/bulkscan.jl:428-527): for each grid h2, the shared-h2
@@ -43,11 +43,16 @@ effects, trait chunks, masks and host blocks, on plain products (the JAX
 package's engine is XLA-only too, and ``engine="pallas"`` raises its
 ``ValueError``). Its trait chunks are sized from the rank-k live set
 (``utils/memory.py``).
+
+:func:`bulkscan_sharded` runs the same engine (:func:`_bulkscan_on_mesh`)
+on a device mesh (``tiles.py``); ``bulkscan`` is that engine on a mesh of
+one position, apart from its host trait blocks.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,7 +64,9 @@ from ..kernels.liteqtl_fused import (
 from ..ops.liteqtl import lods_and_effects_per_trait, lods_per_trait, lods_shared
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
-from ..ops.lowrank import _bulkscan_lowrank_core, as_lowrank, is_lowrank, refuse_pallas
+from ..ops.lowrank import (
+    _bulkscan_lowrank_core, _trait_fit_lowrank, as_lowrank, is_lowrank, refuse_pallas,
+)
 from ..ops.rotation import KinshipDecomposition, decompose_kinship, resolve_kinship
 from ..ops.stats import check_covar_full_rank
 from ..ops.weights import make_weights
@@ -74,6 +81,9 @@ from .missing import (
 )
 from .results import BulkScanResult
 from .scan import _TODO, _apply_weights, _refuse_weights_on_factors
+from .tiles import (
+    MARKERS_AXIS, TRAITS_AXIS, Mesh, _core_trait_chunks, _marker_shards, _per_device, make_mesh,
+)
 
 _LN10 = math.log(10.0)
 
@@ -126,23 +136,6 @@ def _grid_h2(Y0, C0, lam, h2_grid, *, prior, reml, precision):
     return h2_grid[torch.argmax(ells, dim=0)]  # first max wins
 
 
-def _null_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision, effects=False):
-    """(L, h2_list[, beta, se]) for one block of traits.
-
-    The grid likelihoods run in the kernel dtype, as in the JAX package
-    (float32 under BALANCED), so the h2 selection is the same.
-    """
-    h2_list = _grid_h2(Y0, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision)
-    return _lod_outputs(Y0, X0m, C0, lam, h2_list, precision, effects)
-
-
-def _null_exact_impl(Y0, X0m, C0, lam, *, prior, reml, optim_interval, precision, effects=False):
-    """(L, h2_list[, beta, se]) for one block of traits: each trait's h2
-    from a Brent fit in the solve dtype, then the LOD step."""
-    h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
-    return _lod_outputs(Y0, X0m, C0, lam, h2_list, precision, effects)
-
-
 def _alt_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
     """(L, h2_panel) for one block of traits, the plain formulation: per
     grid step the shared-h2 LODs and null likelihoods, and (p, m) running
@@ -166,16 +159,27 @@ def _alt_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
     return L, h2_grid[kmax]
 
 
-def _chunked(impl, Y0, trait_chunk):
-    """``impl(Y0)`` for an int ``trait_chunk``: trait blocks of that width in
-    turn, each written into one preallocated output per result (the traits
-    are each result's last axis; a None result stays None)."""
+def _null_h2(method, Y0, C0, lam, h2_grid, *, prior, reml, optim_interval, precision):
+    """Each trait's null h2 from the rotated traits: the grid argmax
+    (:func:`_grid_h2`) or, for null-exact, a batched Brent fit in the solve
+    dtype. No marker moves it, so a scan fits it once (on a mesh, once a
+    trait shard) and the LOD step takes it."""
+    if method == "null-exact":
+        return fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
+    return _grid_h2(Y0, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision)
+
+
+def _chunked(impl, Y0, trait_chunk, *per_trait):
+    """``impl(Y0, *per_trait)`` for an int ``trait_chunk``: trait blocks of
+    that width in turn (of Y0 and of each (m,) ``per_trait`` tensor), each
+    written into one preallocated output per result (the traits are each
+    result's last axis; a None result stays None)."""
     m = Y0.shape[1]
     if trait_chunk is None or trait_chunk >= m:
-        return impl(Y0)
+        return impl(Y0, *per_trait)
     outs = None
     for s in range(0, m, trait_chunk):
-        res = impl(Y0[:, s : s + trait_chunk])
+        res = impl(Y0[:, s : s + trait_chunk], *(a[s : s + trait_chunk] for a in per_trait))
         if outs is None:
             outs = tuple(
                 None if r is None
@@ -186,60 +190,6 @@ def _chunked(impl, Y0, trait_chunk):
             if o is not None:
                 o[..., s : s + trait_chunk] = r
     return outs
-
-
-@with_highest_matmul()
-def _rotate_and_run(impl, Y, Xm, C, Ut, trait_chunk):
-    """The three rotation products, then ``impl(Y0, X0m, C0)`` over trait
-    blocks."""
-    Y0, X0m, C0 = Ut @ Y, Ut @ Xm, Ut @ C
-    return _chunked(lambda Yc: impl(Yc, X0m, C0), Y0, trait_chunk)
-
-
-def _null_grid_pipeline(
-    Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None, effects=False
-):
-    """Rotation + grid fit + LOD step."""
-    kw = dict(prior=prior, reml=reml, precision=precision, effects=effects)
-    return _rotate_and_run(
-        lambda Y0, X0m, C0: _null_grid_impl(Y0, X0m, C0, lam, h2_grid, **kw),
-        Y, Xm, C, Ut, trait_chunk,
-    )
-
-
-def _null_exact_pipeline(
-    Y, Xm, C, Ut, lam, *, prior, reml, optim_interval, precision, trait_chunk=None,
-    effects=False,
-):
-    """Rotation + Brent fit + LOD step."""
-    kw = dict(
-        prior=prior, reml=reml, optim_interval=optim_interval, precision=precision,
-        effects=effects,
-    )
-    return _rotate_and_run(
-        lambda Y0, X0m, C0: _null_exact_impl(Y0, X0m, C0, lam, **kw),
-        Y, Xm, C, Ut, trait_chunk,
-    )
-
-
-def _alt_grid_pipeline(
-    Y, Xm, C, Ut, lam, h2_grid, *, prior, reml, precision, trait_chunk=None,
-    use_kernel=False, panel=True,
-):
-    """Rotation + the alt-grid engine: the fused kernel's entry when
-    ``use_kernel`` (its index carry dropped when ``panel`` is False), the
-    plain formulation otherwise."""
-    if use_kernel:
-        def impl(Y0, X0m, C0):
-            return fused_alt_grid(
-                Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml, output_h2_panel=panel
-            )
-    else:
-        def impl(Y0, X0m, C0):
-            return _alt_grid_impl(
-                Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision
-            )
-    return _rotate_and_run(impl, Y, Xm, C, Ut, trait_chunk)
 
 
 def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, device):
@@ -421,95 +371,237 @@ def bulkscan(
     if masked is not None:
         return masked
     if trait_chunk is None:
-        shape = np.shape(Y)
-        dims = dict(
-            n=shape[0], p=np.shape(G)[1], grid=10 if h2_grid is None else len(h2_grid),
-            c=_ncov_total(covar, add_intercept),
-            itemsize=max(precision.resolve_solve().itemsize, precision.resolve_kernel().itemsize),
-            # the (p, m) results on the device: L, the h2 panel, beta and SE, p-values
-            n_outputs=1 + (method == "alt-grid") + 2 * int(output_effects) + int(output_pvals),
-            alt_grid=method == "alt-grid", rank=np.shape(K.U)[1] if lowrank else None,
-        )
-        budget = memory.device_memory_budget(device)
+        m, dims = _chunk_dims(Y, G, K, covar, h2_grid, add_intercept, method=method,
+                              precision=precision, output_effects=output_effects,
+                              output_pvals=output_pvals)
         try:
-            trait_chunk = memory.auto_trait_chunk(
-                m=1 if len(shape) == 1 else shape[1], budget=budget, **dims
-            )
+            trait_chunk = _auto_chunk(Mesh.single(device), m=m, dims=dims)
         except ValueError:
             return _host_blocked_bulkscan(Y, G, K, covar, weights=weights, dims=dims,
-                                          budget=budget, **kw)
+                                          budget=memory.device_memory_budget(device), **kw)
+    del kw["device"]
+    return _bulkscan_on_mesh(Y, G, K, covar, mesh=Mesh.single(device), what="bulkscan",
+                             weights=weights, trait_chunk=trait_chunk, **kw)
 
-    Y, covar, h2_grid, add_intercept = _scan_common_inputs(
-        Y, covar, h2_grid, add_intercept, method=method, engine=engine, device=device
+
+def _chunk_dims(Y, G, K, covar, h2_grid, add_intercept, *, method, precision, output_effects,
+                output_pvals):
+    """``(m, dims)``: the trait count and the other sizes of the trait-chunk
+    footprint model (``utils/memory.py::auto_trait_chunk``), from the raw
+    inputs."""
+    shape = np.shape(Y)
+    dims = dict(
+        n=shape[0], p=np.shape(G)[1], grid=10 if h2_grid is None else len(h2_grid),
+        c=_ncov_total(covar, add_intercept),
+        itemsize=max(precision.resolve_solve().itemsize, precision.resolve_kernel().itemsize),
+        # the (p, m) results on the device: L, the h2 panel, beta and SE, p-values
+        n_outputs=1 + (method == "alt-grid") + 2 * int(output_effects) + int(output_pvals),
+        alt_grid=method == "alt-grid", rank=np.shape(K.U)[1] if is_lowrank(K) else None,
     )
+    return 1 if len(shape) == 1 else shape[1], dims
+
+
+def _auto_chunk(mesh: Mesh, *, m: int, dims: dict) -> Optional[int]:
+    """The global ``trait_chunk`` when the caller gives none:
+    ``utils/memory.py::auto_trait_chunk`` for one tile, (n, p / marker
+    shards, m / trait shards), against the budget of one mesh position
+    (``utils/memory.py::mesh_position_budget``; on a mesh of one position,
+    the device's), scaled back to the global width. None where one block
+    fits; a ``ValueError`` where not even one trait tile does."""
+    tshards, mshards = mesh.shape[TRAITS_AXIS], mesh.shape[MARKERS_AXIS]
+    mc = memory.auto_trait_chunk(
+        **{**dims, "p": max(1, -(-dims["p"] // mshards))}, m=max(1, -(-m // tshards)),
+        budget=memory.mesh_position_budget(mesh.flat),
+    )
+    return None if mc is None else mc * tshards
+
+
+def _bulkscan_on_mesh(
+    Y, G, K, covar, *, mesh: Mesh, what: str, method, h2_grid, add_intercept, weights,
+    prior_variance, prior_sample_size, reml, optim_interval, decomp_scheme, output_pvals,
+    chisq_df, solve_method, precision, trait_chunk, engine, output_effects, output_h2_panel,
+) -> BulkScanResult:
+    """The engine of :func:`bulkscan` (a mesh of one position) and
+    :func:`bulkscan_sharded`, once the missingness groups and the trait
+    chunk are settled.
+
+    The kinship is decomposed and the traits and covariates rotated once, on
+    the mesh's first device; each marker shard is rotated once, on the first
+    device of its column. The null methods fit each trait's h2 once a trait
+    shard (:func:`_null_h2`, or the rank-k fit), then every tile runs the
+    LOD step at those h2s (the CUDA LOD kernel, or its effects variant,
+    under the float32 presets); alt-grid runs the alt-grid kernel or the
+    plain formulation on every tile (:func:`_altgrid_uses_kernel`, by the
+    tile's device). ``what`` names the entry point in a missing-value error.
+    """
+    lowrank = is_lowrank(K)
+    alt = method == "alt-grid"
+    dev0 = mesh.first
+    Y, covar, h2_grid, add_intercept = _traits_covar_grid(Y, covar, h2_grid, add_intercept, dev0)
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
-    use_altgrid_kernel = (
-        method == "alt-grid" and not lowrank and _altgrid_uses_kernel(engine, precision, device)
-    )
     finite = finite_flag(Y)
-    if (
-        method != "alt-grid"
-        and not lowrank
-        and torch.device(device).type == "cuda"
-        and _uses_kernel(precision)
-        and _ncov_total(covar, add_intercept) > MAX_COVARIATES
-    ):
+    n = Y.shape[0]
+    if (not alt and not lowrank and _uses_kernel(precision)
+            and any(d.type == "cuda" for d in mesh.flat)
+            and _ncov_total(covar, add_intercept) > MAX_COVARIATES):
         raise ValueError(
             f"the CUDA LOD kernel takes at most {MAX_COVARIATES} covariate "
             "columns (intercept included); " + _TODO.format(5)
         )
-    G = torch.as_tensor(G, device=device)
-    n = Y.shape[0]
-
     if weights is not None:
         _refuse_weights_on_factors(K)
         Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)
-        Y, G, covar = (torch.as_tensor(a, device=device) for a in (Y, G, covar))
-
-    prior = (float(prior_variance), float(prior_sample_size))
+        Y, covar = torch.as_tensor(Y, device=dev0), torch.as_tensor(covar, device=dev0)
     if add_intercept:
-        covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
+        covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=dev0), covar], 1)
+    prior = (float(prior_variance), float(prior_sample_size))
     dtype = precision.resolve_solve()
-    kw = dict(prior=prior, reml=reml, precision=precision, trait_chunk=trait_chunk)
+    Gs, p = _marker_shards(G, mesh, dtype)
+    grid = _per_device(mesh, lambda d: h2_grid.to(device=d, dtype=dtype))
+    fit = None
     if lowrank:
         # no rotation: unrotated inputs and Woodbury weights (ops/lowrank.py)
-        lr = as_lowrank(K, dtype, device)
-        out = _bulkscan_lowrank_core(
-            Y.to(dtype), G.to(dtype), covar.to(dtype), lr.U, lr.lam, h2_grid.to(dtype), n=n,
-            method=method, optim_interval=optim_interval,
-            effects=output_effects and method != "alt-grid", **kw,
-        )
-        if method == "alt-grid":
-            L, h2_panel = out
-            out = None
-    else:
-        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-        args = (Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam)
-        if method == "null-grid":
-            out = _null_grid_pipeline(*args, h2_grid.to(dtype), effects=output_effects, **kw)
-        elif method == "null-exact":
-            out = _null_exact_pipeline(
-                *args, optim_interval=optim_interval, effects=output_effects, **kw
+        lr = _per_device(mesh, lambda d: as_lowrank(K, dtype, d))
+        Cd = _per_device(mesh, lambda d: covar.to(device=d, dtype=dtype))
+        if not alt:
+            def fit(Yi, dev, chunk):
+                return _chunked(lambda Yc: (_trait_fit_lowrank(
+                    Yc, Cd[dev], lr[dev].U, lr[dev].lam, grid[dev], n=n, prior=prior, reml=reml,
+                    method=method, optim_interval=optim_interval, precision=precision)[1],),
+                    Yi, chunk)[0]
+
+        def core(Yi, j, dev, chunk, *h2):
+            return _bulkscan_lowrank_core(
+                Yi, Gs[(j, dev)], Cd[dev], lr[dev].U, lr[dev].lam, grid[dev], *h2, n=n,
+                prior=prior, reml=reml, precision=precision, trait_chunk=chunk, method=method,
+                effects=output_effects,
             )
+
+        Yt = Y.to(dtype)
+    else:
+        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
+        with with_highest_matmul():
+            Yt, C0 = Ut @ Y.to(dtype), Ut @ covar.to(dtype)
+            X0m = {}
+            for j, d in Gs:  # each marker shard rotated once
+                col = mesh.devices[0][j]
+                if (j, col) not in X0m:
+                    X0m[(j, col)] = Ut.to(col) @ Gs[(j, col)]
+                X0m[(j, d)] = X0m[(j, col)].to(d)
+        del Gs
+        lamd = _per_device(mesh, lambda d: lam.to(d))
+        C0d = _per_device(mesh, lambda d: C0.to(d))
+        if alt:
+            kernel = {d: _altgrid_uses_kernel(engine, precision, d) for d in lamd}
+
+            def core(Yi, j, dev, chunk):
+                X, C, lm, g = X0m[(j, dev)], C0d[dev], lamd[dev], grid[dev]
+                if kernel[dev]:
+                    return _chunked(lambda Yc: fused_alt_grid(
+                        Yc, X, C, lm, g, prior=prior, reml=reml, output_h2_panel=output_h2_panel,
+                    ), Yi, chunk)
+                return _chunked(lambda Yc: _alt_grid_impl(
+                    Yc, X, C, lm, g, prior=prior, reml=reml, precision=precision), Yi, chunk)
         else:
-            L, h2_panel = _alt_grid_pipeline(
-                *args, h2_grid.to(dtype), use_kernel=use_altgrid_kernel,
-                panel=output_h2_panel, **kw,
-            )
-            out = None
-    if out is None:
+            def fit(Yi, dev, chunk):
+                return _chunked(lambda Yc: (_null_h2(
+                    method, Yc, C0d[dev], lamd[dev], grid[dev], prior=prior, reml=reml,
+                    optim_interval=optim_interval, precision=precision),), Yi, chunk)[0]
+
+            def core(Yi, j, dev, chunk, h2):
+                X, C, lm = X0m[(j, dev)], C0d[dev], lamd[dev]
+                return _chunked(lambda Yc, hc: _lod_outputs(Yc, X, C, lm, hc, precision,
+                                                            output_effects), Yi, chunk, h2)
+    outs = _core_trait_chunks(core, Yt, mesh, trait_chunk, fit=fit)
+    if alt:
         # the plain paths compute the panel either way; the flag drops it
-        result = BulkScanResult(L=L, h2_panel=h2_panel if output_h2_panel else None)
+        result = BulkScanResult(L=outs[0][:p], h2_panel=outs[1][:p] if output_h2_panel else None)
     else:
-        result = BulkScanResult(L=out[0], h2_null_list=out[1])
+        result = BulkScanResult(L=outs[0][:p], h2_null_list=outs[1])
         if output_effects:
-            result.beta_mat, result.beta_se_mat = out[2], out[3]
+            result.beta_mat, result.beta_se_mat = outs[2][:p], outs[3][:p]
     if output_pvals:
         result.log10Pvals_mat = lod2log10p(result.L, chisq_df)
         result.chisq_df = chisq_df
-    raise_if_missing(finite, "bulkscan")
+    raise_if_missing(finite, what)
     return result
+
+
+def bulkscan_sharded(
+    Y,
+    G,
+    K,
+    covar=None,
+    *,
+    mesh: Optional[Mesh] = None,
+    method: str = "null-grid",
+    h2_grid=None,
+    add_intercept: bool = True,
+    weights=None,
+    prior_variance: float = 1.0,
+    prior_sample_size: float = 0.0,
+    reml: bool = False,
+    optim_interval: int = 1,
+    decomp_scheme: str = "eigen",
+    output_pvals: bool = False,
+    chisq_df: int = 1,
+    solve_method: str = "qr",
+    precision: PrecisionConfig = DEFAULT_PRECISION,
+    output_effects: bool = False,
+    trait_chunk: Optional[int] = None,
+    missing: str = "error",
+) -> BulkScanResult:
+    """Multi-trait scan sharded over a device mesh.
+
+    The numerics of :func:`bulkscan` (the same engine, on ``mesh``, default
+    ``make_mesh()``: each tile runs the LOD kernel or the alt-grid kernel on
+    CUDA tiles under the float32 presets). ``output_effects`` (null methods)
+    adds the (p, m) GLS effects and standard errors. ``trait_chunk`` is the
+    global trait-block width (each device runs blocks of ceil(trait_chunk /
+    trait shards) of its traits); None sizes it for one mesh position
+    (:func:`_auto_chunk`), and one block where even one trait tile does not
+    fit (a mesh has no host-block path: more devices are the fix).
+    ``missing`` and ``weights`` as for ``bulkscan``; ``K`` may be a
+    ``LowRankKinship`` (the rank-k engine on every tile, its (n, k) factor
+    replicated).
+
+    Returns a :class:`BulkScanResult` whose tensors lie on the mesh's first
+    device.
+    """
+    validate_missing_kwarg(missing)
+    _check_method_engine(method, "auto")
+    _check_output_effects(output_effects, method)
+    if mesh is None:
+        mesh = make_mesh()
+    kw = dict(
+        method=method, h2_grid=h2_grid, add_intercept=add_intercept,
+        prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
+        optim_interval=optim_interval, decomp_scheme=decomp_scheme, output_pvals=output_pvals,
+        chisq_df=chisq_df, solve_method=solve_method, precision=precision,
+        output_effects=output_effects,
+    )
+    masked = maybe_masked(
+        Y, missing,
+        lambda Ys, rows, traits, gi: bulkscan_sharded(
+            Ys, _take_rows(G, rows), subset_kinship(K, rows), _take_rows(covar, rows),
+            mesh=mesh, weights=_take_rows(weights, rows), trait_chunk=trait_chunk, **kw,
+        ),
+        covar=covar, weights=weights, add_intercept=add_intercept, what="bulkscan_sharded",
+    )
+    if masked is not None:
+        return masked
+    if trait_chunk is None:
+        m, dims = _chunk_dims(Y, G, K, covar, h2_grid, add_intercept, method=method,
+                              precision=precision, output_effects=output_effects,
+                              output_pvals=output_pvals)
+        try:
+            trait_chunk = _auto_chunk(mesh, m=m, dims=dims)
+        except ValueError:
+            trait_chunk = None
+    return _bulkscan_on_mesh(Y, G, K, covar, mesh=mesh, what="bulkscan_sharded",
+                             weights=weights, trait_chunk=trait_chunk, engine="auto",
+                             output_h2_panel=True, **kw)
 
 
 _RESULT_FIELDS = ("L", "h2_null_list", "h2_panel", "beta_mat", "beta_se_mat", "log10Pvals_mat")

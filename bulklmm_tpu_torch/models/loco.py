@@ -32,11 +32,13 @@ kernel, the alt-grid kernel, the permutation kernel; one launch or trait
 block per chromosome). Results are reassembled in the original marker
 order: the LOD matrix in float64 on the scan's device (on the host where an
 inner call returned host arrays), every other field in the engine's dtype.
-``mesh=`` is refused (ROADMAP.md Queue 1 item 14).
+``mesh=`` runs each chromosome on the device mesh, one sharded call a
+chromosome (``bulkscan_sharded``, ``bulkscan_perms_sharded``).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from pathlib import Path
 
@@ -44,10 +46,10 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
-from ..utils.device import refuse_mesh, resolve_device
+from ..utils.device import mesh_device, resolve_device
 from ..utils.host import to_numpy
-from .bulkperm import BulkPermResult, _attach_adj_pvals, bulkscan_perms
-from .bulkscan import _take_rows, bulkscan
+from .bulkperm import BulkPermResult, _attach_adj_pvals, bulkscan_perms, bulkscan_perms_sharded
+from .bulkscan import _take_rows, bulkscan, bulkscan_sharded
 from .missing import (
     _check_group_sizes, _check_side_inputs, _ncov_total, group_checkpoint, maybe_masked,
     raise_if_missing, validate_missing_kwarg,
@@ -192,9 +194,12 @@ def bulkscan_loco(
 
     ``chromosome``: (p,) labels (e.g. ``read_gmap(...).chromosome``).
     ``lowrank_k`` > 0 uses the rank-k engine per chromosome (no n x n
-    kinship, no host eigh). ``mesh`` is refused (not ported; ROADMAP.md
-    Queue 1 item 14). Remaining keywords go to :func:`bulkscan` (method,
-    reml, output_pvals, output_effects, trait_chunk, ...). ``device``
+    kinship, no host eigh). ``mesh`` (``parallel.make_mesh``) runs each
+    chromosome's scan on the device mesh
+    (:func:`bulklmm_tpu_torch.parallel.bulkscan_sharded`, one sharded call
+    a chromosome), from the mesh's first device. Remaining keywords go to
+    :func:`bulkscan` (method, reml, output_pvals, output_effects,
+    trait_chunk, ...), or to ``bulkscan_sharded`` with a mesh. ``device``
     follows ``utils/device.py::resolve_device``.
 
     L is float64 (p, m) on the scan's device; the other fields keep the
@@ -202,16 +207,15 @@ def bulkscan_loco(
     ``h2_null_by_chrom`` maps ``chrom -> (m,)`` (or ``(p_c, m)`` panels for
     alt-grid).
     """
-    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
-    device = resolve_device(device, Y, G, covar)
+    device = resolve_device(mesh_device(mesh, device), Y, G, covar)
     Gd = torch.as_tensor(G, device=device)
     weights = kwargs.get("weights")
     masked = maybe_masked(
         Y, missing,
         lambda Ys, rows, traits, gi: bulkscan_loco(
             Ys, _take_rows(Gd, rows), chromosome, _take_rows(covar, rows),
-            lowrank_k=lowrank_k, precision=precision, device=device,
+            lowrank_k=lowrank_k, precision=precision, mesh=mesh, device=device,
             **_masked_kwargs(kwargs, weights, rows),
         ),
         covar=covar, weights=weights, add_intercept=kwargs.get("add_intercept", True),
@@ -228,7 +232,10 @@ def bulkscan_loco(
               for f in ("L", "log10Pvals_mat", "beta_mat", "beta_se_mat")}
     h2_by_chrom = {}
     for c, mask, Gc, K in _iter_loco(Gd, chromosome, lowrank_k=lowrank_k, precision=precision):
-        res = bulkscan(Y, Gc, K, covar, precision=precision, device=device, **kwargs)
+        if mesh is None:
+            res = bulkscan(Y, Gc, K, covar, precision=precision, device=device, **kwargs)
+        else:
+            res = bulkscan_sharded(Y, Gc, K, covar, mesh=mesh, precision=precision, **kwargs)
         for f, st in fields.items():
             st.put(mask, getattr(res, f))
         h2_by_chrom[c] = res.h2_null_list if res.h2_null_list is not None else res.h2_panel
@@ -387,12 +394,13 @@ def bulkscan_perms_loco(
     are the across-chromosome means, and ``log10_adj_pvals`` is computed
     once, on the stitched maxima. ``lowrank_k`` > 0 builds each leave-out
     kinship as a rank-k factorization (no n x n kinship, no host eigh) and
-    tests on the Woodbury whitening engine. ``mesh`` is refused (ROADMAP.md
-    Queue 1 item 14).
+    tests on the Woodbury whitening engine. ``mesh`` runs each chromosome's
+    sweep on the device mesh
+    (:func:`bulklmm_tpu_torch.parallel.bulkscan_perms_sharded`, where
+    ``perm_chunk`` is the per-device width), from the mesh's first device.
     """
-    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
-    device = resolve_device(device, Y, G, covar)
+    device = resolve_device(mesh_device(mesh, device), Y, G, covar)
     Gd = torch.as_tensor(G, device=device)
     weights = kwargs.get("weights")
     ckpt_top = kwargs.get("checkpoint")
@@ -404,7 +412,7 @@ def bulkscan_perms_loco(
         return bulkscan_perms_loco(
             Ys, _take_rows(Gd, rows), chromosome, _take_rows(covar, rows),
             precision=precision, rndseed=rndseed, lowrank_k=lowrank_k,
-            share_shuffles=share_shuffles, device=device, **kw,
+            share_shuffles=share_shuffles, mesh=mesh, device=device, **kw,
         )
 
     masked = maybe_masked(
@@ -422,13 +430,17 @@ def bulkscan_perms_loco(
     h2_by_chrom, s2_by_chrom = {}, {}
     nperms = original = None
     chroms = _iter_loco(Gd, chromosome, lowrank_k=lowrank_k, precision=precision)
+    if mesh is None:
+        sweep = functools.partial(bulkscan_perms, device=device)
+    else:
+        sweep = functools.partial(bulkscan_perms_sharded, mesh=mesh)
     for i, (c, mask, Gc, K) in enumerate(chroms):
-        res = bulkscan_perms(
+        res = sweep(
             Y, Gc, K, covar, precision=precision,
             rndseed=base_seed if share_shuffles else base_seed + i,
             checkpoint=_chrom_checkpoint(checkpoint, c),
             _adj_pvals=False,  # computed once, on the stitched maxima
-            device=device, **kwargs,
+            **kwargs,
         )
         h2_by_chrom[c] = res.h2_null_list
         s2_by_chrom[c] = res.sigma2_e_list

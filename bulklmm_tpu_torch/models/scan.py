@@ -159,12 +159,12 @@ def _scan_alt_impl(
 
 
 @with_highest_matmul()
-def _scan_perms_impl(
-    y0, X0m, C0, lam, b, h2, *, method, nperms, rndseed, perm_idx, precision
-):
-    """(p, nperms + 1) LODs, column 0 the observed trait (reference
-    transform_reweight + transform_permute, src/transform_helpers.jl:57-102,
-    with the covariates and markers kept apart)."""
+def _perm_scan_operands(y0, X0m, C0, lam, b, h2, *, method, nperms, rndseed, perm_idx):
+    """The unit-norm residualized markers X00n (n, p) and permuted residuals
+    r0n (n, nperms + 1, column 0 the observed trait) whose product is the
+    permutation scan's r (reference transform_reweight + transform_permute,
+    src/transform_helpers.jl:57-102, with the covariates and markers kept
+    apart)."""
     r0 = y0 - C0 @ b
     # abs guard: the reference's sqrt.(abs.(makeweights(...)))
     # (src/bulkscan_helpers.jl:138) for slightly negative eigenvalues
@@ -184,12 +184,23 @@ def _scan_perms_impl(
     norm_x = torch.sqrt(torch.clamp(xx, min=tiny))
     keep_x = residual_keep_mask(xx, (Xw * Xw).sum(0))
     keep_y = residual_keep_mask((w_r0 * w_r0).sum(), ((y0 * sqrtw) ** 2).sum())
-    r0n = (r0perm * keep_y) / norm_y
-    X00n = (X00 * keep_x[None, :]) / norm_x
+    return (X00 * keep_x[None, :]) / norm_x, (r0perm * keep_y) / norm_y
 
+
+@with_highest_matmul()
+def _perm_scan_lods(X00n, r0n, n: int, precision):
+    """LODs of the correlation product of (a block of) the operands."""
     gdt = precision.resolve_gemm()
-    L = X00n.T.to(gdt) @ r0n.to(gdt)
-    return r2lod(L, y0.shape[0], fast_log=_fast_log(precision))
+    return r2lod(X00n.T.to(gdt) @ r0n.to(gdt), n, fast_log=_fast_log(precision))
+
+
+def _scan_perms_impl(
+    y0, X0m, C0, lam, b, h2, *, method, nperms, rndseed, perm_idx, precision
+):
+    """(p, nperms + 1) LODs, column 0 the observed trait."""
+    X00n, r0n = _perm_scan_operands(y0, X0m, C0, lam, b, h2, method=method, nperms=nperms,
+                                    rndseed=rndseed, perm_idx=perm_idx)
+    return _perm_scan_lods(X00n, r0n, y0.shape[0], precision)
 
 
 def _wald(cov, nx2, ny2, n, c):

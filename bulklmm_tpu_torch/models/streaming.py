@@ -25,11 +25,18 @@ The last block is zero-padded to the block width; its padded rows are
 dropped.
 
 A ``LowRankKinship`` takes the rank-k engine (``ops/lowrank.py``): the
-trait-side projections and null fits once (:func:`_lr_trait_fit`), each
+trait-side projections and null fits once (``ops/lowrank.py::_trait_fit_lowrank``), each
 block's marker projections and its X'Y then the rank-k LOD step or alt-grid
 scan (:func:`_lr_block`), and for permutations the standard-coordinate
-whitening of ``models/bulkperm.py`` a block at a time. ``mesh=`` is not
-ported yet.
+whitening of ``models/bulkperm.py`` a block at a time.
+
+``mesh=`` (``tiles.py::make_mesh``) spreads each block over a grid of
+devices: the trait side is fitted once on the mesh's first device, where
+each block arrives; device (i, j) scans marker shard j of the block
+against trait shard i (:func:`_mesh_compute`), or, for permutations,
+trait shard i x permutation shard j against the whole block (the tiles of
+``bulkperm.py``'s sweep). Without a mesh a call is the same computation on
+a mesh of one position.
 """
 
 from __future__ import annotations
@@ -38,27 +45,24 @@ import numpy as np
 import torch
 
 from ..kernels.altgrid_fused import fused_alt_grid
-from ..ops.bulkperm import lowrank_perm_chunk_cap, lowrank_perm_marker_parts
-from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
 from ..ops.lowrank import (
-    LowRankKinship, _alt_grid_lowrank, _marker_side_parts, _parts_kwargs, _shared_parts,
-    _trait_side_parts, as_lowrank, fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank,
-    lods_and_effects_lowrank, lods_per_trait_lowrank, refuse_pallas,
+    LowRankKinship, _alt_grid_lowrank, _marker_side_parts, _parts_kwargs, _trait_fit_lowrank,
+    as_lowrank, is_lowrank, lods_and_effects_lowrank, lods_per_trait_lowrank, refuse_pallas,
 )
 from ..ops.rotation import resolve_kinship
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
-from ..utils.device import refuse_mesh, resolve_device
+from ..utils.device import mesh_device, resolve_device
 from ..utils.host import PinnedCopies, to_numpy
 from .bulkperm import (
     BulkPermResult, _attach_adj_pvals, _bulkperm_prep_traits, _bulkperm_prep_traits_lowrank,
-    _data_fingerprint, _lowrank_block_lods, _perm_checkpoint, _resolve_perm_engine,
-    _trait_block_lods, shuffle_indices,
+    _check_perm_args, _data_fingerprint, _full_rank_block_lods, _lowrank_block_lods_on,
+    _lowrank_perm_tiling, _mesh_perm_tiling, _perm_checkpoint, shuffle_indices,
 )
 from .bulkscan import (
     _alt_grid_impl, _altgrid_uses_kernel, _check_method_engine, _check_output_effects,
-    _grid_h2, _lod_effects_step, _lod_step, _scan_common_inputs, _traits_covar_grid,
+    _lod_effects_step, _lod_step, _null_h2, _scan_common_inputs, _traits_covar_grid,
 )
 from .missing import (
     ColSubsetOut, RowSubsetView, _check_group_sizes, _check_side_inputs, _ncov_total,
@@ -66,6 +70,7 @@ from .missing import (
     subset_kinship, validate_missing_kwarg,
 )
 from .results import BulkScanResult
+from .tiles import MARKERS_AXIS, TRAITS_AXIS, Mesh, _assemble, _PermTiles, _run_tiles
 
 
 def _blocks(p: int, block: int):
@@ -160,11 +165,8 @@ def _rotate_block(Ut, Xb):
 def _fit_h2_rotated(Y, C, Ut, lam, h2_grid, *, prior, reml, method, optim_interval, precision):
     """Rotate the traits and covariates and fit each trait's null h2, once."""
     Y0, C0 = Ut @ Y, Ut @ C
-    if method == "null-exact":
-        h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
-    else:
-        h2_list = _grid_h2(Y0, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision)
-    return Y0, C0, h2_list
+    return Y0, C0, _null_h2(method, Y0, C0, lam, h2_grid, prior=prior, reml=reml,
+                            optim_interval=optim_interval, precision=precision)
 
 
 def _block_lods(Y0, Xb, C0, Ut, lam, h2_list, *, precision, effects=False):
@@ -189,27 +191,6 @@ def _block_alt_grid(Y0, Xb, C0, Ut, lam, h2_grid, *, prior, reml, precision, use
 
 
 @with_highest_matmul()
-def _lr_trait_fit(Y, C, U, lam, h2_grid, *, n, prior, reml, method, optim_interval, precision):
-    """The rank-k engine's trait-side and covariate-only parts and each
-    trait's null h2, once a streamed scan (zeros for alt-grid, which scans
-    the whole grid a marker)."""
-    kdt = precision.resolve_kernel()
-    kw = _parts_kwargs(precision)
-    lr = LowRankKinship(U=U, lam=lam)
-    base = {**_shared_parts(C, lr, **kw), **_trait_side_parts(Y, C, lr, **kw)}
-    lam_k = lam.to(kdt)
-    if method == "alt-grid":
-        h2_list = torch.zeros(Y.shape[1], dtype=kdt, device=Y.device)
-    elif method == "null-exact":
-        # Brent in the solve dtype (ops/lowrank.py's module docstring)
-        h2_list = fit_h2_lowrank(base, lam, prior, n=n, reml=reml, optim_interval=optim_interval)
-    else:
-        ells = grid_null_ell_lowrank(base, lam_k, h2_grid.to(kdt), prior, n=n, reml=reml)
-        h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
-    return base, h2_list
-
-
-@with_highest_matmul()
 def _lr_block(Xb, Y, C, U, lam, tbase, h2_or_grid, *, n, prior, reml, precision, alt, effects):
     """One marker block's slabs on the rank-k engine: its marker-side
     projections and X'Y joined to the trait-side parts, then the LOD step
@@ -227,6 +208,66 @@ def _lr_block(Xb, Y, C, U, lam, tbase, h2_or_grid, *, n, prior, reml, precision,
         L, beta, se = lods_and_effects_lowrank(parts, lam_k, h2k, n, precision=precision)
         return {"L": L, "beta_mat": beta, "beta_se_mat": se}
     return {"L": lods_per_trait_lowrank(parts, lam_k, h2k, n, precision=precision)}
+
+
+#: the rank-k trait-side parts with a trait axis (last); the others are
+#: covariate-only (``ops/lowrank.py::_trait_side_parts``, ``_shared_parts``)
+_LR_TRAIT_PARTS = ("Q", "CtY", "yty")
+
+
+def _mesh_and_device(mesh, device, *arrays):
+    """``(mesh, device)`` of a streamed call: the caller's mesh and its
+    first device (where the trait side is fitted and the blocks arrive), or
+    a mesh of one position on ``utils/device.py::resolve_device``'s device."""
+    if mesh is not None:
+        return mesh, mesh_device(mesh, device)
+    device = resolve_device(device, *arrays)
+    return Mesh.single(device), device
+
+
+def _mesh_block(mesh, marker_block: int, p: int) -> int:
+    """The marker-block width: at most p, rounded up to the markers axis
+    (each position takes an equal share of a block)."""
+    block = min(int(marker_block), p)
+    return block + (-block) % mesh.shape[MARKERS_AXIS]
+
+
+def _mesh_compute(mesh, tile, trait: dict, shared: dict):
+    """The ``compute(Xb)`` of :func:`_stream_loop` on a mesh.
+
+    ``trait`` holds the trait-side tensors (trait axis last), zero-padded to
+    the traits axis and cut into one shard a row of the mesh; ``shared``
+    the replicated ones. Both are placed once a device. For a block Xb
+    (on the mesh's first device), device (i, j) runs ``tile(X_j, **ops)``
+    on marker shard j of Xb and trait shard i; the tiles' slabs are
+    assembled into (block, m) tensors on the first device. A mesh of one
+    position runs ``tile`` on the whole block as it is.
+    """
+    tshards, mshards = mesh.shape[TRAITS_AXIS], mesh.shape[MARKERS_AXIS]
+    m = next(iter(trait.values())).shape[-1]
+    w = -(-m // tshards)
+    pad = w * tshards - m
+    padded = {k: torch.cat([v, v.new_zeros(v.shape[:-1] + (pad,))], -1) if pad else v
+              for k, v in trait.items()}
+    placed = {d: {k: v.to(d) for k, v in shared.items()} for d in dict.fromkeys(mesh.flat)}
+    ops = {}
+    for i, _, d in mesh.tiles():
+        if (i, d) not in ops:
+            ops[(i, d)] = {**placed[d], **{k: v[..., i * w:(i + 1) * w].to(d)
+                                          for k, v in padded.items()}}
+    tiles = mesh.tiles()
+    if len(tiles) == 1:
+        return lambda Xb: tile(Xb, **ops[(0, mesh.first)])
+
+    def compute(Xb):
+        bw = Xb.shape[1] // mshards
+        res = _run_tiles(tiles, lambda i, j, d: tile(Xb[:, j * bw:(j + 1) * bw].to(d),
+                                                     **ops[(i, d)]))
+        keys = list(res[tiles[0]])
+        outs = _assemble({t: tuple(r[k] for k in keys) for t, r in res.items()}, mesh, w, m)
+        return dict(zip(keys, outs))
+
+    return compute
 
 
 def _default_out(p: int, m: int, precision: PrecisionConfig) -> np.ndarray:
@@ -282,23 +323,25 @@ def bulkscan_streamed(
     API) and ``trait_chunk`` (size ``marker_block`` instead), plus
     ``device`` (defaults as in :func:`bulkscan`). ``K`` may be a
     ``LowRankKinship`` (the rank-k engine; ``engine="pallas"`` raises as in
-    the JAX package). Returns a :class:`BulkScanResult` of host arrays,
-    ``L`` being ``out``.
+    the JAX package). ``mesh`` (``parallel.make_mesh``) composes streaming
+    with a device mesh: each block's markers over the markers axis, the
+    traits padded to the traits axis, every tile through the same kernels;
+    ``device`` is then the mesh's first device. Returns a
+    :class:`BulkScanResult` of host arrays, ``L`` being ``out``.
     """
-    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
     lowrank = is_lowrank(K)
     if lowrank:
         refuse_pallas(engine)
-    device = resolve_device(device, Y, K, covar)
+    mesh, device = _mesh_and_device(mesh, device, Y, K, covar)
     kwargs = dict(
         method=method, marker_block=marker_block, h2_grid=h2_grid,
         prior_variance=prior_variance, prior_sample_size=prior_sample_size, reml=reml,
         solve_method=solve_method, optim_interval=optim_interval,
         decomp_scheme=decomp_scheme, output_pvals=output_pvals, chisq_df=chisq_df,
-        precision=precision, engine=engine, output_effects=output_effects, device=device,
+        precision=precision, engine=engine, output_effects=output_effects, mesh=mesh,
     )
     masked = _masked_streamed(
         Y, G, K, covar, missing=missing, out=out, out_pvals=out_pvals,
@@ -332,10 +375,11 @@ def bulkscan_streamed(
     if marker_block is None:
         marker_block = memory.auto_marker_block(
             n, m, itemsize=dtype.itemsize,
-            n_outputs=1 + 2 * int(output_effects) + int(output_pvals), device=device,
+            n_outputs=1 + 2 * int(output_effects) + int(output_pvals),
+            budget=memory.mesh_position_budget(mesh.flat),
             rank=np.shape(K.U)[1] if lowrank else None,
         )
-    block = min(int(marker_block), p)
+    block = _mesh_block(mesh, marker_block, p)
     L = _default_out(p, m, precision) if out is None else out
     pv = None
     if output_pvals:
@@ -356,34 +400,39 @@ def bulkscan_streamed(
     alt = method == "alt-grid"
     if lowrank:
         U, lam = as_lowrank(K, dtype, device)
-        tbase, h2_list = _lr_trait_fit(
+        tbase, h2_list = _trait_fit_lowrank(
             Yd, Cd, U, lam, grid_d, n=n, prior=prior, reml=reml, method=method,
             optim_interval=optim_interval, precision=precision,
         )
+        trait = {"Y": Yd, "h2": h2_list, **{k: tbase[k] for k in _LR_TRAIT_PARTS}}
+        shared = {"C": Cd, "U": U, "lam": lam, "grid": grid_d,
+                  **{k: v for k, v in tbase.items() if k not in _LR_TRAIT_PARTS}}
 
-        def compute(Xb):
-            return _lr_block(Xb, Yd, Cd, U, lam, tbase, grid_d if alt else h2_list, n=n,
-                             prior=prior, reml=reml, precision=precision, alt=alt,
-                             effects=output_effects)
+        def tile(Xb, Y, h2, C, U, lam, grid, **parts):
+            return _lr_block(Xb, Y, C, U, lam, parts, grid if alt else h2, n=n, prior=prior,
+                             reml=reml, precision=precision, alt=alt, effects=output_effects)
     elif alt:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
-        use_kernel = _altgrid_uses_kernel(engine, precision, device)
         with with_highest_matmul():
             Y0, C0 = Ut @ Yd, Ut @ Cd
+        trait, shared = {"Y0": Y0}, {"C0": C0, "Ut": Ut, "lam": lam, "grid": grid_d}
 
-        def compute(Xb):
-            return _block_alt_grid(Y0, Xb, C0, Ut, lam, grid_d, prior=prior, reml=reml,
-                                   precision=precision, use_kernel=use_kernel)
+        def tile(Xb, Y0, C0, Ut, lam, grid):
+            return _block_alt_grid(Y0, Xb, C0, Ut, lam, grid, prior=prior, reml=reml,
+                                   precision=precision,
+                                   use_kernel=_altgrid_uses_kernel(engine, precision, Xb.device))
     else:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         Y0, C0, h2_list = _fit_h2_rotated(
             Yd, Cd, Ut, lam, grid_d, prior=prior, reml=reml, method=method,
             optim_interval=optim_interval, precision=precision,
         )
+        trait, shared = {"Y0": Y0, "h2": h2_list}, {"C0": C0, "Ut": Ut, "lam": lam}
 
-        def compute(Xb):
-            return _block_lods(Y0, Xb, C0, Ut, lam, h2_list, precision=precision,
+        def tile(Xb, Y0, h2, C0, Ut, lam):
+            return _block_lods(Y0, Xb, C0, Ut, lam, h2, precision=precision,
                                effects=output_effects)
+    compute = _mesh_compute(mesh, tile, trait, shared)
     _stream_loop(G, p, block, dtype, device, compute, write)
     if alt:
         result = BulkScanResult(L=L, h2_panel=host["h2_panel"])
@@ -523,16 +572,19 @@ def bulkscan_perms_streamed(
     ``missing="mask"/"drop"`` runs each pattern group as its own sweep, with
     its own checkpoint subdirectory. ``K`` may be a ``LowRankKinship``: each
     block then takes the rank-k engine of :func:`bulkscan_perms`.
+
+    ``mesh`` (``parallel.make_mesh``) runs each block on the sharded
+    permutation engine's tiles (trait shard x permutation shard, the block
+    replicated; ``bulkperm.py::_mesh_perm_tiling``), where ``perm_chunk``
+    is the per-device width as in ``bulkscan_perms_sharded``; the
+    checkpoint's rank key then says "sharded".
     """
-    refuse_mesh(mesh)
     validate_missing_kwarg(missing)
     if checkpoint_every < 1:
         raise ValueError("checkpoint_every must be >= 1")
-    if method not in ("null-grid", "null-exact"):
-        raise ValueError("method must be one of 'null-grid', 'null-exact'")
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
-    device = resolve_device(device, Y, K, covar)
+    _check_perm_args(method, engine, solve_method)
+    given = mesh  # None: no mesh asked for, whatever this call runs on
+    mesh, device = _mesh_and_device(given, device, Y, K, covar)
     masked = maybe_masked(
         Y, missing,
         lambda Ys, rows, traits, gi: bulkscan_perms_streamed(
@@ -545,7 +597,7 @@ def bulkscan_perms_streamed(
             decomp_scheme=decomp_scheme, precision=precision, engine=engine,
             trait_chunk=trait_chunk, perm_chunk=perm_chunk, original=original,
             tile_p=tile_p, interpret=interpret, checkpoint=group_checkpoint(checkpoint, gi),
-            checkpoint_every=checkpoint_every, perm_idx=perm_idx, device=device,
+            checkpoint_every=checkpoint_every, perm_idx=perm_idx, mesh=given, device=device,
         ),
         covar=covar, add_intercept=add_intercept, what="bulkscan_perms_streamed",
     )
@@ -560,44 +612,46 @@ def bulkscan_perms_streamed(
         covar = torch.cat([torch.ones((n, 1), dtype=covar.dtype, device=device), covar], 1)
     prior = (float(prior_variance), float(prior_sample_size))
     dtype = precision.resolve_solve()
-    if marker_block is None:
-        marker_block = memory.auto_marker_block(n, m, itemsize=dtype.itemsize, device=device,
-                                                rank=np.shape(K.U)[1] if is_lowrank(K) else None)
-    block = min(int(marker_block), p)
     lowrank = is_lowrank(K)
+    if marker_block is None:
+        marker_block = memory.auto_marker_block(n, m, itemsize=dtype.itemsize,
+                                                budget=memory.mesh_position_budget(mesh.flat),
+                                                rank=np.shape(K.U)[1] if lowrank else None)
+    block = _mesh_block(mesh, marker_block, p)
     if lowrank:
         refuse_pallas(engine, perms=True)
-        eng, trait_chunk = "xla", 16 if trait_chunk is None else trait_chunk
-        cap = lowrank_perm_chunk_cap(n, block, trait_chunk, max(
-            precision.resolve_gemm().itemsize, precision.resolve_kernel().itemsize), device=device)
+        eng, row_quant = "xla", mesh.shape[MARKERS_AXIS]
+        trait_chunk, perm_chunk = _lowrank_perm_tiling(mesh, n, block, precision, trait_chunk,
+                                                       perm_chunk)
     else:
-        eng, cap, trait_chunk = _resolve_perm_engine(
-            engine, n, device=device, precision=precision, interpret=interpret, p=block,
-            trait_chunk=trait_chunk,
+        eng, trait_chunk, perm_chunk, _, row_quant = _mesh_perm_tiling(
+            mesh, engine=engine, n=n, p=block, precision=precision, interpret=interpret,
+            trait_chunk=trait_chunk, perm_chunk=perm_chunk,
         )
-    perm_chunk = min(perm_chunk, cap)
-    idx = shuffle_indices(perm_idx, n, nperms, rndseed, original).to(device)
+    idx = shuffle_indices(perm_idx, n, nperms, rndseed, original)
 
     if lowrank:
         U, lam = as_lowrank(K, dtype, device)
-        h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep_traits_lowrank(
+        h2_list, sigma2_list, *trait_ops = _bulkperm_prep_traits_lowrank(
             Y.to(dtype), covar.to(dtype), U, lam, h2_grid.to(dtype), n=n, prior=prior, reml=reml,
             method=method, optim_interval=optim_interval, precision=precision,
         )
     else:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         with with_highest_matmul():
-            h2_list, sigma2_list, sqrtw, Qstack, wrn = _bulkperm_prep_traits(
+            h2_list, sigma2_list, *trait_ops = _bulkperm_prep_traits(
                 Y.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype), prior=prior,
                 reml=reml, method=method, optim_interval=optim_interval, precision=precision,
             )
+    tiles = _PermTiles(mesh, idx, trait_ops, row_quant=row_quant)
     acc = {}
     spans = list(_blocks(p, block))
+    rank = f"lowrank{U.shape[1]}" if lowrank else "full"
     ck, blocks_done = _stream_perm_ckpt(
         checkpoint, acc, m=m, trait_chunk=trait_chunk, block=block, perm_chunk=perm_chunk,
         device=device, n=n, p=p, nperms=nperms, rndseed=rndseed, method=method, reml=reml,
         original=original, h2_grid=h2_grid, prior=prior, precision=precision, engine=eng,
-        data_digest=data_digest, rank=f"lowrank{U.shape[1]}" if lowrank else "full",
+        data_digest=data_digest, rank=rank if given is None else f"{rank}-sharded",
     )
     uploads = _BlockUploads(G, spans, block, device)
     handle = uploads.start(blocks_done) if blocks_done < len(spans) else None
@@ -608,25 +662,15 @@ def bulkscan_perms_streamed(
         if lowrank:
             # every product reads the block in the kernel dtype: cast once;
             # zero-padded columns have zero norms and numerators: r^2 = 0
-            Xb = Xb.to(precision.resolve_kernel())
-            mparts = lowrank_perm_marker_parts(Xb, U, precision=precision)
+            block_lods = _lowrank_block_lods_on(mesh, Xb.to(precision.resolve_kernel()), U, n=n,
+                                                pc_dev=perm_chunk, precision=precision)
         else:
-            X0b = _rotate_block(Ut, Xb)
-            X32 = X0b.to(torch.float32).contiguous() if eng == "pallas" else None
-        with with_highest_matmul():
-            for ms in range(0, m, trait_chunk):
-                me = min(ms + trait_chunk, m)
-                if lowrank:
-                    blk = _lowrank_block_lods(
-                        Xb, U, mparts, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx, n=n,
-                        perm_chunk=perm_chunk, precision=precision,
-                    )
-                else:
-                    blk = _trait_block_lods(
-                        X0b, X32, sqrtw[ms:me], Qstack[ms:me], wrn[:, ms:me], idx, engine=eng,
-                        n=n, perm_chunk=perm_chunk, precision=precision, interpret=interpret,
-                    )
-                acc[ms] = blk if ms not in acc else torch.maximum(acc[ms], blk)
+            block_lods = _full_rank_block_lods(mesh, _rotate_block(Ut, Xb), eng=eng, n=n,
+                                               pc_dev=perm_chunk, precision=precision,
+                                               interpret=interpret)
+        for ms in range(0, m, trait_chunk):
+            blk = tiles.row(ms, min(ms + trait_chunk, m), block_lods)
+            acc[ms] = blk if ms not in acc else torch.maximum(acc[ms], blk)
         if ck is not None and ((bi + 1) % checkpoint_every == 0 or bi == len(spans) - 1):
             ck.save_state(_assemble_perm_acc(acc, m, trait_chunk), bi + 1)
     raise_if_missing(finite, "bulkscan_perms_streamed")

@@ -10,7 +10,7 @@ from .bulkperm import (
     permutation_indices,
 )
 from .hostfit import HostFit, fit_lmm_host, fit_lmm_host_lowrank
-from .kinship import calc_kinship
+from .kinship import calc_kinship, calc_kinship_sharded
 from .liteqtl import (
     lods_per_trait,
     lods_shared,
@@ -72,6 +72,7 @@ __all__ = [
     "as_lowrank",
     "brent_min",
     "calc_kinship",
+    "calc_kinship_sharded",
     "cancel_keep_mask",
     "check_covar_full_rank",
     "col_center",

@@ -727,11 +727,33 @@ def scan_perms_lowrank_kernel(y, Xm, C, U, lam, b, h2, *, nperms, rndseed, metho
 
 
 @with_highest_matmul()
-def _bulkscan_lowrank_core(Y, Xm, C, U, lam, h2_grid, *, n, prior, reml, precision,
-                           trait_chunk=None, method="null-grid", optim_interval=1, effects=False):
-    """``bulkscan`` on a rank-k kinship: (L, h2_list[, beta, se]) from the
-    null methods, (L, h2_panel) from alt-grid. The marker-side parts are
-    formed once and shared by the trait chunks."""
+def _trait_fit_lowrank(Y, C, U, lam, h2_grid, *, n, prior, reml, method, optim_interval,
+                       precision):
+    """``(base, h2_list)``: the trait-side and covariate-only parts of
+    traits Y (no marker) and each trait's null h2 on them (zeros for
+    alt-grid, which scans the whole grid a marker). No marker moves the h2,
+    so a scan fits it once a trait (on a mesh, once a trait shard)."""
+    kdt = precision.resolve_kernel()
+    kw = _parts_kwargs(precision)
+    lr = LowRankKinship(U=U, lam=lam)
+    base = {**_shared_parts(C, lr, **kw), **_trait_side_parts(Y, C, lr, **kw)}
+    if method == "alt-grid":
+        h2_list = torch.zeros(Y.shape[1], dtype=kdt, device=Y.device)
+    elif method == "null-exact":  # Brent in the solve dtype (module docstring)
+        h2_list = fit_h2_lowrank(base, lam, prior, n=n, reml=reml, optim_interval=optim_interval)
+    else:
+        ells = grid_null_ell_lowrank(base, lam.to(kdt), h2_grid.to(kdt), prior, n=n, reml=reml)
+        h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
+    return base, h2_list
+
+
+@with_highest_matmul()
+def _bulkscan_lowrank_core(Y, Xm, C, U, lam, h2_grid, h2_list=None, *, n, prior, reml, precision,
+                           trait_chunk=None, method="null-grid", effects=False):
+    """``bulkscan`` on a rank-k kinship at fitted null h2s: (L, h2_list[,
+    beta, se]) from the null methods (``h2_list``: each trait's h2, from
+    :func:`_trait_fit_lowrank`), (L, h2_panel) from alt-grid. The
+    marker-side parts are formed once and shared by the trait chunks."""
     from ..models.bulkscan import _chunked
 
     lr = LowRankKinship(U=U, lam=lam)
@@ -740,23 +762,22 @@ def _bulkscan_lowrank_core(Y, Xm, C, U, lam, h2_grid, *, n, prior, reml, precisi
     mparts = _marker_parts(Xm, C, lr, **kw)
     lam_k = lam.to(kdt)
 
-    def impl(Yc):
-        parts = {**mparts, **_trait_parts(Yc, Xm, C, lr, **kw)}
-        if method == "alt-grid":
+    if method == "alt-grid":
+        def impl(Yc):
+            parts = {**mparts, **_trait_parts(Yc, Xm, C, lr, **kw)}
             return _alt_grid_lowrank(parts, lam_k, h2_grid.to(kdt), prior, n=n,
                                      precision=precision, reml=reml)
-        if method == "null-exact":  # Brent in the solve dtype (module docstring)
-            h2_list = fit_h2_lowrank(parts, lam, prior, n=n, reml=reml,
-                                     optim_interval=optim_interval)
-        else:
-            ells = grid_null_ell_lowrank(parts, lam_k, h2_grid.to(kdt), prior, n=n, reml=reml)
-            h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
-        if effects:
-            L, beta, se = lods_and_effects_lowrank(parts, lam_k, h2_list.to(kdt), n, precision=precision)
-            return L, h2_list, beta, se
-        return lods_per_trait_lowrank(parts, lam_k, h2_list.to(kdt), n, precision=precision), h2_list
 
-    return _chunked(impl, Y, trait_chunk)
+        return _chunked(impl, Y, trait_chunk)
+
+    def impl(Yc, h2c):
+        parts = {**mparts, **_trait_parts(Yc, Xm, C, lr, **kw)}
+        if effects:
+            L, beta, se = lods_and_effects_lowrank(parts, lam_k, h2c.to(kdt), n, precision=precision)
+            return L, h2c, beta, se
+        return lods_per_trait_lowrank(parts, lam_k, h2c.to(kdt), n, precision=precision), h2c
+
+    return _chunked(impl, Y, trait_chunk, h2_list)
 
 
 @with_highest_matmul()

@@ -11,7 +11,7 @@ from .config import (
     precision_by_name,
     with_highest_matmul,
 )
-from .device import refuse_mesh, resolve_device
+from .device import mesh_device, resolve_device
 
 __all__ = [
     "BALANCED",
@@ -23,8 +23,8 @@ __all__ = [
     "PrecisionConfig",
     "default_float",
     "enable_x64",
+    "mesh_device",
     "precision_by_name",
-    "refuse_mesh",
     "resolve_device",
     "with_highest_matmul",
 ]

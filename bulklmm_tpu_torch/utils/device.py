@@ -34,10 +34,15 @@ def resolve_device(device, *arrays) -> torch.device:
     )
 
 
-def refuse_mesh(mesh) -> None:
-    """Refuse a device mesh: the sharded engines are not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the device mesh) is not ported to bulklmm_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 14, multi-GPU)"
+def mesh_device(mesh, device):
+    """The device a call with ``mesh=`` runs from: the mesh's first device
+    (where its inputs are prepared and its results assembled), or ``device``
+    without a mesh. Refuses a ``device`` that names another one."""
+    if mesh is None:
+        return device
+    if device is not None and torch.device(device) != mesh.first:
+        raise ValueError(
+            f"device={device} and mesh= disagree: a call on a mesh runs from the mesh's "
+            f"first device ({mesh.first}); drop device="
         )
+    return mesh.first

@@ -22,6 +22,7 @@ block's outputs are copied to the host while the next block runs.
 
 from __future__ import annotations
 
+import collections
 import os
 
 import torch
@@ -94,6 +95,20 @@ def device_memory_budget(device=None) -> int:
         cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
         return int((free + cached) * _USABLE_FRACTION)
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2
+
+
+def mesh_position_budget(devices) -> int:
+    """Bytes the tile of one position of a device mesh may plan for.
+
+    A device that a mesh names r times (a virtual mesh such as
+    ``[cuda:0] * 4``) holds the tiles of all r positions, so each position
+    gets its :func:`device_memory_budget` divided by r; otherwise a virtual
+    mesh on one card would size every tile for the whole card. The least
+    such share over the mesh's devices, so that one tile width fits every
+    position.
+    """
+    counts = collections.Counter(torch.device(d) for d in devices)
+    return min(device_memory_budget(d) // r for d, r in counts.items())
 
 
 def bulkscan_static_bytes(n: int, p: int, m: int, c: int, itemsize: int, *, n_outputs: int = 1) -> int:

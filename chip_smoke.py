@@ -195,6 +195,28 @@ exits nonzero:
     same calls in this process on the parsed arrays (1e-6; kinship 1e-12).
     Second-call times of the LOCO calls beside the whole-genome calls'.
 
+14. The device mesh at BXD scale (phase 4's data; ``parallel/``). (a)
+    ``make_mesh()`` (one position a card: 1 x 1 here) and a virtual 2 x 2
+    mesh, ``make_mesh(devices=[cuda:0] * 4, marker_shards=2)``. (b)
+    BALANCED ``bulkscan_sharded``, null-grid, alt-grid and null-exact on
+    all traits in global trait blocks of 16,384, on both meshes: within
+    5e-5 of the single-device call (other trait batches: phase 10's bar),
+    no null-grid h2 flip, alt-grid panel flips within phase 3's share,
+    within 1e-4 of EXACT64 (null-grid on the equal-h2 traits). (c)
+    ``bulkscan_perms_sharded`` with 1,000 permutations on all traits, under
+    the same bars, EXACT64 on the first 2,048 traits. (d) Each call's
+    launches must equal its tiles x trait blocks a tile (x permutation
+    chunks a tile). (e) A two-process pod on this card (gloo handshake,
+    ``python3 -m bulklmm_tpu_torch podscan`` twice, ``merge-shards``, then
+    with ``--nperms 100``, the two pods side by side) on phase 10's cut
+    (2,048 traits) against the same calls in this process, within 5e-5. (f) On the virtual mesh:
+    ``bulkscan_streamed`` alt-grid in blocks of 2,048 markers (blocks x
+    tiles launches), ``bulkscan_perms_streamed`` (2,048 traits, 100
+    permutations), ``bulkscan_loco`` null-grid (20 chromosomes x 4 tiles
+    launches, no h2 flip) and ``bulkscan_perms_loco`` (2,048 traits, 100
+    permutations), each within 5e-5 of the call without the mesh. Times
+    (second calls, host clock) and peak device memory are printed.
+
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
 each kernel, with its bound on this card (``loco_launches`` is its launch
@@ -205,6 +227,8 @@ smaller of flops over 67 TFLOP/s (CUDA cores) and 3 x flops over 495
 TFLOP/s (three TF32 passes on the tensor cores); ``bound_unit`` names the
 unit and ``simt_bound_ms`` keeps the CUDA cores' time;
 ``general_kernel_ms`` is the LOD step's general kernel at the same shape;
+``mesh_launches`` its launches in one call on phase 14's virtual 2 x 2
+mesh (null-grid for the LOD kernel);
 ``effects_ms``, ``effects_plain_ms`` and ``effects_bound_ms`` are its effects
 variant's time, its plain version's and its bound (the same operations,
 three (p, m) float32 outputs written). No
@@ -298,6 +322,11 @@ MOUSE_CHROMS = tuple(str(i) for i in range(1, 20)) + ("X",)
 MOUSE_MB = (195, 182, 160, 157, 152, 150, 145, 129, 125, 131, 122, 120, 120, 125, 104, 98, 95, 91,
             61, 171)
 LOCO_BAR = 1e-6  # max |dLOD|, a LOCO call vs its per-chromosome calls, and the CLI vs in-process
+#: phase 14: max |dLOD| of a call on a mesh against the same call on one
+#: device (other trait batches: phase 10's bar for host blocks), and the
+#: global trait block of its scans (so that its launches are predictable)
+MESH_BAR = 5e-5
+MESH_TRAIT_CHUNK = 16384
 KINSHIP_BAR = 1e-12  # max |dK|, leave-out kinships vs calc_kinship of the subset panel
 CLI_TRAITS, CLI_NPERMS = 2048, 100  # phase 13 (f): the CLI run's traits and permutations
 CLI_SECONDS = 600  # a CLI subprocess's time limit
@@ -2153,6 +2182,251 @@ def loco_io_cli(dev, card, Yd, Gd, K):
     return launches
 
 
+def _mesh_name(mesh) -> str:
+    t, k = mesh.shape["traits"], mesh.shape["markers"]
+    return f"{t} x {k} mesh on {', '.join(dict.fromkeys(str(d) for d in mesh.flat))}"
+
+
+def _flips(a, b) -> int:
+    return int((a != b).sum())
+
+
+def mesh_scans(dev, card, Yd, Gd, K, meshes):
+    """Phase 14 (b) and (d): BALANCED ``bulkscan_sharded``, the three
+    methods, on each mesh: launches, against the single-device call and
+    EXACT64. Returns the launches on the last mesh, by counter."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.parallel import bulkscan_sharded
+
+    launches = {}
+    for method, counter in (("null-grid", "liteqtl_lod"), ("alt-grid", "altgrid"),
+                            ("null-exact", "liteqtl_lod")):
+        one = bt.bulkscan(Yd, Gd, K, method=method, precision=bt.BALANCED)
+        ex = bt.bulkscan(Yd, Gd, K, method=method, precision=bt.EXACT64)
+        h2 = "h2_panel" if method == "alt-grid" else "h2_null_list"
+        for mesh in meshes:
+            call = lambda: bulkscan_sharded(Yd, Gd, K, mesh=mesh, method=method,  # noqa: E731
+                                            precision=bt.BALANCED, trait_chunk=MESH_TRAIT_CHUNK)
+            res, counts = _drive(f"{method} bulkscan_sharded, {_mesh_name(mesh)}", call)
+            tiles = len(mesh.tiles())
+            w = -(-M // mesh.shape["traits"])
+            want = tiles * -(-w // -(-MESH_TRAIT_CHUNK // mesh.shape["traits"]))
+            print(f"    {counts[counter]} {counter} launches: {tiles} tiles x "
+                  f"{want // tiles} trait chunks a tile")
+            check(counts[counter] == want and sum(counts.values()) == want,
+                  f"{method} on the mesh launched {counts}, not {want} {counter} launches")
+            L = res.L
+            check(tuple(L.shape) == (P, M) and L.device == dev and L.dtype == one.L.dtype
+                  and bool(torch.isfinite(L).all()), f"{method}: L is not finite (P, M) on {dev}")
+            flips = _flips(getattr(res, h2), getattr(one, h2))
+            same = torch.ones(M, dtype=torch.bool, device=dev)
+            if method == "null-grid":
+                same = res.h2_null_list == one.h2_null_list
+            diff = _max_abs_diff_cols(L, one.L, same)
+            eq_ex = (res.h2_null_list.double() == ex.h2_null_list) if method == "null-grid" \
+                else torch.ones(M, dtype=torch.bool, device=dev)
+            oerr = _max_abs_diff_cols(L, ex.L, eq_ex)
+            second = _host_ms(call)
+            h2_what = (f"max|dh2| {(res.h2_null_list - one.h2_null_list).abs().max().item():.2e}"
+                       if method == "null-exact" else f"{flips} h2 flips")
+            print(f"    against the single-device call: max|dLOD| = {diff:.3e} (bar "
+                  f"{MESH_BAR:.0e}), {h2_what}; against EXACT64: {oerr:.3e} (bar "
+                  f"{ORACLE_BAR:.0e}); second call {second:.1f} ms (host clock) on {card}")
+            check(diff <= MESH_BAR, f"{method} on the mesh strays from the single-device call")
+            if method == "null-grid":
+                check(flips == 0, "null-grid on the mesh flips a grid h2")
+            elif method == "alt-grid":
+                check(flips <= INDEX_FLIP_SHARE * P * M, "alt-grid on the mesh flips h2 panels")
+            check(oerr <= ORACLE_BAR, f"{method} on the mesh strays from EXACT64")
+            if method != "null-exact":  # the LOD kernel's count is null-grid's
+                launches[counter] = counts[counter]
+            del res, L
+        single = _host_ms(lambda: bt.bulkscan(Yd, Gd, K, method=method, precision=bt.BALANCED))
+        print(f"    {method} on one device, second call: {single:.1f} ms (host clock)")
+        del one, ex
+    return launches
+
+
+def mesh_perms(dev, card, Yd, Gd, K, meshes):
+    """Phase 14 (c) and (d): BALANCED ``bulkscan_perms_sharded`` with 1,000
+    permutations on all traits on each mesh; returns the last mesh's
+    launches."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.parallel import bulkscan_perms_sharded
+    from bulklmm_tpu_torch.models.bulkperm import _mesh_perm_tiling
+
+    one = bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED)
+    sub = slice(0, OPTION_TRAITS)
+    ex = bt.bulkscan_perms(Yd[:, sub], Gd, K, nperms=NPERMS, rndseed=0, precision=bt.EXACT64)
+    for mesh in meshes:
+        call = lambda: bulkscan_perms_sharded(Yd, Gd, K, mesh=mesh, nperms=NPERMS,  # noqa: E731
+                                              rndseed=0, precision=bt.BALANCED)
+        res, counts = _drive(f"bulkscan_perms_sharded, {NPERMS} permutations, "
+                             f"{_mesh_name(mesh)}", call)
+        eng, tc, pc, _, rq = _mesh_perm_tiling(mesh, engine="auto", n=N, p=P,
+                                               precision=bt.BALANCED, interpret=False,
+                                               trait_chunk=None, perm_chunk=2048)
+        rows = -(-(NPERMS + 1) // rq) * rq // mesh.shape["markers"]
+        tiles = len(mesh.tiles())
+        want = -(-M // tc) * tiles * -(-rows // pc)
+        print(f"    {counts['bulkperm_maxr2']} permutation-kernel launches: {-(-M // tc)} trait "
+              f"blocks of {tc} x {tiles} tiles x {-(-rows // pc)} permutation chunks of "
+              f"{rows} rows a tile ({eng})")
+        check(eng == "pallas" and counts["bulkperm_maxr2"] == want
+              and sum(counts.values()) == want,
+              f"the sharded permutations launched {counts}, not {want} kernel launches")
+        ml = res.maxlods
+        check(tuple(ml.shape) == (M, NPERMS + 1) and ml.device == dev
+              and bool(torch.isfinite(ml).all()), "sharded maxlods are not finite on the card")
+        flips = _flips(res.h2_null_list, one.h2_null_list)
+        same = res.h2_null_list == one.h2_null_list
+        diff = (ml - one.maxlods)[same].abs().max().item()
+        eq = res.h2_null_list[sub].double() == ex.h2_null_list
+        oerr = (ml[sub].double() - ex.maxlods)[eq].abs().max().item()
+        second = _host_ms(call)
+        print(f"    against the single-device sweep: max|dLOD| = {diff:.3e} (bar {MESH_BAR:.0e}), "
+              f"{flips} h2 flips; against EXACT64 on traits 0..{OPTION_TRAITS}: {oerr:.3e} (bar "
+              f"{ORACLE_BAR:.0e}); second call {second:.1f} ms (host clock) on {card}")
+        check(flips == 0 and diff <= MESH_BAR, "the sharded sweep strays from the single device")
+        check(oerr <= ORACLE_BAR, "the sharded sweep strays from EXACT64")
+        del res, ml
+    single = _host_ms(lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0,
+                                                precision=bt.BALANCED))
+    print(f"    bulkscan_perms on one device, second call: {single:.1f} ms (host clock)")
+    return counts["bulkperm_maxr2"]
+
+
+def mesh_pod(dev, card, Yd, Gd, K):
+    """Phase 14 (e): a two-process pod on this card (gloo handshake):
+    ``podscan`` twice, ``merge-shards``, then the permutation pod, on phase
+    10's cut, against the same calls in this process."""
+    import socket
+    import tempfile
+
+    import bulklmm_tpu_torch as bt
+
+    sub = slice(0, OPTION_TRAITS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.savez(tmp / "geno.npz", geno=Gd.cpu().numpy())
+        np.savez(tmp / "pheno.npz", pheno=Yd[:, sub].cpu().numpy())
+        files = ["--geno", tmp / "geno.npz", "--pheno", tmp / "pheno.npz",
+                 "--precision", "balanced", "--device", str(dev)]
+        t0 = time.perf_counter()
+        procs = {}
+        # the two pods (LODs, permutations) side by side: four processes,
+        # two process groups, each process its own CUDA context on the card
+        for kind, extra in (("lod", []), ("perm", ["--nperms", MASK_NPERMS])):
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                coord = f"127.0.0.1:{sk.getsockname()[1]}"
+            procs[kind] = [_cli(tmp, "podscan", *files, "--coordinator", coord, "--nproc", 2,
+                                "--pid", i, "--save-shards", tmp / kind, "-o", tmp / "pod.npz",
+                                *extra) for i in range(2)]
+        for kind, ps in procs.items():
+            metas = [json.loads(_finish(p, f"podscan {kind} {i}").strip().splitlines()[-1])
+                     for i, p in enumerate(ps)]
+            check(sorted(tuple(mt["traits"]) for mt in metas)
+                  == [(0, OPTION_TRAITS // 2), (OPTION_TRAITS // 2, OPTION_TRAITS)],
+                  f"the pod's processes took the traits {metas}")
+        merges = [_cli(tmp, "merge-shards", "--shards-dir", tmp / kind, "-o",
+                       tmp / f"{kind}.npz", *(["--perms"] if kind == "perm" else []))
+                  for kind in procs]
+        for kind, p in zip(procs, merges):
+            _finish(p, f"merge-shards {kind}")
+        pod_s = time.perf_counter() - t0
+        L = np.load(tmp / "lod.npz")["L"]
+        P_ = np.load(tmp / "perm.npz")["perm_maxlods"]
+    Kb = bt.calc_kinship(Gd, bt.BALANCED)
+    one = bt.bulkscan(Yd[:, sub], Gd, Kb, precision=bt.BALANCED)
+    ones = bt.bulkscan_perms(Yd[:, sub], Gd, Kb, nperms=MASK_NPERMS, rndseed=0,
+                             precision=bt.BALANCED)
+    lerr = float(np.abs(L - one.L.double().cpu().numpy()).max())
+    perr = float(np.abs(P_ - ones.maxlods.double().cpu().numpy()).max())
+    print(f"  two-process pod on {dev} ({OPTION_TRAITS} traits, {MASK_NPERMS} permutations): "
+          f"merged LODs vs the in-process bulkscan max|dLOD| = {lerr:.3e}, merged maxima vs "
+          f"bulkscan_perms {perr:.3e} (bar {MESH_BAR:.0e}); both pods side by side, then both "
+          f"merges, {pod_s:.1f} s (host clock, process start-up included) on {card}")
+    check(lerr <= MESH_BAR and perr <= MESH_BAR, "the pod's merged results stray")
+
+
+def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
+    """Phase 14 (f): the streamed engines and LOCO with ``mesh=``, on phase
+    10's and 13's cuts, against the same calls without it."""
+    import bulklmm_tpu_torch as bt
+
+    Gh = Gd.cpu().numpy()
+    tiles = len(mesh.tiles())
+    blocks = -(-P // STREAM_BLOCK)
+    call = lambda m: bt.bulkscan_streamed(Yd, Gh, K, method="alt-grid",  # noqa: E731
+                                          marker_block=STREAM_BLOCK, precision=bt.BALANCED,
+                                          **({"mesh": m} if m else {}))
+    st, counts = _drive(f"streamed alt-grid, blocks of {STREAM_BLOCK}, {_mesh_name(mesh)}",
+                        lambda: call(mesh))
+    check(counts["altgrid"] == blocks * tiles and sum(counts.values()) == blocks * tiles,
+          f"the streamed alt-grid on the mesh launched {counts}, not {blocks} x {tiles}")
+    one = call(None)
+    err = float(np.abs(st.L - one.L).max())
+    flips = int((st.h2_panel != one.h2_panel).sum())
+    print(f"    against the single-device streamed call: max|dLOD| = {err:.3e} (bar "
+          f"{MESH_BAR:.0e}), {flips} h2 panel flips")
+    check(err <= MESH_BAR and flips <= INDEX_FLIP_SHARE * P * M, "streamed on the mesh strays")
+    del st, one
+    sub = slice(0, OPTION_TRAITS)
+    kw = dict(nperms=MASK_NPERMS, rndseed=0, marker_block=STREAM_BLOCK, precision=bt.BALANCED)
+    sp, counts = _drive("streamed permutations on the mesh",
+                        lambda: bt.bulkscan_perms_streamed(Yd[:, sub], Gh, K, mesh=mesh, **kw))
+    check(counts["bulkperm_maxr2"] > 0, "the streamed permutations on the mesh ran no kernel")
+    ref = bt.bulkscan_perms_streamed(Yd[:, sub], Gh, K, **kw).maxlods
+    err = (sp.maxlods - ref).abs().max().item()
+    print(f"    against the single-device streamed sweep: max|dLOD| = {err:.3e}")
+    check(err <= MESH_BAR, "the streamed permutations on the mesh stray")
+
+    chrom = loco_chromosomes(P)
+    nchrom = len(MOUSE_CHROMS)
+    res, counts = _drive(f"bulkscan_loco null-grid, {_mesh_name(mesh)}",
+                         lambda: bt.bulkscan_loco(Yd, Gd, chrom, mesh=mesh,
+                                                  precision=bt.BALANCED))
+    want = nchrom * tiles
+    check(counts["liteqtl_lod"] == want and sum(counts.values()) == want,
+          f"LOCO on the mesh launched {counts}, not {nchrom} x {tiles}")
+    one = bt.bulkscan_loco(Yd, Gd, chrom, precision=bt.BALANCED)
+    same = torch.stack([res.h2_null_by_chrom[c] == one.h2_null_by_chrom[c]
+                        for c in MOUSE_CHROMS]).all(0)
+    err = _max_abs_diff_cols(res.L, one.L, same)
+    print(f"    against the single-device LOCO call: max|dLOD| = {err:.3e} (bar {MESH_BAR:.0e}), "
+          f"{int((~same).sum())} traits with a flipped h2 on some chromosome")
+    check(bool(same.all()) and err <= MESH_BAR, "LOCO on the mesh strays")
+    del res, one
+    kw = dict(nperms=MASK_NPERMS, rndseed=0, precision=bt.BALANCED)
+    pl, counts = _drive("bulkscan_perms_loco on the mesh",
+                        lambda: bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, mesh=mesh, **kw))
+    check(counts["bulkperm_maxr2"] > 0, "bulkscan_perms_loco on the mesh ran no kernel")
+    ref = bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, **kw).maxlods
+    err = (pl.maxlods - ref).abs().max().item()
+    print(f"    against the single-device LOCO sweep: max|dLOD| = {err:.3e}")
+    check(err <= MESH_BAR, "bulkscan_perms_loco on the mesh strays")
+
+
+def device_mesh(dev, card, Yd, Gd, K):
+    """Phase 14: the device mesh on the card."""
+    from bulklmm_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    meshes = (make_mesh(), make_mesh(devices=[dev] * 4, marker_shards=2))
+    check(meshes[0].shape == {"traits": torch.cuda.device_count(), "markers": 1},
+          f"make_mesh() is {meshes[0].shape}")
+    print(f"  (a) make_mesh(): {_mesh_name(meshes[0])}; the virtual mesh: {_mesh_name(meshes[1])}")
+    launches = mesh_scans(dev, card, Yd, Gd, K, meshes)
+    launches["bulkperm_maxr2"] = mesh_perms(dev, card, Yd, Gd, K, meshes)
+    t_pod = time.perf_counter()
+    mesh_pod(dev, card, Yd, Gd, K)
+    t_pod = time.perf_counter() - t_pod
+    mesh_streamed_loco(dev, card, Yd, Gd, K, meshes[1])
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s ({t_pod:.1f} s of it the pod)")
+    return launches
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -2211,6 +2485,9 @@ def main() -> None:
     print(f"[13] LOCO, the file readers and the CLI at BXD scale ({N} x {P} x {M}, "
           f"{len(MOUSE_CHROMS)} chromosomes)")
     loco = loco_io_cli(dev, card, Yd, Gd, K)
+    print(f"[14] the device mesh at BXD scale ({N} x {P} x {M}): make_mesh(), a virtual 2 x 2 "
+          "mesh on the card, a two-process pod, streaming and LOCO on the mesh")
+    mesh = device_mesh(dev, card, Yd, Gd, K)
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -2219,6 +2496,7 @@ def main() -> None:
         "replaces": "bulklmm_tpu/pallas/liteqtl_fused.py:106",
         "launches": lod_launches,
         "loco_launches": loco["null-grid"],
+        "mesh_launches": mesh["liteqtl_lod"],
         "max_abs_err": lod_err,
         "ms": med["LOD kernel alone"],
         "plain_ms": med["LOD plain version"],
@@ -2235,6 +2513,7 @@ def main() -> None:
         "replaces": "bulklmm_tpu/pallas/altgrid_fused.py:177",
         "launches": alt_launches,
         "loco_launches": loco["alt-grid"],
+        "mesh_launches": mesh["altgrid"],
         "max_abs_err": alt_err,
         "ms": med["alt-grid kernel alone"],
         "plain_ms": med["alt-grid plain version"],
@@ -2246,6 +2525,7 @@ def main() -> None:
         "replaces": "bulklmm_tpu/pallas/bulkperm_fused.py:141",
         "launches": perm_launches,
         "loco_launches": loco["perms"],
+        "mesh_launches": mesh["bulkperm_maxr2"],
         "max_abs_err": perm_err,
         "ms": pmed["kernel"],
         "plain_ms": pmed["plain"],

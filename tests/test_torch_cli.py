@@ -1,8 +1,10 @@
 """The port's command line (``bulklmm_tpu_torch/cli.py``) against the JAX
 package's (``bulklmm_tpu/cli.py``): both ``main``s called in this process on
 the same CSV files, the port with ``--device cpu``, and their output files
-compared; the argument errors and the refusals of what needs a device mesh;
-one subprocess of ``python -m bulklmm_tpu_torch``.
+compared; the argument errors; the device mesh (``--sharded``, on the
+port's side a virtual mesh of the CPU, on the JAX package's its 8 virtual
+devices), ``podscan`` as a pod of one process and ``merge-shards``; one
+subprocess of ``python -m bulklmm_tpu_torch``.
 
 Where a run permutes, the JAX package's shuffle indices are patched in for
 the port's at the same seeds (tests/test_torch_loco.py). Bars: EXACT64
@@ -223,9 +225,9 @@ ERRORS = [
     (["bulkscan", "--stream-markers", 16, "--checkpoint-every", 2, "--nperms", 8], "resume"),
     (["scan", "--loco", "--gmap", "GMAP", "--kinship", "K.csv"], "--kinship"),
     (["bulkscan", "--loco", "--gmap", "GMAP", "--kinship", "K.csv"], "--kinship"),
-    (["bulkscan", "--sharded"], "item 14"),
-    (["bulkscan", "--marker-shards", 2], "item 14"),
-    (["podscan"], "item 14"),
+    (["podscan", "--coordinator", "127.0.0.1:1"], "together"),
+    (["podscan", "--nproc", 2, "--pid", 0], "together"),
+    (["podscan", "--loco", "--gmap", "GMAP"], "--loco/--gmap"),
 ]
 
 
@@ -240,16 +242,68 @@ def test_cli_argument_errors(csv, argv, message):
     assert not (csv / out).exists()
 
 
-def test_cli_merge_shards_refused_and_device_rule(csv, monkeypatch):
-    with pytest.raises(SystemExit) as e:
+def test_cli_merge_shards_refused_and_device_rule(csv, monkeypatch, tmp_path):
+    # merge-shards refuses a directory without shards, and shards that do
+    # not tile the traits (a process's file missing), as the JAX package's
+    with pytest.raises(FileNotFoundError, match="lod_shard"):
         cli.main(["merge-shards", "--shards-dir", str(csv), "-o", str(csv / "m.npz")])
-    assert "item 14" in str(e.value.code)
+    for pid, (lo, hi) in enumerate([(0, 2), (4, 6)]):
+        np.savez(tmp_path / f"lod_shard_{pid:05d}.npz", trait_lo=lo, trait_hi=hi,
+                 lod=np.zeros((P, hi - lo)), h2=np.zeros(hi - lo))
+    with pytest.raises(ValueError, match="do not cover"):
+        cli.main(["merge-shards", "--shards-dir", str(tmp_path), "-o", str(csv / "m.npz")])
+    assert not (csv / "m.npz").exists()
     # no card and no --device: exit naming --device cpu, never run unasked
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli.main(_args(csv, "bulkscan", "nodev.npz"))
     assert "--device cpu" in str(e.value.code)
     assert not (csv / "nodev.npz").exists()
+    with pytest.raises(SystemExit) as e:
+        cli.main(_args(csv, "bulkscan", "nodev.npz", "--sharded"))
+    assert "--device cpu" in str(e.value.code)
+
+
+SHARDED = {
+    "sharded": ["--sharded", "--method", "null-exact", "--effects"],
+    "marker-shards-perms": ["--sharded", "--marker-shards", 2, "--nperms", 12, "--seed", 2],
+    "sharded-streamed": ["--sharded", "--marker-shards", 2, "--stream-markers", 16,
+                         "--nperms", 8, "--seed", 1],
+    "sharded-loco": ["--sharded", "--loco", "--gmap", "GMAP", "--nperms", 12],
+}
+
+
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_cli_bulkscan_sharded_matches_jax(csv, capsys, jax_shuffles, case):
+    """``--sharded`` (with ``--marker-shards``, ``--nperms``,
+    ``--stream-markers``, ``--loco``) against the JAX CLI's sharded runs:
+    EXACT64 1e-8, null-exact 1e-6 (Brent's h2 moves inside its window)."""
+    extra = [csv / "gmap.csv" if a == "GMAP" else a for a in SHARDED[case]]
+    (ref, port), lines = _both(capsys, csv, "bulkscan", *extra, "--precision", "exact64")
+    assert sorted(port) == sorted(ref)
+    _close(port, ref, 1e-6 if "null-exact" in extra else 1e-8)
+    assert lines[0] == lines[1]
+
+
+def test_cli_podscan_and_merge_match_jax(csv, capsys, jax_shuffles, tmp_path):
+    """``podscan`` as a pod of one process, its shard files merged by
+    ``merge-shards``, LODs and permutation maxima, against the JAX CLI's."""
+    merged = {}
+    for name, main, dev in (("jax", jcli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        for kind, extra in (("lod", []), ("perm", ["--nperms", 16, "--seed", 3])):
+            shards = tmp_path / f"{name}_{kind}"
+            main(_args(csv, "podscan", f"pod_{name}.npz", "--precision", "exact64",
+                       "--save-shards", shards, *extra, *dev))
+            meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            assert meta["pid"] == 0 and meta["traits"] == [0, M]
+            out = tmp_path / f"merged_{name}_{kind}.npz"
+            main(["merge-shards", "--shards-dir", str(shards), "-o", str(out)]
+                 + (["--perms"] if kind == "perm" else []))
+            merged[name, kind] = dict(np.load(out))
+    capsys.readouterr()
+    for kind in ("lod", "perm"):
+        _close(merged["port", kind], merged["jax", kind], 1e-8)
+    assert merged["port", "perm"]["perm_maxlods"].shape == (M, 17)
 
 
 def test_cli_module_subprocess(csv, capsys, tmp_path):

@@ -286,9 +286,36 @@ def test_loco_guards(loco_data):
         bt.bulkscan_loco(Y, G, chrom[:-3], device="cpu")
     with pytest.raises(ValueError, match="profile_ll"):
         bt.scan_loco(Y[:, 0], G, chrom, profile_ll=True, device="cpu")
+    # a mesh's calls run from its first device: another device= is refused
+    mesh = bt.parallel.make_mesh(devices=["cpu:0"] * 2)
     for fn in (bt.bulkscan_loco, bt.bulkscan_perms_loco):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(Y, G, chrom, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="disagree"):
+            fn(Y, G, chrom, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["null-grid", "alt-grid"])
+def test_loco_on_a_mesh_is_its_sharded_calls(loco_data, method):
+    """``mesh=``: one sharded call a chromosome (4 trait x 2 marker shards
+    on the CPU), each chromosome's rows those of ``bulkscan_sharded`` on its
+    leave-out kinship (1e-12, the same operations) and within 1e-9 of the
+    single-device LOCO call; the permutation maxima likewise."""
+    G, Y, chrom = loco_data
+    mesh = bt.parallel.make_mesh(devices=["cpu"] * 8, marker_shards=2)
+    res = bt.bulkscan_loco(Y, G, chrom, method=method, mesh=mesh, precision=bt.EXACT64)
+    one = bt.bulkscan_loco(Y, G, chrom, method=method, precision=bt.EXACT64, device="cpu")
+    assert _diff(res.L, one.L) < 1e-9
+    Ks = bt.loco_kinship(G, chrom, bt.EXACT64, device="cpu")
+    for c in CHROMS:
+        mask = chrom == c
+        sh = bt.parallel.bulkscan_sharded(Y, G[:, mask], Ks[c], method=method, mesh=mesh,
+                                          precision=bt.EXACT64)
+        assert _diff(res.L[mask], sh.L) < 1e-12, c
+    if method == "null-grid":
+        kw = dict(nperms=NPERMS, precision=bt.EXACT64)
+        pm = bt.bulkscan_perms_loco(Y, G, chrom, mesh=mesh, trait_chunk=3, **kw)
+        po = bt.bulkscan_perms_loco(Y, G, chrom, device="cpu", **kw)
+        assert _diff(pm.maxlods, po.maxlods) < 1e-9
+        assert _diff(pm.log10_adj_pvals, po.log10_adj_pvals) < 1e-9
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where no CUDA exists")

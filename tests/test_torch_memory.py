@@ -88,6 +88,29 @@ def test_cpu_budget_is_half_the_host_ram():
     assert mem.device_memory_budget("cpu") == ram // 2 > 1024**3
 
 
+def test_mesh_position_budget_divides_a_repeated_device(monkeypatch):
+    """A device named r times in a mesh gives each of its positions 1/r of
+    its budget, and a mesh's tiles are sized for its least position: a
+    virtual mesh on one card must not size every tile for the whole card."""
+    budgets = {"cpu": 8 * 1024**3, "meta": 3 * 1024**3}
+    monkeypatch.setattr(mem, "device_memory_budget", lambda d: budgets[torch.device(d).type])
+    assert mem.mesh_position_budget(["cpu"]) == 8 * 1024**3
+    assert mem.mesh_position_budget(["cpu"] * 4) == 2 * 1024**3
+    assert mem.mesh_position_budget(["cpu"] * 2 + ["meta"]) == 3 * 1024**3
+    assert mem.mesh_position_budget(["cpu"] * 2 + ["meta"] * 2) == 3 * 1024**3 // 2
+    # the sharded scan sizes one tile (p / marker shards, m / trait shards)
+    # against that share: the same decision as one device at that size
+    from bulklmm_tpu_torch.models.bulkscan import _auto_chunk
+    from bulklmm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 4, marker_shards=2)
+    dims = dict(grid=10, c=1, itemsize=8, n_outputs=1, alt_grid=False, rank=None)
+    budgets["cpu"] = 4 * 600 * 1024**2
+    got = _auto_chunk(mesh, m=4096, dims=dict(n=400, p=20_000, **dims))
+    one = mem.auto_trait_chunk(400, 10_000, 2048, budget=600 * 1024**2, **dims)
+    assert one is not None and got == 2 * one
+
+
 @pytest.fixture(scope="module")
 def small_data():
     """p large enough that the (p, m) outputs dominate the model: host blocks

@@ -38,7 +38,7 @@ WINDOW = 2 * (np.finfo(np.float64).eps ** 0.5 + np.finfo(np.float64).eps)
 NPERMS, SEED = 24, 5
 
 #: names of the JAX package's __all__ the port still lacks; it may only shrink
-NOT_PORTED = frozenset({"parallel"})
+NOT_PORTED = frozenset()
 
 
 def _np(x):
@@ -272,7 +272,12 @@ def test_exports_only_shrink():
     names still to port. Porting one of them removes it from the set."""
     lacking = {n for n in bl.__all__ if not hasattr(bt, n)}
     assert lacking == NOT_PORTED
-    assert len(bl.__all__) - len(lacking) == 58
+    assert len(bl.__all__) - len(lacking) == 59
+    # the sharded surface: every name of the JAX package's parallel module
+    # but its dry-run alias
+    from bulklmm_tpu import parallel as jpar
+
+    assert set(jpar.__all__) - set(bt.parallel.__all__) == {"train_step_sharded"}
     for name in ("fit_lmm", "gridbrent", "make_weights", "r2lod", "p2lod", "lod2p", "wls"):
         assert callable(getattr(bt, name)), name
     assert set(bt.__all__) <= set(dir(bt))

@@ -8,6 +8,8 @@ Permutation maxima: equal to ``bulkscan_perms`` with the same shuffle
 indices to 1e-12, and to the JAX package's streamed sweep to 1e-9.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -109,8 +111,9 @@ def test_streamed_guards(cohort):
         got = call(Y, G, lr, precision=bt.EXACT64, marker_block=16, **extra, **kw)
         f = "maxlods" if extra else "L"
         assert _max(getattr(got, f), getattr(ref, f)) < 1e-8
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            call(Y, G, K, mesh=object(), **kw)
+        # a mesh's calls run from its first device: another device= is refused
+        with pytest.raises(ValueError, match="disagree"):
+            call(Y, G, K, mesh=bt.parallel.make_mesh(devices=["cpu:0"]), **kw)
 
 
 def test_out_untouched_after_a_missing_value_error(cohort, tmp_path):
@@ -189,3 +192,76 @@ def test_streamed_perms_checkpoint_resume(cohort, tmp_path):
     assert _max(b.maxlods, ref.maxlods) < 1e-12
     with pytest.raises(ValueError, match="different sweep"):
         bt.bulkscan_perms_streamed(Y[:, :5], G, K, checkpoint=str(ck), **dict(kw, nperms=7))
+
+
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["one-device", "mesh"])
+def test_streamed_perms_masked_checkpoint_rank_key(cohort, tmp_path, on_mesh):
+    """Each pattern group of a masked streamed sweep checkpoints under the
+    rank key of the call: "full" without a mesh, as an unmasked call does,
+    "full-sharded" with one."""
+    G, K, Y = cohort[0], cohort[1], cohort[2]
+    Ys = Y[:, :4].copy()
+    Ys[3:7, 1] = np.nan
+    where = (dict(mesh=bt.parallel.make_mesh(devices=["cpu"] * 4, marker_shards=2))
+             if on_mesh else dict(device="cpu"))
+    ck = tmp_path / "ck"
+    bt.bulkscan_perms_streamed(Ys, G, K, nperms=7, marker_block=16, precision=bt.EXACT64,
+                               missing="mask", checkpoint=str(ck), **where)
+    ranks = [json.loads(f.read_text())["rank"] for f in sorted(ck.glob("pattern_*/meta.json"))]
+    want = "full-sharded-streamed-" if on_mesh else "full-streamed-"
+    assert len(ranks) == 2 and all(r.startswith(want) for r in ranks), ranks
+
+
+@pytest.mark.parametrize("method", ["null-grid", "null-exact", "alt-grid"])
+def test_streamed_on_a_mesh_matches_sharded(cohort, method):
+    """``mesh=``: 11 traits on 4 trait shards, blocks of 15 markers (16 on
+    2 marker shards); against the single-device streamed call (the same h2
+    fit, 1e-10) and the in-memory ``bulkscan_sharded`` (1e-9; null-exact
+    1e-6, test_torch_sharding.py: each trait shard fits Brent on its own)."""
+    G, K, Y, covar = cohort
+    mesh = bt.parallel.make_mesh(devices=["cpu"] * 8, marker_shards=2)
+    effects = method != "alt-grid"
+    kw = dict(method=method, output_pvals=True, output_effects=effects, precision=bt.EXACT64)
+    st = bt.bulkscan_streamed(Y, G, K, covar, marker_block=15, mesh=mesh, **kw)
+    one = bt.bulkscan_streamed(Y, G, K, covar, marker_block=15, device="cpu", **kw)
+    sh = bt.parallel.bulkscan_sharded(Y, G, K, covar, mesh=mesh, **kw)
+    fields = ["L", "log10Pvals_mat"] + (
+        ["beta_mat", "beta_se_mat", "h2_null_list"] if effects else ["h2_panel"])
+    for f in fields:
+        assert _max(getattr(st, f), getattr(one, f)) < 1e-10, f
+        assert _max(getattr(st, f), getattr(sh, f)) < (1e-6 if method == "null-exact" else 1e-9)
+
+
+def test_streamed_on_a_mesh_lowrank_and_perms(cohort, tmp_path):
+    """The rank-k engine and both permutation engines on a mesh, against
+    the single-device streamed calls and ``bulkscan_perms_sharded``; a
+    checkpointed sweep on the mesh resumes."""
+    G, K, Y, _ = cohort
+    mesh = bt.parallel.make_mesh(devices=["cpu"] * 8, marker_shards=2)
+    lam, U = np.linalg.eigh(K)
+    lr = LowRankKinship(U=U[:, -10:], lam=lam[-10:])
+    for method in ("null-grid", "alt-grid"):
+        kw = dict(method=method, marker_block=16, precision=bt.EXACT64)
+        a = bt.bulkscan_streamed(Y, G, lr, mesh=mesh, **kw)
+        b = bt.bulkscan_streamed(Y, G, lr, device="cpu", **kw)
+        assert _max(a.L, b.L) < 1e-10, method
+    Ys = Y[:, :5].copy()
+    Ys[3:7, 1] = np.nan
+    kw = dict(nperms=19, precision=bt.EXACT64, perm_idx=_jax_idx(19, 6), missing="mask")
+    for kin in (K, lr):
+        a = bt.bulkscan_perms_streamed(Ys, G, kin, marker_block=16, mesh=mesh, perm_chunk=4,
+                                       **kw)
+        b = bt.bulkscan_perms_streamed(Ys, G, kin, marker_block=16, device="cpu", **kw)
+        c = bt.parallel.bulkscan_perms_sharded(Ys, G, kin, mesh=mesh, **kw)
+        assert _max(a.maxlods, b.maxlods) < 1e-9 and _max(a.maxlods, c.maxlods) < 1e-9
+    kw = dict(nperms=19, rndseed=6, marker_block=16, precision=bt.EXACT64, mesh=mesh)
+    ref = bt.bulkscan_perms_streamed(Y[:, :5], G, K, **kw)
+    ck = tmp_path / "ck"
+    bt.bulkscan_perms_streamed(Y[:, :5], G, K, checkpoint=str(ck), checkpoint_every=2, **kw)
+    assert "sharded" in (ck / "meta.json").read_text()
+    np.savez(ck / "acc_state.npz",
+             maxima=bt.bulkscan_perms_streamed(Y[:, :5], G[:, :32], K, **kw).maxlods.numpy(),
+             blocks_done=2)
+    again = bt.bulkscan_perms_streamed(Y[:, :5], G, K, checkpoint=str(ck), checkpoint_every=2,
+                                       **kw)
+    assert _max(again.maxlods, ref.maxlods) < 1e-12
