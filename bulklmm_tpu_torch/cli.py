@@ -359,6 +359,7 @@ def _podscan(args):
         bulkscan_distributed, bulkscan_perms_distributed, init_distributed, local_trait_slice,
         make_global_mesh,
     )
+    from .parallel.distributed import _end_process_group
 
     precision = precision_by_name(args.precision)
     given = {args.coordinator is not None, args.nproc is not None, args.pid is not None}
@@ -420,6 +421,7 @@ def _podscan(args):
     print(json.dumps({
         "pid": pid, "traits": [int(lo), int(hi)], "shard": str(Path(save_dir) / shard),
     }))
+    _end_process_group()
 
 
 def _merge_shards(args):

@@ -35,8 +35,8 @@
 // divisions and a logarithm for every output, which in their exact forms are
 // more dispatch time than the products are tensor-core time.
 //
-// Two kernels; is_resident() picks one from n and c, and
-// kernels/liteqtl_fused.py::kernel_path states the same rule.
+// Three kernels; the launcher picks one from n and c (bulklmm_liteqtl_path),
+// and kernels/liteqtl_fused.py::kernel_path states the same rule.
 //
 // The resident kernel (liteqtl_resident.cuh: n <= 88, c <= 3) takes the
 // products on the tensor cores as three TF32 passes, with the traits'
@@ -51,7 +51,12 @@
 // thread, X * C_k and X * X formed from the staged tiles. It runs where the
 // accumulator sets or the operands do not fit the resident kernel.
 //
-// Ragged edges, both kernels: trait columns past m get scalars of 1 (no
+// The wide kernel (liteqtl_wide.cu: any c > 8) takes the covariates already
+// whitened per trait and walks them one column at a time, with four
+// accumulator sets a thread for any c; its operands are V (c, n, m) in the
+// place of C and a scalar block without the packed factor.
+//
+// Ragged edges, every kernel: trait columns past m get scalars of 1 (no
 // division by zero in lanes never stored), out-of-range outputs are not
 // stored.
 //
@@ -191,6 +196,13 @@ liteqtl_general_kernel(const float* __restrict__ X,     // (n, ldx) rotated mark
   }
 }
 
+// the most covariate columns the general kernel is instantiated for; the
+// wide kernel takes more
+constexpr int kGeneralCovariates = 8;
+
+// liteqtl_wide.cu
+cudaError_t launch_wide(const Operands& o, int c, cudaStream_t stream);
+
 template <int C>
 cudaError_t launch_general(const Operands& o, cudaStream_t stream) {
   if ((o.p + kTileP - 1) / kTileP > 65535) return cudaErrorInvalidValue;
@@ -211,21 +223,24 @@ using namespace liteqtl;
 
 extern "C" {
 
-// 1 where a launch with n samples and c covariate columns takes the
-// resident kernel, 0 where it takes the general one; effects != 0 for the
-// effects variant.
-int bulklmm_liteqtl_is_resident(int n, int c, int effects) {
+// The kernel that a launch with n samples and c covariate columns takes: 1
+// the resident kernel, 0 the general one, 2 the wide one; effects != 0 for
+// the effects variant.
+int bulklmm_liteqtl_path(int n, int c, int effects) {
+  if (c > kGeneralCovariates) return 2;
   return is_resident(n, c, effects != 0) ? 1 : 0;
 }
 
 // Launches the kernel on `stream` and returns the CUDA error of the launch
 // (0 on success). Pointers are device pointers to contiguous float32 arrays,
-// but X: its n rows are ldx >= p floats apart. c must be 1..8. beta and se
-// both null: the LOD alone; both given: the effects variant, whose scalar
-// block has the nrm2 row. general != 0 takes the general kernel whatever the
-// shape. The resident kernel needs ldx a multiple of 4 and X 16-byte aligned,
-// so that every row takes 16-byte copies; the columns between p and ldx may
-// hold anything finite or not (their outputs are not stored).
+// but X: its n rows are ldx >= p floats apart. c >= 1; above 8 the wide
+// kernel's operands (Cov is V, (c, n, m), and scal its scalar block). beta
+// and se both null: the LOD alone; both given: the effects variant, whose
+// scalar block has the nrm2 row. general != 0 takes the general kernel
+// whatever the shape (c <= 8). The resident kernel needs ldx a multiple of 4
+// and X 16-byte aligned, so that every row takes 16-byte copies; the columns
+// between p and ldx may hold anything finite or not (their outputs are not
+// stored).
 int bulklmm_liteqtl_lod(const float* X, int ldx, const float* Cov, const float* W,
                         const float* WY, const float* scal, float* out, float* beta, float* se,
                         int n, int p, int m, int c, int general, void* stream) {
@@ -234,6 +249,7 @@ int bulklmm_liteqtl_lod(const float* X, int ldx, const float* Cov, const float* 
   const bool effects = beta != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Operands o{X, Cov, W, WY, scal, out, beta, se, n, p, ldx, m};
+  if (c > kGeneralCovariates) return general ? (int)cudaErrorInvalidValue : (int)launch_wide(o, c, s);
   if (!general && is_resident(n, c, effects)) {
     switch (c + (effects ? 3 : 0)) {
       case 1: return (int)launch_resident_c1(o, s);

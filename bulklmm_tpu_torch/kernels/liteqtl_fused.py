@@ -10,7 +10,7 @@ so the (c+2) (p, m) products of the plain form never reach device memory.
 What bounds it on an H100: 2 (c+2) n p m float32-grade flops against one
 4 p m byte write. At 79 samples x 7,321 markers x 35,554 traits with c = 1
 that is 1.23e11 flops and a 1.04 GB write, so it is bound by operations.
-Two kernels, picked by :func:`kernel_path` from n and c (the launcher in
+Three kernels, picked by :func:`kernel_path` from n and c (the launcher in
 the source applies the same rule): the resident kernel (n <= 88, c <= 3;
 ``csrc/liteqtl_resident.cuh``) takes the products on the tensor cores as
 three TF32 passes (``csrc/mma_tf32x3.cuh``) with the traits' operands kept
@@ -18,7 +18,12 @@ in shared memory and the marker tiles copied asynchronously, float32-grade
 but not bit-equal to the plain version's products, and its epilogue takes
 reciprocals and the hardware's log2 where the plain version divides and
 calls log10; the general kernel (any n, c <= 8) is float32 ``fmaf`` on
-64 x 64 tiles with the exact epilogue (see the sources for both designs).
+64 x 64 tiles with the exact epilogue; the wide kernel (any c > 8,
+``csrc/liteqtl_wide.cu``) is the general kernel's tiling on operands whose
+covariates are already whitened per trait, V = W (C L^{-T}) (c, n, m),
+formed here in the inputs' dtype, so that it holds four accumulator sets a
+thread for any c and needs no substitution (see the sources for the
+designs).
 
 The effects variant of both kernels (``effects=True``; the path of
 ``bulkscan(output_effects=True)`` under the float32 presets) writes, from
@@ -32,18 +37,22 @@ Layers:
 - :func:`prepare_inputs`: the thin per-trait scalars (packed covariate
   Cholesky factor, zeta, masked 1/nrm2, and nrm2 for the effects variant),
   in plain torch (the JAX wrapper's lines 131-159), and X with rows that
-  start at multiples of 16 bytes.
+  start at multiples of 16 bytes; for the wide kernel V in the place of C
+  and a scalar block without the factor.
 - :func:`liteqtl_lod_cuda`: the kernels' wrapper. CUDA tensors only; it
   checks its inputs, allocates the outputs, launches on the current stream,
   raises on a launch error and counts its launches in :data:`launches`
   (:data:`effects_launches` for the effects variant).
 - :func:`liteqtl_lod_plain`: the same function in plain torch, exact
-  float32. :func:`liteqtl_split_reference` repeats the resident kernel's
-  3 x TF32 arithmetic instead (``kernels/split.py``), for comparisons.
+  float32, on either form of the operands (the wide one walks V a column
+  at a time, as the wide kernel does). :func:`liteqtl_split_reference`
+  repeats the resident kernel's 3 x TF32 arithmetic instead
+  (``kernels/split.py``), for comparisons.
 - :func:`fused_lods_per_trait` and :func:`fused_lods_and_effects_per_trait`:
   the kernel on CUDA tensors, its plain version on CPU tensors.
-  :func:`fused_lods_per_trait_reference` always takes the plain version, for
-  comparisons.
+  :func:`fused_lods_per_trait_reference` always takes the plain version on
+  the general kernel's operands (the packed factor and the substitution, as
+  the TPU kernel computes), for comparisons.
 """
 
 from __future__ import annotations
@@ -61,8 +70,9 @@ from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
 from .split import matmul_tf32x3, rows_at_16_bytes
 
-#: covariate columns (intercept included) the general kernel is instantiated for
-MAX_COVARIATES = 8
+#: covariate columns (intercept included) the general kernel is instantiated
+#: for; the wide kernel takes any more
+GENERAL_COVARIATES = 8
 
 #: covariate columns the resident kernel is instantiated for: it keeps
 #: (c + 2) accumulator sets of 32 registers a thread
@@ -90,10 +100,10 @@ _count_lock = threading.Lock()
 _F32 = torch.float32
 
 
-def scalar_rows(c: int, effects: bool = False) -> int:
+def scalar_rows(c: int, effects: bool = False, *, wide: bool = False) -> int:
     """Rows of the per-trait scalar block: packed L, zeta, inv_nrm2, and
-    nrm2 for the effects variant."""
-    return c * (c + 1) // 2 + c + 1 + int(effects)
+    nrm2 for the effects variant; the wide kernel's has no packed L."""
+    return (0 if wide else c * (c + 1) // 2) + c + 1 + int(effects)
 
 
 def resident_steps(n: int) -> int:
@@ -118,11 +128,14 @@ def resident_shared_bytes(n: int, c: int, effects: bool = False) -> int:
 def kernel_path(n: int, c: int, effects: bool = False) -> str:
     """"resident" where the traits' operands fit shared memory and the
     (c + 2) accumulator sets fit the registers (n <= 88, c <= 3): 3 x TF32
-    warpgroup products. Else "general": float32 ``fmaf`` on staged chunks of
-    n, for any n and c <= :data:`MAX_COVARIATES`. The effects variant's
-    scalar block is one row longer; it fits wherever the LOD-only kernel
-    does. The launcher in ``csrc/liteqtl_fused.cu`` applies the same rule
-    (``bulklmm_liteqtl_is_resident``)."""
+    warpgroup products. "wide" for more than :data:`GENERAL_COVARIATES`
+    covariate columns, at any n: float32 ``fmaf`` on the whitened operands.
+    Else "general": float32 ``fmaf`` on staged chunks of n. The effects
+    variant's scalar block is one row longer; it fits wherever the LOD-only
+    kernel does. The launcher in ``csrc/liteqtl_fused.cu`` applies the same
+    rule (``bulklmm_liteqtl_path``, :func:`launcher_path`)."""
+    if c > GENERAL_COVARIATES:
+        return "wide"
     fits = (
         1 <= c <= RESIDENT_COVARIATES
         and resident_steps(n) <= RESIDENT_STEPS
@@ -131,29 +144,60 @@ def kernel_path(n: int, c: int, effects: bool = False) -> str:
     return "resident" if fits else "general"
 
 
+def _descending(lam) -> bool:
+    """Whether the eigenvalues fall from first to last, as the svd scheme
+    gives them (``ops/rotation.py::kinship_eigen``); one synchronization on
+    a CUDA device.
+
+    The products add the rotated samples in their order, and the largest
+    eigenvalue's direction carries the mean of the markers and of the
+    intercept, terms an order of magnitude above the rest: added first, they
+    make every later term round at their magnitude. :func:`prepare_inputs`
+    then reverses the samples, which the LOD does not depend on (BALANCED
+    null-grid at 79 x 512 x 64 on the CPU, against EXACT64: 4.1e-5 in LOD in
+    the svd order, 6.2e-6 reversed)."""
+    if lam.numel() < 2:
+        return False
+    return bool(((lam[1:] <= lam[:-1]).all() & (lam[0] > lam[-1])).item())
+
+
+def _marker_operand(X0m):
+    """X0m as float32, contiguous, or where p is no multiple of 4 the first
+    p columns of a zero-padded (n, p + pad) array."""
+    n, p = X0m.shape
+    if p % 4:
+        X = X0m.new_zeros((n, p + -p % 4), dtype=_F32)[:, :p]
+        X.copy_(X0m)
+        return X
+    return X0m.to(_F32).contiguous()
+
+
 @with_highest_matmul()
-def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False):
-    """(X, C, W, WY, scal): the kernel's float32 operands.
+def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False,
+                   path: str | None = None):
+    """(X, C, W, WY, scal): the float32 operands of the kernel that ``path``
+    names (default: :func:`kernel_path`'s for the shape).
 
     X (n, p), C (n, c), W and WY (n, m), and scal (S, m) with rows
     ``[L[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]``,
-    and ``[nrm2]`` after them for the effects variant.
+    and ``[nrm2]`` after them for the effects variant; for "wide" C is V
+    (c, n, m) and scal has no L rows (:func:`_prepare_wide`).
     All are contiguous but X where p is no multiple of 4: it is then the
     first p columns of a zero-padded (n, p + pad) array, so that its rows
     start at multiples of 16 bytes as the resident kernel's copies need and
     the wrapper has nothing to copy. Weights are formed in the inputs' dtype
-    and then rounded, like the plain path's.
+    and then rounded, like the plain path's. Samples whose eigenvalues fall
+    (the svd scheme) are taken in reverse order (:func:`_descending`).
     """
-    n, p = X0m.shape
-    c = C0.shape[1]
+    n, c = X0m.shape[0], C0.shape[1]
+    if _descending(lam):
+        Y0, X0m, C0, lam = Y0.flip(0), X0m.flip(0), C0.flip(0), lam.flip(0)
+    if (path or kernel_path(n, c, effects)) == "wide":
+        return _prepare_wide(Y0, X0m, C0, lam, h2_per_trait, effects)
     W = make_weights(h2_per_trait, lam).abs().T.to(_F32).contiguous()  # (n, m)
     Y = Y0.to(_F32)
     C = C0.to(_F32).contiguous()
-    if p % 4:
-        X = X0m.new_zeros((n, p + -p % 4), dtype=_F32)[:, :p]
-        X.copy_(X0m)
-    else:
-        X = X0m.to(_F32).contiguous()
+    X = _marker_operand(X0m)
     WY = (W * Y).contiguous()
 
     t = C.T @ WY  # (c, m)
@@ -173,13 +217,49 @@ def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False):
     return X, C, W, WY, scal
 
 
+def _prepare_wide(Y0, X0m, C0, lam, h2_per_trait, effects):
+    """The wide kernel's operands (X, V, W, WY, scal).
+
+    With L_j the Cholesky factor of C^T diag(w_j) C, the trait's covariates
+    whitened, C L_j^{-T}, are W-orthonormal, and V[k, :, j] = w_j (C
+    L_j^{-T})[:, k], so that the substitution Z = L^{-1} U becomes the
+    products Z_k = X^T V_k. V, zeta = V^T y, nrm2 and its keep mask are
+    formed in the inputs' dtype (float64 under BALANCED) by one batched
+    Cholesky factorization and triangular solve over the traits, then
+    rounded; the mask keeps float32's eps, since the products that meet
+    these scalars are float32. scal rows: zeta (c), inv_nrm2, and nrm2 for
+    the effects variant. X, W and WY are the general kernel's."""
+    n, c = C0.shape
+    sd = torch.promote_types(torch.promote_types(Y0.dtype, C0.dtype), torch.float32)
+    Wd = make_weights(h2_per_trait.to(sd), lam.to(sd)).abs().T  # (n, m)
+    m = Wd.shape[1]
+    W = Wd.to(_F32).contiguous()
+    WY = (W * Y0.to(_F32)).contiguous()
+    C = C0.to(sd)
+    gram = ((C[:, :, None] * C[:, None, :]).reshape(n, c * c).T @ Wd).T.reshape(m, c, c)
+    chol = torch.linalg.cholesky(gram)
+    whitened_t = torch.linalg.solve_triangular(chol, C.T.expand(m, c, n), upper=False)
+    del gram, chol
+    V = whitened_t.permute(1, 2, 0) * Wd  # (c, n, m)
+    del whitened_t
+    Y = Y0.to(sd)
+    zeta = (V * Y).sum(1)  # (c, m)
+    yty = (Wd * Y * Y).sum(0)
+    nrm2 = residual_sq(yty, list(zeta))
+    inv_nrm2 = cancel_keep_mask(nrm2, yty, eps=torch.finfo(_F32).eps) / torch.clamp(
+        nrm2, min=torch.finfo(_F32).tiny)
+    scal = torch.cat([zeta, inv_nrm2[None]] + ([nrm2[None]] if effects else []))
+    return _marker_operand(X0m), V.to(_F32).contiguous(), W, WY, scal.to(_F32).contiguous()
+
+
 def _check_operands(X, C, W, WY, scal, effects):
     n, p = X.shape
-    c = C.shape[1]
+    wide = C.dim() == 3
+    c = C.shape[0] if wide else C.shape[1]
     m = W.shape[1]
     expected = {
-        "X": (X, (n, p)), "C": (C, (n, c)), "W": (W, (n, m)),
-        "WY": (WY, (n, m)), "scal": (scal, (scalar_rows(c, effects), m)),
+        "X": (X, (n, p)), "C": (C, (c, n, m) if wide else (n, c)), "W": (W, (n, m)),
+        "WY": (WY, (n, m)), "scal": (scal, (scalar_rows(c, effects, wide=wide), m)),
     }
     for name, (t, shape) in expected.items():
         if not t.is_cuda:
@@ -193,12 +273,14 @@ def _check_operands(X, C, W, WY, scal, effects):
         # X may be the first p columns of an array with longer rows
         if not (t.is_contiguous() or (t is X and p > 0 and X.stride(1) == 1 and X.stride(0) >= p)):
             raise ValueError(f"liteqtl_lod_cuda: {name} must be contiguous")
-    if not 1 <= c <= MAX_COVARIATES:
+    if wide != (kernel_path(n, c, effects) == "wide"):
         raise ValueError(
-            f"liteqtl_lod_cuda: {c} covariate columns (intercept included); the "
-            f"kernel is instantiated for 1 to {MAX_COVARIATES} "
-            '(ROADMAP.md "Still to port" item 5)'
+            f"liteqtl_lod_cuda: {c} covariate columns take the "
+            f"{kernel_path(n, c, effects)} kernel, whose operands prepare_inputs gives"
         )
+    if wide and n <= c + 1:
+        raise ValueError(f"liteqtl_lod_cuda: n = {n} samples leave no residual degree of "
+                         f"freedom beside {c} covariate columns")
     return n, p, m, c
 
 
@@ -212,11 +294,18 @@ def _library():
         ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.bulklmm_liteqtl_is_resident.argtypes = [ctypes.c_int] * 3
-    lib.bulklmm_liteqtl_is_resident.restype = ctypes.c_int
+    lib.bulklmm_liteqtl_path.argtypes = [ctypes.c_int] * 3
+    lib.bulklmm_liteqtl_path.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launcher_path(n: int, c: int, effects: bool = False) -> str:
+    """The kernel that the launcher takes for the shape, by its own rule
+    (builds the library; :func:`kernel_path` states the same rule without
+    it)."""
+    return ("general", "resident", "wide")[_library().bulklmm_liteqtl_path(n, c, int(effects))]
 
 
 def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool = False):
@@ -224,14 +313,18 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
     with ``effects=True`` (the effects variant, whose ``scal`` has the nrm2
     row) the tuple (LOD, effect, standard error).
 
-    Takes the kernel that :func:`kernel_path` names for the shape;
-    ``general=True`` takes the general kernel whatever the shape (for
-    comparisons). Raises on a CPU tensor, a wrong dtype, shape or layout, more
-    than :data:`MAX_COVARIATES` covariate columns, a failed build or a launch
-    error. Does not synchronize.
+    Takes the kernel that :func:`kernel_path` names for the shape, on the
+    operands :func:`prepare_inputs` gives for it; ``general=True`` takes the
+    general kernel whatever the shape, up to :data:`GENERAL_COVARIATES`
+    columns (for comparisons). Raises on a CPU tensor, a wrong dtype, shape
+    or layout, operands of another kernel, a failed build or a launch error.
+    Does not synchronize.
     """
     global launches, effects_launches
     n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
+    if general and c > GENERAL_COVARIATES:
+        raise ValueError(f"liteqtl_lod_cuda: the general kernel is instantiated for at most "
+                         f"{GENERAL_COVARIATES} covariate columns, not {c}")
     resident = not general and kernel_path(n, c, effects) == "resident"
     lib = _library()
     outs = [torch.empty((p, m), dtype=_F32, device=X.device) for _ in range(3 if effects else 1)]
@@ -260,21 +353,28 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
 
 def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):
     """The kernels' epilogue in plain torch, from the (p, m) products:
-    forward substitution, the cancel-keep mask and floor, r2 and the LOD;
-    with ``effects`` also the marker's effect and its standard error,
-    ``ops/liteqtl.py::_effects_from_nd`` on the same N and D (N masked by both
-    keep tests, the trait's being inv_nrm2 > 0; D at least FLT_MIN)."""
+    forward substitution, then :func:`_lod_from_residualized`."""
     c = len(U)
     rows = iter(scal)
     Lc = {(i, k): next(rows) for k in range(c) for i in range(k, c)}
     zeta = [next(rows) for _ in range(c)]
-    inv_nrm2 = next(rows)
-
     Z = fwd_subst(Lc, U, c)
     N, D = B, D1
     for k in range(c):
         N = N - Z[k] * zeta[k]
         D = D - Z[k] * Z[k]
+    return _lod_from_residualized(N, D, D1, list(rows), n, c, effects)
+
+
+def _lod_from_residualized(N, D, D1, rest, n: int, c: int, effects: bool):
+    """The cancel-keep mask and floor, r2 and the LOD from the residualized
+    N and D (``rest``: the scalar block's inv_nrm2 row, and nrm2 for the
+    effects variant); with ``effects`` also the marker's effect and its
+    standard error, ``ops/liteqtl.py::_effects_from_nd`` on the same N and D
+    (N masked by both keep tests, the trait's being inv_nrm2 > 0; D at least
+    FLT_MIN)."""
+    rows = iter(rest)
+    inv_nrm2 = next(rows)
     eps = torch.finfo(_F32).eps
     tiny = torch.finfo(_F32).tiny
     keep = D > 1024.0 * eps * D1
@@ -294,9 +394,19 @@ def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):
 
 
 def _lod_with_product(X, C, W, WY, scal, product, effects=False):
-    n, c = C.shape
     B = product(X.T, WY)
     D1 = product((X * X).T, W)
+    if C.dim() == 3:
+        # the wide kernel's operands: one Z_k at a time, subtracted as the
+        # kernel subtracts it (c (p, m) products never live at once)
+        c, n, _ = C.shape
+        N, D = B, D1
+        for k in range(c):
+            Z = product(X.T, C[k])
+            N = N - Z * scal[k]
+            D = D - Z * Z
+        return _lod_from_residualized(N, D, D1, scal[c:], n, c, effects)
+    n, c = C.shape
     U = [product((X * C[:, k : k + 1]).T, W) for k in range(c)]
     return _lod_from_products(B, D1, U, scal, n, effects)
 
@@ -304,14 +414,17 @@ def _lod_with_product(X, C, W, WY, scal, product, effects=False):
 @with_highest_matmul()
 def liteqtl_lod_plain(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function in plain torch, on any device: exact float32
-    products. ``effects`` as for :func:`liteqtl_lod_cuda`."""
+    products, on the operands of whichever kernel :func:`prepare_inputs`
+    gave (the wide kernel's walk V a column at a time). ``effects`` as for
+    :func:`liteqtl_lod_cuda`."""
     return _lod_with_product(X, C, W, WY, scal, torch.matmul, effects)
 
 
 def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function with the resident kernel's arithmetic: X, X * X
-    and X * C_k rounded to float32, then each product as three TF32 passes
-    (``split.py::matmul_tf32x3``). On any device; no main path takes it."""
+    and X * C_k (or V_k) rounded to float32, then each product as three TF32
+    passes (``split.py::matmul_tf32x3``). On any device; no main path takes
+    it."""
     return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3, effects)
 
 
@@ -335,5 +448,7 @@ def fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_per_trait):
 
 
 def fused_lods_per_trait_reference(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:
-    """:func:`fused_lods_per_trait` through the plain version on any device."""
-    return liteqtl_lod_plain(*prepare_inputs(Y0, X0m, C0, lam, h2_per_trait))
+    """:func:`fused_lods_per_trait` through the plain version on any device,
+    on the general kernel's operands at any c: the packed factor and the
+    forward substitution, as the TPU kernel computes."""
+    return liteqtl_lod_plain(*prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, path="general"))

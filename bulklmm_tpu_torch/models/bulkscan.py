@@ -58,9 +58,7 @@ import numpy as np
 import torch
 
 from ..kernels.altgrid_fused import fused_alt_grid
-from ..kernels.liteqtl_fused import (
-    MAX_COVARIATES, fused_lods_and_effects_per_trait, fused_lods_per_trait,
-)
+from ..kernels.liteqtl_fused import fused_lods_and_effects_per_trait, fused_lods_per_trait
 from ..ops.liteqtl import lods_and_effects_per_trait, lods_per_trait, lods_shared
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
@@ -80,7 +78,7 @@ from .missing import (
     validate_missing_kwarg,
 )
 from .results import BulkScanResult
-from .scan import _TODO, _apply_weights, _refuse_weights_on_factors
+from .scan import _apply_weights, _refuse_weights_on_factors
 from .tiles import (
     MARKERS_AXIS, TRAITS_AXIS, Mesh, _core_trait_chunks, _marker_shards, _per_device, make_mesh,
 )
@@ -442,13 +440,6 @@ def _bulkscan_on_mesh(
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
     finite = finite_flag(Y)
     n = Y.shape[0]
-    if (not alt and not lowrank and _uses_kernel(precision)
-            and any(d.type == "cuda" for d in mesh.flat)
-            and _ncov_total(covar, add_intercept) > MAX_COVARIATES):
-        raise ValueError(
-            f"the CUDA LOD kernel takes at most {MAX_COVARIATES} covariate "
-            "columns (intercept included); " + _TODO.format(5)
-        )
     if weights is not None:
         _refuse_weights_on_factors(K)
         Y, G, covar, K, add_intercept = _apply_weights(Y, G, covar, K, weights, add_intercept)

@@ -76,7 +76,6 @@ from .missing import subset_rows_single, validate_missing_kwarg
 from .results import ScanResult
 
 _LN10 = math.log(10.0)
-_TODO = 'not ported to bulklmm_tpu_torch yet (ROADMAP.md "Still to port" item {})'
 
 
 @with_highest_matmul()

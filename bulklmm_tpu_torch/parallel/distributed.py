@@ -23,6 +23,8 @@ a one-card machine can run.
 
 from __future__ import annotations
 
+import atexit
+import datetime
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -33,6 +35,10 @@ import torch.distributed as dist
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig
 from ..utils.host import to_numpy
 from .sharding import TRAITS_AXIS, Mesh, bulkscan_perms_sharded, bulkscan_sharded
+
+
+#: how long the teardown waits at its barrier for the other processes
+_TEARDOWN_TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def _process_count() -> int:
@@ -68,7 +74,27 @@ def init_distributed(
         "gloo", init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id),
     )
+    atexit.register(_end_process_group)
     return int(process_id)
+
+
+def _end_process_group() -> None:
+    """End the process group that :func:`init_distributed` joined, if any:
+    a barrier bounded by :data:`_TEARDOWN_TIMEOUT`, then
+    ``destroy_process_group``. Registered with ``atexit``. A process that
+    exits with its group alive leaves the rendezvous store's and gloo's
+    threads running into the interpreter's teardown, and a peer that closes
+    its sockets at that moment aborts it (``terminate called without an
+    active exception``). The barrier lets every process reach the teardown
+    before any store goes away; a peer that never comes (it died) costs the
+    timeout, and the group is destroyed all the same."""
+    if not dist.is_initialized():
+        return
+    try:
+        dist.monitored_barrier(timeout=_TEARDOWN_TIMEOUT)
+    except RuntimeError:
+        pass  # a peer is gone: nothing left to wait for
+    dist.destroy_process_group()
 
 
 def make_global_mesh(devices=None) -> Mesh:

@@ -12,6 +12,7 @@ from .config import (
     with_highest_matmul,
 )
 from .device import mesh_device, resolve_device
+from .profiling import timed
 
 __all__ = [
     "BALANCED",
@@ -26,5 +27,6 @@ __all__ = [
     "mesh_device",
     "precision_by_name",
     "resolve_device",
+    "timed",
     "with_highest_matmul",
 ]

@@ -38,13 +38,17 @@ _USABLE_FRACTION = 0.9
 _STATIC_HEADROOM = 1.1
 
 #: (p,)-sized live copies a trait of a chunk holds beyond its outputs, in
-#: the widest dtype. Measured on an H100 at 79 x 7,321 x 8,192, c = 1
-#: (chip_smoke.py phase 10, peak device memory above the inputs): EXACT64
-#: null-grid 7.07 (the plain path's (c + 2) products and their combines, the
-#: most of any path), with effects 6.05, alt-grid EXACT64 3.55, BALANCED
-#: alt-grid 2.15; the LOD kernel's paths (BALANCED null-grid, null-exact)
-#: below their outputs
+#: the widest dtype, at c = 1. Measured on an H100 at 79 x 7,321 x 8,192,
+#: c = 1 (chip_smoke.py phase 10, peak device memory above the inputs):
+#: EXACT64 null-grid 7.07 (the plain path's (c + 2) products and their
+#: combines, the most of any path), with effects 6.05, alt-grid EXACT64
+#: 3.55, BALANCED alt-grid 2.15; the LOD kernel's paths (BALANCED null-grid,
+#: null-exact) below their outputs
 _P_CHUNK_COPIES = 8
+
+#: (p,)-sized copies more for each covariate column past the first: the
+#: plain LOD step holds its U_k and Z_k products, (p, m) each
+_P_COPIES_A_COVARIATE = 2
 
 #: (n,)-sized live copies a trait of a chunk holds beyond the rotated
 #: traits (weights, weighted traits, the grid likelihoods' and the Brent
@@ -52,6 +56,16 @@ _P_CHUNK_COPIES = 8
 #: 2,000 x 64 x 8,192, c = 1: null-exact BALANCED 7.07, null-grid 4.05
 #: (BALANCED) and 4.02 (EXACT64); more covariate columns are not measured
 _N_CHUNK_COPIES = 12
+
+#: (n,)-sized live copies a trait holds per covariate column on the wide LOD
+#: kernel's path (c > :data:`WIDE_FROM`): its (c, n, m) float32 operand and
+#: its preparation in the solve dtype (the whitened covariates, their
+#: weighted product and one temporary), in the widest dtype
+_WIDE_N_COPIES = 4
+
+#: the covariate count from which the LOD step takes the wide kernel
+#: (``kernels/liteqtl_fused.py::GENERAL_COVARIATES`` + 1)
+WIDE_FROM = 9
 
 #: (n,)-sized live copies a trait holds per h2 grid point on the alt-grid
 #: kernel's path: its (g, n, m) operands and their preparation. Measured on
@@ -123,10 +137,13 @@ def bulkscan_static_bytes(n: int, p: int, m: int, c: int, itemsize: int, *, n_ou
 def bulkscan_chunk_bytes(n: int, p: int, mc: int, grid: int, c: int, itemsize: int,
                          *, alt_grid: bool = False) -> int:
     """Modelled live temporaries of one trait chunk of ``mc`` traits;
-    ``alt_grid`` adds the alt-grid path's (g, n)-sized operands a trait."""
+    ``alt_grid`` adds the alt-grid path's (g, n)-sized operands a trait, and
+    c >= :data:`WIDE_FROM` the wide LOD kernel's (c, n) operand a trait."""
     per_grid_point = 1 + (_ALT_GRID_N_COPIES * n if alt_grid else 0)
+    p_copies = _P_CHUNK_COPIES + _P_COPIES_A_COVARIATE * (c - 1)
+    wide = _WIDE_N_COPIES * c * n if c >= WIDE_FROM and not alt_grid else 0
     return itemsize * mc * (
-        _P_CHUNK_COPIES * p + _N_CHUNK_COPIES * n * max(1, (c + 2) // 2) + grid * per_grid_point
+        p_copies * p + _N_CHUNK_COPIES * n * max(1, (c + 2) // 2) + wide + grid * per_grid_point
     )
 
 

@@ -217,6 +217,28 @@ exits nonzero:
     permutations), each within 5e-5 of the call without the mesh. Times
     (second calls, host clock) and peak device memory are printed.
 
+15. Wide covariates (the LOD kernel's wide path, ``csrc/liteqtl_wide.cu``,
+    c > 8): (a) the kernel and its effects variant against their plain
+    version (bar as phase 3's, scaled by n/48) at c = 9, 12, 16 and 32 and
+    n = 79 and 2,000 on 129 x 130 (one past two tiles each way), with the
+    plain version on the general kernel's operands (the packed factor and
+    the substitution) under the same bar, and the launcher's rule against
+    ``kernel_path``; (b) BALANCED null-grid and null-exact ``bulkscan`` at
+    BXD scale with 11 random covariates and the intercept (c = 12, seed
+    2026) against their EXACT64 runs: max |dLOD| <= 1e-4 with no grid h2
+    flip (BASELINE.md's 1e-5 reported), launches counted; the effects
+    within phase 10's bars; (c) the kernel alone at that shape, its time by
+    CUDA events beside its bound and its plain version's time; (d) a c = 32
+    null-grid call under a forced 8 GiB budget must stay under it; (e)
+    ``bulkscan_streamed`` (phase 10's blocks) and ``bulkscan_loco`` (phase
+    13's chromosomes) at c = 12 against the in-memory call (1e-5) and the
+    per-chromosome calls (1e-6), with their launches.
+16. The validation sweep: ``bulklmm_tpu_torch/validation.py::main`` in this
+    process (the 41 paths of ``benchmarks/tpu_validation.py`` and two at
+    c = 12, BALANCED on the card against the port's own CPU EXACT64
+    goldens, under the JAX sweep's bars); any path that misses its bar
+    fails the run.
+
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
 each kernel, with its bound on this card (``loco_launches`` is its launch
@@ -231,7 +253,10 @@ unit and ``simt_bound_ms`` keeps the CUDA cores' time;
 mesh (null-grid for the LOD kernel);
 ``effects_ms``, ``effects_plain_ms`` and ``effects_bound_ms`` are its effects
 variant's time, its plain version's and its bound (the same operations,
-three (p, m) float32 outputs written). No
+three (p, m) float32 outputs written); ``wide_c``, ``wide_launches``,
+``wide_ms``, ``wide_plain_ms``, ``wide_bound_ms``, ``wide_simt_bound_ms``
+and ``wide_max_abs_err`` are its wide kernel's, at BXD scale with c = 12
+(phase 15). No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -330,6 +355,13 @@ MESH_TRAIT_CHUNK = 16384
 KINSHIP_BAR = 1e-12  # max |dK|, leave-out kinships vs calc_kinship of the subset panel
 CLI_TRAITS, CLI_NPERMS = 2048, 100  # phase 13 (f): the CLI run's traits and permutations
 CLI_SECONDS = 600  # a CLI subprocess's time limit
+#: phase 15: the wide LOD kernel's covariate columns against its plain
+#: version, and the scans' (11 random covariates and the intercept)
+WIDE_COVARIATES = (9, 12, 16, 32)
+WIDE_C = 12
+#: phase 15: a c = 32 null-grid call sized by the memory model under this
+#: forced budget must stay under it
+WIDE_BUDGET = 8 * 2**30
 
 
 def check(ok: bool, what: str) -> None:
@@ -444,7 +476,7 @@ def kernel_checks(dev) -> None:
     ]
     for n, p, m, c, general in cases:
         path = lf.kernel_path(n, c)
-        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c, 0)),
+        check(path == lf.launcher_path(n, c),
               f"the launcher and kernel_path disagree on the LOD kernel at n={n}, c={c}")
         ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
         out = lf.liteqtl_lod_cuda(*ops, general=general)
@@ -487,7 +519,7 @@ def effects_checks(dev) -> None:
     for n, p, m, c, general in cases:
         path = lf.kernel_path(n, c, effects=True)
         check(path == lf.kernel_path(n, c), f"the effects variant takes another path at n={n}, c={c}")
-        check((path == "resident") == bool(lf._library().bulklmm_liteqtl_is_resident(n, c, 1)),
+        check(path == lf.launcher_path(n, c, effects=True),
               f"the launcher and kernel_path disagree on the effects variant at n={n}, c={c}")
         ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
         eff = lf.liteqtl_lod_cuda(*ops, general=general, effects=True)
@@ -670,16 +702,18 @@ def _drive(what, fn):
     return res, counts
 
 
-def _rotated_bxd(K, Yd, Gd, dev):
+def _rotated_bxd(K, Yd, Gd, dev, covar=None):
+    """Phase 4's rotated operands (Y0, X0m, C0, lam); ``covar`` (n, k)
+    beside the intercept."""
     from bulklmm_tpu_torch.ops.rotation import decompose_kinship
     from bulklmm_tpu_torch.utils.config import with_highest_matmul
 
     dec = decompose_kinship(K, dtype=torch.float64, device=dev)
+    C = torch.ones((N, 1), dtype=torch.float64, device=dev)
+    if covar is not None:
+        C = torch.cat([C, covar.double()], 1)
     with with_highest_matmul():
-        Y0 = dec.Ut @ Yd.double()
-        X0m = dec.Ut @ Gd.double()
-        C0 = dec.Ut @ torch.ones((N, 1), dtype=torch.float64, device=dev)
-    return Y0, X0m, C0, dec.lam
+        return dec.Ut @ Yd.double(), dec.Ut @ Gd.double(), dec.Ut @ C, dec.lam
 
 
 def slice_at_bxd(dev):
@@ -2427,6 +2461,201 @@ def device_mesh(dev, card, Yd, Gd, K):
     return launches
 
 
+def wide_kernel_checks(dev) -> None:
+    """Phase 15 (a): the wide LOD kernel (c > 8) and its effects variant
+    against their plain version, on the card, at n = 79 and 2,000, with the
+    plain version on the general kernel's operands (the packed factor and
+    the substitution) beside it; the launcher's rule."""
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    for n in (79, 2000):
+        for c in (1, 3, 4, 8, 9, 32):
+            for effects in (False, True):
+                check(lf.kernel_path(n, c, effects) == lf.launcher_path(n, c, effects),
+                      f"the launcher and kernel_path disagree at n={n}, c={c}")
+        check(lf.kernel_path(n, 9) == "wide" and lf.kernel_path(n, 8) != "wide",
+              "the wide kernel's range moved: bring the shapes below up to date")
+    rng = np.random.default_rng(15)
+    p, m = 129, 130  # one past two tiles each way
+    for n in (79, 2000):
+        for c in WIDE_COVARIATES:
+            args = _kernel_inputs(n, p, m, c, rng, dev)
+            ops = lf.prepare_inputs(*args)
+            check(ops[1].shape == (c, n, m), "prepare_inputs did not give the wide operands")
+            out = lf.liteqtl_lod_cuda(*ops)
+            torch.cuda.synchronize()
+            plain = lf.liteqtl_lod_plain(*ops)
+            general = lf.fused_lods_per_trait_reference(*args)
+            eops = lf.prepare_inputs(*args, effects=True)
+            eff = lf.liteqtl_lod_cuda(*eops, effects=True)
+            torch.cuda.synchronize()
+            eref = lf.liteqtl_lod_plain(*eops, effects=True)
+            bar = KERNEL_BAR * max(1.0, n / 48)
+            err = (out - plain).abs().max().item()
+            gerr = (out - general).abs().max().item()
+            lod_err, beta_err, se_err = _effects_errors(eff, eref)
+            same = (eff[0] - out).abs().max().item()
+            print(f"  wide LOD kernel n={n} p={p} m={m} c={c}: vs plain max|dLOD| = {err:.3e}, vs "
+                  f"the plain version on the general operands {gerr:.3e} (bar {bar:.2e}); effects "
+                  f"variant max|dLOD| {lod_err:.3e}, max|d effect|/(|effect|+SE) {beta_err:.3e}, "
+                  f"max|dSE|/SE {se_err:.3e} (bars {EFFECT_BAR:.0e}), its LOD vs the LOD-only "
+                  f"kernel's {same:.3e} (bar {SAME_LOD_BAR:.0e})")
+            check(out.shape == (p, m) and bool(torch.isfinite(out).all()),
+                  "wide kernel output not finite")
+            check(err <= bar and gerr <= bar, f"the wide kernel disagrees at {(n, p, m, c)}")
+            check(lod_err <= bar and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
+                  f"the wide kernel's effects variant disagrees at {(n, p, m, c)}")
+            check(same <= SAME_LOD_BAR, f"the wide effects variant's LOD moved at {(n, p, m, c)}")
+
+
+def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
+    """Phase 15 (b)-(e): BALANCED null-grid, null-exact and effects at BXD
+    scale with c = WIDE_C against their EXACT64 runs; the kernel's time and
+    bound; a c = 32 call under a forced budget; streamed and LOCO at
+    c = WIDE_C against their in-memory and per-chromosome counterparts."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils import memory
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    covar = torch.from_numpy(rng.normal(size=(N, WIDE_C - 1))).to(dev)
+    all_cols = torch.ones(M, dtype=torch.bool, device=dev)
+    out = {}
+    for method in ("null-grid", "null-exact"):
+        res, counts = _drive(f"BALANCED {method} bulkscan, c = {WIDE_C}",
+                             lambda: bt.bulkscan(Yd, Gd, K, covar, method=method,
+                                                 precision=bt.BALANCED))
+        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == sum(counts.values()),
+              f"the c = {WIDE_C} {method} bulkscan launched {counts}")
+        check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()),
+              f"the c = {WIDE_C} {method} L is not finite ({P}, {M})")
+        exact = bt.bulkscan(Yd, Gd, K, covar, method=method, precision=bt.EXACT64)
+        torch.cuda.synchronize()
+        same = exact.h2_null_list == res.h2_null_list.double()
+        flips = int((~same).sum())
+        if method == "null-grid":
+            err = _max_abs_diff_cols(res.L, exact.L, same)
+            what = f"{flips} of {M} traits with another grid h2"
+        else:
+            err = _max_abs_diff_cols(res.L, exact.L, all_cols)
+            dh2 = (exact.h2_null_list - res.h2_null_list.double()).abs().max().item()
+            what = f"all pairs; max|dh2| = {dh2:.3e}"
+            flips = 0  # Brent's h2 is continuous: no flip to count
+        print(f"  c = {WIDE_C} {method} BALANCED vs EXACT64: max|dLOD| = {err:.3e} ({what}; bar "
+              f"{ORACLE_BAR:.0e}; BASELINE.md's {PARITY_BAR:.0e}: "
+              f"{'met' if err <= PARITY_BAR else 'NOT met'}); {counts['liteqtl_lod']} launches")
+        check(flips == 0 and err <= ORACLE_BAR, f"the c = {WIDE_C} {method} scan strays from EXACT64")
+        out[method] = (counts["liteqtl_lod"], err)
+        del exact
+        if method == "null-grid":
+            base = res
+        else:
+            del res
+
+    res, counts = _drive(f"BALANCED null-grid bulkscan, c = {WIDE_C}, output_effects",
+                         lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.BALANCED,
+                                             output_effects=True))
+    check(counts["liteqtl_lod_effects"] > 0, "the c = 12 effects call did not launch the variant")
+    exact = bt.bulkscan(Yd, Gd, K, covar, precision=bt.EXACT64, output_effects=True)
+    same = exact.h2_null_list == res.h2_null_list.double()
+    beta_err, se_err = _effects_err_cols((res.beta_mat, res.beta_se_mat),
+                                         (exact.beta_mat, exact.beta_se_mat), same)
+    lsame = _max_abs_diff_cols(res.L, base.L, all_cols)
+    print(f"  c = {WIDE_C} effects BALANCED vs EXACT64: max|d effect|/(|effect|+SE) = "
+          f"{beta_err:.3e}, max|dSE|/SE = {se_err:.3e} (bars {EFFECT_BAR:.0e}); its L vs the "
+          f"LOD-only scan's {lsame:.3e} (bar {SAME_LOD_BAR:.0e})")
+    check(beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR and lsame <= SAME_LOD_BAR,
+          f"the c = {WIDE_C} effects stray")
+    out["effects"] = counts["liteqtl_lod_effects"]
+    del res, exact
+
+    # the kernel alone at the main-path shape, beside its plain version
+    ops = lf.prepare_inputs(*_rotated_bxd(K, Yd, Gd, dev, covar), base.h2_null_list)
+    check(lf.kernel_path(N, WIDE_C) == "wide" and ops[1].shape == (WIDE_C, N, M),
+          "the c = 12 main path does not take the wide kernel")
+    Lk = lf.liteqtl_lod_cuda(*ops)
+    kerr = _max_abs_diff_cols(Lk, base.L, all_cols)
+    Lp = lf.liteqtl_lod_plain(*ops)
+    perr = _max_abs_diff_cols(Lk, Lp, all_cols)
+    del Lk, Lp
+    kernel_ms = statistics.median(_time_ms(lambda: lf.liteqtl_lod_cuda(*ops)) for _ in range(5))
+    plain_ms = statistics.median(_time_ms(lambda: lf.liteqtl_lod_plain(*ops)) for _ in range(3))
+    bound = _bound(2.0 * N * P * M * (WIDE_C + 2), ops, 4 * P * M)
+    print(f"  wide kernel at BXD scale, c = {WIDE_C}, on {card}: {kernel_ms:.3f} ms per launch "
+          f"(CUDA events, median of 5), plain version {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.3f} ms by {bound['bound_unit']} (CUDA cores "
+          f"{bound['simt_bound_ms']:.3f} ms), {100 * bound['simt_bound_ms'] / kernel_ms:.1f} % of "
+          f"the CUDA cores' bound; vs plain max|dLOD| = {perr:.3e} (bar {KERNEL_BAR:.0e}); vs the "
+          f"scan's L {kerr:.3e}")
+    check(perr <= KERNEL_BAR, "the wide kernel disagrees with its plain version at BXD scale")
+    out["kernel"] = dict(ms=kernel_ms, plain_ms=plain_ms, err=perr, bound=bound)
+    del ops, base
+
+    # c = 32 under a forced budget: the memory model sizes the trait chunks
+    covar32 = torch.from_numpy(rng.normal(size=(N, 31))).to(dev)
+    real_budget = memory.device_memory_budget
+    memory.device_memory_budget = lambda device=None: WIDE_BUDGET
+    try:
+        (r32, peak) = _peak_over(lambda: bt.bulkscan(Yd, Gd, K, covar32, precision=bt.BALANCED))
+    finally:
+        memory.device_memory_budget = real_budget
+    on_card = torch.is_tensor(r32.L)
+    check(bool(np.isfinite(np.asarray(r32.L.cpu() if on_card else r32.L)).all()),
+          "the c = 32 L is not finite")
+    print(f"  c = 32 null-grid under a forced {WIDE_BUDGET / 2**30:.0f} GiB budget: "
+          f"{'trait chunks on the card' if on_card else 'host blocks'}, peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    check(peak <= WIDE_BUDGET, "the c = 32 call's peak device memory passed its budget")
+    del r32
+
+    # streamed (phase 10's blocks) and LOCO (phase 13's chromosomes) at c = 12
+    G_host = Gd.cpu().numpy()
+    inmem = bt.bulkscan(Yd, Gd, K, covar, precision=bt.BALANCED)
+    res, counts = _drive(f"BALANCED bulkscan_streamed, c = {WIDE_C}, blocks of {STREAM_BLOCK}",
+                         lambda: bt.bulkscan_streamed(Yd, G_host, K, covar, precision=bt.BALANCED,
+                                                      marker_block=STREAM_BLOCK))
+    blocks = -(-P // STREAM_BLOCK)
+    check(counts["liteqtl_lod"] == blocks, f"the c = 12 streamed call launched {counts}")
+    serr = _max_abs_diff_cols(torch.from_numpy(np.asarray(res.L)).to(dev), inmem.L, all_cols)
+    print(f"  c = {WIDE_C} streamed vs in-memory: max|dLOD| = {serr:.3e} (bar {STREAM_BAR:.0e})")
+    check(serr <= STREAM_BAR, "the c = 12 streamed scan strays from the in-memory one")
+    out["streamed"] = counts["liteqtl_lod"]
+    del res, inmem
+
+    chrom = loco_chromosomes(P)
+    masks = _masks(chrom, dev)
+    res, counts = _drive(f"BALANCED bulkscan_loco, c = {WIDE_C}",
+                         lambda: bt.bulkscan_loco(Yd, Gd, chrom, covar, precision=bt.BALANCED))
+    nchrom = len(MOUSE_CHROMS)
+    check(counts["liteqtl_lod"] == nchrom, f"the c = 12 LOCO call launched {counts}")
+    Ks = bt.loco_kinship(Gd, chrom, bt.BALANCED)
+    comp = 0.0
+    for c in MOUSE_CHROMS:
+        one = bt.bulkscan(Yd, Gd[:, masks[c]], Ks[c], covar, precision=bt.BALANCED)
+        comp = max(comp, (res.L[masks[c]] - one.L.double()).abs().max().item())
+        del one
+    print(f"  c = {WIDE_C} LOCO vs its {nchrom} per-chromosome bulkscan calls: max|dLOD| = "
+          f"{comp:.3e} (bar {LOCO_BAR:.0e})")
+    check(comp <= LOCO_BAR, "the c = 12 LOCO rows differ from the per-chromosome scans")
+    out["loco"] = counts["liteqtl_lod"]
+    del res, Ks
+    torch.cuda.empty_cache()
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def validation_sweep(card) -> None:
+    """Phase 16: ``python -m bulklmm_tpu_torch.validation``'s sweep in this
+    process; fails if any path misses its bar."""
+    from bulklmm_tpu_torch import validation
+
+    t0 = time.perf_counter()
+    rc = validation.main()
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s on {card}")
+    check(rc == 0, "a path of the validation sweep missed its bar")
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -2488,6 +2717,12 @@ def main() -> None:
     print(f"[14] the device mesh at BXD scale ({N} x {P} x {M}): make_mesh(), a virtual 2 x 2 "
           "mesh on the card, a two-process pod, streaming and LOCO on the mesh")
     mesh = device_mesh(dev, card, Yd, Gd, K)
+    print(f"[15] wide covariates: the wide LOD kernel at c in {WIDE_COVARIATES}, and c = {WIDE_C} "
+          f"scans at BXD scale ({N} x {P} x {M})")
+    wide_kernel_checks(dev)
+    wide = wide_at_bxd(dev, card, Yd, Gd, K)
+    print("[16] the validation sweep (python -m bulklmm_tpu_torch.validation)")
+    validation_sweep(card)
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -2505,6 +2740,13 @@ def main() -> None:
         "effects_plain_ms": eff_times["plain"],
         "effects_bound_ms": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), eff_ops,
                                    3 * 4 * P * M)["bound_ms"],
+        "wide_c": WIDE_C,
+        "wide_launches": wide["null-grid"][0],
+        "wide_ms": wide["kernel"]["ms"],
+        "wide_plain_ms": wide["kernel"]["plain_ms"],
+        "wide_bound_ms": wide["kernel"]["bound"]["bound_ms"],
+        "wide_simt_bound_ms": wide["kernel"]["bound"]["simt_bound_ms"],
+        "wide_max_abs_err": wide["kernel"]["err"],
         "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
@@ -2537,8 +2779,10 @@ def main() -> None:
         k["library_ms"] = None  # no single PyTorch call computes this function
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
-        for key in ("effects_ms", "effects_plain_ms", "effects_bound_ms"):
-            k.setdefault(key, None)  # the LOD kernel's effects variant
+        for key in ("effects_ms", "effects_plain_ms", "effects_bound_ms", "wide_c", "wide_launches",
+                    "wide_ms", "wide_plain_ms", "wide_bound_ms", "wide_simt_bound_ms",
+                    "wide_max_abs_err"):
+            k.setdefault(key, None)  # the LOD kernel's effects variant and wide kernel
         share = 100 * k["bound_ms"] / k["ms"]
         print(f"  {k['name']}: {k['ms']:.3f} ms per launch, bound {k['bound_ms']:.3f} ms by "
               f"{k['bound_unit']} ({k['simt_bound_ms']:.3f} ms on the CUDA cores; the kernel runs "

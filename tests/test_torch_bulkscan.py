@@ -226,6 +226,7 @@ def test_port_imports_no_jax():
     repo = Path(__file__).resolve().parent.parent
     code = (
         "import sys, bulklmm_tpu_torch, bulklmm_tpu_torch.kernels.altgrid_fused, "
+        "bulklmm_tpu_torch.validation, "
         "bulklmm_tpu_torch.ops.brent, bulklmm_tpu_torch.ops.lmm; "
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bulklmm_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -233,3 +234,35 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _covar12(data):
+    """11 covariates beside the intercept: c = 12, the LOD kernel's wide path."""
+    return np.random.default_rng(12).normal(size=(data["n"], 11))
+
+
+@pytest.mark.parametrize("preset", ["EXACT64", "BALANCED"])
+@pytest.mark.parametrize("method", ["null-grid", "null-exact", "effects"])
+def test_wide_covariates_match_jax(bxd_like, method, preset):
+    """c = 12 through every null method and the effects, against the JAX
+    package on the same numpy inputs: L at the preset's bar (null-exact
+    under EXACT64 1e-6, test_torch_nullexact.py's bar for a Brent fit that
+    stops elsewhere in its window), the grid h2 identical, the effects at
+    test_torch_effects.py's bars (EXACT64 1e-9; BALANCED 1e-4 of |effect| +
+    SE and of SE)."""
+    kw = dict(method="null-grid" if method == "effects" else method,
+              output_effects=method == "effects")
+    port, ref = _run(bxd_like, preset, covar=_covar12(bxd_like), **kw)
+    Lp, Lr = port.L.double().numpy(), np.asarray(ref.L, dtype=np.float64)
+    bar = 1e-6 if (method, preset) == ("null-exact", "EXACT64") else L_BAR[preset]
+    assert Lp.shape == Lr.shape and np.max(np.abs(Lp - Lr)) < bar
+    if method != "null-exact":
+        assert np.array_equal(port.h2_null_list.numpy(), np.asarray(ref.h2_null_list))
+    if method == "effects":
+        b, s = port.beta_mat.double().numpy(), port.beta_se_mat.double().numpy()
+        br, sr = np.asarray(ref.beta_mat, np.float64), np.asarray(ref.beta_se_mat, np.float64)
+        if preset == "EXACT64":
+            assert np.max(np.abs(b - br)) < 1e-9 and np.max(np.abs(s - sr)) < 1e-9
+        else:
+            assert np.max(np.abs(b - br) / (np.abs(br) + sr)) < 1e-4
+            assert np.max(np.abs(s - sr) / sr) < 1e-4

@@ -44,10 +44,15 @@ def _maxdiff(port, ref):
     return float(np.max(np.abs(port.double().numpy() - np.asarray(ref, dtype=np.float64))))
 
 
-@pytest.mark.parametrize("shape", [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1)])
+WIDE_SHAPES = [(40, 32, 24, 9), (40, 32, 24, 12), (40, 32, 24, 16)]
+
+
+@pytest.mark.parametrize("shape", [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1)]
+                         + WIDE_SHAPES)
 def test_kernel_plain_version_matches_jax(shape):
     """Plain version vs the Pallas kernel (interpret mode) and vs the XLA
-    FAST32 path, c = 1..3 and a non-divisible 70 x 45 shape."""
+    FAST32 path, c = 1..3, a non-divisible 70 x 45 shape, and c = 9, 12, 16
+    (the wide kernel's covariate counts)."""
     n, p, m, c = shape
     jargs, targs = _both(_mk(n, p, m, c))
     ref = lf.fused_lods_per_trait_reference(*targs)
@@ -56,8 +61,13 @@ def test_kernel_plain_version_matches_jax(shape):
     xla = jax_lods_per_trait(*jargs, precision=jcfg.FAST32)
     assert _maxdiff(ref, pallas) < KERNEL_BAR
     assert _maxdiff(ref, xla) < KERNEL_BAR
-    # on CPU tensors the dispatching entry takes the same plain version
-    assert torch.equal(lf.fused_lods_per_trait(*targs), ref)
+    # on CPU tensors the dispatching entry takes its kernel's plain version:
+    # the same one up to c = 8, the wide kernel's arithmetic above
+    port = lf.fused_lods_per_trait(*targs)
+    if lf.kernel_path(n, c) == "wide":
+        assert _maxdiff(port, pallas) < KERNEL_BAR
+    else:
+        assert torch.equal(port, ref)
     assert lf.launches == 0
 
 
@@ -159,13 +169,14 @@ def test_split_reference_zero_marker_column_gives_zero_lod():
 
 
 @pytest.mark.parametrize("n", [1, 79, 80, 88, 89, 2000])
-@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 9, 32])
 def test_kernel_path_by_samples_and_covariates(n, c):
     """The resident kernel takes n <= 88 (11 depth steps of 8) with at most
-    3 covariate columns ((c + 2) accumulator sets of 32 registers); every
-    other shape takes the general kernel."""
-    want = "resident" if n <= 88 and c <= 3 else "general"
-    assert lf.kernel_path(n, c) == want
+    3 covariate columns ((c + 2) accumulator sets of 32 registers); more
+    than 8 columns take the wide kernel at any n; every other shape takes
+    the general kernel. The effects variant takes the same paths."""
+    want = "wide" if c > 8 else "resident" if n <= 88 and c <= 3 else "general"
+    assert lf.kernel_path(n, c) == want == lf.kernel_path(n, c, effects=True)
     if want == "resident":
         assert lf.resident_shared_bytes(n, c) <= lf.SHARED_LIMIT_BYTES
 
@@ -197,3 +208,75 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     # the dispatching entry takes the plain version for them
     assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
     assert lf.launches == 0
+
+
+# --- the wide kernel (c > 8) -----------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("c", [9, 12, 16])
+def test_wide_arithmetic_matches_plain(c, dtype):
+    """The wide kernel's arithmetic (V = W C L^{-T} formed in the inputs'
+    dtype, then Z_k = X^T V_k in float32, one column at a time) against the
+    plain version on the general kernel's operands (the packed factor and
+    the forward substitution, the TPU kernel's arithmetic): 5e-5 in LOD, and
+    the effects within 1e-4 of (|effect| + SE) and of SE; the split
+    reference on the wide operands within 5e-5 too."""
+    _, targs = _both(_mk(40, 32, 24, c, dtype=dtype))
+    wide = lf.prepare_inputs(*targs, effects=True)
+    general = lf.prepare_inputs(*targs, effects=True, path="general")
+    assert wide[1].dim() == 3 and general[1].dim() == 2
+    L, b, s = lf.liteqtl_lod_plain(*wide, effects=True)
+    Lr, br, sr = lf.liteqtl_lod_plain(*general, effects=True)
+    assert float((L - Lr).abs().max()) < KERNEL_BAR
+    assert float(((b - br).abs() / (br.abs() + sr)).max()) < 1e-4
+    assert float(((s - sr).abs() / sr).max()) < 1e-4
+    # the LOD alone is the effects variant's LOD, on either operand form
+    assert torch.equal(lf.liteqtl_lod_plain(*wide[:4], wide[4][:-1]), L)
+    split = lf.liteqtl_split_reference(*wide[:4], wide[4][:-1])
+    assert float((split - L).abs().max()) < KERNEL_BAR
+
+
+def test_prepare_inputs_wide_layout():
+    """The wide operands: V (c, n, m) with each trait's columns orthonormal
+    in its weights (sum_s V_k V_l / w = delta_kl), zeta = V^T y, and a scalar
+    block of zeta, inv_nrm2 and nrm2; X, W and WY as the general kernel's."""
+    n, p, m, c = 40, 9, 11, 12
+    _, targs = _both(_mk(n, p, m, c, dtype=np.float64))
+    X, V, W, WY, scal = lf.prepare_inputs(*targs, effects=True)
+    gX, _, gW, gWY, _ = lf.prepare_inputs(*targs, path="general")
+    assert V.shape == (c, n, m) and scal.shape == (lf.scalar_rows(c, True, wide=True), m) == (c + 2, m)
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in (V, W, WY, scal))
+    assert torch.equal(X, gX) and torch.equal(W, gW) and torch.equal(WY, gWY)
+    w = W.double()
+    gram = torch.einsum("ksj,lsj->jkl", V.double(), V.double() / w)
+    assert float((gram - torch.eye(c, dtype=torch.float64)).abs().max()) < 1e-5
+    Y0 = targs[0]
+    zeta = (V.double() * Y0[None]).sum(1)
+    assert float((zeta - scal[:c].double()).abs().max()) < 1e-4 * float(zeta.abs().max())
+
+
+def test_wide_operands_refused_where_they_do_not_belong():
+    """The CUDA wrapper refuses CPU tensors of either form; the general
+    kernel is not asked for more than 8 columns; a plain call on the wide
+    operands does not launch anything."""
+    _, targs = _both(_mk(n=20, p=8, m=5, c=10))
+    ops = lf.prepare_inputs(*targs)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        lf.liteqtl_lod_cuda(*ops)
+    assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
+    assert lf.launches == 0 and lf.GENERAL_COVARIATES == 8
+
+
+@pytest.mark.parametrize("c", [1, 12])
+def test_descending_eigenvalues_reverse_the_samples(c):
+    """Eigenvalues that fall (the svd scheme's order) are reversed with the
+    samples before the products, so that the largest eigenvalue's terms are
+    added last: the operands equal those of the reversed inputs."""
+    args = _mk(30, 16, 12, c, dtype=np.float64)
+    args[3] = np.sort(args[3])[::-1].copy()
+    _, targs = _both(args)
+    flipped = [targs[0].flip(0), targs[1].flip(0), targs[2].flip(0), targs[3].flip(0), targs[4]]
+    for a, b in zip(lf.prepare_inputs(*targs), lf.prepare_inputs(*flipped)):
+        assert torch.equal(a, b)
+    assert lf._descending(targs[3]) and not lf._descending(flipped[3])

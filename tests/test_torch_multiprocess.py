@@ -252,6 +252,42 @@ def test_cli_podscan_two_processes(tmp_path):
     assert np.allclose(P["thresholds"], one["thresholds"], rtol=0, atol=EQ)
 
 
+#: one process of a pod that joins, takes the census and returns; its first
+#: exit handler (the last to run) reports whether the group outlived the
+#: teardown that init_distributed registered
+_JOIN_AND_RETURN = """
+import atexit, sys
+import torch.distributed as dist
+from bulklmm_tpu_torch import parallel as tpar
+atexit.register(lambda: print("group alive at exit:", dist.is_initialized(), flush=True))
+assert tpar.init_distributed(sys.argv[1], 2, int(sys.argv[2])) == int(sys.argv[2])
+assert tpar.make_global_mesh(devices=["cpu"]).shape["traits"] == 2
+"""
+
+
+def test_pod_process_exits_cleanly():
+    """Processes that called ``init_distributed`` and return normally exit
+    with code 0, with no ``terminate called`` on stderr, and their group is
+    destroyed by the interpreter's exit (three pods of two side by side)."""
+    procs = []
+    for _ in range(3):
+        coord = f"127.0.0.1:{_free_port()}"
+        procs += [subprocess.Popen([sys.executable, "-c", _JOIN_AND_RETURN, coord, str(r)],
+                                   env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+        assert "terminate called" not in err, err[-2000:]
+        assert "group alive at exit: False" in out, out + err[-2000:]
+
+
 def _worker(coord, nproc, pid, data_path, outdir, mode):
     """One process of a pod: join the group, take this process's trait
     block, write its shard."""
