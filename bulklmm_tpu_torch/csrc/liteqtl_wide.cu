@@ -1,10 +1,11 @@
-// The wide LOD kernel (liteqtl_wide_kernel: any count c > 8 of covariate
-// columns), for the function that liteqtl_fused.cu states.
+// The wide LOD kernel (liteqtl_wide_wgmma_kernel: any count c > 3 of
+// covariate columns, at any n), for the function that liteqtl_fused.cu
+// states.
 //
-// The general kernel keeps (c + 2) accumulator sets a thread, one for each
-// U_k, and finishes with the forward substitution Z = L^{-1} U; its
-// registers grow with c, which is why it stops at c = 8. This kernel uses
-// that the substitution is linear:
+// The general kernel keeps (c + 2) accumulator sets, one for each U_k, and
+// finishes with the forward substitution Z = L^{-1} U; its registers grow
+// with c, which is why it stops at c = 3. This kernel uses that the
+// substitution is linear:
 //
 //     Z_k = sum_s X[s,i] * V[k,s,j],   V[k,:,j] = W[:,j] * (C L_j^{-T})[:,k],
 //
@@ -18,207 +19,270 @@
 //     N = B - sum_k Z_k zeta_k,   D = D1 - sum_k Z_k^2
 //
 // then the same keep mask (D > 1024 eps D1), floor (4 eps D1), r2 and LOD as
-// the general kernel, with IEEE divisions and log10f. Four accumulator sets
-// a thread (N, D, D1, Z) for any c, and the same 2 (c + 2) n p m flops: the
-// first walk over the samples takes B, D1 and Z_0 together, every later walk
-// one Z_k. The scalar block is zeta (c rows), inv_nrm2, and nrm2 for the
-// effects variant (kEffects), whose effect and standard error are the
-// general kernel's effect_from_products() on the same N and D.
+// the general kernel, with IEEE divisions and log10f. The same 2 (c + 2) n p m
+// flops: the first walk over the samples takes B, D1 and Z_0 together, every
+// later walk one Z_k. The scalar block is zeta (c rows), inv_nrm2, and nrm2
+// for the effects variant (kEffects), whose effect and standard error are
+// the general kernel's effect_from_products() on the same N and D.
 //
-// Tiles as the general kernel's: a block of 256 threads owns a 64 x 64
-// output tile, each thread a 4 x 4 micro-tile strided by 16 both ways, n
-// walked in chunks of 16 samples through shared memory (16 KB static: X, V_k,
-// and W and WY on the first walk). A block reads its X tile c times, from
-// L2 after the first walk; V_k and the tile's W and WY once.
+// The products are the chunked 3 x TF32 warpgroup mainloop of
+// liteqtl_chunked.cuh: a block of two warpgroups owns 64 traits and two
+// 64-marker tiles at a time, walks the samples in chunks of 40 through a
+// ring of cp.async stages, and splits each chunk of V_k (and of W and WY on
+// the first walk) once for both tiles. Product sets B, D1 and Z_0 on the
+// first walk, Z_k alone after it, and N, D on the CUDA cores: 128
+// accumulator registers a thread at most, for any c; D1 waits for the
+// epilogue in shared memory after the first walk. No instruction but
+// wgmma writes a product set (N is not kept in B's registers), or ptxas
+// serializes the products (C7515). Two columns a walk (one A fragment for
+// both Z sets, the marker chunks staged half as often) took 160 and
+// spilled, and gained nothing at 79 samples. The
+// finished tiles take the place of the split W and WY, which the last walk
+// does not read (c > 3 means four walks at least). Past kFoldChunks chunks
+// a walk adds its sets into running totals in device memory (B, D1, Z).
 //
-// What bounds it on an H100: the operations, 2 (c + 2) n p m float32 flops
-// on the CUDA cores, against the (p, m) LOD write and the (c, n, m) operand
-// (at 79 x 7,321 x 35,554 with c = 12: 5.8e11 flops, 8.6 ms at 67 TFLOP/s,
-// against 1.04 GB + 135 MB, 0.35 ms). A SIMT kernel, correct first; taking
-// the products on the tensor cores is later work.
+// What bounds it on an H100: the operations, 2 (c + 2) n p m flops as three
+// TF32 passes, against the (p, m) LOD write and the (c, n, m) operand (at
+// 79 x 7,321 x 35,554 with c = 12: 5.8e11 flops, 3.5 ms at 165 TFLOP/s of
+// float32-grade work, against 1.04 GB + 135 MB, 0.35 ms).
 
-#include "liteqtl_resident.cuh"
+#include <type_traits>
+
+#include "liteqtl_chunked.cuh"
 
 namespace liteqtl {
 
 namespace {
 
-constexpr int kWideChunkN = 16;                // samples staged per step
-constexpr int kWideLanes = 16;                 // threads along each tile edge
-constexpr int kWideRP = kTileP / kWideLanes;   // markers per thread
-constexpr int kWideRM = kTileM / kWideLanes;   // traits per thread
-constexpr int kWideLoads = (kWideChunkN * kTileP) / kThreads;
-
-using Tile = float[kWideChunkN][kTileP];
-using Acc = float[kWideRP][kWideRM];
-
-__device__ __forceinline__ void zero(Acc& a) {
-#pragma unroll
-  for (int i = 0; i < kWideRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kWideRM; ++j) a[i][j] = 0.0f;
-}
-
-// One walk over the n samples: z += X^T V_k on the thread's micro-tile; the
-// first walk (kFirst) also b += X^T WY and d1 += (X * X)^T W.
-template <bool kFirst>
-__device__ __forceinline__ void walk_samples(const float* __restrict__ X,
-                                             const float* __restrict__ Vk,
-                                             const float* __restrict__ W,
-                                             const float* __restrict__ WY, int n, int p, int ldx,
-                                             int m, int p0, int m0, Tile& xs, Tile& vs, Tile& ws,
-                                             Tile& wys, Acc& z, Acc& b, Acc& d1) {
-  const int tid = threadIdx.x;
-  const int tx = tid % kWideLanes;  // trait lane
-  const int ty = tid / kWideLanes;  // marker lane
-  for (int n0 = 0; n0 < n; n0 += kWideChunkN) {
-#pragma unroll
-    for (int r = 0; r < kWideLoads; ++r) {
-      const int e = tid + r * kThreads;
-      const int row = e / kTileP, col = e % kTileP;
-      const int gn = n0 + row;
-      const int gp = p0 + col, gm = m0 + col;
-      const bool in_n = gn < n;
-      xs[row][col] = (in_n && gp < p) ? X[(size_t)gn * ldx + gp] : 0.0f;
-      vs[row][col] = (in_n && gm < m) ? Vk[(size_t)gn * m + gm] : 0.0f;
-      if constexpr (kFirst) {
-        ws[row][col] = (in_n && gm < m) ? W[(size_t)gn * m + gm] : 0.0f;
-        wys[row][col] = (in_n && gm < m) ? WY[(size_t)gn * m + gm] : 0.0f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int s = 0; s < kWideChunkN; ++s) {
-      float x[kWideRP], v[kWideRM];
-#pragma unroll
-      for (int i = 0; i < kWideRP; ++i) x[i] = xs[s][ty + kWideLanes * i];
-#pragma unroll
-      for (int j = 0; j < kWideRM; ++j) v[j] = vs[s][tx + kWideLanes * j];
-      if constexpr (kFirst) {
-        float w[kWideRM], wy[kWideRM];
-#pragma unroll
-        for (int j = 0; j < kWideRM; ++j) {
-          w[j] = ws[s][tx + kWideLanes * j];
-          wy[j] = wys[s][tx + kWideLanes * j];
-        }
-#pragma unroll
-        for (int i = 0; i < kWideRP; ++i) {
-          const float xx = x[i] * x[i];
-#pragma unroll
-          for (int j = 0; j < kWideRM; ++j) {
-            b[i][j] = fmaf(x[i], wy[j], b[i][j]);
-            d1[i][j] = fmaf(xx, w[j], d1[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kWideRP; ++i)
-#pragma unroll
-        for (int j = 0; j < kWideRM; ++j) z[i][j] = fmaf(x[i], v[j], z[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// num -= Z_k zeta_k and d -= Z_k^2 on the thread's micro-tile, in the order
-// of the general kernel's residualize().
-__device__ __forceinline__ void subtract_column(const Acc& z, const float* __restrict__ zeta_k,
-                                                int m, int m0, Acc& num, Acc& d) {
-  const int tx = threadIdx.x % kWideLanes;
-#pragma unroll
-  for (int j = 0; j < kWideRM; ++j) {
-    const int gm = m0 + tx + kWideLanes * j;
-    const float zeta = gm < m ? zeta_k[gm] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kWideRP; ++i) {
-      num[i][j] -= z[i][j] * zeta;
-      d[i][j] -= z[i][j] * z[i][j];
-    }
-  }
-}
-
-template <bool kEffects>
-__global__ void __launch_bounds__(kThreads)
-liteqtl_wide_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
-                    const float* __restrict__ V,     // (c, n, m) whitened weighted covariates
-                    const float* __restrict__ W,     // (n, m) per-trait weights
-                    const float* __restrict__ WY,    // (n, m) weighted traits
-                    const float* __restrict__ scal,  // (c + 1 [+ 1], m) zeta, inv_nrm2 [, nrm2]
-                    float* __restrict__ out,         // (p, m) LOD
-                    float* __restrict__ beta_out,    // (p, m) effect (kEffects)
-                    float* __restrict__ se_out,      // (p, m) its standard error (kEffects)
-                    int n, int p, int ldx, int m, int c) {
-  __shared__ Tile xs, vs, ws, wys;
+// kFold: the walks fold their sets into running totals (folds(n)); each
+// walk then adds its last chunks into them too, and its sums are read back
+// from them, so that the product sets die at that fold.
+template <int kInFlight, bool kEffects, bool kFold>
+__global__ void __launch_bounds__(kThreads, 1)
+liteqtl_wide_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
+                          const float* __restrict__ V,     // (c, n, m) whitened weighted covariates
+                          const float* __restrict__ W,     // (n, m) per-trait weights
+                          const float* __restrict__ WY,    // (n, m) weighted traits
+                          const float* __restrict__ scal,  // (c + 1 [+ 1], m) zeta, inv_nrm2 [, nrm2]
+                          float* __restrict__ out,         // (p, m) LOD
+                          float* __restrict__ beta_out,    // (p, m) effect (kEffects)
+                          float* __restrict__ se_out,      // (p, m) its standard error (kEffects)
+                          float* __restrict__ totals,      // running totals (kFold)
+                          int slots,                       // their slots
+                          int n, int p, int ldx, int m, int c,
+                          int group_tiles,  // marker tiles of one block, an even count
+                          int tvec,         // floats a copy of W, WY and V
+                          int pairs) {      // 1: every output is 8-byte aligned
+  using namespace chunked;
+  constexpr int kOps = 3;  // W, WY, V_k
+  constexpr int kStage = stage_floats(kOps, 0);
+  static_assert(kFinishedFloats <= 4 * kHalfFloats, "the finished tiles fit the split W and WY");
+  extern __shared__ __align__(128) float4 wide_shared_raw[];
+  __shared__ int slot;
+  float* shared = reinterpret_cast<float*>(wide_shared_raw);
+  float* split_w = shared;  // [big, small][kHalfFloats], K-major
+  float* split_wy = split_w + 2 * kHalfFloats;
+  float* split_v = split_wy + 2 * kHalfFloats;
+  float* stages = split_v + 2 * kHalfFloats;  // [2][kStage]: X of both warpgroups | W | WY | V_k
+  float* zeros = stages + 2 * kStage;         // [kZeroFloats]
+  float* d1s = zeros + kZeroFloats;           // [kGroups][32][kWgThreads]: D1 after the first walk
+  float* finished = split_w;  // [kGroups][kTileP][kLdOut], in the last walk's free split W and WY
+  constexpr int kRawW = kGroups * kXFloats, kRawWY = kRawW + kChunk * kRawLd;
+  constexpr int kRawV = kRawWY + kChunk * kRawLd;
 
   const int tid = threadIdx.x;
-  const int tx = tid % kWideLanes;
-  const int ty = tid / kWideLanes;
-  const int p0 = blockIdx.y * kTileP;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int group = warp / 4;
+  const int wrow = 16 * (warp % 4);
   const int m0 = blockIdx.x * kTileM;
+  const int ntiles = (p + kTileP - 1) / kTileP;
+  const int first = blockIdx.y * group_tiles;
+  const int last = min(first + group_tiles, ntiles);
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  const int walk_steps = c * nchunks;  // steps of one pair of marker tiles
+  const int nsteps = (last - first + 1) / 2 * walk_steps;
 
-  Acc num, d, d1, z;
-  zero(num);
-  zero(d1);
-  zero(z);
-  walk_samples<true>(X, V, W, WY, n, p, ldx, m, p0, m0, xs, vs, ws, wys, z, num, d1);
-#pragma unroll
-  for (int i = 0; i < kWideRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kWideRM; ++j) d[i][j] = d1[i][j];
-  subtract_column(z, scal, m, m0, num, d);
-  for (int k = 1; k < c; ++k) {
-    zero(z);
-    walk_samples<false>(X, V + (size_t)k * n * m, W, WY, n, p, ldx, m, p0, m0, xs, vs, ws, wys,
-                        z, num, d1);
-    subtract_column(z, scal + (size_t)k * m, m, m0, num, d);
-  }
+  // one step's copies: the two marker chunks, V_k and, on the first walk, W and WY
+  auto start_copies = [&](int step) {
+    float* st = stages + (step & 1) * kStage;
+    const int chunk = step % nchunks, k = step % walk_steps / nchunks;
+    const int tile = first + 2 * (step / walk_steps);
+    const int n0 = chunk * kChunk;
+    stage_markers(st, X, n, ldx, n0, tile, tid);
+    stage_operand(st + kRawV, V + (size_t)k * n * m, n, m, n0, m0, tvec, tid);
+    if (k == 0) {
+      stage_operand(st + kRawW, W, n, m, n0, m0, tvec, tid);
+      stage_operand(st + kRawWY, WY, n, m, n0, m0, tvec, tid);
+    }
+    cp_async_commit();
+  };
+  if (nsteps > 0) start_copies(0);
+
+  if (kFold && tid == 0) slot = claim_slot(reinterpret_cast<int*>(totals), slots);
+  clear_zero_step(zeros, tid);
+  fence_proxy_async();
+  __syncthreads();  // the zero step is in place before the first product reads it
+  const uint64_t d_w = kmajor_descriptor(split_w, kTileM);
+  const uint64_t d_wy = kmajor_descriptor(split_wy, kTileM);
+  const uint64_t d_v = kmajor_descriptor(split_v, kTileM);
+  const uint64_t d_zero = kmajor_descriptor(zeros, kTileM);
+  // the totals of B, D1 and Z, one set after another (kFold)
+  float* const tot = kFold ? slot_totals(totals, slots, slot, 3, group, tid) : nullptr;
+  auto total_of = [&](int set) { return tot + set * kSetFloats; };
+  // element i of a set over the whole walk: a, or its total
+  auto sum_of = [&](const float (&a)[32], int set, int i) {
+    if constexpr (kFold) return __ldcg(total_of(set) + i * kWgThreads);
+    else return a[i];
+  };
 
   const float neg_half_n = -0.5f * (float)n;
-  const float dof = (float)max(n - c - 1, 1);
-  const float eps = FLT_EPSILON;
+  const float inv_dof = 1.0f / (float)max(n - c - 1, 1);
+  float* my_finished = finished + (group * kTileP + wrow) * kLdOut;
+  float* my_d1 = d1s + group * kSetFloats + tid % kWgThreads;  // the thread's element 0
+  const int npairs = (last - first + 1) / 2;
+  int step = 0;
+  // one chunk of a walk: its copies, its split operands (W and WY on the
+  // first walk) and its products
+  auto walk_chunk = [&](auto first_walk, float (&b)[32], float (&d1)[32], float (&z)[32],
+                        int chunk) {
+    constexpr bool kFirstWalk = decltype(first_walk)::value;
+    cp_async_wait<0>();
+    __syncthreads();  // this step's chunk has landed; the other stage is free
+    if (step + 1 < nsteps) start_copies(step + 1);
+    const float* st = stages + (step & 1) * kStage;
+    split_operand(split_v, st + kRawV, tid);
+    if constexpr (kFirstWalk) {
+      split_operand(split_w, st + kRawW, tid);
+      split_operand(split_wy, st + kRawWY, tid);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the split operands are complete
+    pin_registers(z);
+    if constexpr (kFirstWalk) pin_registers(b), pin_registers(d1);
+    wide_chunk<kFirstWalk, kInFlight>(b, d1, z, st + group * kXFloats + wrow + 2 * g, d_w, d_wy,
+                                      d_v, q, kFold ? keeps_sets(chunk) : 1);
+    pin_registers(z);
+    if constexpr (kFirstWalk) pin_registers(b), pin_registers(d1);
+    ++step;
+  };
+  // num -= Z_k zeta_k and d -= Z_k^2, in the order of residualize(): the
+  // thread's traits 8 j + 2 q + e, element i = 4 j + 2 h + e. After the
+  // first walk (kFirst) num and d start from B and D1 element by element,
+  // so that b and d1 die as num and d are made, and D1 waits for the
+  // epilogue in shared memory.
+  auto subtract_column = [&](auto first, int k, const float (&b)[32], const float (&d1)[32],
+                             const float (&z)[32], float (&num)[32], float (&d)[32]) {
+    constexpr bool kFirst = decltype(first)::value;
 #pragma unroll
-  for (int j = 0; j < kWideRM; ++j) {
-    const int gm = m0 + tx + kWideLanes * j;
-    // columns past m get ones: no division by zero in lanes never stored
-    const float inv_nrm2 = gm < m ? scal[(size_t)c * m + gm] : 1.0f;
-    const float nrm2 = (kEffects && gm < m) ? scal[(size_t)(c + 1) * m + gm] : 1.0f;
+    for (int j = 0; j < kTileM / 8; ++j) {
 #pragma unroll
-    for (int i = 0; i < kWideRP; ++i) {
-      const int gp = p0 + ty + kWideLanes * i;
-      const float nn = num[i][j];
-      const bool keep = d[i][j] > 1024.0f * eps * d1[i][j];
-      const float dd = fmaxf(d[i][j], 4.0f * eps * d1[i][j]);
-      const float r2 = keep ? nn * nn * inv_nrm2 / dd : 0.0f;
-      const float lod = neg_half_n * log10f(fmaxf(1.0f - r2, FLT_MIN));
-      if (gp < p && gm < m) out[(size_t)gp * m + gm] = lod;
-      if constexpr (kEffects) {
-        const float nk = (keep && inv_nrm2 > 0.0f) ? nn : 0.0f;
-        const float dt = fmaxf(dd, FLT_MIN);
-        const float rss = fmaxf(nrm2 - __fmul_rn(nk, nk) / dt, 0.0f);
-        if (gp < p && gm < m) {
-          beta_out[(size_t)gp * m + gm] = nk / dt;
-          se_out[(size_t)gp * m + gm] = sqrtf(rss / dof / dt);
+      for (int e = 0; e < 2; ++e) {
+        const int gm = m0 + 8 * j + 2 * q + e;
+        const float zeta = gm < m ? scal[(size_t)k * m + gm] : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          if constexpr (kFirst) {
+            num[i] = sum_of(b, 0, i);
+            d[i] = sum_of(d1, 1, i);
+            my_d1[i * kWgThreads] = d[i];
+          }
+          const float zk = sum_of(z, 2, i);
+          num[i] = __fsub_rn(num[i], __fmul_rn(zk, zeta));
+          d[i] = __fsub_rn(d[i], __fmul_rn(zk, zk));
         }
       }
     }
+  };
+
+  for (int pair = 0; pair < npairs; ++pair) {
+    // the first walk: B, D1 and Z_0 (kFold: each run of kFoldChunks chunks
+    // added into the totals)
+    float num[32], d[32];
+    {
+      float b[32], d1[32], z[32];
+      zero_each(d_zero, b, d1, z);
+      for (int chunk = 0; chunk < nchunks; ++chunk) {
+        walk_chunk(std::true_type{}, b, d1, z, chunk);
+        if (kFold && fold_after(chunk, nchunks)) {
+          fold_set(total_of(0), b, chunk + 1 == kFoldChunks);
+          fold_set(total_of(1), d1, chunk + 1 == kFoldChunks);
+          fold_set(total_of(2), z, chunk + 1 == kFoldChunks);
+        }
+      }
+      if constexpr (kFold) {
+        fold_set(total_of(0), b, false);
+        fold_set(total_of(1), d1, false);
+        fold_set(total_of(2), z, false);
+      }
+      subtract_column(std::true_type{}, 0, b, d1, z, num, d);
+    }
+    // every later walk: Z_k
+    for (int k = 1; k < c; ++k) {
+      float z[32];
+      zero_each(d_zero, z);
+      for (int chunk = 0; chunk < nchunks; ++chunk) {
+        walk_chunk(std::false_type{}, z, z, z, chunk);
+        if (kFold && fold_after(chunk, nchunks)) fold_set(total_of(2), z, chunk + 1 == kFoldChunks);
+      }
+      if constexpr (kFold) fold_set(total_of(2), z, false);
+      subtract_column(std::false_type{}, k, z, z, z, num, d);
+    }
+
+    auto element = [&](int j, int h, int e) {
+      const int i = 4 * j + 2 * h + e, gm = m0 + 8 * j + 2 * q + e;
+      Residual r;
+      r.num = num[i];
+      r.d = d[i];
+      r.keep = keep_and_floor(r.d, my_d1[i * kWgThreads]);
+      // columns past m get ones: no division by zero in lanes never stored
+      r.inv_nrm2 = gm < m ? scal[(size_t)c * m + gm] : 1.0f;
+      r.nrm2 = (kEffects && gm < m) ? scal[(size_t)(c + 1) * m + gm] : 1.0f;
+      return r;
+    };
+    const int tile = first + 2 * pair + group;
+    finish_tile<kEffects>(element, out, beta_out, se_out, my_finished, tile, wrow, m0, p, m, pairs,
+                          tile < last, neg_half_n, inv_dof, lane);
+  }
+  if (kFold) {
+    __syncthreads();  // every thread's totals are written
+    if (tid == 0) release_slot(reinterpret_cast<int*>(totals), slot);
   }
 }
 
 }  // namespace
 
 // The wide kernel on the operands o (o.Cov is V, (c, n, m); o.scal the wide
-// scalar block), c >= 1 covariate columns.
-cudaError_t launch_wide(const Operands& o, int c, cudaStream_t stream) {
-  if (c < 1 || (o.p + kTileP - 1) / kTileP > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((o.m + kTileM - 1) / kTileM, (o.p + kTileP - 1) / kTileP);
-  if (o.beta != nullptr) {
-    liteqtl_wide_kernel<true><<<grid, kThreads, 0, stream>>>(
-        o.X, o.Cov, o.W, o.WY, o.scal, o.out, o.beta, o.se, o.n, o.p, o.ldx, o.m, c);
-  } else {
-    liteqtl_wide_kernel<false><<<grid, kThreads, 0, stream>>>(
-        o.X, o.Cov, o.W, o.WY, o.scal, o.out, nullptr, nullptr, o.n, o.p, o.ldx, o.m, c);
-  }
+// scalar block), c > 3 covariate columns: the last walk leaves the split W
+// and WY to the finished tiles.
+cudaError_t launch_wide(const Operands& o, int c, const chunked::Totals& t, cudaStream_t stream) {
+  using namespace chunked;
+  if (c < 4 || o.ldx % 4 != 0 || reinterpret_cast<uintptr_t>(o.X) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const bool effects = o.beta != nullptr;
+  // each depth step's fragments are made while the step before multiplies
+  const bool fold = folds(o.n);
+  auto kernel = effects ? (fold ? liteqtl_wide_wgmma_kernel<1, true, true>
+                                : liteqtl_wide_wgmma_kernel<1, true, false>)
+                        : (fold ? liteqtl_wide_wgmma_kernel<1, false, true>
+                                : liteqtl_wide_wgmma_kernel<1, false, false>);
+  const size_t bytes = 4 * (shared_floats(3, 0, 0, false) + kGroups * kSetFloats);
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return rc;
+  int slots;
+  if ((rc = total_slots(kernel, bytes, o.n, 3, t, slots)) != cudaSuccess || t.need) return rc;
+  Geometry geo;
+  if ((rc = geometry(o, geo)) != cudaSuccess) return rc;
+  // every V_k starts n m floats after the one before it
+  const long long nm = (long long)o.n * o.m;
+  const int tvec = std::min({trait_copy_width(o.W, o.WY, o.m), copy_width(o.Cov, o.m),
+                             nm % 4 == 0 ? 4 : nm % 2 == 0 ? 2 : 1});
+  const int pairs = aligned8(o.out) && (!effects || (aligned8(o.beta) && aligned8(o.se)));
+  kernel<<<geo.grid, kThreads, bytes, stream>>>(o.X, o.Cov, o.W, o.WY, o.scal, o.out, o.beta,
+                                                o.se, t.at, slots, o.n, o.p, o.ldx, o.m, c,
+                                                geo.group_tiles, tvec, pairs);
   return cudaGetLastError();
 }
 

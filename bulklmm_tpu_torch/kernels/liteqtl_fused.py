@@ -11,19 +11,23 @@ What bounds it on an H100: 2 (c+2) n p m float32-grade flops against one
 4 p m byte write. At 79 samples x 7,321 markers x 35,554 traits with c = 1
 that is 1.23e11 flops and a 1.04 GB write, so it is bound by operations.
 Three kernels, picked by :func:`kernel_path` from n and c (the launcher in
-the source applies the same rule): the resident kernel (n <= 88, c <= 3;
-``csrc/liteqtl_resident.cuh``) takes the products on the tensor cores as
-three TF32 passes (``csrc/mma_tf32x3.cuh``) with the traits' operands kept
-in shared memory and the marker tiles copied asynchronously, float32-grade
-but not bit-equal to the plain version's products, and its epilogue takes
-reciprocals and the hardware's log2 where the plain version divides and
-calls log10; the general kernel (any n, c <= 8) is float32 ``fmaf`` on
-64 x 64 tiles with the exact epilogue; the wide kernel (any c > 8,
-``csrc/liteqtl_wide.cu``) is the general kernel's tiling on operands whose
-covariates are already whitened per trait, V = W (C L^{-T}) (c, n, m),
-formed here in the inputs' dtype, so that it holds four accumulator sets a
-thread for any c and needs no substitution (see the sources for the
-designs).
+the source applies the same rule), all of them taking the products on the
+tensor cores as three TF32 passes (``csrc/mma_tf32x3.cuh``), float32-grade
+but not bit-equal to the plain version's products: the resident kernel
+(n <= 88, c <= 3; ``csrc/liteqtl_resident.cuh``) keeps the traits' operands
+in shared memory and copies the marker tiles asynchronously, and its
+epilogue takes reciprocals and the hardware's log2 where the plain version
+divides and calls log10; the general kernel (c <= 3 at any n, taken for
+n > 88; ``csrc/liteqtl_fused.cu``) walks the samples in chunks of
+:data:`CHUNK_SAMPLES` through a ring of asynchronous copies
+(``csrc/liteqtl_chunked.cuh``) and, past 200 samples, float32 running
+totals in device memory that the wrapper allocates, with the exact
+epilogue; the wide kernel
+(any c > 3, ``csrc/liteqtl_wide.cu``) runs the same chunked walk on
+operands whose covariates are already whitened per trait, V = W (C L^{-T})
+(c, n, m), formed here in the inputs' dtype, so that it holds the same five
+accumulator sets a thread for any c and needs no substitution (see the
+sources for the designs).
 
 The effects variant of both kernels (``effects=True``; the path of
 ``bulkscan(output_effects=True)`` under the float32 presets) writes, from
@@ -47,7 +51,10 @@ Layers:
   float32, on either form of the operands (the wide one walks V a column
   at a time, as the wide kernel does). :func:`liteqtl_split_reference`
   repeats the resident kernel's 3 x TF32 arithmetic instead
-  (``kernels/split.py``), for comparisons.
+  (``kernels/split.py``), and :func:`liteqtl_chunked_reference` the
+  general and wide kernels' (the same split, the samples in chunks of 40,
+  each run of :data:`FOLD_CHUNKS` chunks summed and added into a running
+  total), for comparisons.
 - :func:`fused_lods_per_trait` and :func:`fused_lods_and_effects_per_trait`:
   the kernel on CUDA tensors, its plain version on CPU tensors.
   :func:`fused_lods_per_trait_reference` always takes the plain version on
@@ -68,11 +75,20 @@ from ..ops.smallchol import (
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from .split import matmul_tf32x3, rows_at_16_bytes
+from .split import matmul_tf32x3, matmul_tf32x3_chunked, rows_at_16_bytes
 
 #: covariate columns (intercept included) the general kernel is instantiated
-#: for; the wide kernel takes any more
-GENERAL_COVARIATES = 8
+#: for ((c + 2) accumulator sets of 32 registers a thread); the wide kernel
+#: takes any more
+GENERAL_COVARIATES = 3
+
+#: samples a chunk of the general and wide kernels' walk (kChunk in
+#: ``csrc/liteqtl_chunked.cuh``)
+CHUNK_SAMPLES = 40
+
+#: chunks that the general and wide kernels add into one product set before
+#: adding the set into its float32 running total (kFoldChunks)
+FOLD_CHUNKS = 5
 
 #: covariate columns the resident kernel is instantiated for: it keeps
 #: (c + 2) accumulator sets of 32 registers a thread
@@ -127,13 +143,13 @@ def resident_shared_bytes(n: int, c: int, effects: bool = False) -> int:
 
 def kernel_path(n: int, c: int, effects: bool = False) -> str:
     """"resident" where the traits' operands fit shared memory and the
-    (c + 2) accumulator sets fit the registers (n <= 88, c <= 3): 3 x TF32
-    warpgroup products. "wide" for more than :data:`GENERAL_COVARIATES`
-    covariate columns, at any n: float32 ``fmaf`` on the whitened operands.
-    Else "general": float32 ``fmaf`` on staged chunks of n. The effects
-    variant's scalar block is one row longer; it fits wherever the LOD-only
-    kernel does. The launcher in ``csrc/liteqtl_fused.cu`` applies the same
-    rule (``bulklmm_liteqtl_path``, :func:`launcher_path`)."""
+    (c + 2) accumulator sets fit the registers (n <= 88, c <= 3). "wide" for
+    more than :data:`GENERAL_COVARIATES` covariate columns, at any n: the
+    whitened operands. Else "general": the samples in chunks. All three take
+    3 x TF32 warpgroup products. The effects variant's scalar block is one
+    row longer; it fits wherever the LOD-only kernel does. The launcher in
+    ``csrc/liteqtl_fused.cu`` applies the same rule
+    (``bulklmm_liteqtl_path``, :func:`launcher_path`)."""
     if c > GENERAL_COVARIATES:
         return "wide"
     fits = (
@@ -291,9 +307,12 @@ def _library():
     lib = load_library()
     fn = lib.bulklmm_liteqtl_lod
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.bulklmm_liteqtl_totals.argtypes = [*[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int)]
+    lib.bulklmm_liteqtl_totals.restype = ctypes.c_longlong
     lib.bulklmm_liteqtl_path.argtypes = [ctypes.c_int] * 3
     lib.bulklmm_liteqtl_path.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -308,6 +327,17 @@ def launcher_path(n: int, c: int, effects: bool = False) -> str:
     return ("general", "resident", "wide")[_library().bulklmm_liteqtl_path(n, c, int(effects))]
 
 
+def _totals_floats(lib, n: int, c: int, effects: bool, general: bool) -> int:
+    """Floats of the running totals that a launch at n samples and c columns
+    needs on the current device (0 where its walks do not fold)."""
+    err = ctypes.c_int(0)
+    floats = lib.bulklmm_liteqtl_totals(n, c, int(effects), int(general), ctypes.byref(err))
+    if floats < 0:
+        raise RuntimeError("liteqtl_lod kernel: sizing its running totals failed: "
+                           + lib.bulklmm_cuda_error_string(err.value).decode())
+    return floats
+
+
 def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool = False):
     """(p, m) float32 LOD from the kernel's operands, on their CUDA device;
     with ``effects=True`` (the effects variant, whose ``scal`` has the nrm2
@@ -315,27 +345,31 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
 
     Takes the kernel that :func:`kernel_path` names for the shape, on the
     operands :func:`prepare_inputs` gives for it; ``general=True`` takes the
-    general kernel whatever the shape, up to :data:`GENERAL_COVARIATES`
-    columns (for comparisons). Raises on a CPU tensor, a wrong dtype, shape
-    or layout, operands of another kernel, a failed build or a launch error.
-    Does not synchronize.
+    general kernel whatever n is, up to :data:`GENERAL_COVARIATES` columns
+    (for comparisons at a resident shape). Raises on a CPU tensor, a wrong
+    dtype, shape or layout, operands of another kernel, a failed build or a
+    launch error. Does not synchronize.
     """
     global launches, effects_launches
     n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
     if general and c > GENERAL_COVARIATES:
         raise ValueError(f"liteqtl_lod_cuda: the general kernel is instantiated for at most "
                          f"{GENERAL_COVARIATES} covariate columns, not {c}")
-    resident = not general and kernel_path(n, c, effects) == "resident"
     lib = _library()
     outs = [torch.empty((p, m), dtype=_F32, device=X.device) for _ in range(3 if effects else 1)]
     beta_ptr, se_ptr = (outs[1].data_ptr(), outs[2].data_ptr()) if effects else (None, None)
     with torch.cuda.device(X.device):
-        if resident and (X.stride(0) % 4 or X.data_ptr() % 16):
+        # every kernel copies X in 16-byte pieces
+        if X.stride(0) % 4 or X.data_ptr() % 16:
             X = rows_at_16_bytes(X.contiguous())
         stream = torch.cuda.current_stream().cuda_stream
+        # past FOLD_CHUNKS chunks a walk keeps running totals in device memory
+        floats = _totals_floats(lib, n, c, effects, general)
+        totals = torch.zeros(floats, dtype=_F32, device=X.device) if floats else None
         rc = lib.bulklmm_liteqtl_lod(
             X.data_ptr(), X.stride(0), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
-            scal.data_ptr(), outs[0].data_ptr(), beta_ptr, se_ptr, n, p, m, c, int(general), stream,
+            scal.data_ptr(), outs[0].data_ptr(), beta_ptr, se_ptr, n, p, m, c, int(general),
+            None if totals is None else totals.data_ptr(), floats, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -426,6 +460,20 @@ def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     passes (``split.py::matmul_tf32x3``). On any device; no main path takes
     it."""
     return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3, effects)
+
+
+def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
+    """The kernel's function with the general and wide kernels' arithmetic:
+    the operands rounded as :func:`liteqtl_split_reference` rounds them, the
+    samples in chunks of :data:`CHUNK_SAMPLES`, each chunk's three TF32
+    passes added to one float32 sum, its small terms first, and that sum
+    added into a running total every :data:`FOLD_CHUNKS` chunks
+    (``split.py::matmul_tf32x3_chunked``). On either operand form and any
+    device; no main path takes it."""
+    def product(A, B):
+        return matmul_tf32x3_chunked(A, B, CHUNK_SAMPLES, fold=FOLD_CHUNKS)
+
+    return _lod_with_product(X, C, W, WY, scal, product, effects)
 
 
 def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:

@@ -58,6 +58,33 @@ def matmul_tf32x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 @with_highest_matmul()
+def matmul_tf32x3_chunked(A: torch.Tensor, B: torch.Tensor, chunk: int, *,
+                          fold: int | None = None) -> torch.Tensor:
+    """``A @ B`` as the chunked LOD kernels take it: the contraction in
+    chunks of ``chunk``, each chunk's three products of the TF32 halves added
+    one after another to one float32 sum, the small terms first (A small x
+    B big, A big x B small) and the leading term after them. With ``fold``,
+    that sum starts again from zero every ``fold`` chunks and each finished
+    sum is added into a float32 running total, as the kernels fold their
+    accumulators (``csrc/liteqtl_chunked.cuh``); without it one sum runs
+    across every chunk."""
+    A_big, A_small = tf32_split(A)
+    B_big, B_small = tf32_split(B)
+    depth = A.shape[-1]
+    run = depth if fold is None else chunk * fold
+    total = None
+    for r0 in range(0, depth, run):
+        part = None
+        for k0 in range(r0, min(r0 + run, depth), chunk):
+            a_big, a_small = A_big[..., k0 : k0 + chunk], A_small[..., k0 : k0 + chunk]
+            b_big, b_small = B_big[..., k0 : k0 + chunk, :], B_small[..., k0 : k0 + chunk, :]
+            for a, b in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+                part = a @ b if part is None else part + a @ b
+        total = part if total is None else total + part
+    return total
+
+
+@with_highest_matmul()
 def matmul_tf32x1(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """The leading term alone: what one TF32 pass gives. For comparisons."""
     return tf32_round(A) @ tf32_round(B)

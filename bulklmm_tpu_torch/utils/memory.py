@@ -58,14 +58,14 @@ _P_COPIES_A_COVARIATE = 2
 _N_CHUNK_COPIES = 12
 
 #: (n,)-sized live copies a trait holds per covariate column on the wide LOD
-#: kernel's path (c > :data:`WIDE_FROM`): its (c, n, m) float32 operand and
+#: kernel's path (c >= :data:`WIDE_FROM`): its (c, n, m) float32 operand and
 #: its preparation in the solve dtype (the whitened covariates, their
 #: weighted product and one temporary), in the widest dtype
 _WIDE_N_COPIES = 4
 
 #: the covariate count from which the LOD step takes the wide kernel
 #: (``kernels/liteqtl_fused.py::GENERAL_COVARIATES`` + 1)
-WIDE_FROM = 9
+WIDE_FROM = 4
 
 #: (n,)-sized live copies a trait holds per h2 grid point on the alt-grid
 #: kernel's path: its (g, n, m) operands and their preparation. Measured on

@@ -12,12 +12,13 @@ exits nonzero:
    checkout's sources and prints the build time.
 3. Each kernel vs its plain version on the card, at small shapes. The LOD
    kernel: c = 1, 2 and 3 covariate columns on the resident kernel and 4 and
-   8 on the general one, a ragged 70 x 45 tile edge, n = 79, 80, 81, 88 (the
+   8 on the wide one, a ragged 70 x 45 tile edge, n = 79, 80, 81, 88 (the
    deepest resident operand) and 89 (the first general one), 129 and 321
    markers x 65 and 130 traits (one past a tile each way, an odd row length
    of the output, several marker groups), n = 2,000 to cross many sample
-   chunks, and the general kernel forced at a resident shape; the launcher's
-   resident-or-general rule must be the wrapper module's. The alt-grid
+   chunks (c = 2 on the general kernel, 4 and 8 on the wide one), and the
+   general kernel forced at a resident shape; the launcher's rule must be
+   the wrapper module's. The alt-grid
    kernel: c = 1, 2
    and 3, g = 1 and 10, the ragged edge, n = 79, 80 and 81 (the last one
    past a sample chunk), 129 markers x 65 traits (one past a tile each way),
@@ -30,13 +31,13 @@ exits nonzero:
    module's. Bar: max |dLOD| <= 5e-5 (the JAX package's bar for its Pallas
    kernels), scaled by n/48 above n = 79, and max |d max r^2| <= 1e-5 for
    the permutation kernel; at most 0.01 % of the pairs may take another grid
-   index (near-ties under another summation order). The resident LOD
-   kernel, the permutation and the alt-grid kernels take their products as
-   three TF32 passes on the tensor cores; each is also held, reported and
-   not gated, against its split reference, which repeats that arithmetic in
-   plain torch. The LOD kernel's effects variant (LOD, effect and standard
+   index (near-ties under another summation order); at n = 2,000 the LOD
+   kernels stay within LONG_DEPTH_BAR (twice the float32 fmaf kernels'
+   largest distance from their plain version at n = 2,000). Every kernel takes its products as three TF32 passes on
+   the tensor cores; each is also held, reported and not gated, against its
+   split reference, which repeats that arithmetic in plain torch. The LOD kernel's effects variant (LOD, effect and standard
    error from the same products) at the same kind of shapes (c = 1, 2, 3
-   resident and 4, 8 general; n = 48, 79, 88, 89 and 2,000; the ragged edge;
+   resident and 4, 8 wide; n = 48, 79, 88, 89 and 2,000; the ragged edge;
    the general kernel forced): max |dLOD| within the bar above, its LOD
    within 1e-6 of the LOD-only kernel's on the same operands, |d effect| <=
    1e-4 (|effect| + SE) and |dSE| <= 1e-4 SE. The run fails, at its end, if
@@ -79,9 +80,9 @@ exits nonzero:
    checksum fetch: the median of 5 runs after one warm-up of each BALANCED
    ``bulkscan`` (host eigendecomposition included) and of the LOD and
    alt-grid kernels alone and their plain versions at the scan's shape, the
-   general LOD kernel at that shape beside the resident one, and both with
-   2, 3 and 4 covariate columns (random operands; 4 takes the general
-   kernel alone); the
+   general LOD kernel at that shape (S1) beside the resident one, both with
+   2 and 3 covariate columns, and the wide kernel with 4 and 8 (S2, S3;
+   random operands), each of S1-S3 beside its bound; the
    median of 3 after a warm-up of BALANCED ``bulkscan_perms``, of the
    bulk-permutation kernel alone and of its plain version, per trait block
    and summed over all trait blocks (each block's operands prepared
@@ -130,14 +131,20 @@ exits nonzero:
     (100 permutations, 2,048 traits) within 5e-5 of ``bulkscan_perms``.
     Last of all, the memory model's live sets: each method's peak device
     memory above its inputs in (p, m) float64 arrays at BXD width, and in
-    (n, m) ones at n = 2,000 with 64 markers (alt-grid's a grid point),
+    (n, m) ones at n = 2,000 with 64 markers (alt-grid's a grid point, and
+    null-grid with c = 4 covariate columns, the wide kernel's first count),
     beside ``utils/memory.py``'s multipliers, which must cover them.
 11. Marker streaming at biobank n: null-grid, BALANCED, 2,000 samples x
     100,000 markers (an 800 MB float32 host panel, never on the card) x
     2,048 traits, the general LOD kernel, into an ``np.memmap`` in a
     temporary directory: within 1e-4 x n / 79 of the in-memory scan of the
     same data. Printed: both times (median of 3, host clock), their ratio
-    (the upload overlap) and the streamed call's device idle share.
+    (the upload overlap) and the streamed call's device idle share. Then
+    the general LOD kernel alone at that shape (S4, the scan's own operands)
+    by CUDA events beside its bound; against its plain version on the first
+    8,192 markers (phase 3's bar scaled by n/48, and LONG_DEPTH_BAR);
+    and that block's BALANCED scan against its EXACT64 scan (1e-4 x n / 79;
+    BASELINE.md's 1e-5 reported).
 12. The low-rank kinship engine (``LowRankKinship``), which runs no kernel
     in either package (plain products; every launch count must stay 0).
     (a) At k = n on phase 4's data (``kinship_lowrank_exact(K, 79)``):
@@ -218,17 +225,21 @@ exits nonzero:
     (second calls, host clock) and peak device memory are printed.
 
 15. Wide covariates (the LOD kernel's wide path, ``csrc/liteqtl_wide.cu``,
-    c > 8): (a) the kernel and its effects variant against their plain
-    version (bar as phase 3's, scaled by n/48) at c = 9, 12, 16 and 32 and
-    n = 79 and 2,000 on 129 x 130 (one past two tiles each way), with the
-    plain version on the general kernel's operands (the packed factor and
-    the substitution) under the same bar, and the launcher's rule against
-    ``kernel_path``; (b) BALANCED null-grid and null-exact ``bulkscan`` at
+    c > 3): (a) the kernel and its effects variant against their plain
+    version (bar as phase 3's, scaled by n/48; LONG_DEPTH_BAR at n = 2,000)
+    at c = 9, 12, 16, 32, 4 and 8 and n = 79 and 2,000 on 129 x 130 (one
+    past two tiles each way), with the plain version on the general kernel's
+    operands (the packed factor and the substitution) under the same bar,
+    and the launcher's rule against ``kernel_path``; (b) BALANCED null-grid and null-exact ``bulkscan`` at
     BXD scale with 11 random covariates and the intercept (c = 12, seed
     2026) against their EXACT64 runs: max |dLOD| <= 1e-4 with no grid h2
-    flip (BASELINE.md's 1e-5 reported), launches counted; the effects
-    within phase 10's bars; (c) the kernel alone at that shape, its time by
-    CUDA events beside its bound and its plain version's time; (d) a c = 32
+    flip (BASELINE.md's 1e-5 reported), launches counted, and null-grid
+    with three of those covariates (c = 4) the same way; the effects
+    within phase 10's bars; (c) the kernel alone at that shape (S5), its
+    time by CUDA events beside its bound and its plain version's time, and
+    at 2,000 x 20,000 x 2,048 with c = 12 (S6, random operands) beside its
+    bound and against its plain version (phase 3's bar scaled by n/48, and
+    LONG_DEPTH_BAR); (d) a c = 32
     null-grid call under a forced 8 GiB budget must stay under it; (e)
     ``bulkscan_streamed`` (phase 10's blocks) and ``bulkscan_loco`` (phase
     13's chromosomes) at c = 12 against the in-memory call (1e-5) and the
@@ -256,7 +267,9 @@ variant's time, its plain version's and its bound (the same operations,
 three (p, m) float32 outputs written); ``wide_c``, ``wide_launches``,
 ``wide_ms``, ``wide_plain_ms``, ``wide_bound_ms``, ``wide_simt_bound_ms``
 and ``wide_max_abs_err`` are its wide kernel's, at BXD scale with c = 12
-(phase 15). No
+(phase 15); ``shapes`` holds, for each of LOD_SHAPES' S1-S6, the time of
+the kernel that takes it (``ms``), its bound (``bound_ms``, ``bound_by``)
+and the share of the bound (``share``; phases 8, 11 and 15). No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -275,6 +288,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kernel_times import LOD_SHAPES, SHAPE_SEED, bound_ms
+
 N, P, M = 79, 7321, 35554
 NPERMS = 1000
 PERM_BLOCK = 1024  # bulkscan_perms' trait block under the kernel's engine
@@ -284,6 +299,13 @@ SEED = 2026
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12  # H100 SXM: float32 SIMT, TF32, HBM3
 SPLIT_PASSES = 3  # TF32 tensor-core passes of one float32-grade product
 KERNEL_BAR = 5e-5  # max |dLOD|, kernel vs plain, n <= 79
+#: max |dLOD|, kernel vs plain at n = 2,000: twice the float32 fmaf kernels'
+#: (PR 1's general, PR 11's wide) largest distance from their plain version
+#: at n = 2,000, on phase 11's block and S4, S4e, S6 and S7
+#: (``kernel_times.py``, NVIDIA H100 80GB HBM3, 700.00 W): one unit in the
+#: last place of 1 - r2 scaled by n / (2 ln 10), near 2.62e-5
+FMAF_LONG_DEPTH = 2.6703e-5
+LONG_DEPTH_BAR = 2 * FMAF_LONG_DEPTH
 R2_BAR = 1e-5  # max |d max r^2|, permutation kernel vs plain
 ORACLE_BAR = 1e-4  # max |dLOD|, BALANCED vs EXACT64 on equal-h2 traits
 PARITY_BAR = 1e-5  # BASELINE.md's accuracy bar, reported
@@ -298,19 +320,21 @@ STREAM_BLOCK = 2048  # phase 10's marker block
 STREAM_BAR = 1e-5  # max |dLOD|, streamed vs in-memory alt-grid
 CALIBRATION_TRAITS = 8192  # traits of phase 10's memory live-set calls
 BIOBANK_N, BIOBANK_P, BIOBANK_M = 2000, 100_000, 2048  # phase 11
+BIOBANK_BLOCK = 8192  # phase 11: markers of the kernel-vs-plain and EXACT64 checks
 #: ptxas's (registers, spill stores, spill loads, static shared bytes) of the
-#: LOD kernel's LOD-only instantiations, as phase 2 printed them for the
-#: sources before the effects variant came (NVIDIA H100, CUDA 12.8's nvcc):
-#: the effects variant must leave them as they were
+#: LOD kernel's LOD-only instantiations, as phase 2 printed them (NVIDIA
+#: H100, CUDA 12.8's nvcc): the resident kernel's for the sources before the
+#: effects variant came, the general and wide kernels' for their chunked
+#: 3 x TF32 sources; a change to their sources must bring them up to date
 LOD_ONLY_PTXAS = {
-    "liteqtl_general_kernelILi8ELb0E": (223, 0, 0, 24320),
-    "liteqtl_general_kernelILi7ELb0E": (220, 0, 0, 21952),
-    "liteqtl_general_kernelILi6ELb0E": (255, 0, 0, 19840),
-    "liteqtl_general_kernelILi5ELb0E": (244, 0, 0, 17984),
-    "liteqtl_general_kernelILi4ELb0E": (182, 0, 0, 16384),
-    "liteqtl_general_kernelILi3ELb0E": (128, 0, 0, 15040),
-    "liteqtl_general_kernelILi2ELb0E": (127, 0, 0, 13952),
-    "liteqtl_general_kernelILi1ELb0E": (80, 0, 0, 13120),
+    "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb0E": (247, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb1E": (255, 0, 0, 128),
+    "liteqtl_general_wgmma_kernelILi2ELi1ELb0ELb0E": (239, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelILi2ELi1ELb0ELb1E": (255, 0, 0, 128),
+    "liteqtl_general_wgmma_kernelILi1ELi1ELb0ELb0E": (205, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelILi1ELi1ELb0ELb1E": (254, 0, 0, 128),
+    "liteqtl_wide_wgmma_kernelILi1ELb0ELb0E": (236, 0, 0, 0),
+    "liteqtl_wide_wgmma_kernelILi1ELb0ELb1E": (254, 0, 0, 128),
     "liteqtl_resident_kernelILi1ELi11ELi1ELb0E": (187, 0, 0, 0),
     "liteqtl_resident_kernelILi1ELi10ELi1ELb0E": (185, 0, 0, 0),
     "liteqtl_resident_kernelILi1ELi8ELi1ELb0E": (185, 0, 0, 0),
@@ -357,8 +381,13 @@ CLI_TRAITS, CLI_NPERMS = 2048, 100  # phase 13 (f): the CLI run's traits and per
 CLI_SECONDS = 600  # a CLI subprocess's time limit
 #: phase 15: the wide LOD kernel's covariate columns against its plain
 #: version, and the scans' (11 random covariates and the intercept)
-WIDE_COVARIATES = (9, 12, 16, 32)
+WIDE_COVARIATES = (9, 12, 16, 32, 4, 8)
 WIDE_C = 12
+#: the LOD kernel's shapes timed here beside their bounds, from
+#: kernel_times.py's LOD_SHAPES: S1 the general kernel forced at BXD scale,
+#: S2 / S3 / S5 BXD with 4, 8 and 12 covariate columns, S4 phase 11's panel
+#: (c = 1), S6 a 2,000-sample cohort with 12
+SMOKE_SHAPES = ("S1", "S2", "S3", "S4", "S5", "S6")
 #: phase 15: a c = 32 null-grid call sized by the memory model under this
 #: forced budget must stay under it
 WIDE_BUDGET = 8 * 2**30
@@ -473,6 +502,7 @@ def kernel_checks(dev) -> None:
         (48, 70, 45, 1, False), (79, 129, 65, 1, False), (80, 129, 65, 2, False),
         (81, 129, 65, 3, False), (88, 321, 130, 1, False), (89, 96, 64, 1, False),
         (79, 1000, 131, 2, False), (79, 129, 65, 3, True), (2000, 96, 64, 2, False),
+        (2000, 96, 64, 4, False), (2000, 96, 64, 8, False),
     ]
     for n, p, m, c, general in cases:
         path = lf.kernel_path(n, c)
@@ -490,9 +520,11 @@ def kernel_checks(dev) -> None:
               f"max|dLOD| = {err:.3e} (bar {bar:.2e}); vs its split reference {split_err:.3e}")
         check(out.shape == (p, m) and bool(torch.isfinite(out).all()), "kernel output not finite")
         check(err <= bar, f"kernel disagrees with its plain version at {(n, p, m, c)}")
+        check(n < 2000 or err <= LONG_DEPTH_BAR,
+              f"kernel strays past {LONG_DEPTH_BAR:.2e} from its plain version at {(n, p, m, c)}")
     check(lf.kernel_path(88, 3) == "resident" and lf.kernel_path(89, 1) == "general"
-          and lf.kernel_path(79, 4) == "general",
-          "the resident limits moved: bring the shapes above up to date")
+          and lf.kernel_path(79, 4) == "wide" and lf.kernel_path(2000, 3) == "general",
+          "the LOD kernel's limits moved: bring the shapes above up to date")
 
 
 def _effects_errors(eff, ref):
@@ -514,7 +546,7 @@ def effects_checks(dev) -> None:
     cases = [(48, 96, 64, c, False) for c in (1, 2, 3, 4, 8)] + [
         (48, 70, 45, 1, False), (79, 129, 65, 1, False), (79, 1000, 131, 2, False),
         (88, 321, 130, 3, False), (89, 96, 64, 1, False), (79, 129, 65, 3, True),
-        (2000, 96, 64, 2, False),
+        (2000, 96, 64, 2, False), (2000, 96, 64, 4, False), (2000, 96, 64, 8, False),
     ]
     for n, p, m, c, general in cases:
         path = lf.kernel_path(n, c, effects=True)
@@ -541,6 +573,8 @@ def effects_checks(dev) -> None:
               + ", ".join(f"{e:.3e}" for e in split_errs))
         check(lod_err <= bar and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
               f"the effects variant disagrees with its plain version at {(n, p, m, c)}")
+        check(n < 2000 or lod_err <= LONG_DEPTH_BAR,
+              f"the effects variant strays past {LONG_DEPTH_BAR:.2e} at {(n, p, m, c)}")
         check(same <= SAME_LOD_BAR, f"the effects variant's LOD is not the LOD kernel's at {(n, p, m, c)}")
 
 
@@ -876,18 +910,39 @@ def times(card, Yd, Gd, K, lod_ops, alt_ops):
     flops = 2.0 * N * P * M * len(GRID)
     print(f"  alt-grid kernel: {flops / med['alt-grid kernel alone'] / 1e9:.1f} TFLOP/s "
           f"({flops:.3e} flops)")
-    # the LOD step with more covariate columns, random operands at the same shape
+    shapes = {"S1": _shape_entry(med["LOD general kernel alone"], "S1")}
+    print(f"    LOD general kernel alone at S1: {_shape_line(shapes['S1'])}")
+    # the LOD step with more covariate columns, random operands at the same
+    # shape (c = 4 and 8: S2 and S3, the wide kernel)
     rng = np.random.default_rng(8)
-    for c in (2, 3, 4):
+    for c in (2, 3, 4, 8):
         ops = lf.prepare_inputs(*_kernel_inputs(N, P, M, c, rng, Yd.device))
-        fns = {lf.kernel_path(N, c): lambda: lf.liteqtl_lod_cuda(*ops),
-               "general": lambda: lf.liteqtl_lod_cuda(*ops, general=True)}
+        fns = {lf.kernel_path(N, c): lambda: lf.liteqtl_lod_cuda(*ops)}
+        if c <= lf.GENERAL_COVARIATES:
+            fns["general"] = lambda: lf.liteqtl_lod_cuda(*ops, general=True)
         for fn in fns.values():
             _time_ms(fn)
         took = {name: statistics.median(_time_ms(fn) for _ in range(5)) for name, fn in fns.items()}
         print(f"    LOD kernel alone, c = {c}: "
               + ", ".join(f"{name} {t:.3f} ms" for name, t in took.items()))
-    return med
+        for name in ("S2", "S3"):
+            if LOD_SHAPES[name][:4] == (N, P, M, c):
+                shapes[name] = _shape_entry(took["wide"], name)
+                print(f"    LOD wide kernel alone at {name}: {_shape_line(shapes[name])}")
+        del ops
+    return med, shapes
+
+
+def _shape_entry(ms, name) -> dict:
+    """A LOD kernel time at LOD_SHAPES[name] beside its bound
+    (kernel_times.bound_ms) and its share of it."""
+    bound, by = bound_ms(LOD_SHAPES[name])
+    return {"ms": ms, "bound_ms": bound, "bound_by": by, "share": bound / ms}
+
+
+def _shape_line(entry) -> str:
+    return (f"{entry['ms']:.3f} ms a launch (CUDA events, median of 5), bound "
+            f"{entry['bound_ms']:.3f} ms by {entry['bound_by']}, {100 * entry['share']:.1f} % of it")
 
 
 def _perm_block_operands(prep, idx, lo, hi):
@@ -1482,14 +1537,24 @@ def calibrate_memory(dev, Yd, Gd, K) -> None:
             worst_n = max(worst_n, copies)
         print(f"  live set of {name} {preset} at {n2} x 64 x {m}: {extra / 2**30:.3f} GiB = "
               f"{copies:.2f} (n, m) float64 arrays beyond the rotated traits")
+    # c = 4, the wide LOD kernel's first count: its (c, n, m) operand and
+    # preparation beside the chunk's (n,)-sized copies
+    c4 = memory.WIDE_FROM
+    covar = torch.from_numpy(rng.normal(size=(n2, c4 - 1))).to(dev)
+    _, extra = _peak_over(lambda: bt.bulkscan(Y2, G2, dec, covar, precision=bt.BALANCED,
+                                              trait_chunk=m))
+    copies_c4 = extra / (8 * n2 * m) - 1
+    model_c4 = memory._N_CHUNK_COPIES * max(1, (c4 + 2) // 2) + memory._WIDE_N_COPIES * c4
+    print(f"  live set of null-grid BALANCED at {n2} x 64 x {m}, c = {c4}: {extra / 2**30:.3f} GiB = "
+          f"{copies_c4:.2f} (n, m) float64 arrays beyond the rotated traits (model {model_c4})")
     print(f"  memory model: the most (p,)-sized copies a trait held {worst:.2f} (model "
           f"{memory._P_CHUNK_COPIES}), the most (n,)-sized {worst_n:.2f} (model "
           f"{memory._N_CHUNK_COPIES}), alt-grid {worst_alt:.2f} a grid point (model "
           f"{memory._ALT_GRID_N_COPIES})")
     check(worst <= memory._P_CHUNK_COPIES and worst_n <= memory._N_CHUNK_COPIES
-          and worst_alt <= memory._ALT_GRID_N_COPIES,
+          and worst_alt <= memory._ALT_GRID_N_COPIES and copies_c4 <= model_c4,
           "a call's live set passed the memory model's multipliers")
-    del G2, Y2, dec
+    del G2, Y2, dec, covar
 
 
 def _busy_ms(fn) -> float:
@@ -1508,13 +1573,17 @@ def _busy_ms(fn) -> float:
     return busy / 1e3
 
 
-def streaming_at_biobank_n(dev, card) -> None:
+def streaming_at_biobank_n(dev, card) -> dict:
     """Phase 11: null-grid over a 2,000 x 100,000 host panel (800 MB float32)
-    and 2,048 traits, streamed into a memmap, against the in-memory scan."""
+    and 2,048 traits, streamed into a memmap, against the in-memory scan;
+    then the LOD kernel alone at that shape (S4) beside its bound, against
+    its plain version on the first BIOBANK_BLOCK markers, and that block's
+    BALANCED scan against its EXACT64 scan. Returns S4's entry."""
     import tempfile
 
     import bulklmm_tpu_torch as bt
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED)
@@ -1540,6 +1609,7 @@ def streaming_at_biobank_n(dev, card) -> None:
         bar = ORACLE_BAR * BIOBANK_N / N
         print(f"  streamed vs in-memory: max|dLOD| = {err:.3e} (bar {bar:.2e})")
         check(err <= bar, "the streamed scan strays from the in-memory one at biobank n")
+        h2 = ref.h2_null_list
         del ref
         times_s = {"streamed": [], "in memory": []}
         for _ in range(3):
@@ -1557,9 +1627,43 @@ def streaming_at_biobank_n(dev, card) -> None:
               f"streamed / in memory {med['streamed'] / med['in memory']:.2f}; the streamed call's "
               f"device busy {busy:.1f} ms (profiler on), idle {100 * (1 - busy / (1e3 * med['streamed'])):.0f} %")
         del out, res
+
+    # the LOD kernel alone at this shape (S4), on the scan's own operands
+    with with_highest_matmul():
+        ones = torch.ones((BIOBANK_N, 1), dtype=torch.float64, device=dev)
+        ops = lf.prepare_inputs(dec.Ut @ Yd.double(), dec.Ut @ Gd.double(), dec.Ut @ ones, dec.lam, h2)
+    check(lf.kernel_path(BIOBANK_N, 1) == "general", "biobank n does not take the general kernel")
+    check(LOD_SHAPES["S4"][:4] == (BIOBANK_N, BIOBANK_P, BIOBANK_M, 1), "S4 is not this panel")
+    _time_ms(lambda: lf.liteqtl_lod_cuda(*ops))
+    s4 = _shape_entry(statistics.median(_time_ms(lambda: lf.liteqtl_lod_cuda(*ops)) for _ in range(5)),
+                      "S4")
+    print(f"  the general LOD kernel alone at S4 ({BIOBANK_N} x {BIOBANK_P} x {BIOBANK_M}, c = 1) "
+          f"on {card}: {_shape_line(s4)}")
+    block = (ops[0][:, :BIOBANK_BLOCK], *ops[1:])
+    kerr = (lf.liteqtl_lod_cuda(*block) - lf.liteqtl_lod_plain(*block)).abs().max().item()
+    kbar = KERNEL_BAR * BIOBANK_N / 48
+    print(f"  the kernel vs its plain version on the first {BIOBANK_BLOCK} markers: max|dLOD| = "
+          f"{kerr:.3e} (bars {kbar:.2e}, phase 3's scaled, and {LONG_DEPTH_BAR:.2e}, twice the "
+          f"fmaf kernels' distance)")
+    check(kerr <= kbar, "the general LOD kernel disagrees with its plain version at S4")
+    check(kerr <= LONG_DEPTH_BAR, f"the general LOD kernel strays past {LONG_DEPTH_BAR:.2e} from "
+          "its plain version at S4")
+    del ops, block
+    Gb = Gd[:, :BIOBANK_BLOCK].contiguous()
+    bal = bt.bulkscan(Yd, Gb, dec, precision=bt.BALANCED)
+    exact = bt.bulkscan(Yd, Gb, dec, precision=bt.EXACT64)
+    same = exact.h2_null_list == bal.h2_null_list.double()
+    oerr = _max_abs_diff_cols(bal.L, exact.L, same)
+    obar = ORACLE_BAR * BIOBANK_N / N
+    print(f"  BALANCED vs EXACT64 on that block: {int((~same).sum())} of {BIOBANK_M} traits with "
+          f"another grid h2; max|dLOD| on the rest = {oerr:.3e} (bar {obar:.2e}; BASELINE.md's "
+          f"{PARITY_BAR:.0e}: {'met' if oerr <= PARITY_BAR else 'NOT met'})")
+    check(oerr <= obar, "BALANCED strays from EXACT64 at biobank n")
+    del bal, exact, Gb
     print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
     del G, Gd, Yd, dec
     torch.cuda.empty_cache()
+    return s4
 
 
 def _host_ms(fn) -> float:
@@ -2473,7 +2577,7 @@ def wide_kernel_checks(dev) -> None:
             for effects in (False, True):
                 check(lf.kernel_path(n, c, effects) == lf.launcher_path(n, c, effects),
                       f"the launcher and kernel_path disagree at n={n}, c={c}")
-        check(lf.kernel_path(n, 9) == "wide" and lf.kernel_path(n, 8) != "wide",
+        check(lf.kernel_path(n, 4) == "wide" and lf.kernel_path(n, 3) != "wide",
               "the wide kernel's range moved: bring the shapes below up to date")
     rng = np.random.default_rng(15)
     p, m = 129, 130  # one past two tiles each way
@@ -2505,6 +2609,8 @@ def wide_kernel_checks(dev) -> None:
             check(err <= bar and gerr <= bar, f"the wide kernel disagrees at {(n, p, m, c)}")
             check(lod_err <= bar and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
                   f"the wide kernel's effects variant disagrees at {(n, p, m, c)}")
+            check(n < 2000 or max(err, lod_err) <= LONG_DEPTH_BAR,
+                  f"the wide kernel strays past {LONG_DEPTH_BAR:.2e} at {(n, p, m, c)}")
             check(same <= SAME_LOD_BAR, f"the wide effects variant's LOD moved at {(n, p, m, c)}")
 
 
@@ -2553,6 +2659,24 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
         else:
             del res
 
+    # c = 4 (three of those covariates and the intercept), the wide kernel's first count
+    covar4 = covar[:, :3].contiguous()
+    res4, counts4 = _drive("BALANCED null-grid bulkscan, c = 4",
+                           lambda: bt.bulkscan(Yd, Gd, K, covar4, precision=bt.BALANCED))
+    check(counts4["liteqtl_lod"] > 0 and lf.kernel_path(N, 4) == "wide",
+          f"the c = 4 null-grid bulkscan launched {counts4}")
+    exact4 = bt.bulkscan(Yd, Gd, K, covar4, precision=bt.EXACT64)
+    torch.cuda.synchronize()
+    same4 = exact4.h2_null_list == res4.h2_null_list.double()
+    flips4 = int((~same4).sum())
+    err4 = _max_abs_diff_cols(res4.L, exact4.L, same4)
+    print(f"  c = 4 null-grid BALANCED vs EXACT64: max|dLOD| = {err4:.3e} ({flips4} of {M} traits with "
+          f"another grid h2; bar {ORACLE_BAR:.0e}; BASELINE.md's {PARITY_BAR:.0e}: "
+          f"{'met' if err4 <= PARITY_BAR else 'NOT met'}); {counts4['liteqtl_lod']} launches")
+    check(flips4 == 0 and err4 <= ORACLE_BAR, "the c = 4 null-grid scan strays from EXACT64")
+    out["c4"] = (counts4["liteqtl_lod"], err4)
+    del res4, exact4
+
     res, counts = _drive(f"BALANCED null-grid bulkscan, c = {WIDE_C}, output_effects",
                          lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.BALANCED,
                                              output_effects=True))
@@ -2590,7 +2714,24 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
           f"scan's L {kerr:.3e}")
     check(perr <= KERNEL_BAR, "the wide kernel disagrees with its plain version at BXD scale")
     out["kernel"] = dict(ms=kernel_ms, plain_ms=plain_ms, err=perr, bound=bound)
+    out["shapes"] = {"S5": _shape_entry(kernel_ms, "S5")}
     del ops, base
+
+    # S6: a 2,000-sample cohort with 12 covariate columns, random operands
+    n6, p6, m6, c6 = LOD_SHAPES["S6"][:4]
+    ops = lf.prepare_inputs(*_kernel_inputs(n6, p6, m6, c6, np.random.default_rng(SHAPE_SEED), dev))
+    check(lf.kernel_path(n6, c6) == "wide", "S6 does not take the wide kernel")
+    err6 = (lf.liteqtl_lod_cuda(*ops) - lf.liteqtl_lod_plain(*ops)).abs().max().item()
+    _time_ms(lambda: lf.liteqtl_lod_cuda(*ops))
+    out["shapes"]["S6"] = _shape_entry(
+        statistics.median(_time_ms(lambda: lf.liteqtl_lod_cuda(*ops)) for _ in range(5)), "S6")
+    bar6 = KERNEL_BAR * n6 / 48
+    print(f"  wide kernel at S6 ({n6} x {p6} x {m6}, c = {c6}) on {card}: "
+          f"{_shape_line(out['shapes']['S6'])}; vs plain max|dLOD| = {err6:.3e} (bars {bar6:.2e} "
+          f"and {LONG_DEPTH_BAR:.2e})")
+    check(err6 <= bar6, "the wide kernel disagrees with its plain version at S6")
+    check(err6 <= LONG_DEPTH_BAR, f"the wide kernel strays past {LONG_DEPTH_BAR:.2e} at S6")
+    del ops
 
     # c = 32 under a forced budget: the memory model sizes the trait chunks
     covar32 = torch.from_numpy(rng.normal(size=(N, 31))).to(dev)
@@ -2695,7 +2836,7 @@ def main() -> None:
     print(f"[7] BALANCED bulkscan_perms at BXD scale ({N} x {P} x {M}, {NPERMS} permutations)")
     prep, idx, perm_ops, perm_launches, perm_err = perms_at_bxd(dev, Yd, Gd, K, lod_max)
     print("[8] times")
-    med = times(card, Yd, Gd, K, lod_ops, alt_ops)
+    med, lod_shapes = times(card, Yd, Gd, K, lod_ops, alt_ops)
     pmed = perm_times(card, Yd, Gd, K, prep, idx, perm_ops)
     print(f"[9] single-trait scan: BXD width ({N} x {P}) and cohort size ({COHORT_N} x {COHORT_P})")
     del prep, idx
@@ -2705,7 +2846,7 @@ def main() -> None:
           "sizing and host blocks, marker streaming")
     eff_ops, eff_times = bulk_options_at_bxd(dev, card, Yd, Gd, K)
     print(f"[11] marker streaming at biobank n ({BIOBANK_N} x {BIOBANK_P} x {BIOBANK_M})")
-    streaming_at_biobank_n(dev, card)
+    lod_shapes["S4"] = streaming_at_biobank_n(dev, card)
     print("[10, last] the memory model's live sets")
     calibrate_memory(dev, Yd, Gd, K)
     print(f"[12] the low-rank engine: rank {N} at BXD scale, rank {LR_RANK} at {LR_N} x {LR_P} x "
@@ -2747,6 +2888,8 @@ def main() -> None:
         "wide_bound_ms": wide["kernel"]["bound"]["bound_ms"],
         "wide_simt_bound_ms": wide["kernel"]["bound"]["simt_bound_ms"],
         "wide_max_abs_err": wide["kernel"]["err"],
+        "shapes": {name: lod_shapes[name] if name in lod_shapes else wide["shapes"][name]
+                   for name in SMOKE_SHAPES},
         "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
@@ -2779,6 +2922,7 @@ def main() -> None:
         k["library_ms"] = None  # no single PyTorch call computes this function
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
+        k.setdefault("shapes", None)  # the LOD kernel's general and wide paths, S1-S6
         for key in ("effects_ms", "effects_plain_ms", "effects_bound_ms", "wide_c", "wide_launches",
                     "wide_ms", "wide_plain_ms", "wide_bound_ms", "wide_simt_bound_ms",
                     "wide_max_abs_err"):

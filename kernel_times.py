@@ -13,9 +13,20 @@ markers x 35,554 traits, seed 2026: the BALANCED null-grid scan's own h2
 for the LOD kernel, the first 1,024-trait block x 1,001 columns for the
 permutation kernel, the default 10-point grid for the alt-grid kernel), and
 times each kernel's wrapper alone: the median of 5
-launches by CUDA events after one warm-up. The same tree named twice shows
-the spread. Prints the card's name and power limit and one line per run.
-Needs a CUDA device.
+launches by CUDA events after one warm-up. The LOD kernel is also timed at
+the shapes of ``LOD_SHAPES``: S1-S6 (the general path forced at BXD scale,
+BXD with 4, 8 and 12 covariate columns, 2,000 x 100,000 x 2,048 with one and
+2,000 x 20,000 x 2,048 with 12), S7 (2,000 x 20,000 x 2,048 with 4) and the
+effects variant at S1, S2, S4 and S5 (S1e, S2e, S4e, S5e), on random operands drawn
+from one seed (``chip_smoke._kernel_inputs``) and prepared by the tree's own
+``prepare_inputs``, so that each tree takes its own kernel for the shape.
+The same tree named twice shows the spread. Each tree's LOD kernel is
+also held against its plain version at every shape and on
+``chip_smoke.py`` phase 11's block (the first 8,192 markers of its 2,000 x
+100,000 panel, on the scan's own operands): max |dLOD| of each. Prints the
+card's name and power limit, one line per run and each shape's bound (3 x
+TF32 passes at 495 TFLOP/s, or the bytes at 3.35 TB/s). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -26,10 +37,52 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple
+
+
+class Shape(NamedTuple):
+    """A shape of the LOD kernel: samples, markers, traits, covariate
+    columns, the general kernel forced, the effects variant."""
+
+    n: int
+    p: int
+    m: int
+    c: int
+    general: bool = False
+    effects: bool = False
+
+
+#: the LOD kernel's shapes; chip_smoke.py times S1-S6 on its main path
+LOD_SHAPES = {
+    "S1": Shape(79, 7321, 35554, 1, general=True), "S2": Shape(79, 7321, 35554, 4),
+    "S3": Shape(79, 7321, 35554, 8), "S4": Shape(2000, 100_000, 2048, 1),
+    "S5": Shape(79, 7321, 35554, 12), "S6": Shape(2000, 20_000, 2048, 12),
+    "S7": Shape(2000, 20_000, 2048, 4),
+    "S1e": Shape(79, 7321, 35554, 1, general=True, effects=True),
+    "S2e": Shape(79, 7321, 35554, 4, effects=True),
+    "S4e": Shape(2000, 100_000, 2048, 1, effects=True),
+    "S5e": Shape(79, 7321, 35554, 12, effects=True),
+}
+SHAPE_SEED = 12
+
+
+def bound_ms(shape: Shape) -> tuple[float, str]:
+    """The least time of the LOD kernel at a shape on an H100 SXM, ms, and
+    what sets it ("operations" or "bytes"): the larger of three TF32 passes
+    of its 2 (c + 2) n p m flops at 495 TFLOP/s and its bytes (X, the (n, m)
+    operands, V past 3 columns, one (p, m) output, three for the effects
+    variant) at 3.35 TB/s."""
+    n, p, m, c = shape[:4]
+    flops = 2.0 * (c + 2) * n * p * m
+    outs = 3 if shape.effects else 1
+    nbytes = 4 * (n * p + 2 * n * m + (c * n * m if c > 3 else n * c) + outs * p * m)
+    by_ops, by_bytes = 3 * flops / 495e12 * 1e3, nbytes / 3.35e12 * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def time_tree(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -65,12 +118,53 @@ def time_tree(tree: Path) -> dict:
         cs._event_ms(fn)
         return statistics.median(cs._event_ms(fn) for _ in range(5))
 
-    return {
+    out = {
         "tree": str(tree),
         "lod_ms": median_ms(lambda: lf.liteqtl_lod_cuda(*lod_ops)),
         "bulkperm_ms": median_ms(lambda: bf.bulkperm_maxr2_cuda(*perm_ops)),
         "altgrid_ms": median_ms(lambda: af.altgrid_cuda(*alt_ops)),
     }
+    del G, Gd, Yd, rotated, alt_ops, lod_ops, prep, perm_ops
+    torch.cuda.empty_cache()
+    out["err"] = {}
+    for name, shape in LOD_SHAPES.items():
+        rng = np.random.default_rng(SHAPE_SEED)
+        ops = lf.prepare_inputs(*cs._kernel_inputs(*shape[:4], rng, dev), effects=shape.effects)
+        launch = lambda: lf.liteqtl_lod_cuda(*ops, general=shape.general, effects=shape.effects)  # noqa: E731
+        out[name] = median_ms(launch)
+        got, plain = launch(), lf.liteqtl_lod_plain(*ops, effects=shape.effects)
+        if shape.effects:
+            got, plain = got[0], plain[0]
+        out["err"][name] = float((got - plain).abs().max())
+        del ops, got, plain
+        torch.cuda.empty_cache()
+    out["err"]["block"] = _biobank_block_err(cs, bt, lf, dev)
+    return out
+
+
+def _biobank_block_err(cs, bt, lf, dev) -> float:
+    """max |dLOD| of the LOD kernel against its plain version on
+    chip_smoke.py phase 11's block: the first 8,192 markers of its 2,000 x
+    100,000 panel (seed 2026) with its 2,048 traits, on the rotated
+    operands and the BALANCED null-grid h2 of that panel."""
+    import numpy as np
+    import torch
+
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+
+    n, p, m, block = 2000, 100_000, 2048, 8192
+    rng = np.random.default_rng(cs.SEED)
+    panel = rng.random((n, p), dtype=np.float32)
+    Y = torch.from_numpy(rng.standard_normal((n, m), dtype=np.float32)).to(dev)
+    K = bt.calc_kinship(torch.from_numpy(panel).to(dev), precision=bt.EXACT64).cpu().numpy()
+    G = torch.from_numpy(np.ascontiguousarray(panel[:, :block])).to(dev)
+    del panel
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    h2 = bt.bulkscan(Y, G, dec, precision=bt.BALANCED).h2_null_list
+    with with_highest_matmul():
+        ones = torch.ones((n, 1), dtype=torch.float64, device=dev)
+        ops = lf.prepare_inputs(dec.Ut @ Y.double(), dec.Ut @ G.double(), dec.Ut @ ones, dec.lam, h2)
+    return float((lf.liteqtl_lod_cuda(*ops) - lf.liteqtl_lod_plain(*ops)).abs().max())
 
 
 def main() -> None:
@@ -92,7 +186,11 @@ def main() -> None:
             raise SystemExit(f"{tree}: exit {run.returncode}\n{run.stderr[-3000:]}")
         res = json.loads(run.stdout.strip().splitlines()[-1])
         print(f"{res['tree']:>16s}: LOD kernel {res['lod_ms']:.3f} ms a launch, permutation kernel "
-              f"{res['bulkperm_ms']:.3f} ms, alt-grid kernel {res['altgrid_ms']:.3f} ms")
+              f"{res['bulkperm_ms']:.3f} ms, alt-grid kernel {res['altgrid_ms']:.3f} ms; LOD kernel "
+              + ", ".join(f"{name} {res[name]:.3f}" for name in LOD_SHAPES) + " ms; max|dLOD| "
+              "vs its plain version " + ", ".join(f"{k} {v:.4e}" for k, v in res["err"].items()))
+    print("bounds (ms): " + ", ".join(f"{name} {bound_ms(shape)[0]:.3f}"
+                                      for name, shape in LOD_SHAPES.items()))
 
 
 if __name__ == "__main__":

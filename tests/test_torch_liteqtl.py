@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from bulklmm_tpu.ops.liteqtl import lods_and_effects_per_trait as jax_lods_and_effects
 from bulklmm_tpu.ops.liteqtl import lods_per_trait as jax_lods_per_trait
 from bulklmm_tpu.pallas import fused_lods_per_trait as jax_fused
 from bulklmm_tpu.utils import config as jcfg
@@ -62,7 +63,7 @@ def test_kernel_plain_version_matches_jax(shape):
     assert _maxdiff(ref, pallas) < KERNEL_BAR
     assert _maxdiff(ref, xla) < KERNEL_BAR
     # on CPU tensors the dispatching entry takes its kernel's plain version:
-    # the same one up to c = 8, the wide kernel's arithmetic above
+    # the same one up to c = 3, the wide kernel's arithmetic above
     port = lf.fused_lods_per_trait(*targs)
     if lf.kernel_path(n, c) == "wide":
         assert _maxdiff(port, pallas) < KERNEL_BAR
@@ -173,9 +174,10 @@ def test_split_reference_zero_marker_column_gives_zero_lod():
 def test_kernel_path_by_samples_and_covariates(n, c):
     """The resident kernel takes n <= 88 (11 depth steps of 8) with at most
     3 covariate columns ((c + 2) accumulator sets of 32 registers); more
-    than 8 columns take the wide kernel at any n; every other shape takes
-    the general kernel. The effects variant takes the same paths."""
-    want = "wide" if c > 8 else "resident" if n <= 88 and c <= 3 else "general"
+    than 3 columns take the wide kernel at any n; every other shape (n > 88,
+    c <= 3) takes the general kernel. The effects variant takes the same
+    paths."""
+    want = "wide" if c > 3 else "resident" if n <= 88 else "general"
     assert lf.kernel_path(n, c) == want == lf.kernel_path(n, c, effects=True)
     if want == "resident":
         assert lf.resident_shared_bytes(n, c) <= lf.SHARED_LIMIT_BYTES
@@ -210,7 +212,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert lf.launches == 0
 
 
-# --- the wide kernel (c > 8) -----------------------------------------------------
+# --- the wide kernel (c > 3) -----------------------------------------------------
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -258,14 +260,14 @@ def test_prepare_inputs_wide_layout():
 
 def test_wide_operands_refused_where_they_do_not_belong():
     """The CUDA wrapper refuses CPU tensors of either form; the general
-    kernel is not asked for more than 8 columns; a plain call on the wide
+    kernel is not asked for more than 3 columns; a plain call on the wide
     operands does not launch anything."""
     _, targs = _both(_mk(n=20, p=8, m=5, c=10))
     ops = lf.prepare_inputs(*targs)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lf.liteqtl_lod_cuda(*ops)
     assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
-    assert lf.launches == 0 and lf.GENERAL_COVARIATES == 8
+    assert lf.launches == 0 and lf.GENERAL_COVARIATES == 3
 
 
 @pytest.mark.parametrize("c", [1, 12])
@@ -280,3 +282,71 @@ def test_descending_eigenvalues_reverse_the_samples(c):
     for a, b in zip(lf.prepare_inputs(*targs), lf.prepare_inputs(*flipped)):
         assert torch.equal(a, b)
     assert lf._descending(targs[3]) and not lf._descending(flipped[3])
+
+
+@pytest.mark.parametrize("c", [4, 5, 8])
+def test_four_to_eight_covariates_take_the_wide_operands(c):
+    """c = 4..8 took the general kernel's operands before the general kernel
+    stopped at 3: on CPU tensors they now take the wide ones, and the result
+    still matches the Pallas kernel (interpret mode) and the XLA FAST32 path
+    within the kernel bar, with a ragged tile edge."""
+    n, p, m = 48, 70, 45
+    jargs, targs = _both(_mk(n, p, m, c))
+    ops = lf.prepare_inputs(*targs)
+    assert lf.kernel_path(n, c) == "wide" and ops[1].shape == (c, n, m)
+    port = lf.fused_lods_per_trait(*targs)
+    assert torch.equal(port, lf.liteqtl_lod_plain(*ops))
+    assert _maxdiff(port, jax_fused(*jargs, tile_p=32, tile_m=32, interpret=True)) < KERNEL_BAR
+    assert _maxdiff(port, jax_lods_per_trait(*jargs, precision=jcfg.FAST32)) < KERNEL_BAR
+    assert lf.launches == 0
+
+
+# --- the chunked kernels' arithmetic (general and wide paths) -----------------------
+
+#: kernel-arithmetic twin vs the plain version: the kernel bar, and at
+#: n = 2,000 twice one unit in the last place of 1 - r2 scaled by
+#: n / (2 ln 10) (2.62e-5): both sides are float32, summed in other orders
+TWIN_BAR = {200: KERNEL_BAR, 2000: 2 * 2.62e-5}
+
+
+def _jax_bar(n):
+    """Against the JAX package: the kernel bar, scaled by n / 79 past BXD's
+    79 samples (the LOD is n / 2 times the log of a float32 quantity)."""
+    return KERNEL_BAR * max(1.0, n / 79)
+
+
+@pytest.mark.parametrize("effects", [False, True], ids=["lod", "effects"])
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("n", [200, 2000])
+def test_chunked_reference_matches_plain_and_jax(n, c, effects):
+    """The general and wide kernels' arithmetic (``liteqtl_chunked_reference``:
+    the samples in chunks of 40, each chunk's three TF32 passes added to one
+    float32 sum, small terms first, that sum added into a running total
+    every FOLD_CHUNKS chunks) on the operands of the
+    kernel's own path, against the plain version (TWIN_BAR) and against the
+    JAX package on the same numpy inputs: the Pallas kernel in interpret mode
+    at n = 200 and the XLA FAST32 path at n = 2,000 (``_jax_bar``); the
+    effects against ``lods_and_effects_per_trait`` (FAST32) within 1e-4 of
+    (|effect| + SE) and of SE. A ragged 70 x 45 tile edge."""
+    p, m = 70, 45
+    jargs, targs = _both(_mk(n, p, m, c))
+    ops = lf.prepare_inputs(*targs, effects=effects)
+    assert (ops[1].dim() == 3) == (c > lf.GENERAL_COVARIATES)
+    assert lf.kernel_path(n, c) == ("wide" if c > 3 else "general")
+    twin = lf.liteqtl_chunked_reference(*ops, effects=effects)
+    plain = lf.liteqtl_lod_plain(*ops, effects=effects)
+    L, Lp = (twin[0], plain[0]) if effects else (twin, plain)
+    assert L.shape == (p, m) and L.dtype == torch.float32 and bool(torch.isfinite(L).all())
+    assert float((L - Lp).abs().max()) < TWIN_BAR[n]
+    if n <= 200:
+        ref = jax_fused(*jargs, tile_p=32, tile_m=32, interpret=True)
+    else:
+        ref = jax_lods_per_trait(*jargs, precision=jcfg.FAST32)
+    assert _maxdiff(L, ref) < _jax_bar(n)
+    if effects:
+        _, b, s = twin
+        _, jb, js = (np.asarray(a, dtype=np.float64)
+                     for a in jax_lods_and_effects(*jargs, precision=jcfg.FAST32))
+        assert float((np.abs(b.double().numpy() - jb) / (np.abs(jb) + js)).max()) < 1e-4
+        assert float((np.abs(s.double().numpy() - js) / js).max()) < 1e-4
+    assert lf.launches == 0 and lf.effects_launches == 0

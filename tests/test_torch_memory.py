@@ -170,21 +170,27 @@ def test_host_blocked_bulkscan_equals_one_block(small_data, monkeypatch, case):
 
 def test_wide_covariates_count_their_operand():
     """More covariate columns cost their (p,)-sized products on the plain
-    LOD step, and past the general kernel's 8 the wide kernel's (c, n)
+    LOD step, and past the general kernel's 3 the wide kernel's (c, n)
     operand a trait; at c = 32 the flagship takes chunks on the H100 that
     fit its budget."""
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
-    assert mem.WIDE_FROM == lf.GENERAL_COVARIATES + 1
+    assert mem.WIDE_FROM == lf.GENERAL_COVARIATES + 1 == 4
     n, p = 79, 7321
-    per_trait = {c: mem.bulkscan_chunk_bytes(n, p, 1, 10, c, 8) for c in (1, 8, 9, 32)}
-    assert per_trait[1] < per_trait[8] < per_trait[9] < per_trait[32]
-    wide = 8 * mem._WIDE_N_COPIES * 9 * n
-    step = 8 * (mem._P_COPIES_A_COVARIATE * p + mem._N_CHUNK_COPIES * n * (11 // 2 - 10 // 2))
-    assert per_trait[9] - per_trait[8] == wide + step
+    c0 = mem.WIDE_FROM
+    per_trait = {c: mem.bulkscan_chunk_bytes(n, p, 1, 10, c, 8) for c in (1, c0 - 1, c0, 32)}
+    assert per_trait[1] < per_trait[c0 - 1] < per_trait[c0] < per_trait[32]
+    wide = 8 * mem._WIDE_N_COPIES * c0 * n
+    step = 8 * (mem._P_COPIES_A_COVARIATE * p
+                + mem._N_CHUNK_COPIES * n * ((c0 + 2) // 2 - (c0 + 1) // 2))
+    assert per_trait[c0] - per_trait[c0 - 1] == wide + step
+    # past the first wide count, each column adds its own (n,)-sized operand
+    assert (mem.bulkscan_chunk_bytes(n, p, 1, 10, 9, 8) - mem.bulkscan_chunk_bytes(n, p, 1, 10, 8, 8)
+            == 8 * (mem._WIDE_N_COPIES * n + mem._P_COPIES_A_COVARIATE * p
+                    + mem._N_CHUNK_COPIES * n * (11 // 2 - 10 // 2)))
     # alt-grid takes no LOD kernel: no wide operand
-    assert (mem.bulkscan_chunk_bytes(n, p, 1, 10, 9, 8, alt_grid=True)
-            - mem.bulkscan_chunk_bytes(n, p, 1, 10, 8, 8, alt_grid=True)) == step
+    assert (mem.bulkscan_chunk_bytes(n, p, 1, 10, c0, 8, alt_grid=True)
+            - mem.bulkscan_chunk_bytes(n, p, 1, 10, c0 - 1, 8, alt_grid=True)) == step
     mc = mem.auto_trait_chunk(n, p, 35554, c=32, itemsize=8, budget=H100_BUDGET)
     assert mc is not None and mc % mem.TRAIT_QUANTUM == 0
     used = (mem.bulkscan_static_bytes(n, p, 35554, 32, 8) * mem._STATIC_HEADROOM

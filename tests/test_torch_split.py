@@ -114,6 +114,65 @@ def test_matmul_tf32x3_batches_like_matmul():
         assert torch.equal(out[t], split.matmul_tf32x3(A, B[t]))
 
 
+@pytest.mark.parametrize("n", [52, 2000])
+def test_matmul_tf32x3_chunked_is_float32_grade(n):
+    """The chunked LOD kernels' form (chunks of 40 folded into one running
+    sum): within 4 x the exact float32 product's error of the float64
+    product, as the unchunked form."""
+    rng = np.random.default_rng(n + 1)
+    A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    exact = A.double() @ B.double()
+    err32 = float((A @ B - exact).abs().max())
+    err = float((split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES) - exact).abs().max())
+    assert err <= 4 * err32
+
+
+@pytest.mark.parametrize("chunk", [17, 40, 64])
+def test_matmul_tf32x3_chunked_one_chunk_is_the_unchunked_form(chunk):
+    """A chunk as deep as the contraction takes the unchunked form's three
+    products in its order: bit-equal; a batch is taken like matmul."""
+    rng = np.random.default_rng(chunk)
+    A = torch.from_numpy(rng.normal(size=(30, 17)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(5, 17, 9)).astype(np.float32))
+    out = split.matmul_tf32x3_chunked(A, B, chunk)
+    assert torch.equal(out, split.matmul_tf32x3(A, B))
+    assert tuple(out.shape) == (5, 30, 9) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n", [52, 2000])
+def test_matmul_tf32x3_chunked_folded_is_float32_grade(n):
+    """The kernels' form with their running totals (a sum every
+    FOLD_CHUNKS chunks): within 4 x the exact float32 product's error of
+    the float64 product."""
+    rng = np.random.default_rng(n + 2)
+    A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    exact = A.double() @ B.double()
+    err32 = float((A @ B - exact).abs().max())
+    out = split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES, fold=lf.FOLD_CHUNKS)
+    assert float((out - exact).abs().max()) <= 4 * err32
+
+
+@pytest.mark.parametrize("fold", [1, 2, 3, 7])
+def test_matmul_tf32x3_chunked_fold_adds_runs_into_a_total(fold):
+    """A fold of `fold` chunks: each run of `fold` chunks summed as the
+    unfolded form sums it, the runs' sums added in order; a fold as deep as
+    the contraction is the unfolded form, bit-equal."""
+    rng = np.random.default_rng(fold)
+    A = torch.from_numpy(rng.normal(size=(30, 130)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(3, 130, 9)).astype(np.float32))
+    chunk = 20
+    run = chunk * fold
+    want = None
+    for r0 in range(0, 130, run):
+        part = split.matmul_tf32x3_chunked(A[:, r0 : r0 + run], B[:, r0 : r0 + run], chunk)
+        want = part if want is None else want + part
+    assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=fold), want)
+    assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=7),
+                       split.matmul_tf32x3_chunked(A, B, chunk))
+
+
 # --- the permutation kernel's split reference ----------------------------------------
 
 
