@@ -48,6 +48,13 @@
 // written in whole rows. Ragged p, m and n edges: out-of-range samples,
 // markers and traits stage as zeros, out-of-range outputs are not stored.
 //
+// The products' policy is the kernel's first template parameter: three TF32
+// passes (tf32x3::Policy, depth steps of 8) for every preset but THROUGHPUT,
+// three bf16 passes (bf16x3::Policy, mma.sync m16n8k16, depth steps of 16)
+// for THROUGHPUT's "high" products, as the TPU kernel's HIGH branch splits
+// them. The two differ in the fragment loads and the depth step alone; a
+// stage keeps its 80 samples (a multiple of both steps).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC, and never --use_fast_math.
 
@@ -57,7 +64,7 @@
 #include <climits>
 #include <cstddef>
 
-#include "mma_tf32x3.cuh"
+#include "mma_bf16x3.cuh"
 
 namespace {
 
@@ -69,7 +76,7 @@ constexpr int kWarpsP = 4;    // warps along the markers, 32 each
 constexpr int kThreads = 256;
 constexpr int kMT = 2, kNT = 4;  // a warp's 32 x 32 part, in m16n8k8 tiles
 constexpr int kStages = 2;
-constexpr int kMaxDepth = 80;  // samples per step
+constexpr int kMaxDepth = 80;  // samples per stage, a multiple of both depth steps
 constexpr int kLdX = padded_stride(kTileP);
 constexpr int kLdY = padded_stride(kTileM);
 constexpr int kLdOut = kTileM + 1;  // the output tile's row stride in shared memory
@@ -79,7 +86,7 @@ __host__ __device__ constexpr int stage_floats(int depth) {
   return depth * (kLdX + kLdY) + kLdY;
 }
 
-template <bool kPanel>
+template <class P, bool kPanel>
 __global__ void __launch_bounds__(kThreads, 1)
 altgrid_kernel(const float* __restrict__ Xn,    // (g, n, ldx) per-step markers
                const float* __restrict__ Yn,    // (g, n, ldy) per-step traits
@@ -87,7 +94,7 @@ altgrid_kernel(const float* __restrict__ Xn,    // (g, n, ldx) per-step markers
                float* __restrict__ out,         // (p, m) LOD
                int* __restrict__ kidx,          // (p, m) argmin grid index
                int g, int n, int p, int ldx, int m, int ldy,
-               int depth,    // samples per step, a multiple of 8
+               int depth,    // samples per stage, a multiple of P::kStep
                int nchunks,  // steps per grid step
                int cvec) {
   extern __shared__ float4 shared_raw[];
@@ -140,7 +147,7 @@ altgrid_kernel(const float* __restrict__ Xn,    // (g, n, ldx) per-step markers
 
     const float* xs = shared + (step % kStages) * stage_len;
     const float* ys = xs + depth * kLdX;
-    warp_mma<kMT, kNT>(acc, xs + wp, kLdX, ys + wm, kLdY, depth, gq, q);
+    warp_mma<P>(acc, xs + wp, kLdX, ys + wm, kLdY, depth, gq, q);
 
     if (chunk == nchunks - 1) {
       const float* cs = ys + depth * kLdY + wm;
@@ -197,15 +204,15 @@ altgrid_kernel(const float* __restrict__ Xn,    // (g, n, ldx) per-step markers
   }
 }
 
-template <bool kPanel>
+template <class P, bool kPanel>
 cudaError_t launch(const float* Xn, int ldx, const float* Yn, int ldy, const float* cmat,
                    float* out, int* kidx, int g, int n, int p, int m, cudaStream_t stream) {
-  const int padded = (n + 7) / 8 * 8;
+  const int padded = (n + P::kStep - 1) / P::kStep * P::kStep;
   const int depth = padded < kMaxDepth ? padded : kMaxDepth;
   const int nchunks = (n + depth - 1) / depth;
   size_t floats = (size_t)kStages * stage_floats(depth);
   if (floats < (size_t)kTileP * kLdOut) floats = (size_t)kTileP * kLdOut;
-  auto kernel = altgrid_kernel<kPanel>;
+  auto kernel = altgrid_kernel<P, kPanel>;
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(4 * floats));
   if (rc != cudaSuccess) return rc;
@@ -225,16 +232,21 @@ extern "C" {
 // Xn and Yn are float32 with their g n rows ldx >= p and ldy >= m floats
 // apart, both strides multiples of 4 and both pointers 16-byte aligned, so
 // that every row takes 16-byte copies, with zeros in the columns past p and m.
+// bf16 != 0 takes the products as three bf16 passes, else as three TF32.
 int bulklmm_altgrid(const float* Xn, int ldx, const float* Yn, int ldy, const float* cmat,
-                    float* out, int* kidx, int g, int n, int p, int m, void* stream) {
+                    float* out, int* kidx, int g, int n, int p, int m, int bf16,
+                    void* stream) {
   if (g <= 0 || n <= 0 || p <= 0 || m <= 0 || (p + kTileP - 1) / kTileP > 65535 ||
       (long long)g * n > INT_MAX || ldx < p || ldy < m || ldx % 4 != 0 || ldy % 4 != 0 ||
       reinterpret_cast<uintptr_t>(Xn) % 16 != 0 || reinterpret_cast<uintptr_t>(Yn) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(kidx != nullptr
-                   ? launch<true>(Xn, ldx, Yn, ldy, cmat, out, kidx, g, n, p, m, s)
-                   : launch<false>(Xn, ldx, Yn, ldy, cmat, out, kidx, g, n, p, m, s));
+  auto run = [&](auto policy) {
+    using P = decltype(policy);
+    return kidx != nullptr ? launch<P, true>(Xn, ldx, Yn, ldy, cmat, out, kidx, g, n, p, m, s)
+                           : launch<P, false>(Xn, ldx, Yn, ldy, cmat, out, kidx, g, n, p, m, s);
+  };
+  return (int)(bf16 ? run(bf16x3::Policy{}) : run(tf32x3::Policy{}));
 }
 
 }  // extern "C"

@@ -68,6 +68,16 @@
 // L2 reads a launch at the main path's shape: every block reads X once
 // (2.3 MB), 4,096 blocks: 9.5 GB, and S2 once.
 //
+// The products' policy is both kernels' first template parameter: three
+// TF32 passes (tf32x3::Policy, depth steps of 8) for every preset but
+// THROUGHPUT, three bf16 passes (bf16x3::Policy, depth steps of 16) for
+// THROUGHPUT's "high" products, as the TPU kernel's HIGH branch splits them.
+// Under bf16x3 the resident operand is two bf16 tiles (40 KB each at n = 79,
+// stored in the slot order of mma_bf16x3.cuh) and the products are
+// wgmma m64n128k16; the chunked kernel takes mma.sync m16n8k16 on the same
+// staged chunks. Which path a launch takes (n <= 88 resident) is the same
+// for both policies.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC, and never --use_fast_math.
 
@@ -76,7 +86,7 @@
 #include <climits>
 #include <cstddef>
 
-#include "mma_tf32x3.cuh"
+#include "mma_bf16x3.cuh"
 
 namespace {
 
@@ -89,7 +99,11 @@ constexpr int kStages = 2;
 constexpr int kLdX = padded_stride(kTileP);
 constexpr int kSharedLimit = 232448;  // bytes of shared memory a block can use
 
-int padded_depth(int n) { return (n + 7) / 8 * 8; }
+// n rounded up to a depth step of the policy
+template <class P = tf32x3::Policy>
+int padded_depth(int n) {
+  return (n + P::kStep - 1) / P::kStep * P::kStep;
+}
 
 // --- the resident operand: asynchronous warpgroup products --------------------
 //
@@ -103,25 +117,37 @@ int padded_depth(int n) { return (n + 7) / 8 * 8; }
 constexpr int kGroupK = 128;       // permutations per warpgroup
 constexpr int kResidentSteps = 11; // most depth steps of 8: the kernel is built for each count
 
+// Depth steps of the policy that the kernel is built for, up to 88 samples.
+template <class P>
+constexpr int resident_steps() {
+  return (8 * kResidentSteps + P::kStep - 1) / P::kStep;
+}
+
+// Shared memory of a block that keeps its trait's operand resident: both
+// halves of the (padded n, 256) tile, 4 bytes a value under tf32x3 and 2
+// under bf16x3, and two stages of 64 markers and a row of inv_xn.
+template <class P = tf32x3::Policy>
 size_t resident_shared_bytes(int n) {
-  const int depth = padded_depth(n);
-  return 4 * (2 * (size_t)depth * kTileK + (size_t)kStages * (depth + 1) * kLdX);
+  const size_t depth = padded_depth<P>(n), tile = depth * kTileK / (P::kStep / 8);
+  return 4 * (2 * tile + (size_t)kStages * (depth + 1) * kLdX);
 }
 
 bool is_resident(int n) {
   return padded_depth(n) <= 8 * kResidentSteps && resident_shared_bytes(n) <= kSharedLimit;
 }
 
-// kSteps: depth steps of 8, n padded; a template parameter so that the depth
+// kSteps: depth steps of the policy, n padded; a template parameter so that the depth
 // loops carry no branches (a run-time count cost 7 % of the launch).
-template <int kSteps>
+template <class P, int kSteps>
 __global__ void __launch_bounds__(kThreads, 1)
 bulkperm_wide_kernel(const float* __restrict__ X,       // (n, ldx) rotated markers, zeros past p
                      const float* __restrict__ S2,      // (mb, n, K) trait operands
                      const float* __restrict__ inv_xn,  // (mb, p) 1 / marker norm^2, 0 = masked
                      float* __restrict__ out,           // (mb, K) max r^2
                      int n, int p, int ldx, int K, int ktiles, int wvec) {
-  constexpr int depth = 8 * kSteps;
+  constexpr bool kBf16 = P::kStep == 16;
+  constexpr int depth = P::kStep * kSteps;
+  constexpr int kTileWords = depth * kTileK / (kBf16 ? 2 : 1);  // one half of S2's tile
   extern __shared__ __align__(128) float4 wide_shared_raw[];
   float* shared = reinterpret_cast<float*>(wide_shared_raw);
 
@@ -134,8 +160,8 @@ bulkperm_wide_kernel(const float* __restrict__ X,       // (n, ldx) rotated mark
   const int k0 = (blockIdx.x % ktiles) * kTileK;
 
   float* s_big = shared;  // K-major, kTileK columns, `depth` deep
-  float* s_small = s_big + depth * kTileK;
-  float* stages = s_small + depth * kTileK;
+  float* s_small = s_big + kTileWords;
+  float* stages = s_small + kTileWords;
   const int stage_len = (depth + 1) * kLdX;
 
   auto start_copies = [&](int tile) {
@@ -152,13 +178,27 @@ bulkperm_wide_kernel(const float* __restrict__ X,       // (n, ldx) rotated mark
   {
     // the block's S2 tile, read once, split, and laid out K-major
     const float* St = S2 + (size_t)t * n * K;
-    for (int e = tid; e < depth * kTileK; e += kThreads) {
-      const int s = e / kTileK, c = e % kTileK;
-      const float v = (s < n && k0 + c < K) ? St[(size_t)s * K + k0 + c] : 0.0f;
-      uint32_t big, small;
-      split(v, big, small);
-      s_big[kmajor_offset(s, c, kTileK)] = __uint_as_float(big);
-      s_small[kmajor_offset(s, c, kTileK)] = __uint_as_float(small);
+    if constexpr (kBf16) {
+      // word depth w of column c holds samples sample_of_word(w) and that + 4
+      for (int e = tid; e < kTileWords; e += kThreads) {
+        const int w = e / kTileK, c = e % kTileK, s = bf16x3::sample_of_word(w);
+        const bool inside = k0 + c < K;
+        const float v0 = (s < n && inside) ? St[(size_t)s * K + k0 + c] : 0.0f;
+        const float v1 = (s + 4 < n && inside) ? St[(size_t)(s + 4) * K + k0 + c] : 0.0f;
+        uint32_t hi, lo;
+        bf16x3::split_pair(v0, v1, hi, lo);
+        s_big[kmajor_offset(w, c, kTileK)] = __uint_as_float(hi);
+        s_small[kmajor_offset(w, c, kTileK)] = __uint_as_float(lo);
+      }
+    } else {
+      for (int e = tid; e < depth * kTileK; e += kThreads) {
+        const int s = e / kTileK, c = e % kTileK;
+        const float v = (s < n && k0 + c < K) ? St[(size_t)s * K + k0 + c] : 0.0f;
+        uint32_t big, small;
+        split(v, big, small);
+        s_big[kmajor_offset(s, c, kTileK)] = __uint_as_float(big);
+        s_small[kmajor_offset(s, c, kTileK)] = __uint_as_float(small);
+      }
     }
     fence_proxy_async();
   }
@@ -184,30 +224,44 @@ bulkperm_wide_kernel(const float* __restrict__ X,       // (n, ldx) rotated mark
     // the leading terms, so that only depth / 8 sums, not 3 depth / 8, are
     // taken at the result's full magnitude (the tensor cores' float32
     // accumulation cuts, it does not round).
+    // Under bf16x3 a step's four samples q, q + 4, q + 8, q + 12 pack into
+    // the m16n8k16 registers (mma_bf16x3.cuh's slot order).
     uint32_t a_big[kSteps][4], a_small[kSteps][4];
     const float* acol = xs + wrow + 2 * g;
     pin_registers(acc);
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
+      if constexpr (kBf16) {
+        float v[8];  // v[2 h + r]: sample 16 ks + q + 4 h, fragment row g + 8 r
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v[2];
-        load_vec<2>(acol + (8 * ks + q + 4 * h) * kLdX, v);
-        split(v[0], a_big[ks][2 * h], a_small[ks][2 * h]);
-        split(v[1], a_big[ks][2 * h + 1], a_small[ks][2 * h + 1]);
+        for (int h = 0; h < 4; ++h) {
+          float pair[2];
+          load_vec<2>(acol + (16 * ks + q + 4 * h) * kLdX, pair);
+          v[2 * h] = pair[0], v[2 * h + 1] = pair[1];
+        }
+        bf16x3::split_fragment(v, a_big[ks], a_small[ks]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[2];
+          load_vec<2>(acol + (8 * ks + q + 4 * h) * kLdX, v);
+          split(v[0], a_big[ks][2 * h], a_small[ks][2 * h]);
+          split(v[1], a_big[ks][2 * h + 1], a_small[ks][2 * h + 1]);
+        }
       }
+      // a step of either policy is 32 bytes a column: 8 words of depth
       const int at = kmajor_offset(8 * ks, kGroupK * group, kTileK);
       wgmma_fence();
       // the tile's first product overwrites acc
-      wgmma_m64n128k8(acc, a_small[ks], kmajor_descriptor(s_big + at, kTileK), ks > 0);
-      wgmma_m64n128k8(acc, a_big[ks], kmajor_descriptor(s_small + at, kTileK), 1);
+      P::wgmma_m64n128(acc, a_small[ks], kmajor_descriptor(s_big + at, kTileK), ks > 0);
+      P::wgmma_m64n128(acc, a_big[ks], kmajor_descriptor(s_small + at, kTileK), 1);
       wgmma_commit();
     }
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
       const int at = kmajor_offset(8 * ks, kGroupK * group, kTileK);
-      wgmma_m64n128k8(acc, a_big[ks], kmajor_descriptor(s_big + at, kTileK), 1);
+      P::wgmma_m64n128(acc, a_big[ks], kmajor_descriptor(s_big + at, kTileK), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -257,6 +311,7 @@ constexpr int kLdS = padded_stride(kTileK);
 // one stage: kChunkN rows of X, one row of inv_xn, kChunkN rows of S2
 constexpr int kChunkStage = (kChunkN + 1) * kLdX + kChunkN * kLdS;
 
+template <class P>
 __global__ void __launch_bounds__(kThreads, 1)
 bulkperm_chunked_kernel(const float* __restrict__ X,       // (n, ldx) rotated markers
                         const float* __restrict__ S2,      // (mb, n, K) trait operands
@@ -313,7 +368,7 @@ bulkperm_chunked_kernel(const float* __restrict__ X,       // (n, ldx) rotated m
     }
 
     const float* xs = stages + (step % kStages) * kChunkStage;
-    warp_mma<kMT, kNT>(acc, xs, kLdX, xs + (kChunkN + 1) * kLdX + wk, kLdS, kChunkN, g, q);
+    warp_mma<P>(acc, xs, kLdX, xs + (kChunkN + 1) * kLdX + wk, kLdS, kChunkN, g, q);
 
     if (chunk == nchunks - 1) {
       const float* ws = xs + kChunkN * kLdX;
@@ -353,23 +408,43 @@ bulkperm_chunked_kernel(const float* __restrict__ X,       // (n, ldx) rotated m
 }
 
 // Launches the resident kernel built for n's count of depth steps.
-template <int kSteps>
+template <class P, int kSteps>
 cudaError_t launch_wide(dim3 grid, cudaStream_t stream, const float* X, const float* S2,
                         const float* inv_xn, float* out, int n, int p, int ldx, int K, int ktiles,
                         int wvec) {
   if constexpr (kSteps == 0) {
     return cudaErrorInvalidValue;
   } else {
-    if (padded_depth(n) != 8 * kSteps)
-      return launch_wide<kSteps - 1>(grid, stream, X, S2, inv_xn, out, n, p, ldx, K, ktiles, wvec);
-    const size_t bytes = resident_shared_bytes(n);
-    cudaError_t rc = cudaFuncSetAttribute(
-        bulkperm_wide_kernel<kSteps>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (padded_depth<P>(n) != P::kStep * kSteps)
+      return launch_wide<P, kSteps - 1>(grid, stream, X, S2, inv_xn, out, n, p, ldx, K, ktiles,
+                                        wvec);
+    const size_t bytes = resident_shared_bytes<P>(n);
+    auto kernel = bulkperm_wide_kernel<P, kSteps>;
+    cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc != cudaSuccess) return rc;
-    bulkperm_wide_kernel<kSteps><<<grid, kThreads, bytes, stream>>>(X, S2, inv_xn, out, n, p, ldx,
-                                                                    K, ktiles, wvec);
+    kernel<<<grid, kThreads, bytes, stream>>>(X, S2, inv_xn, out, n, p, ldx, K, ktiles, wvec);
     return cudaGetLastError();
   }
+}
+
+template <class P>
+cudaError_t launch(const float* X, int ldx, const float* S2, const float* inv_xn, float* out,
+                   int n, int p, int mb, int K, cudaStream_t s) {
+  const int ktiles = (K + kTileK - 1) / kTileK;
+  const dim3 grid((unsigned)(mb * ktiles));
+  const int wvec = copy_width(inv_xn, p);
+  if (is_resident(n))
+    return launch_wide<P, resident_steps<P>()>(grid, s, X, S2, inv_xn, out, n, p, ldx, K, ktiles,
+                                               wvec);
+  const size_t bytes = 4 * (size_t)kStages * kChunkStage;
+  auto kernel = bulkperm_chunked_kernel<P>;
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid, kThreads, bytes, s>>>(X, S2, inv_xn, out, n, p, ldx, K, ktiles,
+                                       (n + kChunkN - 1) / kChunkN, copy_width(S2, K), wvec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -384,30 +459,18 @@ int bulklmm_bulkperm_is_resident(int n) { return is_resident(n) ? 1 : 0; }
 // (0 on success). Pointers are device pointers to contiguous float32 arrays,
 // but X: its n rows are ldx >= p floats apart, ldx a multiple of 4 and X
 // 16-byte aligned, so that every row takes 16-byte copies, with zeros in
-// the columns past p.
+// the columns past p. bf16 != 0 takes the products as three bf16 passes,
+// else as three TF32.
 int bulklmm_bulkperm_maxr2(const float* X, int ldx, const float* S2, const float* inv_xn,
-                           float* out, int n, int p, int mb, int K, void* stream) {
+                           float* out, int n, int p, int mb, int K, int bf16, void* stream) {
   const int ktiles = (K + kTileK - 1) / kTileK;
   if (n <= 0 || p <= 0 || mb <= 0 || K <= 0 || (long long)mb * n > INT_MAX ||
       (long long)mb * ktiles > INT_MAX || ldx < p || ldx % 4 != 0 ||
       reinterpret_cast<uintptr_t>(X) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)(mb * ktiles));
-  const int wvec = copy_width(inv_xn, p);
-  if (is_resident(n)) {
-    return (int)launch_wide<kResidentSteps>(grid, s, X, S2, inv_xn, out, n, p, ldx, K, ktiles,
-                                            wvec);
-  } else {
-    const size_t bytes = 4 * (size_t)kStages * kChunkStage;
-    cudaError_t rc = cudaFuncSetAttribute(
-        bulkperm_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc != cudaSuccess) return (int)rc;
-    bulkperm_chunked_kernel<<<grid, kThreads, bytes, s>>>(
-        X, S2, inv_xn, out, n, p, ldx, K, ktiles, (n + kChunkN - 1) / kChunkN,
-        copy_width(S2, K), wvec);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch<bf16x3::Policy>(X, ldx, S2, inv_xn, out, n, p, mb, K, s)
+                    : launch<tf32x3::Policy>(X, ldx, S2, inv_xn, out, n, p, mb, K, s));
 }
 
 }  // extern "C"

@@ -36,12 +36,15 @@
 //
 // Three kernels, all of them 3 x TF32 wgmma products; the launcher picks one
 // from n and c (bulklmm_liteqtl_path), and kernels/liteqtl_fused.py::
-// kernel_path states the same rule.
+// kernel_path states the same rule. Under THROUGHPUT's "high" products the
+// resident kernel takes three bf16 passes instead (bf16x3, the JAX
+// package's HIGH); the general and wide kernels keep their three TF32
+// passes, which are stricter than that preset asks.
 //
 // The resident kernel (liteqtl_resident.cuh: n <= 88, c <= 3) keeps the
 // traits' operands in shared memory for the whole launch and copies the
-// marker tiles asynchronously; one source file a covariate count, so that
-// they compile side by side.
+// marker tiles asynchronously; one source file a covariate count and
+// policy, so that they compile side by side.
 //
 // The general kernel (liteqtl_general_wgmma_kernel below: c <= 3 at any n,
 // the launcher's choice for n > 88) walks the samples in chunks through a
@@ -246,9 +249,10 @@ cudaError_t launch_general(const Operands& o, const chunked::Totals& t, cudaStre
 }
 
 // The launch of the kernel for o (c covariate columns; `general`: the
-// general kernel whatever n is), or with t.need set its running totals'
-// size.
-cudaError_t dispatch(const Operands& o, int c, bool general, const chunked::Totals& t,
+// general kernel whatever n is; `bf16`: the resident kernel's bf16x3
+// products, where the shape takes it), or with t.need set its running
+// totals' size.
+cudaError_t dispatch(const Operands& o, int c, bool general, bool bf16, const chunked::Totals& t,
                      cudaStream_t s) {
   const bool effects = o.beta != nullptr;
   if (c > kGeneralCovariates) return general ? cudaErrorInvalidValue : launch_wide(o, c, t, s);
@@ -257,13 +261,19 @@ cudaError_t dispatch(const Operands& o, int c, bool general, const chunked::Tota
       *t.need = 0;
       return cudaSuccess;
     }
-    switch (c + (effects ? 3 : 0)) {
+    switch (c + (effects ? 3 : 0) + (bf16 ? 6 : 0)) {
       case 1: return launch_resident_c1(o, s);
       case 2: return launch_resident_c2(o, s);
       case 3: return launch_resident_c3(o, s);
       case 4: return launch_resident_effects_c1(o, s);
       case 5: return launch_resident_effects_c2(o, s);
       case 6: return launch_resident_effects_c3(o, s);
+      case 7: return launch_resident_bf16_c1(o, s);
+      case 8: return launch_resident_bf16_c2(o, s);
+      case 9: return launch_resident_bf16_c3(o, s);
+      case 10: return launch_resident_bf16_effects_c1(o, s);
+      case 11: return launch_resident_bf16_effects_c2(o, s);
+      case 12: return launch_resident_bf16_effects_c3(o, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -300,7 +310,7 @@ long long bulklmm_liteqtl_totals(int n, int c, int effects, int general, int* er
   const Operands o{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                    effects ? &dummy : nullptr, effects ? &dummy : nullptr, n, 1, 4, 1};
   long long need = 0;
-  const cudaError_t rc = dispatch(o, c, general != 0, {nullptr, 0, &need}, nullptr);
+  const cudaError_t rc = dispatch(o, c, general != 0, false, {nullptr, 0, &need}, nullptr);
   *error = (int)rc;
   return rc == cudaSuccess ? need : -1;
 }
@@ -313,18 +323,21 @@ long long bulklmm_liteqtl_totals(int n, int c, int effects, int general, int* er
 // stored). c >= 1; above 3 the wide kernel's operands (Cov is V, (c, n, m),
 // and scal its scalar block). beta and se both null: the LOD alone; both
 // given: the effects variant, whose scalar block has the nrm2 row.
-// general != 0 takes the general kernel whatever n is (c <= 3). totals:
+// general != 0 takes the general kernel whatever n is (c <= 3). bf16 != 0
+// takes the resident kernel's products as three bf16 passes where the shape
+// takes the resident kernel (the general and wide kernels keep their three
+// TF32 passes); bulklmm_liteqtl_path() names the kernel. totals:
 // bulklmm_liteqtl_totals() floats of device memory, zeroed, which the
 // launch leaves zeroed where it found them so (null where it needs none),
 // `total_floats` long.
 int bulklmm_liteqtl_lod(const float* X, int ldx, const float* Cov, const float* W,
                         const float* WY, const float* scal, float* out, float* beta, float* se,
-                        int n, int p, int m, int c, int general, float* totals,
+                        int n, int p, int m, int c, int general, int bf16, float* totals,
                         long long total_floats, void* stream) {
   if (n <= 0 || p <= 0 || m <= 0 || ldx < p) return (int)cudaErrorInvalidValue;
   if ((beta == nullptr) != (se == nullptr)) return (int)cudaErrorInvalidValue;
   const Operands o{X, Cov, W, WY, scal, out, beta, se, n, p, ldx, m};
-  return (int)dispatch(o, c, general != 0, {totals, total_floats, nullptr},
+  return (int)dispatch(o, c, general != 0, bf16 != 0, {totals, total_floats, nullptr},
                        static_cast<cudaStream_t>(stream));
 }
 

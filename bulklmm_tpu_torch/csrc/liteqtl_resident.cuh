@@ -51,10 +51,21 @@
 //   shared memory at n = 88. The variant needs one more row of the scalar
 //   block (nrm2) and no more shared memory otherwise.
 //
-// The kernel is built for every (covariate columns, depth steps) pair it
-// takes; each count of covariate columns is its own source file
-// (liteqtl_resident_c<c>.cu, and liteqtl_resident_e<c>.cu for the effects
-// variant), so that the files compile side by side. This header also holds
+// - The products' policy is the kernel's first template parameter: three
+//   TF32 passes (tf32x3::Policy, wgmma m64n64k8, depth steps of 8) for every
+//   preset but THROUGHPUT, three bf16 passes (bf16x3::Policy, m64n64k16,
+//   depth steps of 16) for THROUGHPUT's "high" products, the JAX package's
+//   HIGH. Under bf16x3 the four operand tiles hold bf16 halves in the slot
+//   order of mma_bf16x3.cuh (half the shared memory: 40 KB at n = 79, and
+//   n = 88 pads to 96), a thread's A fragment of a step packs its samples q,
+//   q + 4, q + 8 and q + 12 (two steps of the TF32 loads), and the rest,
+//   the two passes over the depth and the epilogue, is the same.
+//
+// The kernel is built for every (policy, covariate columns, depth steps)
+// triple it takes; each count of covariate columns is its own source file
+// for each policy (liteqtl_resident_c<c>.cu and, for the effects variant,
+// liteqtl_resident_e<c>.cu; liteqtl_resident_bf16_c<c>.cu and _e<c>.cu),
+// so that the files compile side by side. This header also holds
 // what the general kernel shares with it: tile sizes, the scalar block's
 // layout and the epilogue.
 
@@ -66,7 +77,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "mma_tf32x3.cuh"
+#include "mma_bf16x3.cuh"
 
 namespace liteqtl {
 
@@ -210,19 +221,27 @@ constexpr int kResidentSteps = 11;  // most depth steps of 8
 constexpr int kSharedLimit = 232448;  // bytes of shared memory a block can use
 constexpr int kWaves = 16;          // blocks an SM that the marker groups aim at
 
-// Depth steps of 8 the kernel is built for: even counts up to 10, then 11;
-// the samples between n and 8 steps are zeros in shared memory.
+// Depth steps of the policy the kernel is built for: under tf32x3 steps of
+// 8, even counts up to 10, then 11; under bf16x3 steps of 16, every count
+// from 2 to 6 (one step at c = 3 with effects spilled 40 bytes, and a
+// launch of 16 samples or fewer loses nothing by a second step of zeros).
+// The samples between n and the steps are zeros in shared memory.
+template <class P = tf32x3::Policy>
 __host__ __device__ constexpr int built_steps(int n) {
-  const int steps = (n + 7) / 8;
+  const int steps = (n + P::kStep - 1) / P::kStep;
+  if (P::kStep == 16) return steps < 2 ? 2 : steps;
   return steps > 10 ? steps : steps + steps % 2;
 }
 
-// Floats of shared memory: four K-major operand tiles, two stages of X and
-// one finished tile a warpgroup, the covariates, the scalar block.
+// Floats of shared memory: four K-major operand tiles (a float a value under
+// tf32x3, half of one under bf16x3), two stages of X and one finished tile a
+// warpgroup, the covariates, the scalar block.
+template <class P = tf32x3::Policy>
 __host__ __device__ constexpr size_t resident_shared_floats(int steps, int c, bool effects) {
-  const size_t depth = 8 * (size_t)steps;
-  return 4 * depth * kTileM + (size_t)kGroups * (kStages * depth * kLdX + kTileP * kLdOut) +
-         c * depth + (size_t)scalar_rows(c, effects) * kTileM;
+  const size_t depth = P::kStep * (size_t)steps;
+  return 4 * depth * kTileM / (P::kStep / 8) +
+         (size_t)kGroups * (kStages * depth * kLdX + kTileP * kLdOut) + c * depth +
+         (size_t)scalar_rows(c, effects) * kTileM;
 }
 
 inline bool is_resident(int n, int c, bool effects) {
@@ -246,20 +265,20 @@ __device__ __forceinline__ void split_by_bits(float x, uint32_t& big, uint32_t& 
 
 // One depth step's raw operands of a thread: its two markers (fragment rows
 // g and g + 8 are neighbours in the staged tile and load as one word) at its
-// two depths s0 and s0 + 4, and the covariates at those depths. acol points
-// at the thread's markers of the staged tile, cs at the covariates
-// [k][depth].
-template <int C>
+// kDepths depths s0, s0 + 4, .. (two a TF32 step, four a bf16 step), and the
+// covariates at those depths. acol points at the thread's markers of the
+// staged tile, cs at the covariates [k][depth].
+template <int C, int kDepths = 2>
 struct StepOperands {
-  float x[4];     // x[2 h + r]: depth s0 + 4 h, fragment row g + 8 r
-  float c[C][2];  // c[k][h]
+  float x[2 * kDepths];  // x[2 h + r]: depth s0 + 4 h, fragment row g + 8 r
+  float c[C][kDepths];   // c[k][h]
 };
 
-template <int C>
-__device__ __forceinline__ void load_step(StepOperands<C>& o, const float* acol, const float* cs,
-                                          int depth, int s0) {
+template <int C, int kDepths>
+__device__ __forceinline__ void load_step(StepOperands<C, kDepths>& o, const float* acol,
+                                          const float* cs, int depth, int s0) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < kDepths; ++h) {
     const int s = s0 + 4 * h;
     float v[2];
     load_vec<2>(acol + s * kLdX, v);
@@ -271,10 +290,11 @@ __device__ __forceinline__ void load_step(StepOperands<C>& o, const float* acol,
 
 // The forms of one depth step's A fragment, float32: f[0] = X, f[1] = X * X,
 // f[2 + k] = X * C_k, each product rounded on its own.
-template <int C>
-__device__ __forceinline__ void make_forms(float (&f)[C + 2][4], const StepOperands<C>& o) {
+template <int C, int kDepths>
+__device__ __forceinline__ void make_forms(float (&f)[C + 2][2 * kDepths],
+                                           const StepOperands<C, kDepths>& o) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2 * kDepths; ++i) {
     f[0][i] = o.x[i];
     f[1][i] = __fmul_rn(o.x[i], o.x[i]);
 #pragma unroll
@@ -297,11 +317,11 @@ __device__ __forceinline__ void store_pair(float* dst, int row, int col, const f
   }
 }
 
-// kSteps: depth steps of 8, n padded; a template parameter so that the depth
-// loops carry no branches. kInFlight: the depth steps whose products may
-// still run while the next step's fragments are made (each step in flight
-// holds its fragments' registers).
-template <int C, int kSteps, int kInFlight, bool kEffects>
+// kSteps: depth steps of the policy P, n padded; a template parameter so
+// that the depth loops carry no branches. kInFlight: the depth steps whose
+// products may still run while the next step's fragments are made (each step
+// in flight holds its fragments' registers).
+template <class P, int C, int kSteps, int kInFlight, bool kEffects>
 __global__ void __launch_bounds__(kThreads, 1)
 liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated markers
                         const float* __restrict__ Cov,   // (n, C) rotated covariates
@@ -314,10 +334,12 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
                         int n, int p, int ldx, int m,
                         int group_tiles,  // marker tiles of one block
                         int pairs) {      // 1: every output is 8-byte aligned
-  constexpr int depth = 8 * kSteps;
+  constexpr bool kBf16 = P::kStep == 16;
+  constexpr int kDepths = P::kStep / 4;  // a thread's depths of a step
+  constexpr int depth = P::kStep * kSteps;
   constexpr int kS = scalar_rows(C, kEffects);
   constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
-  constexpr int kTileFloats = depth * kTileM;
+  constexpr int kTileFloats = depth * kTileM / (kBf16 ? 2 : 1);  // 32-bit words
   constexpr int kStageFloats = depth * kLdX;
   extern __shared__ __align__(128) float4 resident_shared_raw[];
   float* shared = reinterpret_cast<float*>(resident_shared_raw);
@@ -358,7 +380,8 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
   // the block's operands, read once: scalars, covariates, and the W and WY
   // columns split and laid out K-major. With 64 columns kmajor_offset(s, c)
   // is 256 (s / 4) + 4 c + s % 4, so thread (c = tid / 4, s % 4 = tid % 4)
-  // writes consecutive words.
+  // writes consecutive words; under bf16x3 s is a word depth, whose word
+  // holds samples sample_of_word(s) and that + 4.
   for (int e = tid; e < kS * kTileM; e += kThreads) {
     const int row = e / kTileM, gm = m0 + e % kTileM;
     // columns past m get ones: no division by zero in lanes never stored
@@ -375,21 +398,35 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
   }
   for (int e = tid; e < kTileFloats; e += kThreads) {
     const int s = 4 * (e / (4 * kTileM)) + e % 4, c = (e / 4) % kTileM;
-    const bool inside = s < n && m0 + c < m;
-    const float w = inside ? W[(size_t)s * m + m0 + c] : 0.0f;
-    const float wy = inside ? WY[(size_t)s * m + m0 + c] : 0.0f;
     uint32_t big, small;
-    split(w, big, small);
-    w_big[e] = __uint_as_float(big);
-    w_small[e] = __uint_as_float(small);
-    split(wy, big, small);
-    wy_big[e] = __uint_as_float(big);
-    wy_small[e] = __uint_as_float(small);
+    if constexpr (kBf16) {
+      const int s0 = bf16x3::sample_of_word(s);
+      const bool col = m0 + c < m;
+      const size_t at = (size_t)s0 * m + m0 + c, next = at + 4 * (size_t)m;
+      const bool in0 = col && s0 < n, in1 = col && s0 + 4 < n;
+      bf16x3::split_pair(in0 ? W[at] : 0.0f, in1 ? W[next] : 0.0f, big, small);
+      w_big[e] = __uint_as_float(big);
+      w_small[e] = __uint_as_float(small);
+      bf16x3::split_pair(in0 ? WY[at] : 0.0f, in1 ? WY[next] : 0.0f, big, small);
+      wy_big[e] = __uint_as_float(big);
+      wy_small[e] = __uint_as_float(small);
+    } else {
+      const bool inside = s < n && m0 + c < m;
+      const float w = inside ? W[(size_t)s * m + m0 + c] : 0.0f;
+      const float wy = inside ? WY[(size_t)s * m + m0 + c] : 0.0f;
+      split(w, big, small);
+      w_big[e] = __uint_as_float(big);
+      w_small[e] = __uint_as_float(small);
+      split(wy, big, small);
+      wy_big[e] = __uint_as_float(big);
+      wy_small[e] = __uint_as_float(small);
+    }
   }
   fence_proxy_async();
   __syncthreads();  // the last barrier of the whole block
 
-  // descriptors of depth step 0; step ks lies 8 kTileM floats = 128 units of 16 bytes on
+  // descriptors of depth step 0; step ks lies 32 bytes a column, 8 kTileM
+  // words = 128 units of 16 bytes, on (either policy)
   const uint64_t d_w_big = kmajor_descriptor(w_big, kTileM);
   const uint64_t d_w_small = kmajor_descriptor(w_small, kTileM);
   const uint64_t d_wy_big = kmajor_descriptor(wy_big, kTileM);
@@ -426,27 +463,32 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
     // Each step's operands are loaded one step ahead, before the products of
     // the step before are started: the asynchronous products are ordered
     // against memory, so the compiler moves no load across them itself.
-    StepOperands<C> now, next;
+    StepOperands<C, kDepths> now, next;
     load_step<C>(now, acol, cs, depth, q);
 
     // the small terms of every depth step
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
-      float f[kAcc][4];
+      float f[kAcc][2 * kDepths];
       make_forms<C>(f, now);
       uint32_t big[kAcc][4], small[kAcc][4];
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a)
+      for (int a = 0; a < kAcc; ++a) {
+        if constexpr (kBf16) {
+          bf16x3::split_fragment(f[a], big[a], small[a]);
+        } else {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) split_by_bits(f[a][r], big[a][r], small[a][r]);
+          for (int r = 0; r < 4; ++r) split_by_bits(f[a][r], big[a][r], small[a][r]);
+        }
+      }
       // the second pass starts again at step 0
-      load_step<C>(next, acol, cs, depth, 8 * ((ks + 1) % kSteps) + q);
+      load_step<C>(next, acol, cs, depth, P::kStep * ((ks + 1) % kSteps) + q);
       wgmma_fence();
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) {
         // the tile's first product overwrites acc
-        wgmma_m64n64k8(acc[a], small[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, ks > 0);
-        wgmma_m64n64k8(acc[a], big[a], (a == 0 ? d_wy_small : d_w_small) + ks * kStepUnits, 1);
+        P::wgmma_m64n64(acc[a], small[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, ks > 0);
+        P::wgmma_m64n64(acc[a], big[a], (a == 0 ? d_wy_small : d_w_small) + ks * kStepUnits, 1);
       }
       wgmma_commit();
       wgmma_wait<kInFlight>();
@@ -455,18 +497,23 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
     // the leading terms
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
-      float f[kAcc][4];
+      float f[kAcc][2 * kDepths];
       make_forms<C>(f, now);
       uint32_t big[kAcc][4];
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a)
+      for (int a = 0; a < kAcc; ++a) {
+        if constexpr (kBf16) {
+          bf16x3::round_fragment(f[a], big[a]);
+        } else {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) big[a][r] = round_tf32(f[a][r]);
-      if (ks + 1 < kSteps) load_step<C>(next, acol, cs, depth, 8 * (ks + 1) + q);
+          for (int r = 0; r < 4; ++r) big[a][r] = round_tf32(f[a][r]);
+        }
+      }
+      if (ks + 1 < kSteps) load_step<C>(next, acol, cs, depth, P::kStep * (ks + 1) + q);
       wgmma_fence();
 #pragma unroll
       for (int a = 0; a < kAcc; ++a)
-        wgmma_m64n64k8(acc[a], big[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, 1);
+        P::wgmma_m64n64(acc[a], big[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, 1);
       wgmma_commit();
       wgmma_wait<kInFlight>();
       now = next;
@@ -561,11 +608,11 @@ struct Operands {
 
 inline bool aligned8(const float* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 8 == 0; }
 
-template <int C, int kSteps, bool kEffects>
+template <class P, int C, int kSteps, bool kEffects>
 cudaError_t launch_resident_built(const Operands& o, cudaStream_t stream) {
   // one depth step in flight beside the one being made, while its fragments' registers fit
-  auto kernel = liteqtl_resident_kernel<C, kSteps, (C <= (kEffects ? 1 : 2) ? 1 : 0), kEffects>;
-  const size_t bytes = 4 * resident_shared_floats(kSteps, C, kEffects);
+  auto kernel = liteqtl_resident_kernel<P, C, kSteps, (C <= (kEffects ? 1 : 2) ? 1 : 0), kEffects>;
+  const size_t bytes = 4 * resident_shared_floats<P>(kSteps, C, kEffects);
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return rc;
@@ -589,27 +636,44 @@ cudaError_t launch_resident_built(const Operands& o, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int C, bool kEffects>
+template <class P, int C, bool kEffects>
 cudaError_t launch_resident(const Operands& o, cudaStream_t stream) {
   if (o.ldx % 4 != 0 || reinterpret_cast<uintptr_t>(o.X) % 16 != 0) return cudaErrorInvalidValue;
-  switch (built_steps(o.n)) {
-    case 2: return launch_resident_built<C, 2, kEffects>(o, stream);
-    case 4: return launch_resident_built<C, 4, kEffects>(o, stream);
-    case 6: return launch_resident_built<C, 6, kEffects>(o, stream);
-    case 8: return launch_resident_built<C, 8, kEffects>(o, stream);
-    case 10: return launch_resident_built<C, 10, kEffects>(o, stream);
-    case 11: return launch_resident_built<C, 11, kEffects>(o, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (P::kStep == 16) {
+    switch (built_steps<P>(o.n)) {
+      case 2: return launch_resident_built<P, C, 2, kEffects>(o, stream);
+      case 3: return launch_resident_built<P, C, 3, kEffects>(o, stream);
+      case 4: return launch_resident_built<P, C, 4, kEffects>(o, stream);
+      case 5: return launch_resident_built<P, C, 5, kEffects>(o, stream);
+      case 6: return launch_resident_built<P, C, 6, kEffects>(o, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (built_steps<P>(o.n)) {
+      case 2: return launch_resident_built<P, C, 2, kEffects>(o, stream);
+      case 4: return launch_resident_built<P, C, 4, kEffects>(o, stream);
+      case 6: return launch_resident_built<P, C, 6, kEffects>(o, stream);
+      case 8: return launch_resident_built<P, C, 8, kEffects>(o, stream);
+      case 10: return launch_resident_built<P, C, 10, kEffects>(o, stream);
+      case 11: return launch_resident_built<P, C, 11, kEffects>(o, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
-// launch_resident<c, false> and launch_resident<c, true>, each defined in its
-// own source file.
+// launch_resident<P, c, false> and launch_resident<P, c, true>, each defined
+// in its own source file: tf32x3::Policy, then bf16x3::Policy.
 cudaError_t launch_resident_c1(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_c2(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_c3(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_effects_c1(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_effects_c2(const Operands& o, cudaStream_t stream);
 cudaError_t launch_resident_effects_c3(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_c1(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_c2(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_c3(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_effects_c1(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_effects_c2(const Operands& o, cudaStream_t stream);
+cudaError_t launch_resident_bf16_effects_c3(const Operands& o, cudaStream_t stream);
 
 }  // namespace liteqtl

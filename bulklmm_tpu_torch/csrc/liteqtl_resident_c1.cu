@@ -5,7 +5,7 @@
 namespace liteqtl {
 
 cudaError_t launch_resident_c1(const Operands& o, cudaStream_t stream) {
-  return launch_resident<1, false>(o, stream);
+  return launch_resident<tf32x3::Policy, 1, false>(o, stream);
 }
 
 }  // namespace liteqtl

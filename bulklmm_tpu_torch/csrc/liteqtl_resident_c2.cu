@@ -5,7 +5,7 @@
 namespace liteqtl {
 
 cudaError_t launch_resident_c2(const Operands& o, cudaStream_t stream) {
-  return launch_resident<2, false>(o, stream);
+  return launch_resident<tf32x3::Policy, 2, false>(o, stream);
 }
 
 }  // namespace liteqtl

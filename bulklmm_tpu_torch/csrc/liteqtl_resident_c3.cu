@@ -5,7 +5,7 @@
 namespace liteqtl {
 
 cudaError_t launch_resident_c3(const Operands& o, cudaStream_t stream) {
-  return launch_resident<3, false>(o, stream);
+  return launch_resident<tf32x3::Policy, 3, false>(o, stream);
 }
 
 }  // namespace liteqtl

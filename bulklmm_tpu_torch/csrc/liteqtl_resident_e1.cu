@@ -6,7 +6,7 @@
 namespace liteqtl {
 
 cudaError_t launch_resident_effects_c1(const Operands& o, cudaStream_t stream) {
-  return launch_resident<1, true>(o, stream);
+  return launch_resident<tf32x3::Policy, 1, true>(o, stream);
 }
 
 }  // namespace liteqtl

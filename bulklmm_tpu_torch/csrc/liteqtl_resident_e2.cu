@@ -6,7 +6,7 @@
 namespace liteqtl {
 
 cudaError_t launch_resident_effects_c2(const Operands& o, cudaStream_t stream) {
-  return launch_resident<2, true>(o, stream);
+  return launch_resident<tf32x3::Policy, 2, true>(o, stream);
 }
 
 }  // namespace liteqtl

@@ -3,6 +3,9 @@
 // depth-major shared tiles, the warpgroup-level 64 x 128 x 8 and 64 x 64 x 8
 // products (wgmma) with their K-major tile and descriptor, and asynchronous
 // tile copies. Device functions only, shared by the kernels of this directory.
+// The split's product policy (Policy) and the warp-level product that takes
+// a policy (warp_mma) live here too; mma_bf16x3.cuh holds the other policy,
+// the bf16x3 split of the THROUGHPUT preset.
 //
 // The split. A float32 a is written as big + small with
 // big = tf32(a) (cvt.rna: round to nearest on the 13 low mantissa bits, ties
@@ -143,24 +146,6 @@ __device__ __forceinline__ void mma_fragments(float (&acc)[MT][NT][4], const Fra
     for (int j = 0; j < NT; ++j) mma_m16n8k8(acc[i][j], f.a_big[i], f.b_big[j]);
 }
 
-// acc += A * B over `depth` samples (a multiple of 8) of two shared tiles,
-// software-pipelined: the fragments of step s + 1 are loaded and split while
-// the tensor cores work on step s. Pointers and strides as load_fragments()
-// takes them, at depth 0.
-template <int MT, int NT>
-__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const float* A, int lda,
-                                         const float* B, int ldb, int depth, int g, int q) {
-  Fragments<MT, NT> cur, next;
-  load_fragments<MT, NT>(cur, A, lda, B, ldb, g, q);
-#pragma unroll 2
-  for (int s = 8; s < depth; s += 8) {
-    load_fragments<MT, NT>(next, A + s * lda, lda, B + s * ldb, ldb, g, q);
-    mma_fragments<MT, NT>(acc, cur);
-    cur = next;
-  }
-  mma_fragments<MT, NT>(acc, cur);
-}
-
 // --- warpgroup products ------------------------------------------------------
 //
 // wgmma runs asynchronously: four warps start one 64 x N x 8 product and go
@@ -185,7 +170,8 @@ __host__ __device__ constexpr int kmajor_offset(int s, int c, int columns) {
 // `ptr` (depth a multiple of 8, column a multiple of 8): start address, the
 // byte offset between the step's two depth groups ("leading"), the byte
 // offset between neighbouring groups of 8 columns ("stride"), no swizzle.
-__device__ __forceinline__ uint64_t kmajor_descriptor(const float* ptr, int columns) {
+// A bf16 tile's depth-16 step has the same byte geometry (mma_bf16x3.cuh).
+__device__ __forceinline__ uint64_t kmajor_descriptor(const void* ptr, int columns) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
   const uint64_t leading = 16 * columns, stride = 128;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (leading >> 4) << 16 | (stride >> 4) << 32;
@@ -269,6 +255,53 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// --- the product policy ---------------------------------------------------------
+
+// The product policy of this split, the template parameter that a kernel is
+// instantiated for (bf16x3::Policy in mma_bf16x3.cuh is the other one):
+// depth steps of 8 samples and their fragments, loaded and multiplied.
+struct Policy {
+  static constexpr int kStep = 8;
+  template <int MT, int NT>
+  using StepFragments = tf32x3::Fragments<MT, NT>;
+  template <int MT, int NT>
+  static __device__ __forceinline__ void load(StepFragments<MT, NT>& f, const float* A, int lda,
+                                              const float* B, int ldb, int g, int q) {
+    load_fragments<MT, NT>(f, A, lda, B, ldb, g, q);
+  }
+  template <int MT, int NT>
+  static __device__ __forceinline__ void mma(float (&acc)[MT][NT][4],
+                                             const StepFragments<MT, NT>& f) {
+    mma_fragments<MT, NT>(acc, f);
+  }
+  static __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+    wgmma_m64n128k8(d, a, desc_b, scale_d);
+  }
+  static __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+    wgmma_m64n64k8(d, a, desc_b, scale_d);
+  }
+};
+
+// acc += A * B over `depth` samples (a multiple of P::kStep) of two shared
+// tiles, with the products of policy P, software-pipelined: the fragments of
+// step s + 1 are loaded and split while the tensor cores work on step s.
+// Pointers and strides as load_fragments() takes them, at depth 0.
+template <class P, int MT, int NT>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const float* A, int lda,
+                                         const float* B, int ldb, int depth, int g, int q) {
+  typename P::template StepFragments<MT, NT> cur, next;
+  P::template load<MT, NT>(cur, A, lda, B, ldb, g, q);
+#pragma unroll 2
+  for (int s = P::kStep; s < depth; s += P::kStep) {
+    P::template load<MT, NT>(next, A + s * lda, lda, B + s * ldb, ldb, g, q);
+    P::template mma<MT, NT>(acc, cur);
+    cur = next;
+  }
+  P::template mma<MT, NT>(acc, cur);
 }
 
 // --- asynchronous copies -----------------------------------------------------

@@ -19,7 +19,12 @@ byte write of L (and of the index). At 79 samples x 7,321 markers x 35,554
 traits and the default 10-point grid that is ~4.1e11 flops. The kernel takes
 the product on the tensor cores as three TF32 passes
 (``csrc/mma_tf32x3.cuh``), which is float32-grade but not bit-equal to the
-plain version's product.
+plain version's product. Under ``dot_precision="high"`` (THROUGHPUT) it takes
+three bf16 passes instead (bf16x3, ``csrc/mma_bf16x3.cuh``), the TPU
+kernel's HIGH branch, and the plain version takes the same split
+(``split.py::matmul_bf16x3``) on any device, as the Pallas kernel emulates
+bf16x3 in interpret mode. ``dot_precision`` is "highest" or "high"; any other
+name raises.
 
 Layers:
 
@@ -31,7 +36,8 @@ Layers:
   its inputs, allocates the outputs, launches on the current stream, raises
   on a launch error and counts its launches in :data:`launches`.
 - :func:`altgrid_plain`: the same function in plain torch, one (p, n)(n, m)
-  product and the epilogue per grid step, exact float32.
+  product and the epilogue per grid step, exact float32 (bf16x3 under
+  "high").
   :func:`altgrid_split_reference` repeats the kernel's 3 x TF32 arithmetic
   instead (``kernels/split.py``), for comparisons.
 - :func:`fused_alt_grid`: the kernel on CUDA tensors, its plain version on
@@ -50,11 +56,14 @@ import torch
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from .split import matmul_tf32x3, rows_at_16_bytes
+from .split import matmul_bf16x3, matmul_tf32x3, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the alt-grid path ran through the kernel
 launches = 0
+
+#: those of them with bf16x3 products (``dot_precision="high"``), likewise
+bf16x3_launches = 0
 
 #: the counts are read-modify-written by the host threads of a mesh's devices
 _count_lock = threading.Lock()
@@ -133,7 +142,7 @@ def _library():
     fn = lib.bulklmm_altgrid
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -141,15 +150,19 @@ def _library():
     return lib
 
 
-def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
+def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True, dot_precision: str = "highest"):
     """(L, kidx) from the kernel's operands, on their CUDA device: L (p, m)
     float32 and kidx (p, m) int32, the first grid step of the minimum, or
-    None when ``panel`` is False (the kernel then carries no index).
+    None when ``panel`` is False (the kernel then carries no index). The
+    products are three TF32 passes, or three bf16 passes under
+    ``dot_precision="high"``.
 
-    Raises on a CPU tensor, a wrong dtype, shape or layout, a failed build
-    or a launch error. Does not synchronize.
+    Raises on a CPU tensor, a wrong dtype, shape or layout, an unknown
+    ``dot_precision``, a failed build or a launch error. Does not
+    synchronize.
     """
-    global launches
+    global launches, bf16x3_launches
+    bf16 = uses_bf16x3(dot_precision)
     g, n, p, m = _check_operands(Xn, Yn, cmat)
     lib = _library()
     out = torch.empty((p, m), dtype=_F32, device=Xn.device)
@@ -159,7 +172,7 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_altgrid(
             Xa.data_ptr(), Xa.shape[-1], Ya.data_ptr(), Ya.shape[-1], cmat.data_ptr(),
-            out.data_ptr(), kidx.data_ptr() if panel else None, g, n, p, m, stream,
+            out.data_ptr(), kidx.data_ptr() if panel else None, g, n, p, m, int(bf16), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -167,6 +180,7 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True):
         )
     with _count_lock:
         launches += 1
+        bf16x3_launches += bf16
     return out, kidx
 
 
@@ -189,10 +203,12 @@ def _min_over_grid(Xn, Yn, cmat, panel, product):
 
 
 @with_highest_matmul()
-def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True):
+def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True, dot_precision: str = "highest"):
     """The kernel's function in plain torch, on any device: exact float32
-    products."""
-    return _min_over_grid(Xn, Yn, cmat, panel, torch.matmul)
+    products, or under ``dot_precision="high"`` the kernel's bf16x3 products
+    (``split.py::matmul_bf16x3``)."""
+    product = matmul_bf16x3 if uses_bf16x3(dot_precision) else torch.matmul
+    return _min_over_grid(Xn, Yn, cmat, panel, product)
 
 
 def altgrid_split_reference(Xn, Yn, cmat, *, panel: bool = True):
@@ -207,16 +223,20 @@ def _finish(L, kidx, Y0, h2_grid):
     return L.to(Y0.dtype), None if kidx is None else h2_grid[kidx]
 
 
-def fused_alt_grid(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True):
+def fused_alt_grid(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True,
+                   dot_precision: str = "highest"):
     """(L, h2_panel) of the alt-grid scan: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors. L (p, m) in Y0's dtype; h2_panel (p, m)
-    ``h2_grid[argmax]``, or None when ``output_h2_panel`` is False."""
+    its plain version on CPU tensors, both with ``dot_precision``'s products.
+    L (p, m) in Y0's dtype; h2_panel (p, m) ``h2_grid[argmax]``, or None when
+    ``output_h2_panel`` is False."""
     ops = prepare_inputs(Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml)
     run = altgrid_cuda if ops[0].is_cuda else altgrid_plain
-    return _finish(*run(*ops, panel=output_h2_panel), Y0, h2_grid)
+    return _finish(*run(*ops, panel=output_h2_panel, dot_precision=dot_precision), Y0, h2_grid)
 
 
-def fused_alt_grid_reference(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True):
+def fused_alt_grid_reference(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False, output_h2_panel=True,
+                             dot_precision: str = "highest"):
     """:func:`fused_alt_grid` through the plain version on any device."""
     ops = prepare_inputs(Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml)
-    return _finish(*altgrid_plain(*ops, panel=output_h2_panel), Y0, h2_grid)
+    return _finish(*altgrid_plain(*ops, panel=output_h2_panel, dot_precision=dot_precision),
+                   Y0, h2_grid)

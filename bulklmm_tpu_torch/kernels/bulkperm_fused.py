@@ -16,7 +16,13 @@ What bounds it on an H100: 2 n p mb K float32-grade flops (4.1e13 over all
 35,554 traits) against reading S2 (4 mb n K bytes) and inv_xn once;
 operations by two orders of magnitude. The kernel takes the product on the
 tensor cores as three TF32 passes (``csrc/mma_tf32x3.cuh``), which is
-float32-grade but not bit-equal to the plain version's product.
+float32-grade but not bit-equal to the plain version's product. Under
+``dot_precision="high"`` (THROUGHPUT) both of its paths take three bf16
+passes instead (bf16x3, ``csrc/mma_bf16x3.cuh``), the TPU kernel's HIGH
+branch, and the plain version takes the same split
+(``split.py::matmul_bf16x3``) on any device, as the Pallas kernel emulates
+bf16x3 in interpret mode. ``dot_precision`` is "highest" or "high"; any other
+name raises.
 
 Layers:
 
@@ -31,10 +37,12 @@ Layers:
   checks its inputs, allocates the output, launches on the current stream,
   raises on a launch error and counts its launches in :data:`launches`.
 - :func:`bulkperm_maxr2_plain`: the same function in plain torch, exact
-  float32. :func:`bulkperm_maxr2_split_reference` repeats the kernel's
-  3 x TF32 arithmetic instead (``kernels/split.py``), for comparisons.
+  float32 (bf16x3 under "high"). :func:`bulkperm_maxr2_split_reference`
+  repeats the kernel's 3 x TF32 arithmetic instead (``kernels/split.py``),
+  for comparisons.
 - :func:`kernel_path`: whether the trait's operand stays in shared memory
-  for the launch, from n.
+  for the launch, from n; :func:`kernel_route` names the products beside
+  it.
 - :func:`fused_perm_maxlods`: max LODs through the kernel on CUDA tensors,
   through its plain version on CPU tensors.
   :func:`fused_perm_maxlods_reference` always takes the plain version (the
@@ -55,11 +63,14 @@ import torch
 
 from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
 from ..utils.config import with_highest_matmul
-from .split import matmul_tf32x3, rows_at_16_bytes
+from .split import matmul_bf16x3, matmul_tf32x3, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the permutation path ran through the kernel
 launches = 0
+
+#: those of them with bf16x3 products (``dot_precision="high"``), likewise
+bf16x3_launches = 0
 
 #: the counts are read-modify-written by the host threads of a mesh's devices
 _count_lock = threading.Lock()
@@ -136,7 +147,7 @@ def _library():
     lib = load_library()
     fn = lib.bulklmm_bulkperm_maxr2
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.bulklmm_bulkperm_is_resident.argtypes = [ctypes.c_int]
@@ -146,18 +157,22 @@ def _library():
     return lib
 
 
-def padded_depth(n: int) -> int:
-    """n rounded up to the depth of one tensor-core step, 8; the padding
-    rows are zeros in shared memory."""
-    return -(-n // 8) * 8
+def padded_depth(n: int, dot_precision: str = "highest") -> int:
+    """n rounded up to the depth of one tensor-core step, 8 samples (3 x
+    TF32) or 16 (bf16x3, "high"); the padding rows are zeros in shared
+    memory."""
+    step = 16 if uses_bf16x3(dot_precision) else 8
+    return -(-n // step) * step
 
 
-def resident_shared_bytes(n: int) -> int:
+def resident_shared_bytes(n: int, dot_precision: str = "highest") -> int:
     """Shared memory of a block that keeps its trait's operand resident:
-    both TF32 halves of the (padded n, 256) tile and two stages of 64
-    markers and a row of inv_xn, their rows 8 floats longer than the tile."""
-    depth = padded_depth(n)
-    return 4 * (2 * depth * TILE_K + 2 * (depth + 1) * (64 + 8))
+    both halves of the (padded n, 256) tile, 4 bytes a value as TF32 and 2
+    as bf16, and two stages of 64 markers and a row of inv_xn, their rows 8
+    floats longer than the tile."""
+    depth = padded_depth(n, dot_precision)
+    value_bytes = 2 if uses_bf16x3(dot_precision) else 4
+    return 2 * depth * TILE_K * value_bytes + 4 * 2 * (depth + 1) * (64 + 8)
 
 
 def kernel_path(n: int) -> str:
@@ -170,15 +185,25 @@ def kernel_path(n: int) -> str:
     return "resident" if fits else "chunked"
 
 
-def bulkperm_maxr2_cuda(X0m, S2, inv_xn):
+def kernel_route(n: int, dot_precision: str = "highest") -> tuple[str, str]:
+    """``(kernel_path(n), products)``: the path that a launch at n samples
+    takes (the same for both products) and its products, "tf32x3" or, under
+    ``dot_precision="high"``, "bf16x3" (both paths have them)."""
+    return kernel_path(n), "bf16x3" if uses_bf16x3(dot_precision) else "tf32x3"
+
+
+def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
     """(mb, K) float32 max r^2 from the kernel's operands, on their CUDA
     device: ``X0m`` (n, p), ``S2`` (mb, n, K), ``inv_xn`` (mb, p), all
-    float32 and contiguous.
+    float32 and contiguous. The products are three TF32 passes, or three
+    bf16 passes under ``dot_precision="high"``.
 
-    Raises on a CPU tensor, a wrong dtype, shape or layout, a failed build
-    or a launch error. Does not synchronize.
+    Raises on a CPU tensor, a wrong dtype, shape or layout, an unknown
+    ``dot_precision``, a failed build or a launch error. Does not
+    synchronize.
     """
-    global launches
+    global launches, bf16x3_launches
+    bf16 = uses_bf16x3(dot_precision)
     n, p, mb, K = _check_operands(X0m, S2, inv_xn)
     lib = _library()
     out = torch.empty((mb, K), dtype=_F32, device=X0m.device)
@@ -187,7 +212,7 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_bulkperm_maxr2(
             Xa.data_ptr(), Xa.shape[-1], S2.data_ptr(), inv_xn.data_ptr(), out.data_ptr(),
-            n, p, mb, K, stream,
+            n, p, mb, K, int(bf16), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -195,6 +220,7 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn):
         )
     with _count_lock:
         launches += 1
+        bf16x3_launches += bf16
     return out
 
 
@@ -215,10 +241,12 @@ def _maxr2_by_blocks(X0m, S2, inv_xn, product):
 
 
 @with_highest_matmul()
-def bulkperm_maxr2_plain(X0m, S2, inv_xn):
+def bulkperm_maxr2_plain(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
     """The kernel's function in plain torch, on any device: exact float32
-    products."""
-    return _maxr2_by_blocks(X0m, S2, inv_xn, torch.matmul)
+    products, or under ``dot_precision="high"`` the kernel's bf16x3 products
+    (``split.py::matmul_bf16x3``)."""
+    product = matmul_bf16x3 if uses_bf16x3(dot_precision) else torch.matmul
+    return _maxr2_by_blocks(X0m, S2, inv_xn, product)
 
 
 def bulkperm_maxr2_split_reference(X0m, S2, inv_xn):
@@ -228,14 +256,15 @@ def bulkperm_maxr2_split_reference(X0m, S2, inv_xn):
     return _maxr2_by_blocks(X0m, S2, inv_xn, matmul_tf32x3)
 
 
-def fused_perm_maxlods(X0m, S2, inv_xn, *, n: int):
+def fused_perm_maxlods(X0m, S2, inv_xn, *, n: int, dot_precision: str = "highest"):
     """(mb, K) float32 genome-wide max LODs of a trait block: the CUDA kernel
-    on CUDA tensors, its plain version on CPU tensors. ``n`` is the sample
-    count of the LOD factor."""
+    on CUDA tensors, its plain version on CPU tensors, both with
+    ``dot_precision``'s products. ``n`` is the sample count of the LOD
+    factor."""
     run = bulkperm_maxr2_cuda if S2.is_cuda else bulkperm_maxr2_plain
-    return maxr2_to_lod(run(X0m, S2, inv_xn), n)
+    return maxr2_to_lod(run(X0m, S2, inv_xn, dot_precision=dot_precision), n)
 
 
-def fused_perm_maxlods_reference(X0m, S2, inv_xn, *, n: int):
+def fused_perm_maxlods_reference(X0m, S2, inv_xn, *, n: int, dot_precision: str = "highest"):
     """:func:`fused_perm_maxlods` through the plain version on any device."""
-    return maxr2_to_lod(bulkperm_maxr2_plain(X0m, S2, inv_xn), n)
+    return maxr2_to_lod(bulkperm_maxr2_plain(X0m, S2, inv_xn, dot_precision=dot_precision), n)

@@ -29,6 +29,17 @@ operands whose covariates are already whitened per trait, V = W (C L^{-T})
 accumulator sets a thread for any c and needs no substitution (see the
 sources for the designs).
 
+Under ``dot_precision="high"`` (THROUGHPUT) the resident kernel takes its
+products as three bf16 passes instead (bf16x3, ``csrc/mma_bf16x3.cuh``, the
+JAX package's HIGH); the general and wide kernels keep their three TF32
+passes, stricter than the preset asks (:func:`kernel_route` names the
+products that run). The plain versions split the same way the JAX package
+does: on the CPU the LOD step's plain version keeps float32 products under
+"high", as ``ops/liteqtl.py::lods_per_trait`` at HIGH computes in XLA on a
+CPU, and :func:`liteqtl_bf16x3_reference` is the bf16x3 kernel's plain
+version, which ``chip_smoke.py`` holds it against on the card.
+``dot_precision`` is "highest" or "high"; any other name raises.
+
 The effects variant of both kernels (``effects=True``; the path of
 ``bulkscan(output_effects=True)`` under the float32 presets) writes, from
 the same products and the same residualization, the marker's effect and its
@@ -54,7 +65,8 @@ Layers:
   (``kernels/split.py``), and :func:`liteqtl_chunked_reference` the
   general and wide kernels' (the same split, the samples in chunks of 40,
   each run of :data:`FOLD_CHUNKS` chunks summed and added into a running
-  total), for comparisons.
+  total), for comparisons; :func:`liteqtl_bf16x3_reference` the resident
+  kernel's under "high".
 - :func:`fused_lods_per_trait` and :func:`fused_lods_and_effects_per_trait`:
   the kernel on CUDA tensors, its plain version on CPU tensors.
   :func:`fused_lods_per_trait_reference` always takes the plain version on
@@ -75,7 +87,9 @@ from ..ops.smallchol import (
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from .split import matmul_tf32x3, matmul_tf32x3_chunked, rows_at_16_bytes
+from .split import (
+    matmul_bf16x3, matmul_tf32x3, matmul_tf32x3_chunked, rows_at_16_bytes, uses_bf16x3,
+)
 
 #: covariate columns (intercept included) the general kernel is instantiated
 #: for ((c + 2) accumulator sets of 32 registers a thread); the wide kernel
@@ -94,7 +108,8 @@ FOLD_CHUNKS = 5
 #: (c + 2) accumulator sets of 32 registers a thread
 RESIDENT_COVARIATES = 3
 
-#: the most depth steps of 8 samples the resident kernel is built for
+#: the most depth steps of 8 samples the resident kernel is built for (its
+#: limit under either products; bf16x3 steps are 16 samples, 6 of them)
 RESIDENT_STEPS = 11
 
 #: shared memory a block can use on sm_90, bytes
@@ -110,6 +125,9 @@ launches = 0
 #: launches of the kernel's effects variant in this process, likewise
 effects_launches = 0
 
+#: launches of either variant with bf16x3 products, likewise
+bf16x3_launches = 0
+
 #: the counts are read-modify-written by the host threads of a mesh's devices
 _count_lock = threading.Lock()
 
@@ -122,23 +140,29 @@ def scalar_rows(c: int, effects: bool = False, *, wide: bool = False) -> int:
     return (0 if wide else c * (c + 1) // 2) + c + 1 + int(effects)
 
 
-def resident_steps(n: int) -> int:
-    """Depth steps of 8 samples that the resident kernel runs for n: even
-    counts up to 10, then 11 (the kernel is built for each count; the rows
-    between n and 8 steps are zeros in shared memory)."""
+def resident_steps(n: int, dot_precision: str = "highest") -> int:
+    """Depth steps that the resident kernel runs for n: of 8 samples, even
+    counts up to 10, then 11; under "high" (bf16x3) of 16 samples, any count
+    from 2 (the kernel is built for each count; the rows between n and the
+    steps are zeros in shared memory)."""
+    if uses_bf16x3(dot_precision):
+        return max(2, -(-n // 16))
     steps = -(-n // 8)
     return steps if steps > 10 else steps + steps % 2
 
 
-def resident_shared_bytes(n: int, c: int, effects: bool = False) -> int:
-    """Shared memory of a block of the resident kernel: both TF32 halves of
-    its (depth, 64) tiles of W and WY, for each of its two warpgroups two
-    stages of 64 markers (rows 8 floats longer than the tile) and one
-    finished 64 x 64 tile (rows 4 floats longer), the covariates and the
-    scalar block."""
-    depth = 8 * resident_steps(n)
+def resident_shared_bytes(n: int, c: int, effects: bool = False,
+                          dot_precision: str = "highest") -> int:
+    """Shared memory of a block of the resident kernel: both halves of its
+    (depth, 64) tiles of W and WY (4 bytes a value as TF32, 2 as bf16), for
+    each of its two warpgroups two stages of 64 markers (rows 8 floats
+    longer than the tile) and one finished 64 x 64 tile (rows 4 floats
+    longer), the covariates and the scalar block."""
+    bf16 = uses_bf16x3(dot_precision)
+    depth = (16 if bf16 else 8) * resident_steps(n, dot_precision)
     per_group = 2 * depth * (TILE_P + 8) + TILE_P * (TILE_M + 4)
-    return 4 * (4 * depth * TILE_M + 2 * per_group + c * depth + scalar_rows(c, effects) * TILE_M)
+    operands = 4 * depth * TILE_M // (2 if bf16 else 1)
+    return 4 * (operands + 2 * per_group + c * depth + scalar_rows(c, effects) * TILE_M)
 
 
 def kernel_path(n: int, c: int, effects: bool = False) -> str:
@@ -158,6 +182,18 @@ def kernel_path(n: int, c: int, effects: bool = False) -> str:
         and resident_shared_bytes(n, c, effects) <= SHARED_LIMIT_BYTES
     )
     return "resident" if fits else "general"
+
+
+def kernel_route(n: int, c: int, effects: bool = False,
+                 dot_precision: str = "highest") -> tuple[str, str]:
+    """``(kernel_path(n, c, effects), products)``: the kernel that a launch
+    takes (the same under both products) and the products that run in it,
+    "bf16x3" for the resident kernel under ``dot_precision="high"``, else
+    "tf32x3" (the general and wide kernels have no bf16x3 form, so "high"
+    at n > 88 or c > 3 runs three TF32 passes)."""
+    path = kernel_path(n, c, effects)
+    bf16 = uses_bf16x3(dot_precision) and path == "resident"
+    return path, "bf16x3" if bf16 else "tf32x3"
 
 
 def _descending(lam) -> bool:
@@ -307,7 +343,7 @@ def _library():
     lib = load_library()
     fn = lib.bulklmm_liteqtl_lod
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5,
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 6,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -338,7 +374,8 @@ def _totals_floats(lib, n: int, c: int, effects: bool, general: bool) -> int:
     return floats
 
 
-def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool = False):
+def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool = False,
+                     dot_precision: str = "highest"):
     """(p, m) float32 LOD from the kernel's operands, on their CUDA device;
     with ``effects=True`` (the effects variant, whose ``scal`` has the nrm2
     row) the tuple (LOD, effect, standard error).
@@ -346,11 +383,14 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
     Takes the kernel that :func:`kernel_path` names for the shape, on the
     operands :func:`prepare_inputs` gives for it; ``general=True`` takes the
     general kernel whatever n is, up to :data:`GENERAL_COVARIATES` columns
-    (for comparisons at a resident shape). Raises on a CPU tensor, a wrong
-    dtype, shape or layout, operands of another kernel, a failed build or a
-    launch error. Does not synchronize.
+    (for comparisons at a resident shape). ``dot_precision="high"`` takes
+    the resident kernel's bf16x3 products (:func:`kernel_route`). Raises on a
+    CPU tensor, a wrong dtype, shape or layout, operands of another kernel,
+    an unknown ``dot_precision``, a failed build or a launch error. Does not
+    synchronize.
     """
-    global launches, effects_launches
+    global launches, effects_launches, bf16x3_launches
+    bf16 = uses_bf16x3(dot_precision)
     n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
     if general and c > GENERAL_COVARIATES:
         raise ValueError(f"liteqtl_lod_cuda: the general kernel is instantiated for at most "
@@ -369,20 +409,21 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
         rc = lib.bulklmm_liteqtl_lod(
             X.data_ptr(), X.stride(0), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
             scal.data_ptr(), outs[0].data_ptr(), beta_ptr, se_ptr, n, p, m, c, int(general),
-            None if totals is None else totals.data_ptr(), floats, stream,
+            int(bf16), None if totals is None else totals.data_ptr(), floats, stream,
         )
     if rc != 0:
         raise RuntimeError(
             "liteqtl_lod kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    if effects:
-        with _count_lock:
-            effects_launches += 1
-        return tuple(outs)
+    ran_bf16 = not general and kernel_route(n, c, effects, dot_precision)[1] == "bf16x3"
     with _count_lock:
-        launches += 1
-    return outs[0]
+        bf16x3_launches += ran_bf16
+        if effects:
+            effects_launches += 1
+        else:
+            launches += 1
+    return tuple(outs) if effects else outs[0]
 
 
 def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):
@@ -462,6 +503,15 @@ def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3, effects)
 
 
+def liteqtl_bf16x3_reference(X, C, W, WY, scal, *, effects: bool = False):
+    """The kernel's function with the resident kernel's arithmetic under
+    ``dot_precision="high"``: the operands rounded as
+    :func:`liteqtl_split_reference` rounds them, then each product as three
+    bf16 passes (``split.py::matmul_bf16x3``). The plain version that the
+    bf16x3 kernel is held against on the card; on any device."""
+    return _lod_with_product(X, C, W, WY, scal, matmul_bf16x3, effects)
+
+
 def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function with the general and wide kernels' arithmetic:
     the operands rounded as :func:`liteqtl_split_reference` rounds them, the
@@ -476,27 +526,36 @@ def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
     return _lod_with_product(X, C, W, WY, scal, product, effects)
 
 
-def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:
-    """(p, m) float32 LOD with per-trait h2: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors."""
+def fused_lods_per_trait(Y0, X0m, C0, lam, h2_per_trait,
+                         dot_precision: str = "highest") -> torch.Tensor:
+    """(p, m) float32 LOD with per-trait h2: the CUDA kernel on CUDA tensors
+    (``dot_precision`` as :func:`liteqtl_lod_cuda` takes it), its plain
+    version on CPU tensors (float32 products under either name)."""
+    uses_bf16x3(dot_precision)
     ops = prepare_inputs(Y0, X0m, C0, lam, h2_per_trait)
     if ops[0].is_cuda:
-        return liteqtl_lod_cuda(*ops)
+        return liteqtl_lod_cuda(*ops, dot_precision=dot_precision)
     return liteqtl_lod_plain(*ops)
 
 
-def fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_per_trait):
+def fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_per_trait,
+                                     dot_precision: str = "highest"):
     """(LOD, effect, standard error), each (p, m) float32, with per-trait h2:
     the effects variant of the CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors."""
+    on CPU tensors; ``dot_precision`` as for :func:`fused_lods_per_trait`."""
+    uses_bf16x3(dot_precision)
     ops = prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, effects=True)
     if ops[0].is_cuda:
-        return liteqtl_lod_cuda(*ops, effects=True)
+        return liteqtl_lod_cuda(*ops, effects=True, dot_precision=dot_precision)
     return liteqtl_lod_plain(*ops, effects=True)
 
 
-def fused_lods_per_trait_reference(Y0, X0m, C0, lam, h2_per_trait) -> torch.Tensor:
+def fused_lods_per_trait_reference(Y0, X0m, C0, lam, h2_per_trait,
+                                   dot_precision: str = "highest") -> torch.Tensor:
     """:func:`fused_lods_per_trait` through the plain version on any device,
     on the general kernel's operands at any c: the packed factor and the
-    forward substitution, as the TPU kernel computes."""
+    forward substitution, as the TPU kernel computes. Float32 products
+    under either ``dot_precision``, as the CPU path takes them
+    (:func:`liteqtl_bf16x3_reference` is the bf16x3 kernel's)."""
+    uses_bf16x3(dot_precision)
     return liteqtl_lod_plain(*prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, path="general"))

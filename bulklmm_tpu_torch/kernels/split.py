@@ -1,5 +1,5 @@
-"""The 3 x TF32 split product in plain torch: the CPU twin of
-``csrc/mma_tf32x3.cuh``.
+"""The kernels' split products in plain torch: the CPU twins of
+``csrc/mma_tf32x3.cuh`` (3 x TF32) and ``csrc/mma_bf16x3.cuh`` (bf16x3).
 
 The CUDA kernels take their float32 products on the tensor cores as three
 TF32 passes: every operand is written as ``big + small``, both rounded to
@@ -13,6 +13,14 @@ main path calls it: the plain versions of the kernels stay exact float32.
 The sums are taken in another order than the kernels take them (three whole
 products here, depth-8 steps there), so a kernel agrees with its split
 reference to float32 rounding, not bit for bit.
+
+Under the THROUGHPUT preset's "high" products the kernels take bf16x3
+instead: every operand is written as ``hi + lo``, both rounded to bfloat16
+(8 significant bits, round to nearest, ties to even), and ``a * b`` is taken
+as ``lo_a * hi_b + hi_a * lo_b + hi_a * hi_b`` (the JAX package's HIGH, which
+its Pallas kernels split by hand). :func:`matmul_bf16x3` is that arithmetic,
+and the plain version of the alt-grid and permutation kernels under "high"
+on any device; the LOD step's on the card (``liteqtl_bf16x3_reference``).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import with_highest_matmul
+from ..utils.config import check_gemm_precision, with_highest_matmul
 
 _LOW_BITS = 13  # float32's 23 mantissa bits less TF32's 10
 _HALF = 1 << (_LOW_BITS - 1)
@@ -88,6 +96,41 @@ def matmul_tf32x3_chunked(A: torch.Tensor, B: torch.Tensor, chunk: int, *,
 def matmul_tf32x1(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """The leading term alone: what one TF32 pass gives. For comparisons."""
     return tf32_round(A) @ tf32_round(B)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to bfloat16 and held as float32: round to
+    nearest, ties to even, as ``cvt.rn.bf16x2.f32`` and JAX's
+    ``astype(bfloat16)`` round; subnormals, zeros and infinities keep their
+    class."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"bf16_round takes float32, got {x.dtype}")
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_split(x: torch.Tensor):
+    """``(hi, lo)`` with ``hi = bf16_round(x)`` and ``lo = bf16_round(x -
+    hi)``; ``hi + lo`` restores ``x`` within 2^-16 |x|."""
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
+
+
+@with_highest_matmul()
+def matmul_bf16x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` (float32, batched as ``torch.matmul``) as the three float32
+    products of the operands' bf16 halves, the small terms first, as the
+    kernels accumulate them; the ``lo * lo`` term is dropped. Each
+    elementwise product of two halves is exact in float32; only the sums
+    round."""
+    A_hi, A_lo = bf16_split(A)
+    B_hi, B_lo = bf16_split(B)
+    return (A_lo @ B_hi + A_hi @ B_lo) + A_hi @ B_hi
+
+
+def uses_bf16x3(dot_precision: str) -> bool:
+    """Whether a kernel's products are bf16x3 (``"high"``) rather than three
+    TF32 passes (``"highest"``); any other name raises."""
+    return check_gemm_precision(dot_precision) == "high"
 
 
 def rows_at_16_bytes(X: torch.Tensor) -> torch.Tensor:

@@ -385,7 +385,7 @@ def _trait_block_lods(
         inv_xn = prepare_trait_block(X0m, sw_b, Q_b, precision=precision)
         for ks in range(0, idx.shape[0], perm_chunk):
             S2 = prepare_chunk_inputs(sw_b, Q_b, wrn_b, idx[ks : ks + perm_chunk])
-            cols.append(maxlods(X32, S2, inv_xn, n=n))
+            cols.append(maxlods(X32, S2, inv_xn, n=n, dot_precision=precision.gemm_precision))
     else:
         pXs, xns = perm_trait_marker_parts(X0m, sw_b, Q_b, precision=precision)
         for ks in range(0, idx.shape[0], perm_chunk):

@@ -103,7 +103,7 @@ def _lod_step(Y0, X0m, C0, lam, h2_list, precision):
     """(p, m) LOD with one h2 per trait: the fused kernel's entry under
     float32 products and combines, the plain float64-combine path otherwise."""
     if _uses_kernel(precision):
-        return fused_lods_per_trait(Y0, X0m, C0, lam, h2_list)
+        return fused_lods_per_trait(Y0, X0m, C0, lam, h2_list, precision.gemm_precision)
     return lods_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
 
 
@@ -112,7 +112,8 @@ def _lod_effects_step(Y0, X0m, C0, lam, h2_list, precision):
     variant where :func:`_lod_step` takes the kernel, the plain effects
     otherwise."""
     if _uses_kernel(precision):
-        return fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_list)
+        return fused_lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_list,
+                                                precision.gemm_precision)
     return lods_and_effects_per_trait(Y0, X0m, C0, lam, h2_list, precision=precision)
 
 
@@ -491,6 +492,7 @@ def _bulkscan_on_mesh(
                 if kernel[dev]:
                     return _chunked(lambda Yc: fused_alt_grid(
                         Yc, X, C, lm, g, prior=prior, reml=reml, output_h2_panel=output_h2_panel,
+                        dot_precision=precision.gemm_precision,
                     ), Yi, chunk)
                 return _chunked(lambda Yc: _alt_grid_impl(
                     Yc, X, C, lm, g, prior=prior, reml=reml, precision=precision), Yi, chunk)

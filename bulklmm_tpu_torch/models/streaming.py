@@ -183,7 +183,8 @@ def _block_alt_grid(Y0, Xb, C0, Ut, lam, h2_grid, *, prior, reml, precision, use
     CUDA kernel, or the plain formulation."""
     X0b = _rotate_block(Ut, Xb)
     if use_kernel:
-        L, panel = fused_alt_grid(Y0, X0b, C0, lam, h2_grid, prior=prior, reml=reml)
+        L, panel = fused_alt_grid(Y0, X0b, C0, lam, h2_grid, prior=prior, reml=reml,
+                                  dot_precision=precision.gemm_precision)
     else:
         L, panel = _alt_grid_impl(Y0, X0b, C0, lam, h2_grid, prior=prior, reml=reml,
                                   precision=precision)

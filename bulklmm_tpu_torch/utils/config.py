@@ -5,9 +5,16 @@ same five presets, with torch dtypes in place of jnp dtypes.
 
 - ``solve_dtype``: weights, likelihoods, the h2 grid and the rotation.
 - ``gemm_dtype`` + ``gemm_precision``: the big trait x marker correlation
-  products. ``gemm_precision`` is a name, "highest" or "high"; no path of
-  this package uses TF32 yet, so "high" (THROUGHPUT) currently computes
-  exactly like "highest" (FAST32).
+  products. ``gemm_precision`` is a name, "highest" or "high" (any other
+  raises). The CUDA kernels take float32 products as three TF32 passes under
+  "highest"; under "high" (THROUGHPUT, the JAX package's HIGH) the alt-grid
+  kernel, both paths of the permutation kernel and the resident LOD kernel
+  take them as three bf16 passes (bf16x3: ``kernels/split.py``), the LOD
+  step's general and wide kernels keep three TF32 passes, and the plain
+  torch products stay full float32. On the CPU the alt-grid and permutation
+  kernels' plain versions follow "high" with bf16x3 products, as the JAX
+  package's Pallas kernels do in interpret mode; the LOD step keeps float32
+  products there, as XLA's HIGH does on a CPU.
 - ``kernel_dtype``: the (p x m)-scale combines of the correlation step.
 
 ``None`` dtypes resolve through :func:`default_float`, which follows
@@ -62,6 +69,18 @@ def enable_x64() -> None:
     torch.set_default_dtype(torch.float64)
 
 
+#: the names ``gemm_precision`` takes: three TF32 passes and three bf16 passes
+#: in the CUDA kernels' products
+GEMM_PRECISIONS = ("highest", "high")
+
+
+def check_gemm_precision(name: str) -> str:
+    """``name`` if it is one of :data:`GEMM_PRECISIONS`, else a ValueError."""
+    if name not in GEMM_PRECISIONS:
+        raise ValueError(f"unknown GEMM precision {name!r}; choose one of {GEMM_PRECISIONS}")
+    return name
+
+
 @dataclasses.dataclass(frozen=True)
 class PrecisionConfig:
     """Numerics knobs for the scan engines (see the module docstring)."""
@@ -70,6 +89,9 @@ class PrecisionConfig:
     gemm_dtype: Optional[torch.dtype] = None
     gemm_precision: str = "highest"
     kernel_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        check_gemm_precision(self.gemm_precision)
 
     def resolve_solve(self) -> torch.dtype:
         return self.solve_dtype if self.solve_dtype is not None else default_float()
@@ -94,7 +116,7 @@ EXACT64 = PrecisionConfig(solve_dtype=torch.float64, gemm_dtype=torch.float64)
 BALANCED = PrecisionConfig(
     solve_dtype=torch.float64, gemm_dtype=torch.float32, kernel_dtype=torch.float32
 )
-# THROUGHPUT: FAST32 with "high" products; without TF32 paths it runs as FAST32.
+# THROUGHPUT: FAST32 with "high" products: the kernels' bf16x3 on the card.
 THROUGHPUT = PrecisionConfig(
     solve_dtype=torch.float32, gemm_dtype=torch.float32, gemm_precision="high"
 )

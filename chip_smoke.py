@@ -34,7 +34,8 @@ exits nonzero:
    index (near-ties under another summation order); at n = 2,000 the LOD
    kernels stay within LONG_DEPTH_BAR (twice the float32 fmaf kernels'
    largest distance from their plain version at n = 2,000). Every kernel takes its products as three TF32 passes on
-   the tensor cores; each is also held, reported and not gated, against its
+   the tensor cores under every preset but THROUGHPUT (phase 17 holds its
+   bf16x3 products); each is also held, reported and not gated, against its
    split reference, which repeats that arithmetic in plain torch. The LOD kernel's effects variant (LOD, effect and standard
    error from the same products) at the same kind of shapes (c = 1, 2, 3
    resident and 4, 8 wide; n = 48, 79, 88, 89 and 2,000; the ragged edge;
@@ -249,6 +250,30 @@ exits nonzero:
     c = 12, BALANCED on the card against the port's own CPU EXACT64
     goldens, under the JAX sweep's bars); any path that misses its bar
     fails the run.
+17. THROUGHPUT on the card: the "high" products, bf16x3 (three bf16
+    passes, ``csrc/mma_bf16x3.cuh``), in the resident LOD kernel (LOD and
+    effects), both paths of the permutation kernel and the alt-grid kernel.
+    (a) Each bf16x3 kernel against its bf16x3 plain version
+    (``liteqtl_bf16x3_reference``, ``altgrid_plain`` and
+    ``bulkperm_maxr2_plain`` with ``dot_precision="high"``) at phase 3's
+    shapes, n <= 88 for the resident kernels (n = 88 pads to 96) and n =
+    89 and 2,000 for the chunked permutation path, under phase 3's bars;
+    the distance from the float32 plain version is printed and must be
+    above 0. Under "high" the general and wide LOD kernels must give their
+    3 x TF32 result bit for bit and count no bf16x3 launch. (b) THROUGHPUT
+    ``bulkscan`` null-grid and with effects at BXD scale against EXACT64
+    (max |dLOD| <= 4e-3 on the equal-h2 traits, the effects relative
+    errors too, the JAX package's THROUGHPUT bar), alt-grid (< 2e-2, h2
+    panel flips under 20 % of the pairs) and ``bulkscan_perms`` with 1,000
+    permutations (< 2e-2 on the first 4,096 traits, EXACT64 by the plain
+    engine), each distance above 0; every call launches exactly its
+    BALANCED call's count of its kernel (phases 4, 5, 7), every launch
+    with bf16x3 products, and phases 4-16 count no bf16x3 launch at all
+    (``_counts``). Each bf16x3 kernel on the main path's operands against
+    its bf16x3 plain version (phase 3's bars). (c) Times by CUDA events,
+    median of 5 after a warm-up, each bf16x3 kernel and its 3 x TF32 twin
+    in turns on the same operands, beside the bf16x3 bound (the larger of
+    three bf16 passes at 989 TFLOP/s and the bytes at 3.35 TB/s).
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
@@ -269,7 +294,13 @@ three (p, m) float32 outputs written); ``wide_c``, ``wide_launches``,
 and ``wide_max_abs_err`` are its wide kernel's, at BXD scale with c = 12
 (phase 15); ``shapes`` holds, for each of LOD_SHAPES' S1-S6, the time of
 the kernel that takes it (``ms``), its bound (``bound_ms``, ``bound_by``)
-and the share of the bound (``share``; phases 8, 11 and 15). No
+and the share of the bound (``share``; phases 8, 11 and 15). Phase 17 adds
+to every kernel ``bf16x3_launches`` (its THROUGHPUT call's launches, all
+bf16x3), ``bf16x3_max_abs_err`` (the bf16x3 kernel against its bf16x3
+plain version at BXD scale), ``throughput_vs_exact64`` (and for the LOD
+kernel ``throughput_effects_vs_exact64``: LOD, effect and SE), and
+``bf16x3_ms``, ``tf32x3_ms`` (its 3 x TF32 twin in the same turns),
+``bf16x3_bound_ms``, ``bf16x3_bound_by`` and ``bf16x3_share``. No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -297,6 +328,7 @@ ORACLE_BLOCK, ORACLE_SECONDS = 4096, 20.0
 OPTION_TRAITS = 2048  # traits of the chunking and null-exact checks of the permutation path
 SEED = 2026
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12  # H100 SXM: float32 SIMT, TF32, HBM3
+PEAK_BF16 = 989e12  # H100 SXM: dense bf16 on the tensor cores
 SPLIT_PASSES = 3  # TF32 tensor-core passes of one float32-grade product
 KERNEL_BAR = 5e-5  # max |dLOD|, kernel vs plain, n <= 79
 #: max |dLOD|, kernel vs plain at n = 2,000: twice the float32 fmaf kernels'
@@ -321,11 +353,17 @@ STREAM_BAR = 1e-5  # max |dLOD|, streamed vs in-memory alt-grid
 CALIBRATION_TRAITS = 8192  # traits of phase 10's memory live-set calls
 BIOBANK_N, BIOBANK_P, BIOBANK_M = 2000, 100_000, 2048  # phase 11
 BIOBANK_BLOCK = 8192  # phase 11: markers of the kernel-vs-plain and EXACT64 checks
+#: a kernel entry in ptxas's report: its name and its template arguments as
+#: mangled, integers and booleans (``Li1E``, ``Lb0E``) and the products'
+#: policy (``N6tf32x36PolicyE``, ``N6bf16x36PolicyE``)
+ENTRY_RE = re.compile(r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E|N\w+?E)+)?)E")
 #: ptxas's (registers, spill stores, spill loads, static shared bytes) of the
-#: LOD kernel's LOD-only instantiations, as phase 2 printed them (NVIDIA
-#: H100, CUDA 12.8's nvcc): the resident kernel's for the sources before the
-#: effects variant came, the general and wide kernels' for their chunked
-#: 3 x TF32 sources; a change to their sources must bring them up to date
+#: LOD kernel's LOD-only 3 x TF32 instantiations, as phase 2 printed them
+#: (NVIDIA H100, CUDA 12.8's nvcc): the resident kernel's for the sources
+#: before the effects variant came (its entries named with the products'
+#: policy since the bf16x3 instantiations came beside them), the general
+#: and wide kernels' for their chunked 3 x TF32 sources; a change to their
+#: sources must bring them up to date
 LOD_ONLY_PTXAS = {
     "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb0E": (247, 0, 0, 0),
     "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb1E": (255, 0, 0, 128),
@@ -335,24 +373,24 @@ LOD_ONLY_PTXAS = {
     "liteqtl_general_wgmma_kernelILi1ELi1ELb0ELb1E": (254, 0, 0, 128),
     "liteqtl_wide_wgmma_kernelILi1ELb0ELb0E": (236, 0, 0, 0),
     "liteqtl_wide_wgmma_kernelILi1ELb0ELb1E": (254, 0, 0, 128),
-    "liteqtl_resident_kernelILi1ELi11ELi1ELb0E": (187, 0, 0, 0),
-    "liteqtl_resident_kernelILi1ELi10ELi1ELb0E": (185, 0, 0, 0),
-    "liteqtl_resident_kernelILi1ELi8ELi1ELb0E": (185, 0, 0, 0),
-    "liteqtl_resident_kernelILi1ELi6ELi1ELb0E": (185, 0, 0, 0),
-    "liteqtl_resident_kernelILi1ELi4ELi1ELb0E": (185, 0, 0, 0),
-    "liteqtl_resident_kernelILi1ELi2ELi1ELb0E": (186, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi11ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi10ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi8ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi6ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi4ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi2ELi2ELi1ELb0E": (232, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi11ELi0ELb0E": (229, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi10ELi0ELb0E": (230, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi8ELi0ELb0E": (231, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi6ELi0ELb0E": (231, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi4ELi0ELb0E": (236, 0, 0, 0),
-    "liteqtl_resident_kernelILi3ELi2ELi0ELb0E": (240, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi11ELi1ELb0E": (187, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi10ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi8ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi6ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi4ELi1ELb0E": (185, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi2ELi1ELb0E": (186, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi11ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi10ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi8ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi6ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi4ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi2ELi2ELi1ELb0E": (232, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi11ELi0ELb0E": (229, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi10ELi0ELb0E": (230, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi8ELi0ELb0E": (231, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi6ELi0ELb0E": (231, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi4ELi0ELb0E": (236, 0, 0, 0),
+    "liteqtl_resident_kernelIN6tf32x36PolicyELi3ELi2ELi0ELb0E": (240, 0, 0, 0),
 }
 GRID = np.arange(0.0, 0.91, 0.1)  # bulkscan's default h2 grid
 PRIOR = (1.0, 0.0)  # bulkscan's default prior
@@ -391,6 +429,15 @@ SMOKE_SHAPES = ("S1", "S2", "S3", "S4", "S5", "S6")
 #: phase 15: a c = 32 null-grid call sized by the memory model under this
 #: forced budget must stay under it
 WIDE_BUDGET = 8 * 2**30
+#: phase 17, THROUGHPUT against EXACT64 at BXD scale: the JAX package's
+#: bars for its THROUGHPUT preset, 4e-3 in LOD for the null-grid scan
+#: (tests/test_bulkscan.py:138; here also the effects, relative as phase 10
+#: holds them) and 2e-2 for alt-grid and the permutation maxima
+#: (tests/test_pallas_altgrid.py:70-72, tests/test_bulkperm.py:121), and the
+#: share of alt-grid h2 panel pairs that may take another grid step
+THROUGHPUT_LOD_BAR = 4e-3
+THROUGHPUT_BAR = 2e-2
+THROUGHPUT_FLIP_SHARE = 0.2
 
 
 def check(ok: bool, what: str) -> None:
@@ -435,11 +482,12 @@ def import_port():
 def ptxas_report(log: Path) -> dict:
     """{kernel entry: (registers, spill stores, spill loads, static shared
     bytes)} from a build log's ptxas report; the entry is the kernel's name
-    with its template arguments as mangled (``ILi1ELi10ELi1ELb0E``: c = 1,
-    10 depth steps, 1 step in flight, no effects)."""
+    with its template arguments as mangled (``IN6tf32x36PolicyELi1ELi10ELi1ELb0E``:
+    3 x TF32 products, c = 1, 10 depth steps, 1 step in flight, no
+    effects; ``N6bf16x36PolicyE`` for bf16x3)."""
     out, entry = {}, None
     for line in log.read_text().splitlines():
-        found = re.search(r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E)+)?)E", line)
+        found = ENTRY_RE.search(line)
         if found:
             entry = found.group(1)
             out[entry] = [0, 0, 0, 0]
@@ -463,8 +511,7 @@ def build() -> dict:
     log = BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            entry = re.search(
-                r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E)+)?)E", line)
+            entry = ENTRY_RE.search(line)
             if entry:
                 print("  ptxas:", entry.group(1))
             elif "registers" in line or "spill" in line:
@@ -709,15 +756,21 @@ def _reset_counts():
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     lf.launches = lf.effects_launches = af.launches = bf.launches = 0
+    lf.bf16x3_launches = af.bf16x3_launches = bf.bf16x3_launches = 0
 
 
 def _counts():
+    """Every kernel's launches, and apart from them how many of those took
+    bf16x3 products (``*_bf16x3``; never under BALANCED, so a phase's sum of
+    the counts is its launches there)."""
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     return {"liteqtl_lod": lf.launches, "liteqtl_lod_effects": lf.effects_launches,
-            "altgrid": af.launches, "bulkperm_maxr2": bf.launches}
+            "altgrid": af.launches, "bulkperm_maxr2": bf.launches,
+            "liteqtl_lod_bf16x3": lf.bf16x3_launches, "altgrid_bf16x3": af.bf16x3_launches,
+            "bulkperm_maxr2_bf16x3": bf.bf16x3_launches}
 
 
 def _drive(what, fn):
@@ -2786,6 +2839,253 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
     return out
 
 
+def _bf16x3_bound(flops, operands, out_bytes):
+    """The least time of the same work with bf16x3 products, ms: the larger
+    of three bf16 passes of its operations at 989 TFLOP/s and its bytes
+    (each operand read once, each output written once) at 3.35 TB/s."""
+    nbytes = out_bytes + sum(t.numel() * t.element_size() for t in operands)
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, SPLIT_PASSES * flops / PEAK_BF16 * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def throughput_kernel_checks(dev) -> None:
+    """Phase 17 (a): each bf16x3 kernel (``dot_precision="high"``) against
+    its bf16x3 plain version at phase 3's shapes, under phase 3's bars; the
+    distance from the float32 plain version is printed and must be above 0
+    (the products were split). Under "high" the LOD step's general and wide
+    kernels must give their 3 x TF32 result bit for bit and count no bf16x3
+    launch."""
+    from bulklmm_tpu_torch.kernels import altgrid_fused as af
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    rng = np.random.default_rng(13)
+    for n, p, m, c in [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1),
+                       (79, 129, 65, 1), (80, 129, 65, 2), (81, 129, 65, 3), (88, 321, 130, 1),
+                       (88, 129, 65, 3), (79, 1000, 131, 2)]:
+        check(lf.kernel_route(n, c, dot_precision="high") == ("resident", "bf16x3"),
+              f"the LOD kernel takes no bf16x3 products at n={n}, c={c}")
+        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
+        lod_ops = (*ops[:4], ops[4][:-1])
+        before = lf.bf16x3_launches
+        out = lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")
+        eff = lf.liteqtl_lod_cuda(*ops, effects=True, dot_precision="high")
+        torch.cuda.synchronize()
+        check(lf.bf16x3_launches == before + 2, "the bf16x3 LOD launches were not counted")
+        ref = lf.liteqtl_bf16x3_reference(*lod_ops)
+        err = (out - ref).abs().max().item()
+        from32 = (out - lf.liteqtl_lod_plain(*lod_ops)).abs().max().item()
+        lod_err, beta_err, se_err = _effects_errors(eff, lf.liteqtl_bf16x3_reference(*ops, effects=True))
+        same = (eff[0] - out).abs().max().item()
+        torch.cuda.synchronize()
+        bar = KERNEL_BAR * max(1.0, n / 48)
+        print(f"  bf16x3 LOD kernel (resident) vs its bf16x3 plain version n={n} p={p} m={m} c={c}: "
+              f"max|dLOD| = {err:.3e} (bar {bar:.2e}); from the float32 plain version {from32:.3e}; "
+              f"effects variant {lod_err:.3e}, {beta_err:.3e}, {se_err:.3e} (bars {bar:.2e}, "
+              f"{EFFECT_BAR:.0e}, {EFFECT_BAR:.0e}), its LOD vs the LOD-only kernel's {same:.3e}")
+        check(out.shape == (p, m) and bool(torch.isfinite(out).all())
+              and all(bool(torch.isfinite(t).all()) for t in eff), "bf16x3 LOD output not finite")
+        check(err <= bar and lod_err <= bar and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
+              f"the bf16x3 LOD kernel disagrees with its plain version at {(n, p, m, c)}")
+        check(same <= SAME_LOD_BAR, f"the bf16x3 effects variant's LOD is not the LOD kernel's at {(n, p, m, c)}")
+        check(from32 > 0, f"the bf16x3 LOD kernel gave the float32 result at {(n, p, m, c)}")
+    for n, p, m, c in [(89, 96, 64, 1), (2000, 96, 64, 2), (48, 96, 64, 4), (79, 129, 65, 8)]:
+        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
+        before = lf.bf16x3_launches
+        high = lf.liteqtl_lod_cuda(*ops, dot_precision="high")
+        check(lf.bf16x3_launches == before and lf.kernel_route(n, c, dot_precision="high")[1] == "tf32x3"
+              and torch.equal(high, lf.liteqtl_lod_cuda(*ops)),
+              f"\"high\" at n={n}, c={c} did not run the {lf.kernel_path(n, c)} kernel's 3 x TF32 products")
+    print("  under \"high\" the general and wide LOD kernels at n = 89, 2,000 and c = 4, 8 give their "
+          "3 x TF32 result bit for bit")
+
+    rng = np.random.default_rng(14)
+    for n, p, m, c, g in [(48, 96, 64, 1, 10), (48, 96, 64, 2, 10), (48, 96, 64, 3, 10),
+                          (48, 96, 64, 1, 1), (48, 70, 45, 2, 10), (79, 129, 65, 1, 10),
+                          (80, 129, 65, 2, 10), (81, 129, 65, 3, 10), (2000, 96, 64, 2, 10)]:
+        Y0, X0m, C0, lam, _ = _kernel_inputs(n, p, m, c, rng, dev)
+        grid = torch.as_tensor(GRID[:g] if g > 1 else [0.3], dtype=torch.float32, device=dev)
+        ops = af.prepare_inputs(Y0, X0m, C0, lam, grid, prior=PRIOR)
+        out, kk = af.altgrid_cuda(*ops, dot_precision="high")
+        torch.cuda.synchronize()
+        ref, kp = af.altgrid_plain(*ops, dot_precision="high")
+        from32 = (out - af.altgrid_plain(*ops, panel=False)[0]).abs().max().item()
+        torch.cuda.synchronize()
+        bar = KERNEL_BAR * max(1.0, n / 48)
+        err = (out - ref).abs().max().item()
+        flips = _index_flips(kk, kp)
+        print(f"  bf16x3 alt-grid kernel vs its bf16x3 plain version n={n} p={p} m={m} c={c} g={g}: "
+              f"max|dLOD| = {err:.3e} (bar {bar:.2e}), index flips {flips} of {p * m}; from the "
+              f"float32 plain version {from32:.3e}")
+        check(out.shape == (p, m) and bool(torch.isfinite(out).all()), "bf16x3 alt-grid output not finite")
+        check(err <= bar and flips <= INDEX_FLIP_SHARE * p * m,
+              f"the bf16x3 alt-grid kernel disagrees with its plain version at {(n, p, m, c, g)}")
+        check(from32 > 0, f"the bf16x3 alt-grid kernel gave the float32 result at {(n, p, m, c, g)}")
+
+    rng = np.random.default_rng(15)
+    from bulklmm_tpu_torch.ops.bulkperm import maxr2_to_lod
+
+    for n, p, mb, c, K in [(48, 96, 8, 1, 24), (48, 96, 8, 3, 24), (48, 65, 8, 2, 257),
+                           (48, 70, 5, 2, 130), (79, 96, 8, 1, 24), (80, 96, 8, 2, 24),
+                           (81, 96, 8, 1, 24), (88, 96, 8, 1, 24), (89, 96, 8, 3, 257),
+                           (2000, 96, 8, 2, 24)]:
+        ops = _perm_operands(n, p, mb, c, K, rng, dev)
+        route = bf.kernel_route(n, "high")
+        out = bf.bulkperm_maxr2_cuda(*ops, dot_precision="high")
+        torch.cuda.synchronize()
+        ref = bf.bulkperm_maxr2_plain(*ops, dot_precision="high")
+        from32 = (out - bf.bulkperm_maxr2_plain(*ops)).abs().max().item()
+        torch.cuda.synchronize()
+        r2_err = (out - ref).abs().max().item()
+        lod_err = (maxr2_to_lod(out, n) - maxr2_to_lod(ref, n)).abs().max().item()
+        bar = KERNEL_BAR * max(1.0, n / 48)
+        print(f"  bf16x3 permutation kernel ({route[0]}) vs its bf16x3 plain version n={n} p={p} "
+              f"mb={mb} c={c} K={K}: max|d r2| = {r2_err:.3e} (bar {R2_BAR:.0e}), max|dLOD| = "
+              f"{lod_err:.3e} (bar {bar:.2e}); from the float32 plain version max|d r2| = {from32:.3e}")
+        check(route[1] == "bf16x3" and out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              "bf16x3 permutation output not finite")
+        check(r2_err <= R2_BAR and lod_err <= bar,
+              f"the bf16x3 permutation kernel disagrees with its plain version at {(n, p, mb, c, K)}")
+        check(from32 > 0, f"the bf16x3 permutation kernel gave the float32 result at {(n, p, mb, c, K)}")
+
+
+def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches) -> dict:
+    """Phase 17 (b)-(d): THROUGHPUT at BXD scale through the entry points,
+    each with its launch counts, against EXACT64; each bf16x3 kernel alone
+    on the main path's operands against its bf16x3 plain version; and the
+    times of each bf16x3 kernel beside its 3 x TF32 twin, in turns."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import altgrid_fused as af
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.ops.bulkperm import maxr2_to_lod
+
+    out = {}
+    all_cols = torch.ones(M, dtype=torch.bool, device=dev)
+    # (b) null-grid, and with effects
+    res, counts = _drive("THROUGHPUT null-grid bulkscan",
+                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT))
+    want = launches["liteqtl_lod"]
+    check(counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"] == want
+          and sum(counts.values()) == 2 * want,
+          f"THROUGHPUT null-grid launched {counts}, not {want} bf16x3 LOD launches alone")
+    check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()), "THROUGHPUT L not finite")
+    exact = bt.bulkscan(Yd, Gd, K, precision=bt.EXACT64, output_effects=True)
+    same = exact.h2_null_list == res.h2_null_list.double()
+    err = _max_abs_diff_cols(res.L, exact.L, same)
+    print(f"  THROUGHPUT vs EXACT64 null-grid: {int((~same).sum())} of {M} traits with another grid h2; "
+          f"max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_LOD_BAR:.0e})")
+    check(0 < err <= THROUGHPUT_LOD_BAR, "THROUGHPUT null-grid strays from EXACT64")
+    out["lod_launches"], out["lod_vs_exact64"] = counts["liteqtl_lod_bf16x3"], err
+    del res
+    eff, counts = _drive("THROUGHPUT null-grid bulkscan, output_effects",
+                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT, output_effects=True))
+    check(counts["liteqtl_lod_effects"] == counts["liteqtl_lod_bf16x3"] == want
+          and sum(counts.values()) == 2 * want, f"THROUGHPUT effects launched {counts}")
+    same = exact.h2_null_list == eff.h2_null_list.double()
+    lod_err = _max_abs_diff_cols(eff.L, exact.L, same)
+    beta_err, se_err = _effects_err_cols((eff.beta_mat, eff.beta_se_mat),
+                                         (exact.beta_mat, exact.beta_se_mat), same)
+    print(f"  THROUGHPUT vs EXACT64 with effects: max|dLOD| = {lod_err:.3e}, max|d effect|/(|effect|+SE) "
+          f"= {beta_err:.3e}, max|dSE|/SE = {se_err:.3e} (bars {THROUGHPUT_LOD_BAR:.0e})")
+    check(0 < lod_err <= THROUGHPUT_LOD_BAR and beta_err <= THROUGHPUT_LOD_BAR
+          and se_err <= THROUGHPUT_LOD_BAR, "THROUGHPUT effects stray from EXACT64")
+    out["effects_vs_exact64"] = (lod_err, beta_err, se_err)
+    del eff, exact
+    Lk = lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")
+    kerr = _max_abs_diff_cols(Lk, lf.liteqtl_bf16x3_reference(*lod_ops), all_cols)
+    from32 = _max_abs_diff_cols(Lk, lf.liteqtl_lod_plain(*lod_ops), all_cols)
+    print(f"  bf16x3 LOD kernel vs its bf16x3 plain version at BXD scale: max|dLOD| = {kerr:.3e} "
+          f"(bar {KERNEL_BAR:.0e}); from the float32 plain version {from32:.3e}")
+    check(kerr <= KERNEL_BAR and from32 > 0, "the bf16x3 LOD kernel disagrees at BXD scale")
+    out["lod_err"] = kerr
+    del Lk
+
+    # (c) alt-grid
+    res, counts = _drive("THROUGHPUT alt-grid bulkscan",
+                         lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.THROUGHPUT))
+    want = launches["altgrid"]
+    check(counts["altgrid"] == counts["altgrid_bf16x3"] == want and sum(counts.values()) == 2 * want,
+          f"THROUGHPUT alt-grid launched {counts}")
+    exact = bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.EXACT64)
+    err = _max_abs_diff_cols(res.L, exact.L, all_cols)
+    flips = int((res.h2_panel != exact.h2_panel).sum())
+    print(f"  THROUGHPUT vs EXACT64 alt-grid: max|dLOD| = {err:.3e} (bar {THROUGHPUT_BAR:.0e}), h2 panel "
+          f"flips {flips} ({flips / (P * M):.3e} of the pairs, bar {THROUGHPUT_FLIP_SHARE})")
+    check(0 < err < THROUGHPUT_BAR and flips < THROUGHPUT_FLIP_SHARE * P * M,
+          "THROUGHPUT alt-grid strays from EXACT64")
+    out["alt_launches"], out["alt_vs_exact64"] = counts["altgrid_bf16x3"], err
+    del res, exact
+    Lk, kk = af.altgrid_cuda(*alt_ops, dot_precision="high")
+    Lp, kp = af.altgrid_plain(*alt_ops, dot_precision="high")
+    kerr = _max_abs_diff_cols(Lk, Lp, all_cols)
+    kflips = _index_flips(kk, kp)
+    print(f"  bf16x3 alt-grid kernel vs its bf16x3 plain version at BXD scale: max|dLOD| = {kerr:.3e} "
+          f"(bar {KERNEL_BAR:.0e}), index flips {kflips} of {P * M}")
+    check(kerr <= KERNEL_BAR and kflips <= INDEX_FLIP_SHARE * P * M,
+          "the bf16x3 alt-grid kernel disagrees at BXD scale")
+    out["alt_err"] = kerr
+    del Lk, kk, Lp, kp
+
+    # (d) permutations
+    res, counts = _drive("THROUGHPUT bulkscan_perms",
+                         lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0,
+                                                   precision=bt.THROUGHPUT))
+    want = launches["bulkperm_maxr2"]
+    check(counts["bulkperm_maxr2"] == counts["bulkperm_maxr2_bf16x3"] == want
+          and sum(counts.values()) == 2 * want, f"THROUGHPUT bulkscan_perms launched {counts}")
+    check(bool(torch.isfinite(res.maxlods).all()), "THROUGHPUT maxlods not finite")
+    cut = slice(0, ORACLE_BLOCK)
+    exact = bt.bulkscan_perms(Yd[:, cut], Gd, K, nperms=NPERMS, rndseed=0, precision=bt.EXACT64)
+    same = exact.h2_null_list == res.h2_null_list[cut].double()
+    err = (res.maxlods[cut].double() - exact.maxlods)[same].abs().max().item()
+    print(f"  THROUGHPUT vs EXACT64 bulkscan_perms on traits 0..{ORACLE_BLOCK}: {int((~same).sum())} "
+          f"traits with another grid h2; max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_BAR:.0e})")
+    check(0 < err < THROUGHPUT_BAR, "THROUGHPUT bulkscan_perms strays from EXACT64")
+    out["perm_launches"], out["perm_vs_exact64"] = counts["bulkperm_maxr2_bf16x3"], err
+    del res, exact
+    r2 = bf.bulkperm_maxr2_cuda(*perm_ops, dot_precision="high")
+    ref = bf.bulkperm_maxr2_plain(*perm_ops, dot_precision="high")
+    r2_err = (r2 - ref).abs().max().item()
+    kerr = (maxr2_to_lod(r2, N) - maxr2_to_lod(ref, N)).abs().max().item()
+    print(f"  bf16x3 permutation kernel vs its bf16x3 plain version at BXD scale, traits 0..{PERM_BLOCK}: "
+          f"max|d r2| = {r2_err:.3e} (bar {R2_BAR:.0e}), max|dLOD| = {kerr:.3e} (bar {KERNEL_BAR:.0e})")
+    check(r2_err <= R2_BAR and kerr <= KERNEL_BAR, "the bf16x3 permutation kernel disagrees at BXD scale")
+    out["perm_err"] = kerr
+    del r2, ref
+
+    # (e) times: each bf16x3 kernel beside its 3 x TF32 twin, in turns
+    runs = {
+        "liteqtl_lod": lambda dp: lf.liteqtl_lod_cuda(*lod_ops, dot_precision=dp),
+        "altgrid": lambda dp: af.altgrid_cuda(*alt_ops, dot_precision=dp)[0],
+        "bulkperm_maxr2": lambda dp: bf.bulkperm_maxr2_cuda(*perm_ops, dot_precision=dp),
+    }
+    works = {
+        "liteqtl_lod": (2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
+        "altgrid": (2.0 * N * P * M * len(GRID), alt_ops, 8 * P * M),
+        "bulkperm_maxr2": (2.0 * N * P * PERM_BLOCK * (NPERMS + 1), perm_ops,
+                           4 * PERM_BLOCK * (NPERMS + 1)),
+    }
+    ms = {(name, dp): [] for name in runs for dp in ("highest", "high")}
+    for (name, dp) in ms:
+        _time_ms(lambda: runs[name](dp))
+    for _ in range(5):
+        for (name, dp), t in ms.items():
+            t.append(_time_ms(lambda: runs[name](dp)))
+    print(f"  times on {card}, median of 5, in turns (ms a launch):")
+    for name, fn in runs.items():
+        tf32 = statistics.median(ms[(name, "highest")])
+        bf16 = statistics.median(ms[(name, "high")])
+        bound, by = _bf16x3_bound(*works[name])
+        out[name] = {"bf16x3_ms": bf16, "tf32x3_ms": tf32, "bf16x3_bound_ms": bound,
+                     "bf16x3_bound_by": by, "bf16x3_share": bound / bf16}
+        print(f"    {name:16s} bf16x3 {bf16:9.3f} (runs {[round(x, 3) for x in ms[(name, 'high')]]}), "
+              f"3 x TF32 {tf32:9.3f} (runs {[round(x, 3) for x in ms[(name, 'highest')]]}); bf16x3 bound "
+              f"{bound:.3f} ms by {by}, {100 * bound / bf16:.1f} % of it")
+        check(bound <= bf16, f"the bf16x3 {name} kernel runs faster than its bound")
+    return out
+
+
 def validation_sweep(card) -> None:
     """Phase 16: ``python -m bulklmm_tpu_torch.validation``'s sweep in this
     process; fails if any path misses its bar."""
@@ -2864,6 +3164,11 @@ def main() -> None:
     wide = wide_at_bxd(dev, card, Yd, Gd, K)
     print("[16] the validation sweep (python -m bulklmm_tpu_torch.validation)")
     validation_sweep(card)
+    print("[17] THROUGHPUT on the card: the bf16x3 kernels vs their bf16x3 plain versions, THROUGHPUT "
+          f"at BXD scale ({N} x {P} x {M}) against EXACT64, times beside the 3 x TF32 twins")
+    throughput_kernel_checks(dev)
+    tp = throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, {
+        "liteqtl_lod": lod_launches, "altgrid": alt_launches, "bulkperm_maxr2": perm_launches})
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -2917,8 +3222,11 @@ def main() -> None:
         "product_only_ms": pmed["product_only"],
         "bound": _bound(2.0 * N * P * PERM_BLOCK * (NPERMS + 1), perm_ops, 4 * PERM_BLOCK * (NPERMS + 1)),
     }]
-    for k in kernels:
+    for k, short in zip(kernels, ("lod", "alt", "perm")):
         k.update(k.pop("bound"))
+        k.update({"bf16x3_launches": tp[f"{short}_launches"], "bf16x3_max_abs_err": tp[f"{short}_err"],
+                  "throughput_vs_exact64": tp[f"{short}_vs_exact64"], **tp[k["name"]],
+                  "throughput_effects_vs_exact64": tp["effects_vs_exact64"] if short == "lod" else None})
         k["library_ms"] = None  # no single PyTorch call computes this function
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape

@@ -13,7 +13,9 @@ markers x 35,554 traits, seed 2026: the BALANCED null-grid scan's own h2
 for the LOD kernel, the first 1,024-trait block x 1,001 columns for the
 permutation kernel, the default 10-point grid for the alt-grid kernel), and
 times each kernel's wrapper alone: the median of 5
-launches by CUDA events after one warm-up. The LOD kernel is also timed at
+launches by CUDA events after one warm-up; a tree whose wrappers take
+``dot_precision`` also has each kernel's bf16x3 products (THROUGHPUT's
+"high") timed there, beside the 3 x TF32 ones. The LOD kernel is also timed at
 the shapes of ``LOD_SHAPES``: S1-S6 (the general path forced at BXD scale,
 BXD with 4, 8 and 12 covariate columns, 2,000 x 100,000 x 2,048 with one and
 2,000 x 20,000 x 2,048 with 12), S7 (2,000 x 20,000 x 2,048 with 4) and the
@@ -25,14 +27,24 @@ also held against its plain version at every shape and on
 ``chip_smoke.py`` phase 11's block (the first 8,192 markers of its 2,000 x
 100,000 panel, on the scan's own operands): max |dLOD| of each. Prints the
 card's name and power limit, one line per run and each shape's bound (3 x
-TF32 passes at 495 TFLOP/s, or the bytes at 3.35 TB/s). Needs a CUDA
-device.
+TF32 passes at 495 TFLOP/s, or the bytes at 3.35 TB/s; beside it the
+bf16x3 bound, three bf16 passes at 989 TFLOP/s). Needs a CUDA device.
+
+    python3 kernel_times.py --sass build/parent .
+
+builds the kernel library of each tree instead and compares, with
+``cuobjdump -sass``, the machine code of every kernel of the first tree
+with the same kernel of the others (a kernel that gained the products'
+policy as a template argument is matched as ``tf32x3::Policy``'s
+instantiation), and prints how many are identical, differ or are missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,17 +78,19 @@ LOD_SHAPES = {
 SHAPE_SEED = 12
 
 
-def bound_ms(shape: Shape) -> tuple[float, str]:
+def bound_ms(shape: Shape, products: str = "tf32x3") -> tuple[float, str]:
     """The least time of the LOD kernel at a shape on an H100 SXM, ms, and
-    what sets it ("operations" or "bytes"): the larger of three TF32 passes
-    of its 2 (c + 2) n p m flops at 495 TFLOP/s and its bytes (X, the (n, m)
-    operands, V past 3 columns, one (p, m) output, three for the effects
-    variant) at 3.35 TB/s."""
+    what sets it ("operations" or "bytes"): the larger of three passes of
+    its 2 (c + 2) n p m flops on the tensor cores, TF32 at 495 TFLOP/s or
+    with ``products="bf16x3"`` bf16 at 989 TFLOP/s, and its bytes (X, the
+    (n, m) operands, V past 3 columns, one (p, m) output, three for the
+    effects variant) at 3.35 TB/s."""
     n, p, m, c = shape[:4]
     flops = 2.0 * (c + 2) * n * p * m
     outs = 3 if shape.effects else 1
     nbytes = 4 * (n * p + 2 * n * m + (c * n * m if c > 3 else n * c) + outs * p * m)
-    by_ops, by_bytes = 3 * flops / 495e12 * 1e3, nbytes / 3.35e12 * 1e3
+    peak = {"tf32x3": 495e12, "bf16x3": 989e12}[products]
+    by_ops, by_bytes = 3 * flops / peak * 1e3, nbytes / 3.35e12 * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -124,6 +138,12 @@ def time_tree(tree: Path) -> dict:
         "bulkperm_ms": median_ms(lambda: bf.bulkperm_maxr2_cuda(*perm_ops)),
         "altgrid_ms": median_ms(lambda: af.altgrid_cuda(*alt_ops)),
     }
+    if "dot_precision" in inspect.signature(lf.liteqtl_lod_cuda).parameters:
+        out["bf16x3"] = {
+            "lod_ms": median_ms(lambda: lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")),
+            "bulkperm_ms": median_ms(lambda: bf.bulkperm_maxr2_cuda(*perm_ops, dot_precision="high")),
+            "altgrid_ms": median_ms(lambda: af.altgrid_cuda(*alt_ops, dot_precision="high")),
+        }
     del G, Gd, Yd, rotated, alt_ops, lod_ops, prep, perm_ops
     torch.cuda.empty_cache()
     out["err"] = {}
@@ -167,11 +187,68 @@ def _biobank_block_err(cs, bt, lf, dev) -> float:
     return float((lf.liteqtl_lod_cuda(*ops) - lf.liteqtl_lod_plain(*ops)).abs().max())
 
 
+def _library(tree: Path) -> Path:
+    """The kernel library of a tree, built in a process of its own."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from bulklmm_tpu_torch.kernels.build "
+            "import load_library, library_path; load_library(); print(library_path())")
+    run = subprocess.run([sys.executable, "-c", code, str(tree)], capture_output=True, text=True,
+                         check=True, timeout=900)
+    return Path(run.stdout.strip().splitlines()[-1])
+
+
+def _sass(lib: Path) -> dict:
+    """{kernel: its instructions} from ``cuobjdump -sass``; names without the
+    hash of an anonymous namespace's file, instructions without their
+    addresses and encodings."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if found := re.search(r"Function : (\S+)", line):
+            name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "ANON", found.group(1))
+            funcs[name] = []
+        elif name and "/*" in line:
+            ins = re.sub(r"/\* 0x[0-9a-f]+ \*/|/\*[0-9a-f]{4,}\*/", "", line).strip()
+            if ins:
+                funcs[name].append(ins)
+    return funcs
+
+
+def _policy_name(name: str) -> str:
+    """A kernel's name and template arguments, with ``tf32x3::Policy`` as
+    the first argument where the name has none (a kernel from before the
+    products' policy came), so that a kernel and its earlier form match."""
+    head = name.partition("EEv")[0] if "EEv" in name else name.partition("EPKf")[0] + "I"
+    if "Policy" not in head:
+        at = head.find("_kernelI") + len("_kernelI")
+        head = head[:at] + "N6tf32x36PolicyE" + head[at:]
+    return head.rstrip("E")
+
+
+def sass_diff(trees) -> None:
+    libs = [_library(t) for t in trees]
+    first, *others = [_sass(lib) for lib in libs]
+    for tree, funcs in zip(trees[1:], others):
+        by_head = {_policy_name(k): v for k, v in funcs.items()}
+        same = [k for k, v in first.items() if by_head.get(_policy_name(k)) == v]
+        missing = [k for k in first if _policy_name(k) not in by_head]
+        differ = [k for k in first if k not in same and k not in missing]
+        print(f"{trees[0]} against {tree}: {len(first)} kernels, {len(same)} with identical SASS, "
+              f"{len(differ)} differ, {len(missing)} missing; {len(funcs)} kernels in {tree}")
+        for k in differ + missing:
+            print(f"  {'differs' if k in differ else 'missing'}: {k}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trees", nargs="+", type=Path, default=[Path(".")])
     parser.add_argument("--one", type=Path, help="time this tree in this process (internal)")
+    parser.add_argument("--sass", type=Path, nargs="+",
+                        help="compare the kernels' machine code of these trees instead")
     args = parser.parse_args()
+    if args.sass:
+        sass_diff(args.sass)
+        return
     if args.one is not None:
         print(json.dumps(time_tree(args.one)))
         return
@@ -189,8 +266,13 @@ def main() -> None:
               f"{res['bulkperm_ms']:.3f} ms, alt-grid kernel {res['altgrid_ms']:.3f} ms; LOD kernel "
               + ", ".join(f"{name} {res[name]:.3f}" for name in LOD_SHAPES) + " ms; max|dLOD| "
               "vs its plain version " + ", ".join(f"{k} {v:.4e}" for k, v in res["err"].items()))
+        if "bf16x3" in res:
+            print(f"{'':>16s}  bf16x3 products: " + ", ".join(
+                f"{k.removesuffix('_ms')} {v:.3f} ms" for k, v in res["bf16x3"].items()))
     print("bounds (ms): " + ", ".join(f"{name} {bound_ms(shape)[0]:.3f}"
                                       for name, shape in LOD_SHAPES.items()))
+    print("bf16x3 bounds (ms): " + ", ".join(f"{name} {bound_ms(shape, 'bf16x3')[0]:.3f}"
+                                             for name, shape in LOD_SHAPES.items()))
 
 
 if __name__ == "__main__":

@@ -77,6 +77,35 @@ def test_plain_version_matches_pallas(rotated, reml):
     assert af.launches == 0
 
 
+@pytest.mark.parametrize("reml", [False, True])
+def test_bf16x3_plain_version_matches_pallas_at_high(rotated, reml):
+    """Under ``dot_precision="high"`` (THROUGHPUT) the plain version takes the
+    kernel's bf16x3 products, as the Pallas kernel's HIGH branch splits its
+    dot in interpret mode. The two split different values (the port its
+    normalized columns, the Pallas kernel the raw residuals), so each drops
+    its own lo * lo terms: each stays within the kernel bar of the float64
+    product of the same operands, they stay within twice it of each other,
+    the h2 panel is identical, and the result is not the float32 one."""
+    jargs, targs = _args(rotated, GRID)
+    L_pl, h2_pl = jax_fused_alt_grid(
+        *jargs, prior=PRIOR, reml=reml, interpret=True, tile_p=32, tile_m=128,
+        dot_precision=jcfg.THROUGHPUT.gemm_precision,
+    )
+    L, h2 = af.fused_alt_grid(*targs, prior=PRIOR, reml=reml, dot_precision="high")
+    assert L.shape == (96, 48) and L.dtype == torch.float64
+    Xn, Yn, cmat = af.prepare_inputs(*targs, prior=PRIOR, reml=reml)
+    exact, _ = af._min_over_grid(Xn.double(), Yn.double(), cmat.double(), False, torch.matmul)
+    assert _maxdiff(L, exact.numpy()) < KERNEL_BAR and _maxdiff(exact, L_pl) < KERNEL_BAR
+    assert _maxdiff(L, L_pl) < 2 * KERNEL_BAR
+    assert np.array_equal(h2.numpy(), np.asarray(h2_pl))
+    L_ref, h2_ref = af.fused_alt_grid_reference(*targs, prior=PRIOR, reml=reml,
+                                                dot_precision="high")
+    assert torch.equal(L, L_ref) and torch.equal(h2, h2_ref)
+    L32, _ = af.fused_alt_grid(*targs, prior=PRIOR, reml=reml)
+    assert float((L - L32).abs().max()) > 0
+    assert af.launches == af.bf16x3_launches == 0
+
+
 def test_plain_version_single_grid_point(rotated):
     """g = 1: the first and the last grid step are the same step."""
     jargs, targs = _args(rotated, np.asarray([0.3]))

@@ -27,6 +27,7 @@ from bulklmm_tpu.pallas import bulkperm_fused as jfused
 from bulklmm_tpu.utils import config as jcfg
 import bulklmm_tpu_torch as bt
 from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+from bulklmm_tpu_torch.kernels.split import matmul_bf16x3
 from bulklmm_tpu_torch.models import bulkperm as tmodel
 from bulklmm_tpu_torch.ops import bulkperm as tops
 
@@ -35,6 +36,11 @@ torch.set_num_threads(1)
 LOD_BAR = {"EXACT64": 1e-9, "MIXED": 1e-4, "BALANCED": 1e-4, "FAST32": 1e-3, "THROUGHPUT": 1e-3}
 SAME_H2 = ("EXACT64", "MIXED", "BALANCED")
 NPERMS, SEED = 24, 7
+# max |dLOD| of bf16x3 maxima on operands that two float32 preparations
+# made: the Pallas kernels' bar (tests/test_pallas_*.py); a bf16 half that
+# crosses a rounding midpoint under a one-ulp change moves its lo * lo term
+# by up to 2^-16 |a b|, about 1.8e-5 in LOD at n = 52
+BF16X3_BAR = 5e-5
 # Brent's tolerance window on [0, 1], doubled: the two packages' Brents
 # stop at different points inside it (test_torch_nullexact.py)
 H2_WINDOW = 2 * 1.4e-8
@@ -263,6 +269,60 @@ def test_plain_kernel_version_matches_pallas_interpret(rotated, c, mb, K):
     assert bf.launches == 0
 
 
+@pytest.mark.parametrize("c, mb, K", [(1, 4, 25), (3, 3, 25), (1, 3, 1)],
+                         ids=["c1", "c3-ragged-traits", "observed-only"])
+def test_bf16x3_plain_version_matches_pallas_interpret_at_high(rotated, c, mb, K):
+    """Under ``dot_precision="high"`` the plain version takes the kernel's
+    bf16x3 products (``split.py::matmul_bf16x3``), as the Pallas kernel at
+    HIGH splits its dot into bf16 passes in interpret mode: 1e-5 between
+    the two, the bar of the other precisions; and it is not the float32
+    result."""
+    _, (sw, Q, w, idx) = _state(rotated, "FAST32", c, torch.float32)
+    X = torch.from_numpy(rotated["X0m"]).float()
+    S2 = bf.prepare_chunk_inputs(sw[:mb], Q[:mb], w[:, :mb], idx[:K])
+    inv = bf.prepare_trait_block(X, sw[:mb], Q[:mb], precision=bt.FAST32)
+    pad = 8 - mb
+    ref = jfused.fused_perm_maxlods(
+        jnp.asarray(X.numpy()), jnp.pad(jnp.asarray(S2.numpy()), ((0, pad), (0, 0), (0, 0))),
+        jnp.pad(jnp.asarray(inv.numpy()), ((0, pad), (0, 0))), n=52, tile_p=32, interpret=True,
+        dot_precision=jcfg.THROUGHPUT.gemm_precision,
+    )[:mb]
+    out = bf.fused_perm_maxlods(X, S2, inv, n=52, dot_precision="high")
+    assert tuple(out.shape) == (mb, K) and out.dtype == torch.float32
+    assert _maxdiff(out, ref) < 1e-5
+    assert torch.equal(out, bf.fused_perm_maxlods_reference(X, S2, inv, n=52, dot_precision="high"))
+    split = tops.maxr2_to_lod(bf._maxr2_by_blocks(X, S2, inv, matmul_bf16x3), 52)
+    assert torch.equal(out, split)
+    assert float((out - bf.fused_perm_maxlods(X, S2, inv, n=52)).abs().max()) > 0
+    assert bf.launches == bf.bf16x3_launches == 0
+
+
+def test_bf16x3_moves_with_one_ulp_operand_changes():
+    """Operands changed by up to two units in the last place move the bf16x3
+    maxima by more than the float32 ones (a changed half, where a value
+    crosses a bf16 rounding midpoint, moves the dropped lo * lo term) and by
+    less than BF16X3_BAR: the gap between two float32 preparations that
+    test_pallas_interpret_is_the_plain_kernel_version allows for."""
+    rng = np.random.default_rng(0)
+    n, p, mb, K = 52, 96, 4, 25
+    X = torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32))
+    S2 = torch.from_numpy(rng.normal(size=(mb, n, K)).astype(np.float32))
+    inv = ((1.0 / (X * X).sum(0)) / n).expand(mb, p).contiguous()
+
+    def bump(t):
+        ulps = torch.from_numpy(rng.integers(-2, 3, size=t.shape).astype(np.int32))
+        return (t.view(torch.int32) + ulps).view(torch.float32)
+
+    moved = {"highest": 0.0, "high": 0.0}
+    for _ in range(8):
+        Xb, S2b = bump(X), bump(S2)
+        for name in moved:
+            a = bf.fused_perm_maxlods(X, S2, inv, n=n, dot_precision=name)
+            b = bf.fused_perm_maxlods(Xb, S2b, inv, n=n, dot_precision=name)
+            moved[name] = max(moved[name], float((a - b).abs().max()))
+    assert moved["highest"] < moved["high"] < BF16X3_BAR
+
+
 def test_plain_kernel_version_masks_and_sub_blocks(rotated, monkeypatch):
     """A masked trait (all-zero S2) gives max r^2 = 0 exactly, a masked marker
     (inv_xn = 0) cannot win, and the trait sub-blocks of the plain version
@@ -384,20 +444,29 @@ def test_chunking_invariance(perm_data, engine):
 def test_pallas_interpret_is_the_plain_kernel_version(perm_data, preset, monkeypatch):
     """engine="pallas", interpret=True runs the kernel's formulation through
     its plain version under any preset, within the JAX package's 1e-5 of the
-    plain engine and of the Pallas kernel in interpret mode (2e-2 under
-    THROUGHPUT, whose Pallas kernel splits the product into bf16 passes)."""
+    Pallas kernel in interpret mode and of the plain engine. Under THROUGHPUT
+    both kernels split the product into bf16x3 passes: on the same operands
+    they agree within 1e-5 (test_bf16x3_plain_version_matches_pallas_
+    interpret_at_high), but here each package prepares its operands in
+    float32 and they differ by ulps, which bf16x3 carries further than
+    float32 products do (test_bf16x3_moves_with_one_ulp_operand_changes), so
+    the bar there is BF16X3_BAR. The plain engine keeps float32 products, so
+    under THROUGHPUT the two are held as the JAX package holds its own
+    (tests/test_bulkperm.py:121-122): apart, by less than 2e-2."""
     G, Y, K = perm_data
     calls = []
     real = bf.fused_perm_maxlods_reference
     monkeypatch.setattr(tmodel, "fused_perm_maxlods_reference",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+                        lambda *a, **k: calls.append(k["dot_precision"]) or real(*a, **k))
     port, ref = _run(perm_data, preset, engine="pallas", interpret=True, trait_chunk=3)
-    assert len(calls) == 2 and bf.launches == 0
+    high = preset == "THROUGHPUT"
+    assert calls == ["high" if high else "highest"] * 2 and bf.launches == 0
     assert port.maxlods.dtype == torch.float32 and _same_dtype(port.maxlods, ref.maxlods)
-    assert _maxdiff(port.maxlods, ref.maxlods) < (2e-2 if preset == "THROUGHPUT" else 1e-5)
+    assert _maxdiff(port.maxlods, ref.maxlods) < (BF16X3_BAR if high else 1e-5)
     plain = bt.bulkscan_perms(Y, G, K, nperms=NPERMS, perm_idx=_jax_idx(52), engine="xla",
                               precision=bt.precision_by_name(preset), device="cpu")
-    assert float((plain.maxlods.double() - port.maxlods.double()).abs().max()) < 1e-5
+    gap = float((plain.maxlods.double() - port.maxlods.double()).abs().max())
+    assert (0 < gap < 2e-2) if high else gap < 1e-5
 
 
 @pytest.mark.parametrize("case", ["method", "engine", "nperms", "nan", "missing", "solve"])

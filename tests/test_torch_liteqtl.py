@@ -161,6 +161,54 @@ def test_split_reference_matches_jax(shape):
     assert _maxdiff(out, xla) < KERNEL_BAR
 
 
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_bf16x3_reference_is_throughput_grade(shape):
+    """The resident kernel's arithmetic under "high" (the forms rounded to
+    float32, then three bf16 passes) against the JAX package's
+    ``lods_per_trait`` under EXACT64 on the same numpy inputs: within 4e-3,
+    the JAX package's THROUGHPUT bound against EXACT64
+    (tests/test_bulkscan.py:138), and not equal to it; and farther from it
+    than the float32 products are, as bf16x3 drops its lo * lo terms."""
+    n, p, m, c = shape
+    args = _mk(n, p, m, c)
+    out = lf.liteqtl_bf16x3_reference(*lf.prepare_inputs(*[torch.from_numpy(a) for a in args]))
+    assert out.shape == (p, m) and out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    exact = jax_lods_per_trait(*[jnp.asarray(a.astype(np.float64)) for a in args],
+                               precision=jcfg.EXACT64)
+    gap = _maxdiff(out, exact)
+    assert 0 < gap < 4e-3
+    plain = lf.fused_lods_per_trait_reference(*[torch.from_numpy(a) for a in args])
+    assert _maxdiff(plain, exact) < gap
+    assert lf.launches == lf.bf16x3_launches == 0
+
+
+@pytest.mark.parametrize("effects", [False, True], ids=["lod", "effects"])
+def test_cpu_lod_step_keeps_float32_products_under_high(effects):
+    """On CPU tensors the LOD step's plain version takes float32 products
+    under both names, as XLA's HIGH computes on a CPU: "high" gives the
+    "highest" result bit for bit, here and in the reference."""
+    _, targs = _both(_mk(n=48, p=40, m=30, c=2))
+    entry = lf.fused_lods_and_effects_per_trait if effects else lf.fused_lods_per_trait
+    high, highest = entry(*targs, "high"), entry(*targs)
+    for a, b in zip(*(t if effects else (t,) for t in (high, highest))):
+        assert torch.equal(a, b)
+    assert torch.equal(lf.fused_lods_per_trait_reference(*targs, dot_precision="high"),
+                       lf.fused_lods_per_trait_reference(*targs))
+    assert lf.launches == lf.effects_launches == lf.bf16x3_launches == 0
+
+
+@pytest.mark.parametrize("entry", ["fused", "effects", "reference", "cuda"])
+def test_unknown_dot_precision_raises(entry):
+    _, targs = _both(_mk(n=12, p=8, m=5))
+    with pytest.raises(ValueError, match="GEMM precision"):
+        if entry == "cuda":
+            lf.liteqtl_lod_cuda(*lf.prepare_inputs(*targs), dot_precision="medium")
+        else:
+            fn = {"fused": lf.fused_lods_per_trait, "effects": lf.fused_lods_and_effects_per_trait,
+                  "reference": lf.fused_lods_per_trait_reference}[entry]
+            fn(*targs, dot_precision="medium")
+
+
 def test_split_reference_zero_marker_column_gives_zero_lod():
     args = _mk(p=40, m=30, c=2)
     args[1][:, 7] = 0.0
@@ -189,6 +237,29 @@ def test_resident_steps(n, steps):
     assert lf.resident_steps(n) == steps
 
 
+@pytest.mark.parametrize("n", [1, 79, 88, 89, 2000])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_kernel_route_names_the_products(n, c):
+    """Under "high" the resident kernel runs bf16x3; the general and wide
+    kernels keep three TF32 passes; the path is the same under both names."""
+    path = lf.kernel_path(n, c)
+    assert lf.kernel_route(n, c) == (path, "tf32x3")
+    assert lf.kernel_route(n, c, dot_precision="high") == (
+        path, "bf16x3" if path == "resident" else "tf32x3")
+    assert lf.kernel_route(n, c, True, "high") == lf.kernel_route(n, c, dot_precision="high")
+    if path == "resident":
+        for effects in (False, True):
+            assert lf.resident_shared_bytes(n, c, effects, "high") <= lf.SHARED_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("n, steps", [(1, 2), (16, 2), (32, 2), (33, 3), (48, 3), (79, 5), (80, 5),
+                                      (81, 6), (88, 6)])
+def test_resident_steps_bf16x3(n, steps):
+    """bf16x3 depth steps are 16 samples, every count from 2 built: n = 88
+    pads to 96."""
+    assert lf.resident_steps(n, "high") == steps
+
+
 def test_resident_shared_bytes_at_the_main_path_shape():
     # n = 79, c = 1: four 80 x 64 operand tiles, for each of two warpgroups two
     # stages of 80 x 72 and a finished tile of 64 x 68, 80 covariate values and
@@ -197,6 +268,8 @@ def test_resident_shared_bytes_at_the_main_path_shape():
     assert lf.resident_shared_bytes(79, 1) == want == 209_984
     assert want <= 227 * 1024 == lf.SHARED_LIMIT_BYTES
     assert lf.resident_shared_bytes(88, 3) <= lf.SHARED_LIMIT_BYTES
+    # bf16x3: the operand tiles take half the bytes, the rest is the same
+    assert lf.resident_shared_bytes(79, 1, dot_precision="high") == want - 4 * 2 * 80 * 64 == 169_024
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -1,6 +1,8 @@
-"""The 3 x TF32 split product on the CPU: ``bulklmm_tpu_torch/kernels/split.py``
-(the plain-torch twin of ``csrc/mma_tf32x3.cuh``) and the three split
-references that repeat the CUDA kernels' arithmetic.
+"""The split products on the CPU: ``bulklmm_tpu_torch/kernels/split.py``
+(the plain-torch twin of ``csrc/mma_tf32x3.cuh`` and of the THROUGHPUT
+preset's bf16x3, ``csrc/mma_bf16x3.cuh``) and the three split references
+that repeat the CUDA kernels' arithmetic. The bf16 rounding is held bit for
+bit against JAX's ``astype(bfloat16)``.
 
 The CUDA kernels themselves run only on the card, where chip_smoke.py holds
 each against its plain version and its split reference. Here the split's
@@ -83,6 +85,93 @@ def test_tf32_split_of_zeros_subnormals_and_infinities_stays_sane():
     assert torch.equal(big[:2], x[:2]) and bool((small[:2] == 0).all())
     assert float(((big + small) - x)[2:6].abs().max()) <= tiny * 2.0**-10
     assert torch.equal(big[6:], x[6:])
+
+
+# --- the bf16 rounding and split (bf16x3, "high") -------------------------------
+
+
+def _jax_bf16(x):
+    """JAX's float32 -> bfloat16 -> float32, the rounding of its HIGH."""
+    return torch.from_numpy(np.asarray(jnp.asarray(x.numpy()).astype(jnp.bfloat16).astype(jnp.float32)))
+
+
+def _bf16_cases(kind):
+    one = 0x3F800000  # 1.0f; bf16 keeps the 7 high mantissa bits, 16 low bits go
+    tiny = float(np.finfo(np.float32).tiny)
+    if kind == "ties":  # half-way points below an even and an odd last bit, both signs
+        ints = [one | 0x8000, one | 0x18000, one | 0x7FFF, one | 0x8001, 0x7F7F8000, 0x00018000]
+        ints += [i | -(2**31) for i in ints]
+        return torch.tensor(ints, dtype=torch.int32).view(torch.float32)
+    if kind == "zeros":
+        return torch.tensor([0.0, -0.0], dtype=torch.float32)
+    if kind == "subnormals":
+        return torch.tensor([1e-45, -1e-45, tiny / 3, -tiny / 3, tiny / 1024 * 3, tiny * (1 - 2**-10)],
+                            dtype=torch.float32)
+    if kind == "infinities":  # and the largest float32, which rounds up to inf
+        return torch.tensor([np.inf, -np.inf, float(np.finfo(np.float32).max)], dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    return torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, 4096)).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "subnormals", "infinities", "random"])
+def test_bf16_round_equals_jax_astype_bit_for_bit(kind):
+    x = _bf16_cases(kind)
+    r = split.bf16_round(x)
+    assert r.dtype == torch.float32 and r.shape == x.shape
+    assert torch.equal(_bits(r), _bits(_jax_bf16(x)))
+    assert bool(((_bits(r) & 0xFFFF) == 0).all())
+
+
+def test_bf16_round_ties_to_even_where_tf32_rounds_away():
+    one = 0x3F800000
+    x = torch.tensor([one | 0x8000], dtype=torch.int32).view(torch.float32)  # 1 + 2^-8
+    assert _bits(split.bf16_round(x)).item() == one  # the even neighbour, down
+    with pytest.raises(TypeError, match="float32"):
+        split.bf16_round(torch.zeros(3, dtype=torch.float64))
+
+
+def test_bf16_split_restores_the_value():
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-20, 20, 4096)).astype(np.float32))
+    hi, lo = split.bf16_split(x)
+    assert bool(((_bits(hi) & 0xFFFF) == 0).all()) and bool(((_bits(lo) & 0xFFFF) == 0).all())
+    rel = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0**-16
+    assert float((lo.abs() / x.abs()).max()) <= 2.0**-8
+    assert torch.equal(hi, _jax_bf16(x)) and torch.equal(lo, _jax_bf16(x - hi))
+
+
+@pytest.mark.parametrize("n", [52, 2000])
+def test_matmul_bf16x3_is_the_jax_emulation_and_drops_the_small_term(n):
+    """Against JAX's three bf16 dots of the Pallas kernels' HIGH branch, on
+    the same halves: float32 rounding of another summation order. Against
+    float64: within 2^-16 sum |a b| plus float32's own error, and apart from
+    the exact float32 product by more than it (the dropped lo * lo term)."""
+    rng = np.random.default_rng(n + 1)
+    A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    out = split.matmul_bf16x3(A, B)
+    bf16 = jnp.bfloat16
+    jA, jB = jnp.asarray(A.numpy()), jnp.asarray(B.numpy())
+    Ah, Bh = jA.astype(bf16), jB.astype(bf16)
+    Al, Bl = (jA - Ah.astype(jnp.float32)).astype(bf16), (jB - Bh.astype(jnp.float32)).astype(bf16)
+    dot = lambda a, b: jnp.dot(a, b, preferred_element_type=jnp.float32)  # noqa: E731
+    emulated = torch.from_numpy(np.asarray(dot(Ah, Bh) + dot(Ah, Bl) + dot(Al, Bh)))
+    exact = A.double() @ B.double()
+    err32 = float((A @ B - exact).abs().max())
+    scale = (A.double().abs() @ B.double().abs())
+    assert float((out - emulated).abs().max()) <= 4 * err32
+    assert bool(((out.double() - exact).abs() <= 2.0**-16 * scale + 4 * err32).all())
+    assert float((out.double() - exact).abs().max()) > err32
+    with torch.no_grad():
+        assert tuple(split.matmul_bf16x3(A[:7], B.expand(3, n, 40)).shape) == (3, 7, 40)
+
+
+@pytest.mark.parametrize("name, bf16", [("highest", False), ("high", True)])
+def test_uses_bf16x3_names_the_products(name, bf16):
+    assert split.uses_bf16x3(name) is bf16
+    with pytest.raises(ValueError, match="GEMM precision"):
+        split.uses_bf16x3("medium")
 
 
 # --- the product -----------------------------------------------------------------
@@ -374,10 +463,27 @@ def test_kernel_path_by_depth(n, path):
     assert (bf.resident_shared_bytes(n) <= bf.SHARED_LIMIT_BYTES) or path == "chunked"
 
 
+@pytest.mark.parametrize("n, depth", [(1, 16), (16, 16), (17, 32), (79, 80), (81, 96), (88, 96), (2000, 2000)])
+def test_padded_depth_bf16x3(n, depth):
+    """Under "high" a depth step is 16 samples: n = 88 pads to 96."""
+    assert bf.padded_depth(n, "high") == depth
+
+
+@pytest.mark.parametrize("n", [1, 48, 79, 88, 89, 2000])
+def test_kernel_route_names_the_products(n):
+    """Both paths have bf16x3 products; the path is the same under both."""
+    assert bf.kernel_route(n, "high") == (bf.kernel_path(n), "bf16x3")
+    assert bf.kernel_route(n) == (bf.kernel_path(n), "tf32x3")
+    if bf.kernel_path(n) == "resident":
+        assert bf.resident_shared_bytes(n, "high") <= bf.SHARED_LIMIT_BYTES
+
+
 def test_resident_shared_bytes_at_the_main_path_shape():
     # n = 79: two halves of 80 x 256 floats and two stages of 81 x 72
     assert bf.resident_shared_bytes(79) == 4 * (2 * 80 * 256 + 2 * 81 * 72) == 210_496
     assert bf.resident_shared_bytes(88) <= bf.SHARED_LIMIT_BYTES < bf.resident_shared_bytes(96)
+    # bf16x3: two halves of 80 x 256 bf16 values beside the same stages
+    assert bf.resident_shared_bytes(79, "high") == 2 * 80 * 256 * 2 + 4 * 2 * 81 * 72 == 128_576
 
 
 @pytest.mark.parametrize("cols, padded", [(1, 4), (4, 4), (5, 8), (7321, 7324), (35554, 35556), (1001, 1004)])
