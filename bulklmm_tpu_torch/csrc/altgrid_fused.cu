@@ -40,7 +40,11 @@
 // one barrier a step. Their rows are handed over 16-byte aligned (the
 // wrapper pads an odd p or m), so the copies are 16 bytes wide. Both are raw
 // float32 in shared memory and are split into their TF32 halves in registers
-// at the fragment load, one step ahead of the tensor cores. n above 80 is
+// at the fragment load, one step ahead of the tensor cores. Each depth
+// step's three passes go into a step sum that starts from zero and is added
+// into the accumulator with __fadd_rn (mma_tf32x3.cuh's mma_fragments()):
+// the tensor cores cut a sum toward zero, and carried across the depth the
+// cuts fell at the result's full magnitude. n above 80 is
 // walked in chunks of 80 samples, one stage each, so n has no limit. Per
 // block and grid step 192 columns are read for 8,192 outputs, against 128
 // for 4,096 with 64 x 64 tiles: three quarters of the reads. At the end the

@@ -46,11 +46,20 @@
 //   steps run, 64 accumulator registers a thread. The small terms of all
 //   depth steps are added first and the leading terms after them: the
 //   tensor cores' float32 accumulation cuts where it should round, and this
-//   order takes a third as many sums at the result's full magnitude.
+//   order takes a third as many sums at the result's full magnitude. The
+//   markers arrive off the covariates' span (models/bulkperm.py), so no
+//   sample's product dominates a sum. Taking the leading terms in runs
+//   added with round to nearest, as the LOD kernel does, was measured and
+//   left out: two m64n64 halves with a run set cost 1.40x (runs of 5
+//   steps) to 1.67x (runs of 1) of this launch and spilled at 10 and 11
+//   steps, for 9.6e-6 and 7.8e-6 from EXACT64 at BXD scale against 1.12e-5
+//   here, where the plain engine is 1.30e-5 (PERF.md).
 // - Above that size (bulkperm_chunked_kernel) n is walked in chunks of 64
 //   samples: the chunk of S2 is staged raw beside the chunk of X, both are
 //   split in registers, and the products are mma.sync m16n8k8, each warp 64
-//   markers x 32 permutations. On this card mma.sync holds its warp's dispatch
+//   markers x 32 permutations, each depth step's sum added into the
+//   accumulator rounded to nearest (mma_tf32x3.cuh's mma_fragments(): the
+//   tensor cores cut a sum toward zero, accumulate_probe.cu). On this card mma.sync holds its warp's dispatch
 //   slot, so every load, split and epilogue instruction of a warp comes on
 //   top of its products' time; with the operand resident that layout took
 //   over twice what wgmma takes (PERF.md).

@@ -38,16 +38,19 @@
 //   one accumulator carried across the 50 chunks of 2,000 samples drifts
 //   by 750 cuts (1.05e-4 in LOD from the plain version at 2,000 x 8,192 x
 //   2,048). A walk therefore adds its sets into float32 running totals,
-//   rounded to nearest, every kFoldChunks chunks, and starts them again
-//   from zero: the cuts then fall on partial sums of at most kFoldChunks
-//   chunks. Five chunks (200 samples) bring that block back to the fmaf
+//   rounded to nearest, every kFoldChunks chunks past 200 samples and after
+//   every chunk below (fold_chunks()), and starts them again from zero: the
+//   cuts then fall on partial sums of at most kFoldChunks chunks, or one.
+//   Five chunks (200 samples) bring the 2,000-sample block back to the fmaf
 //   kernel's distance; ten leave it at twice that, and every fold adds to
-//   a launch's time. The totals cannot live in registers (a second (c + 2) x 32 set,
+//   a launch's time. At BXD's 79 samples (two chunks) a fold after the
+//   first took the wide kernel at c = 4 and 12 from 1.06e-5 to 3.7e-6 and
+//   4.6e-6 from EXACT64, at a third more time (PERF.md). The totals cannot live in registers (a second (c + 2) x 32 set,
 //   320 at c = 3, past the 255 a thread may hold) nor in shared memory
 //   (160 KB a block at c = 3): they lie in device memory, one slot a
 //   resident block (claim_slot()), read and written through L2. A walk of
-//   at most kFoldChunks chunks (BXD's 79 samples) takes no slot: each
-//   kernel has an instantiation that folds (kFold) and one that does not.
+//   one chunk (40 samples or fewer) takes no slot: each kernel has an
+//   instantiation that folds (kFold) and one that does not.
 //   The chunk after a fold starts its products with scale-d 0
 //   (keeps_sets()), which overwrites the sets: zeroing them there by a
 //   product of zeros in a branch made ptxas serialize the products
@@ -102,7 +105,7 @@ constexpr int kHalfFloats = kChunk * kTileM;   // one TF32 half of one split ope
 constexpr int kXFloats = kChunk * kLdX;        // one warpgroup's chunk of its marker tile
 constexpr uint64_t kStepUnits = 8 * kTileM * 4 / 16;  // one depth step of a split operand, 16-byte units
 constexpr int kZeroFloats = 8 * kTileM;  // a K-major depth step of zeros: zero_sets()' B operand
-constexpr int kFoldChunks = 5;  // chunks a set carries before it joins its running total
+constexpr int kFoldChunks = 5;  // chunks a set carries before it joins its running total, past 200 samples
 constexpr int kWgThreads = kThreads / kGroups;    // threads of a warpgroup
 constexpr int kSetFloats = 32 * kWgThreads;       // one warpgroup's product set
 
@@ -185,8 +188,18 @@ __host__ __device__ constexpr long long total_floats(int slots, int sets) {
   return (slots + 31) / 32 * 32 + (long long)slots * kGroups * sets * kSetFloats;
 }
 
-// Whether a walk over n samples folds its sets into running totals.
-__host__ __device__ constexpr bool folds(int n) { return n > kFoldChunks * kChunk; }
+// Whether a walk over n samples folds its sets into running totals: every
+// walk of more than one chunk.
+__host__ __device__ constexpr bool folds(int n) { return n > kChunk; }
+
+// Chunks that a walk over n samples carries in its sets before it adds them
+// into their totals: one up to kFoldChunks chunks (BXD's 79 samples take
+// two), so that no sum is cut at the result's full magnitude, and
+// kFoldChunks past that, where a fold every chunk would cost a fold five
+// times as often.
+__host__ __device__ constexpr int fold_chunks(int n) {
+  return n > kFoldChunks * kChunk ? kFoldChunks : 1;
+}
 
 // The block's slot, claimed by its thread 0 from `slots` claim flags. At
 // most `slots` blocks are resident and a block frees its slot as it ends
@@ -229,16 +242,17 @@ __device__ __forceinline__ void fold_set(float* tot, const float (&acc)[32], boo
 }
 
 // Whether a walk over nchunks chunks adds its sets into their totals after
-// `chunk`: the last chunk of a run of kFoldChunks, unless it ends the walk.
-__device__ __forceinline__ bool fold_after(int chunk, int nchunks) {
-  return (chunk + 1) % kFoldChunks == 0 && chunk + 1 < nchunks;
+// `chunk`: the last chunk of a run of `every` (fold_chunks()), unless it
+// ends the walk.
+__device__ __forceinline__ bool fold_after(int chunk, int nchunks, int every) {
+  return (chunk + 1) % every == 0 && chunk + 1 < nchunks;
 }
 
 // The scale-d of a chunk's first products: 0 for a chunk that starts a run
 // past the walk's first, so that they overwrite the sets that the fold
 // before it took; the walk's first chunk adds to the zeroed sets.
-__device__ __forceinline__ int keeps_sets(int chunk) {
-  return chunk % kFoldChunks != 0 || chunk == 0;
+__device__ __forceinline__ int keeps_sets(int chunk, int every) {
+  return chunk % every != 0 || chunk == 0;
 }
 
 // --- the exact epilogue, every operation rounded on its own ---------------------

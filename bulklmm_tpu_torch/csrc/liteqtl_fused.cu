@@ -50,8 +50,9 @@
 // the launcher's choice for n > 88) walks the samples in chunks through a
 // ring of cp.async stages, splitting each chunk of W and WY once for two
 // marker tiles (liteqtl_chunked.cuh), with (c + 2) accumulator sets, added
-// into float32 running totals in device memory every kFoldChunks chunks past
-// 200 samples, and the exact epilogue (IEEE divisions and log10f).
+// into float32 running totals in device memory (every kFoldChunks chunks past
+// 200 samples, every chunk below), and the exact epilogue (IEEE divisions and
+// log10f).
 //
 // The wide kernel (liteqtl_wide.cu: any c > 3, at any n) takes the
 // covariates already whitened per trait and walks them one column at a
@@ -122,6 +123,7 @@ liteqtl_general_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotate
   const int first = blockIdx.y * group_tiles;
   const int last = min(first + group_tiles, ntiles);
   const int nchunks = (n + kChunk - 1) / kChunk;
+  const int every = fold_chunks(n);  // chunks a run of the sets carries (kFold)
   const int nsteps = (last - first + 1) / 2 * nchunks;  // chunks of all pairs of marker tiles
 
   // one step's copies: the two marker chunks, W, WY and the covariates
@@ -175,13 +177,13 @@ liteqtl_general_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotate
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) pin_registers(acc[a]);
       general_chunk<C, kInFlight>(acc, st + group * kXFloats + wrow + 2 * g, st + kCov, d_w, d_wy,
-                                  q, kFold ? keeps_sets(chunk) : 1);
+                                  q, kFold ? keeps_sets(chunk, every) : 1);
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) pin_registers(acc[a]);
-      if (kFold && fold_after(chunk, nchunks)) {
+      if (kFold && fold_after(chunk, nchunks, every)) {
 #pragma unroll
         for (int a = 0; a < kAcc; ++a)
-          fold_set(tot + a * kSetFloats, acc[a], chunk + 1 == kFoldChunks);
+          fold_set(tot + a * kSetFloats, acc[a], chunk + 1 == every);
       }
     }
     if constexpr (kFold) {

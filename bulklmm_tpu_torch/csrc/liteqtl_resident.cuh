@@ -24,10 +24,18 @@
 //   anywhere. Every form has its own m64n64 accumulator set, 32 registers a
 //   thread, (c + 2) sets at once: that is what limits c.
 // - Two passes over the depth: the small terms of every depth step first,
-//   then the leading terms (X is loaded and rounded again for them), so that
-//   only depth / 8 sums, not 3 depth / 8, are taken at the result's full
-//   magnitude: the tensor cores' float32 accumulation cuts where it should
-//   round, and D = D1 - sum Z^2 enlarges that error.
+//   then the leading terms (X is loaded and rounded again for them). The
+//   tensor cores finish every product's float32 sum by cutting it toward
+//   zero, each addend cut 2 bits below the last place of the largest term
+//   (csrc/accumulate_probe.cu), so a leading term added into the set at the
+//   result's full magnitude loses up to a unit there, always toward zero.
+//   Under tf32x3 the leading terms therefore go form by form and a depth
+//   step at a time into one scratch set of 32 registers that the step's
+//   product overwrites (scale-d 0); the scratch set is then added into the
+//   form's set with __fadd_rn. A second set per form does not fit beside
+//   (c + 2) sets; the cost is a wait a step and form (1.24x the launch at
+//   BXD scale; runs of two steps spilled at c = 3, PERF.md). The small
+//   terms are 2^-11 of the result and stay in the sets.
 // - The epilogue works on the accumulator layout: a thread holds two
 //   neighbouring traits of two neighbouring markers in each of 8 column
 //   tiles and reads the traits' scalars from shared memory. It takes
@@ -59,7 +67,8 @@
 //   order of mma_bf16x3.cuh (half the shared memory: 40 KB at n = 79, and
 //   n = 88 pads to 96), a thread's A fragment of a step packs its samples q,
 //   q + 4, q + 8 and q + 12 (two steps of the TF32 loads), and the rest,
-//   the two passes over the depth and the epilogue, is the same.
+//   the two passes over the depth and the epilogue, is the same, but for
+//   the runs: under bf16x3 the leading terms go into the sets.
 //
 // The kernel is built for every (policy, covariate columns, depth steps)
 // triple it takes; each count of covariate columns is its own source file
@@ -317,6 +326,17 @@ __device__ __forceinline__ void store_pair(float* dst, int row, int col, const f
   }
 }
 
+// Whether the resident kernel built for (P, C, kSteps, kEffects) takes its
+// leading terms a depth step at a time into a scratch set, each step added
+// into its set rounded to nearest (tf32x3), rather than straight into its
+// sets (bf16x3); at c = 3 with the effects variant and 2 depth steps
+// (n <= 16) the scratch set spilled 36 bytes, and that instantiation adds
+// the leading terms into its sets too.
+template <class P, int C, int kSteps, bool kEffects>
+__host__ __device__ constexpr bool lead_runs() {
+  return P::kStep == 8 && !(kEffects && C == 3 && kSteps <= 2);
+}
+
 // kSteps: depth steps of the policy P, n padded; a template parameter so
 // that the depth loops carry no branches. kInFlight: the depth steps whose
 // products may still run while the next step's fragments are made (each step
@@ -338,6 +358,7 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
   constexpr int kDepths = P::kStep / 4;  // a thread's depths of a step
   constexpr int depth = P::kStep * kSteps;
   constexpr int kS = scalar_rows(C, kEffects);
+  constexpr bool kLeadRuns = lead_runs<P, C, kSteps, kEffects>();
   constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
   constexpr int kTileFloats = depth * kTileM / (kBf16 ? 2 : 1);  // 32-bit words
   constexpr int kStageFloats = depth * kLdX;
@@ -494,29 +515,57 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
       wgmma_wait<kInFlight>();
       now = next;
     }
-    // the leading terms
+    if constexpr (!kLeadRuns) {
+      // the leading terms
 #pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      float f[kAcc][2 * kDepths];
-      make_forms<C>(f, now);
-      uint32_t big[kAcc][4];
+      for (int ks = 0; ks < kSteps; ++ks) {
+        float f[kAcc][2 * kDepths];
+        make_forms<C>(f, now);
+        uint32_t big[kAcc][4];
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a) {
-        if constexpr (kBf16) {
-          bf16x3::round_fragment(f[a], big[a]);
-        } else {
+        for (int a = 0; a < kAcc; ++a) {
+          if constexpr (kBf16) {
+            bf16x3::round_fragment(f[a], big[a]);
+          } else {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) big[a][r] = round_tf32(f[a][r]);
+            for (int r = 0; r < 4; ++r) big[a][r] = round_tf32(f[a][r]);
+          }
+        }
+        if (ks + 1 < kSteps) load_step<C>(next, acol, cs, depth, P::kStep * (ks + 1) + q);
+        wgmma_fence();
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a)
+          P::wgmma_m64n64(acc[a], big[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, 1);
+        wgmma_commit();
+        wgmma_wait<kInFlight>();
+        now = next;
+      }
+    } else {
+      // the leading terms, form by form and a depth step at a time: a
+      // step's product goes into one scratch set that it overwrites
+      // (scale-d 0), and the step is added into the form's set rounded to
+      // nearest once it is done
+      wgmma_wait<0>();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
+          StepOperands<C, kDepths> o;
+          load_step<C>(o, acol, cs, depth, P::kStep * ks + q);
+          float f[kAcc][2 * kDepths];
+          make_forms<C>(f, o);
+          uint32_t big[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) big[i] = round_tf32(f[a][i]);
+          float run[32];
+          wgmma_fence();
+          P::wgmma_m64n64(run, big, (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], run[i]);
         }
       }
-      if (ks + 1 < kSteps) load_step<C>(next, acol, cs, depth, P::kStep * (ks + 1) + q);
-      wgmma_fence();
-#pragma unroll
-      for (int a = 0; a < kAcc; ++a)
-        P::wgmma_m64n64(acc[a], big[a], (a == 0 ? d_wy_big : d_w_big) + ks * kStepUnits, 1);
-      wgmma_commit();
-      wgmma_wait<kInFlight>();
-      now = next;
     }
     wgmma_wait<0>();
     if (staggered && group == 0 && tile == first)

@@ -100,6 +100,7 @@ liteqtl_wide_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotated m
   const int first = blockIdx.y * group_tiles;
   const int last = min(first + group_tiles, ntiles);
   const int nchunks = (n + kChunk - 1) / kChunk;
+  const int every = fold_chunks(n);  // chunks a run of the sets carries (kFold)
   const int walk_steps = c * nchunks;  // steps of one pair of marker tiles
   const int nsteps = (last - first + 1) / 2 * walk_steps;
 
@@ -161,7 +162,7 @@ liteqtl_wide_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotated m
     pin_registers(z);
     if constexpr (kFirstWalk) pin_registers(b), pin_registers(d1);
     wide_chunk<kFirstWalk, kInFlight>(b, d1, z, st + group * kXFloats + wrow + 2 * g, d_w, d_wy,
-                                      d_v, q, kFold ? keeps_sets(chunk) : 1);
+                                      d_v, q, kFold ? keeps_sets(chunk, every) : 1);
     pin_registers(z);
     if constexpr (kFirstWalk) pin_registers(b), pin_registers(d1);
     ++step;
@@ -205,10 +206,10 @@ liteqtl_wide_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotated m
       zero_each(d_zero, b, d1, z);
       for (int chunk = 0; chunk < nchunks; ++chunk) {
         walk_chunk(std::true_type{}, b, d1, z, chunk);
-        if (kFold && fold_after(chunk, nchunks)) {
-          fold_set(total_of(0), b, chunk + 1 == kFoldChunks);
-          fold_set(total_of(1), d1, chunk + 1 == kFoldChunks);
-          fold_set(total_of(2), z, chunk + 1 == kFoldChunks);
+        if (kFold && fold_after(chunk, nchunks, every)) {
+          fold_set(total_of(0), b, chunk + 1 == every);
+          fold_set(total_of(1), d1, chunk + 1 == every);
+          fold_set(total_of(2), z, chunk + 1 == every);
         }
       }
       if constexpr (kFold) {
@@ -224,7 +225,7 @@ liteqtl_wide_wgmma_kernel(const float* __restrict__ X,     // (n, ldx) rotated m
       zero_each(d_zero, z);
       for (int chunk = 0; chunk < nchunks; ++chunk) {
         walk_chunk(std::false_type{}, z, z, z, chunk);
-        if (kFold && fold_after(chunk, nchunks)) fold_set(total_of(2), z, chunk + 1 == kFoldChunks);
+        if (kFold && fold_after(chunk, nchunks, every)) fold_set(total_of(2), z, chunk + 1 == every);
       }
       if constexpr (kFold) fold_set(total_of(2), z, false);
       subtract_column(std::false_type{}, k, z, z, z, num, d);

@@ -129,21 +129,39 @@ __device__ __forceinline__ void load_fragments(Fragments<MT, NT>& f, const float
 }
 
 // acc += A * B for one step's fragments, three TF32 passes: the small terms
-// first, then the leading one.
+// first, then the leading one, into a step sum that starts from zero, which
+// is then added into acc rounded to nearest (__fadd_rn). The tensor cores
+// finish each product's float32 sum by cutting it toward zero (the probe,
+// accumulate_probe.cu), so a sum carried across the depth in the
+// accumulator loses up to a unit in its last place at every step, always
+// toward zero, at the result's full magnitude; here the cuts fall on one
+// step's sum and the steps add up as float32 on the CUDA cores adds them.
+// The A-side tiles go two at a time, so that the step sum takes 8 NT
+// registers, not 4 MT NT.
 template <int MT, int NT>
 __device__ __forceinline__ void mma_fragments(float (&acc)[MT][NT][4], const Fragments<MT, NT>& f) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i2 = 0; i2 < MT; i2 += 2) {
+    float part[2][NT][4] = {};
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_m16n8k8(acc[i][j], f.a_small[i], f.b_big[j]);
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < NT; ++j) mma_m16n8k8(part[i][j], f.a_small[i2 + i], f.b_big[j]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_m16n8k8(acc[i][j], f.a_big[i], f.b_small[j]);
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < NT; ++j) mma_m16n8k8(part[i][j], f.a_big[i2 + i], f.b_small[j]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_m16n8k8(acc[i][j], f.a_big[i], f.b_big[j]);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_m16n8k8(part[i][j], f.a_big[i2 + i], f.b_big[j]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i2 + i][j][r] = __fadd_rn(acc[i2 + i][j][r], part[i][j][r]);
+  }
 }
 
 // --- warpgroup products ------------------------------------------------------

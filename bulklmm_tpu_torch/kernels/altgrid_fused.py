@@ -39,7 +39,8 @@ Layers:
   product and the epilogue per grid step, exact float32 (bf16x3 under
   "high").
   :func:`altgrid_split_reference` repeats the kernel's 3 x TF32 arithmetic
-  instead (``kernels/split.py``), for comparisons.
+  instead, its tensor cores' sums included (``kernels/split.py``), for
+  comparisons.
 - :func:`fused_alt_grid`: the kernel on CUDA tensors, its plain version on
   CPU tensors. :func:`fused_alt_grid_reference` always takes the plain
   version, for comparisons.
@@ -56,7 +57,7 @@ import torch
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from .split import matmul_bf16x3, matmul_tf32x3, rows_at_16_bytes, uses_bf16x3
+from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the alt-grid path ran through the kernel
@@ -211,11 +212,18 @@ def altgrid_plain(Xn, Yn, cmat, *, panel: bool = True, dot_precision: str = "hig
     return _min_over_grid(Xn, Yn, cmat, panel, product)
 
 
+def _product_by_steps(A, B):
+    """The kernel's 3 x TF32 product: each depth step's three passes into a
+    sum that starts from zero, added into the total rounded to nearest."""
+    return matmul_tf32x3_emulated(A, B, run=1)
+
+
 def altgrid_split_reference(Xn, Yn, cmat, *, panel: bool = True):
     """The kernel's function with the kernel's arithmetic: each product as
-    three TF32 passes (``split.py::matmul_tf32x3``). On any device; no main
-    path takes it."""
-    return _min_over_grid(Xn, Yn, cmat, panel, matmul_tf32x3)
+    three TF32 passes summed as the kernel's tensor cores sum them, a depth
+    step at a time (``split.py::matmul_tf32x3_emulated``). On any device;
+    no main path takes it."""
+    return _min_over_grid(Xn, Yn, cmat, panel, _product_by_steps)
 
 
 def _finish(L, kidx, Y0, h2_grid):

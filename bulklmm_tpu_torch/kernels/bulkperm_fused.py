@@ -63,7 +63,7 @@ import torch
 
 from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
 from ..utils.config import with_highest_matmul
-from .split import matmul_bf16x3, matmul_tf32x3, rows_at_16_bytes, uses_bf16x3
+from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
 #: reads it to show that the permutation path ran through the kernel
@@ -251,9 +251,20 @@ def bulkperm_maxr2_plain(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
 
 def bulkperm_maxr2_split_reference(X0m, S2, inv_xn):
     """The kernel's function with the kernel's arithmetic: the product as
-    three TF32 passes (``split.py::matmul_tf32x3``). On any device; no main
-    path takes it."""
-    return _maxr2_by_blocks(X0m, S2, inv_xn, matmul_tf32x3)
+    three TF32 passes summed as the kernel's tensor cores sum them
+    (``split.py::matmul_tf32x3_emulated``), in the order of the path that n
+    takes: the resident path's small terms of every depth step first and
+    its leading terms after them, all in one accumulator; the chunked
+    path's three passes a step at a time, each step's sum added into the
+    total rounded to nearest. On any device; no main path takes it."""
+    if kernel_path(X0m.shape[0]) == "resident":
+        def product(A, B):
+            return matmul_tf32x3_emulated(A, B, smalls_first=True)
+    else:
+        def product(A, B):
+            return matmul_tf32x3_emulated(A, B, run=1)
+
+    return _maxr2_by_blocks(X0m, S2, inv_xn, product)
 
 
 def fused_perm_maxlods(X0m, S2, inv_xn, *, n: int, dot_precision: str = "highest"):

@@ -88,7 +88,7 @@ from ..ops.smallchol import (
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
 from .split import (
-    matmul_bf16x3, matmul_tf32x3, matmul_tf32x3_chunked, rows_at_16_bytes, uses_bf16x3,
+    matmul_bf16x3, matmul_tf32x3_chunked, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
 )
 
 #: covariate columns (intercept included) the general kernel is instantiated
@@ -101,8 +101,17 @@ GENERAL_COVARIATES = 3
 CHUNK_SAMPLES = 40
 
 #: chunks that the general and wide kernels add into one product set before
-#: adding the set into its float32 running total (kFoldChunks)
+#: adding the set into its float32 running total past 200 samples
+#: (kFoldChunks); up to 200 samples they add it after every chunk
+#: (:func:`fold_chunks`)
 FOLD_CHUNKS = 5
+
+
+def fold_chunks(n: int) -> int:
+    """Chunks that the general and wide kernels carry in a product set
+    before they add it into its running total, for n samples
+    (``fold_chunks()`` in ``csrc/liteqtl_chunked.cuh``)."""
+    return FOLD_CHUNKS if n > FOLD_CHUNKS * CHUNK_SAMPLES else 1
 
 #: covariate columns the resident kernel is instantiated for: it keeps
 #: (c + 2) accumulator sets of 32 registers a thread
@@ -213,6 +222,29 @@ def _descending(lam) -> bool:
     return bool(((lam[1:] <= lam[:-1]).all() & (lam[0] > lam[-1])).item())
 
 
+def off_covariates(X0m, C0):
+    """X0m with its part in the span of C0's columns taken out, unweighted,
+    in X0m's dtype; a column whose remainder is rounding noise of that
+    subtraction (norm^2 at most 1024 float32 eps of its own, the kernels'
+    keep test without the weights) becomes zero.
+
+    The LOD, the effect and its standard error depend on a marker only
+    through its residual on the covariates under each trait's weights, so
+    adding any combination of the covariates to it changes none of them.
+    Taken out here, in float64 under BALANCED, that part no longer enters
+    the float32 products: with the intercept among the covariates the
+    rotated markers' means sit in the samples of the kinship's largest
+    eigenvalues, and D1 - sum Z^2 then cancelled most of D1 in float32,
+    which left the products' and the epilogue's rounding errors at several
+    times their size (``chip_smoke.py`` phase 4's decomposition). The
+    permutation kernel's markers are taken the same way
+    (``models/bulkperm.py::_bulkperm_prep``)."""
+    C = C0.to(X0m.dtype)
+    Xr = X0m - C @ (torch.linalg.pinv(C) @ X0m)
+    keep = cancel_keep_mask((Xr * Xr).sum(0), (X0m * X0m).sum(0), eps=torch.finfo(_F32).eps)
+    return Xr * keep
+
+
 def _marker_operand(X0m):
     """X0m as float32, contiguous, or where p is no multiple of 4 the first
     p columns of a zero-padded (n, p + pad) array."""
@@ -244,6 +276,7 @@ def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False,
     n, c = X0m.shape[0], C0.shape[1]
     if _descending(lam):
         Y0, X0m, C0, lam = Y0.flip(0), X0m.flip(0), C0.flip(0), lam.flip(0)
+    X0m = off_covariates(X0m, C0)
     if (path or kernel_path(n, c, effects)) == "wide":
         return _prepare_wide(Y0, X0m, C0, lam, h2_per_trait, effects)
     W = make_weights(h2_per_trait, lam).abs().T.to(_F32).contiguous()  # (n, m)
@@ -403,7 +436,7 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
         if X.stride(0) % 4 or X.data_ptr() % 16:
             X = rows_at_16_bytes(X.contiguous())
         stream = torch.cuda.current_stream().cuda_stream
-        # past FOLD_CHUNKS chunks a walk keeps running totals in device memory
+        # a walk of more than one chunk keeps running totals in device memory
         floats = _totals_floats(lib, n, c, effects, general)
         totals = torch.zeros(floats, dtype=_F32, device=X.device) if floats else None
         rc = lib.bulklmm_liteqtl_lod(
@@ -498,9 +531,20 @@ def liteqtl_lod_plain(X, C, W, WY, scal, *, effects: bool = False):
 def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function with the resident kernel's arithmetic: X, X * X
     and X * C_k (or V_k) rounded to float32, then each product as three TF32
-    passes (``split.py::matmul_tf32x3``). On any device; no main path takes
-    it."""
-    return _lod_with_product(X, C, W, WY, scal, matmul_tf32x3, effects)
+    passes in the resident kernel's order, summed as its tensor cores sum
+    them (``split.py::matmul_tf32x3_emulated``: the small terms of every
+    depth step first, then the leading terms a step at a time, each step
+    added into the total rounded to nearest; at c = 3 with the effects
+    variant and 2 depth steps the leading terms go into the total, as that
+    instantiation of the kernel takes them). On any device; no main path
+    takes it."""
+    n, c = X.shape[0], C.shape[0] if C.dim() == 3 else C.shape[1]
+    run = None if effects and c == 3 and resident_steps(n) <= 2 else 1
+
+    def product(A, B):
+        return matmul_tf32x3_emulated(A, B, smalls_first=True, run=run)
+
+    return _lod_with_product(X, C, W, WY, scal, product, effects)
 
 
 def liteqtl_bf16x3_reference(X, C, W, WY, scal, *, effects: bool = False):
@@ -516,12 +560,12 @@ def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
     """The kernel's function with the general and wide kernels' arithmetic:
     the operands rounded as :func:`liteqtl_split_reference` rounds them, the
     samples in chunks of :data:`CHUNK_SAMPLES`, each chunk's three TF32
-    passes added to one float32 sum, its small terms first, and that sum
-    added into a running total every :data:`FOLD_CHUNKS` chunks
-    (``split.py::matmul_tf32x3_chunked``). On either operand form and any
-    device; no main path takes it."""
+    passes added to one float32 sum as the tensor cores add them, its small
+    terms first, and that sum added into a running total every
+    :func:`fold_chunks` chunks (``split.py::matmul_tf32x3_chunked``). On
+    either operand form and any device; no main path takes it."""
     def product(A, B):
-        return matmul_tf32x3_chunked(A, B, CHUNK_SAMPLES, fold=FOLD_CHUNKS)
+        return matmul_tf32x3_chunked(A, B, CHUNK_SAMPLES, fold=fold_chunks(A.shape[-1]))
 
     return _lod_with_product(X, C, W, WY, scal, product, effects)
 

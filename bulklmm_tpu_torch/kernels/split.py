@@ -10,9 +10,14 @@ any device, so the split's accuracy is testable without a card and
 ``chip_smoke.py`` can hold each kernel against it as a second yardstick. No
 main path calls it: the plain versions of the kernels stay exact float32.
 
-The sums are taken in another order than the kernels take them (three whole
-products here, depth-8 steps there), so a kernel agrees with its split
-reference to float32 rounding, not bit for bit.
+The tensor cores do not sum as float32 on the CUDA cores does: they cut
+(csrc/accumulate_probe.cu; :data:`TENSOR_CORE_SUM`). :func:`tensor_core_sum`
+is that sum and :func:`matmul_tf32x3_emulated` a kernel's whole product
+under it, in the kernel's order of depth steps, passes and runs: the
+kernels' split references, so that a kernel agrees with its split
+reference but for the epilogue's arithmetic. :func:`matmul_tf32x3` keeps
+round-to-nearest sums (three whole products), for comparisons: what the
+3 x TF32 products give without the tensor cores' cuts.
 
 Under the THROUGHPUT preset's "high" products the kernels take bf16x3
 instead: every operand is written as ``hi + lo``, both rounded to bfloat16
@@ -65,30 +70,134 @@ def matmul_tf32x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A_small @ B_big + A_big @ B_small) + A_big @ B_big
 
 
-@with_highest_matmul()
 def matmul_tf32x3_chunked(A: torch.Tensor, B: torch.Tensor, chunk: int, *,
                           fold: int | None = None) -> torch.Tensor:
     """``A @ B`` as the chunked LOD kernels take it: the contraction in
-    chunks of ``chunk``, each chunk's three products of the TF32 halves added
-    one after another to one float32 sum, the small terms first (A small x
-    B big, A big x B small) and the leading term after them. With ``fold``,
-    that sum starts again from zero every ``fold`` chunks and each finished
-    sum is added into a float32 running total, as the kernels fold their
-    accumulators (``csrc/liteqtl_chunked.cuh``); without it one sum runs
-    across every chunk."""
+    chunks of ``chunk`` samples, each chunk's
+    three products of the TF32 halves added one pass after another into one
+    float32 accumulator as the tensor cores add them, the small terms first
+    (A small x B big, A big x B small) and the leading term after them.
+    With ``fold``, the accumulator starts again from zero every ``fold``
+    chunks and each finished run is added into a float32 running total
+    rounded to nearest, as the kernels fold their accumulators
+    (``csrc/liteqtl_chunked.cuh``); without it one accumulator runs across
+    every chunk (:func:`matmul_tf32x3_emulated`)."""
+    return matmul_tf32x3_emulated(A, B, chunk=chunk, run=fold)
+
+
+def round_to_float32(s: torch.Tensor, mode: str) -> torch.Tensor:
+    """``s`` (float64) as float32, rounded to nearest even (``"rn"``) or cut
+    toward zero (``"rz"``)."""
+    y = s.to(torch.float32)
+    if mode == "rn":
+        return y
+    if mode != "rz":
+        raise ValueError(f"round_to_float32: mode is 'rn' or 'rz', got {mode!r}")
+    over = y.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def tensor_core_sum(acc: torch.Tensor, prods: torch.Tensor, *, extra: int, addend: str,
+                    finish: str, group: int) -> torch.Tensor:
+    """A model of one tensor-core product's float32 sum: ``acc`` (float32,
+    any shape) plus the exact products ``prods`` (float64, the same shape
+    and one more axis, the depth), ``group`` products at a time in depth
+    order. Each group and the running value are aligned to the largest
+    exponent among them and every addend is cut to ``extra`` bits below
+    float32's last place there (``addend``: "rz" toward zero, "rd" toward
+    minus infinity, as a two's complement cut), the cut addends are summed
+    exactly, and the sum is made float32 by ``finish`` ("rz" or "rn"). The
+    probe (``kernels/accumulate_probe.py``) finds which parameters the card
+    follows; float64 holds every step exactly for ``extra`` up to 24."""
+    if not 0 <= extra <= 24:
+        raise ValueError(f"tensor_core_sum: extra is 0 to 24 bits, got {extra}")
+    out = acc.double()
+    depth = prods.shape[-1]
+    for k0 in range(0, depth, group):
+        terms = torch.cat([out[..., None], prods[..., k0 : k0 + group]], -1)
+        _, exp = torch.frexp(terms)
+        exp = torch.where(terms == 0, torch.iinfo(exp.dtype).min, exp)
+        top = exp.max(-1, keepdim=True).values.clamp(min=-900)
+        quantum = torch.ldexp(torch.ones_like(terms[..., :1]), top - 24 - extra)
+        scaled = terms / quantum
+        cut = torch.trunc(scaled) if addend == "rz" else torch.floor(scaled)
+        out = round_to_float32((cut.sum(-1, keepdim=True) * quantum)[..., 0], finish).double()
+    return out.to(torch.float32)
+
+
+#: How the card's tensor cores finish a float32 sum, as the probe found it
+#: on an H100 for mma.sync m16n8k8 and wgmma m64n64k8 alike
+#: (``kernels/accumulate_probe.py``, chip_smoke.py's phase 2b): the eight
+#: products of a step and the accumulator aligned to the largest of them,
+#: every addend cut toward zero 2 bits below float32's last place there, the
+#: sum cut toward zero to float32 (:func:`tensor_core_sum`'s parameters)
+TENSOR_CORE_SUM = dict(extra=2, addend="rz", finish="rz", group=8)
+STEP = 8  # samples of one TF32 depth step (mma.sync m16n8k8, wgmma m64nNk8)
+#: float64 elements of the expanded products of one block of rows
+_BLOCK_ELEMENTS = 1 << 25
+
+
+def _tensor_core_step(acc, a, b):
+    """``acc + a @ b`` as the tensor cores take one product of depth
+    ``a.shape[-1] <= STEP`` (:data:`TENSOR_CORE_SUM`): ``a`` (..., M, k)
+    and ``b`` (..., k, N) hold TF32 values, so every elementwise product is
+    exact in float64; ``acc`` is float32 of the product's shape, or None for
+    zero. Rows of ``a`` in blocks, so that the (..., M, N, k) products stay
+    under :data:`_BLOCK_ELEMENTS`."""
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1])
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    rows = max(1, _BLOCK_ELEMENTS // max(1, out[..., :1, :].numel() * a.shape[-1]))
+    bt = b.double().mT[..., None, :, :]  # (..., 1, N, k)
+    for r0 in range(0, shape[-2], rows):
+        prods = a[..., r0 : r0 + rows, None, :].double() * bt  # (..., rows, N, k)
+        part = (torch.zeros(prods.shape[:-1], dtype=torch.float32, device=a.device)
+                if acc is None else acc[..., r0 : r0 + rows, :])
+        out[..., r0 : r0 + rows, :] = tensor_core_sum(part, prods, **TENSOR_CORE_SUM)
+    return out
+
+
+@with_highest_matmul()
+def matmul_tf32x3_emulated(A: torch.Tensor, B: torch.Tensor, *, chunk: int = STEP,
+                           run: int | None = None, smalls_first: bool = False) -> torch.Tensor:
+    """``A @ B`` (float32, batched as ``torch.matmul``) as the kernels take it
+    on the tensor cores: the three products of the TF32 halves (A small x B
+    big, A big x B small, A big x B big) in depth steps of :data:`STEP`,
+    each step's products added into a float32 accumulator as the tensor
+    cores add them (:func:`_tensor_core_step`, bit for bit as the probe
+    found them). The kernels' split references are this function in their
+    kernel's order:
+
+    - the depth in chunks of ``chunk`` samples, each chunk's three passes
+      one after another over its steps (:data:`STEP`: a step's three
+      products together);
+    - ``run`` chunks into one accumulator that starts from zero, and every
+      finished run added into a float32 total rounded to nearest (None: one
+      accumulator for the whole depth);
+    - ``smalls_first``: the small terms of every step first, into the
+      total, and then the leading terms in runs (the resident kernels' two
+      passes over the depth).
+    """
     A_big, A_small = tf32_split(A)
     B_big, B_small = tf32_split(B)
     depth = A.shape[-1]
-    run = depth if fold is None else chunk * fold
+    chunks = [[slice(k, min(k + STEP, c0 + chunk, depth))
+               for k in range(c0, min(c0 + chunk, depth), STEP)]
+              for c0 in range(0, depth, chunk)]
     total = None
-    for r0 in range(0, depth, run):
-        part = None
-        for k0 in range(r0, min(r0 + run, depth), chunk):
-            a_big, a_small = A_big[..., k0 : k0 + chunk], A_small[..., k0 : k0 + chunk]
-            b_big, b_small = B_big[..., k0 : k0 + chunk, :], B_small[..., k0 : k0 + chunk, :]
-            for a, b in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
-                part = a @ b if part is None else part + a @ b
-        total = part if total is None else total + part
+    passes = [(A_small, B_big), (A_big, B_small), (A_big, B_big)]
+    if smalls_first:
+        for s in (s for chunk_steps in chunks for s in chunk_steps):
+            for a, b in passes[:2]:
+                total = _tensor_core_step(total, a[..., s], b[..., s, :])
+        passes = passes[2:]
+    every = len(chunks) if run is None else run
+    for r0 in range(0, len(chunks), every):
+        part = total if run is None else None
+        for chunk_steps in chunks[r0 : r0 + every]:
+            for a, b in passes:
+                for s in chunk_steps:
+                    part = _tensor_core_step(part, a[..., s], b[..., s, :])
+        total = part if run is None or total is None else total + part
     return total
 
 

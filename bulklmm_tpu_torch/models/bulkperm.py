@@ -43,6 +43,7 @@ from ..kernels.bulkperm_fused import (
     fused_perm_maxlods, fused_perm_maxlods_reference, prepare_chunk_inputs,
     prepare_trait_block,
 )
+from ..kernels.liteqtl_fused import off_covariates
 from ..ops.bulkperm import (
     check_permutation_indices, kernel_perm_chunk_cap, lowrank_perm_chunk_cap,
     lowrank_perm_marker_parts, lowrank_perm_trait_marker_parts, max_r2_perms_lowrank,
@@ -369,8 +370,12 @@ def _bulkperm_prep_traits(
 
 
 def _bulkperm_prep(Y, Xm, C, Ut, lam, h2_grid, **kw):
-    """The rotated markers and the trait-side preparation."""
-    return (Ut @ Xm,) + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw)
+    """The rotated markers, their part in the rotated covariates' span taken
+    out (``kernels/liteqtl_fused.py::off_covariates``: exact, since every
+    statistic residualizes the markers on the covariates), and the
+    trait-side preparation."""
+    return ((off_covariates(Ut @ Xm, Ut @ C),)
+            + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw))
 
 
 def _trait_block_lods(

@@ -102,7 +102,8 @@ def test_prepare_inputs_layout(p, row):
     """The scalar block's rows are the packed factor, zeta and inv_nrm2;
     every operand is float32 and contiguous, as the kernel's checks want, but
     X where p is no multiple of 4: its rows are then ``row`` floats apart,
-    zero-padded, so that each starts at a multiple of 16 bytes."""
+    zero-padded, so that each starts at a multiple of 16 bytes. X is the
+    markers off the covariates' span (``off_covariates``)."""
     n, m, c = 20, 11, 3
     _, targs = _both(_mk(n, p, m, c, dtype=np.float64))
     X, C, W, WY, scal = lf.prepare_inputs(*targs)
@@ -112,7 +113,7 @@ def test_prepare_inputs_layout(p, row):
     assert all(t.dtype == torch.float32 for t in (X, C, W, WY, scal))
     assert all(t.is_contiguous() for t in (C, W, WY, scal))
     assert X.stride() == (row, 1) and X.data_ptr() % 16 == 0
-    assert torch.equal(X, targs[1].float())
+    assert torch.equal(X, lf.off_covariates(targs[1], targs[2]).float())
     if row > p:  # the padding behind every row is zeros
         whole = torch.as_strided(X, (n, row), (row, 1))
         assert bool((whole[:, p:] == 0).all())
@@ -423,3 +424,61 @@ def test_chunked_reference_matches_plain_and_jax(n, c, effects):
         assert float((np.abs(b.double().numpy() - jb) / (np.abs(jb) + js)).max()) < 1e-4
         assert float((np.abs(s.double().numpy() - js) / js).max()) < 1e-4
     assert lf.launches == 0 and lf.effects_launches == 0
+
+
+# --- the markers off the covariates' span -----------------------------------------
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_off_covariates_keeps_every_weighted_residual(c):
+    """off_covariates takes out of each marker its part in the covariates'
+    span and nothing else: the result is orthogonal to C, and its residual
+    on C under any per-sample weights is the marker's own (float64, 1e-12);
+    an all-zero, a constant and a covariate-combination marker come out as
+    exact zeros."""
+    rng = np.random.default_rng(20 + c)
+    n, p = 40, 12
+    C = torch.from_numpy(np.concatenate([np.ones((n, 1)), rng.normal(size=(n, c - 1))], 1))
+    X = torch.from_numpy(rng.normal(size=(n, p)) + 3.0)
+    X[:, 0] = 0.0
+    X[:, 1] = 2.5
+    X[:, 2] = C @ torch.from_numpy(rng.normal(size=c))
+    Xr = lf.off_covariates(X, C)
+    assert bool((Xr[:, :3] == 0).all())
+    assert float((C.T @ Xr).abs().max()) < 1e-12 * float(X.abs().max())
+    for _ in range(3):
+        w = torch.from_numpy(rng.uniform(0.1, 3.0, n))
+        Cw = C * w.sqrt()[:, None]
+        Q = torch.linalg.qr(Cw)[0]
+
+        def residual(M):
+            Mw = M * w.sqrt()[:, None]
+            return Mw - Q @ (Q.T @ Mw)
+
+        assert float((residual(Xr) - residual(X))[:, 3:].abs().max()) < 1e-12 * float(X.abs().max())
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_off_covariates_takes_the_cancellation_out(seed):
+    """On a BXD-shaped rotated fixture (the intercept concentrated in the
+    largest eigenvalue's sample, where the markers' means sit) the resident
+    kernel's arithmetic (its split reference: the tensor cores' sums) is
+    closer to the float64 LOD of the same weights with the prepared,
+    off-covariates markers than with the raw rotated ones."""
+    import chip_smoke
+
+    n, p, m = 79, 128, 256
+    G, K, Y = chip_smoke.synth_bxd(n, p, m, seed=seed)
+    lam, U = np.linalg.eigh(K)
+    X0m = torch.from_numpy(U.T @ G.astype(np.float64))
+    Y0 = torch.from_numpy(U.T @ Y.astype(np.float64))
+    C0 = torch.from_numpy(U.T @ np.ones((n, 1)))
+    h2 = torch.from_numpy(np.random.default_rng(seed).uniform(0.0, 0.9, m))
+    ops = lf.prepare_inputs(Y0, X0m, C0, torch.from_numpy(lam), h2)
+    raw = (lf._marker_operand(X0m),) + tuple(ops[1:])
+    exact = lf._lod_with_product(X0m, *[o.double() for o in ops[1:]], torch.matmul)
+
+    def err(o):
+        return float((lf.liteqtl_split_reference(*o).double() - exact).abs().max())
+
+    assert err(ops) < err(raw)

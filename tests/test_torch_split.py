@@ -21,6 +21,7 @@ from bulklmm_tpu.ops import bulkperm as jops
 from bulklmm_tpu.pallas import bulkperm_fused as jfused
 from bulklmm_tpu.pallas.altgrid_fused import fused_alt_grid as jax_fused_alt_grid
 import bulklmm_tpu_torch as bt
+from bulklmm_tpu_torch.kernels import accumulate_probe as ap
 from bulklmm_tpu_torch.kernels import altgrid_fused as af
 from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
 from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
@@ -205,27 +206,29 @@ def test_matmul_tf32x3_batches_like_matmul():
 
 @pytest.mark.parametrize("n", [52, 2000])
 def test_matmul_tf32x3_chunked_is_float32_grade(n):
-    """The chunked LOD kernels' form (chunks of 40 folded into one running
-    sum): within 4 x the exact float32 product's error of the float64
-    product, as the unchunked form."""
+    """The chunked LOD kernels' form (chunks of 40, each run of
+    ``fold_chunks(n)`` chunks added into a running total): within 4 x the
+    exact float32 product's error of the float64 product, as the unchunked
+    form."""
     rng = np.random.default_rng(n + 1)
     A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
     B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
     exact = A.double() @ B.double()
     err32 = float((A @ B - exact).abs().max())
-    err = float((split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES) - exact).abs().max())
-    assert err <= 4 * err32
+    out = split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES, fold=lf.fold_chunks(n))
+    assert float((out - exact).abs().max()) <= 4 * err32
 
 
 @pytest.mark.parametrize("chunk", [17, 40, 64])
 def test_matmul_tf32x3_chunked_one_chunk_is_the_unchunked_form(chunk):
     """A chunk as deep as the contraction takes the unchunked form's three
-    products in its order: bit-equal; a batch is taken like matmul."""
+    passes in its order, into one accumulator: bit-equal; a batch is taken
+    like matmul."""
     rng = np.random.default_rng(chunk)
     A = torch.from_numpy(rng.normal(size=(30, 17)).astype(np.float32))
     B = torch.from_numpy(rng.normal(size=(5, 17, 9)).astype(np.float32))
     out = split.matmul_tf32x3_chunked(A, B, chunk)
-    assert torch.equal(out, split.matmul_tf32x3(A, B))
+    assert torch.equal(out, split.matmul_tf32x3_emulated(A, B, chunk=17))
     assert tuple(out.shape) == (5, 30, 9) and out.dtype == torch.float32
 
 
@@ -260,6 +263,119 @@ def test_matmul_tf32x3_chunked_fold_adds_runs_into_a_total(fold):
     assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=fold), want)
     assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=7),
                        split.matmul_tf32x3_chunked(A, B, chunk))
+
+
+# --- the tensor cores' sums -----------------------------------------------------------
+
+#: The probe's documented cases as the card gave them (chip_smoke.py phase
+#: 2b, NVIDIA H100 80GB HBM3, mma.sync m16n8k8 and wgmma m64n64k8 alike):
+#: pattern -> the result minus the accumulator, in units of 2^-23, for the
+#: accumulators 1.0, -1.0, 1.5 and -1.5 (accumulate_probe.ACCUMULATORS)
+PROBE_CASES = {
+    "one product +0.25 ulp": (0.0, 0.5, 0.0, 1.0),
+    "one product -0.25 ulp": (-0.5, 0.0, -1.0, 0.0),
+    "one product +0.5 ulp": (0.0, 0.5, 0.0, 1.0),
+    "one product -0.5 ulp": (-0.5, 0.0, -1.0, 0.0),
+    "one product +0.75 ulp": (0.0, 1.0, 0.0, 1.0),
+    "one product -0.75 ulp": (-1.0, 0.0, -1.0, 0.0),
+    "one product +1.25 ulp": (1.0, 1.5, 1.0, 2.0),
+    "one product -1.25 ulp": (-1.5, -1.0, -2.0, -1.0),
+    "one product +1.5 ulp": (1.0, 1.5, 1.0, 2.0),
+    "one product -1.5 ulp": (-1.5, -1.0, -2.0, -1.0),
+    "eight products 2^-1 ulp": (4.0, 4.0, 4.0, 4.0),
+    "eight products 2^-2 ulp": (2.0, 2.0, 2.0, 2.0),
+    "eight products 2^-3 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-4 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-5 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-6 ulp": (0.0, 0.0, 0.0, 0.0),
+    "four products 1/4 ulp, first half": (1.0, 1.0, 1.0, 1.0),
+    "two 1/4 ulp in each half": (1.0, 1.0, 1.0, 1.0),
+}
+
+
+def test_probe_cases_are_the_documented_ones():
+    names, acc, prods = ap.documented_cases()
+    assert names == list(PROBE_CASES)
+    assert acc.shape == (len(names), len(ap.ACCUMULATORS)) and prods.shape == (len(names), ap.DEPTH)
+
+
+@pytest.mark.parametrize("name", list(PROBE_CASES))
+def test_tensor_core_sum_reproduces_the_probe(name):
+    """The twin's model of the tensor cores' sum (split.TENSOR_CORE_SUM)
+    gives the card's result of every documented case bit for bit; rounding
+    to nearest or keeping every bit does not (the cases have force)."""
+    names, acc, prods = ap.documented_cases()
+    r = names.index(name)
+    a = torch.tensor(acc[r], dtype=torch.float32)
+    pr = torch.from_numpy(np.broadcast_to(prods[r], (len(ap.ACCUMULATORS), ap.DEPTH)).copy())
+    want = a.double() + torch.tensor(PROBE_CASES[name], dtype=torch.float64) * ap.ULP
+    got = split.tensor_core_sum(a, pr, **split.TENSOR_CORE_SUM)
+    assert torch.equal(got, want.float()) and torch.equal(want.float().double(), want)
+
+
+def test_probe_fit_names_the_twins_model_alone():
+    """Of every candidate model, the documented cases' card results are
+    given by the twin's and by no model that rounds to nearest or keeps more
+    than 2 bits beyond float32's last place."""
+    names, acc, prods = ap.documented_cases()
+    A, C = ap._tiles_of(acc, prods, "mma")
+    D = C.reshape(-1, C.shape[-1]).copy()  # rows past the cases: no products
+    table = np.array([PROBE_CASES[n] for n in names])
+    for j in range(D.shape[1]):  # columns repeat the accumulators
+        D[: len(names), j] = acc[:, j % acc.shape[1]] + table[:, j % acc.shape[1]] * ap.ULP
+    D = D.reshape(C.shape)
+    models = ap.fit(A, C, D)
+    assert split.TENSOR_CORE_SUM in models
+    assert all(m["finish"] == "rz" and m["extra"] == 2 for m in models)
+
+
+def _bxd_like_products(seed):
+    """D1 = (X * X)^T W and B = X^T WY of a BXD-shaped rotated fixture (79
+    samples), float32 operands."""
+    import chip_smoke
+
+    n, p, m = 79, 128, 256
+    G, K, Y = chip_smoke.synth_bxd(n, p, m, seed=seed)
+    lam, U = np.linalg.eigh(K)
+    X = torch.from_numpy((U.T @ G.astype(np.float64)).astype(np.float32))
+    w = 1.0 / (0.5 * lam + 0.5)
+    W = torch.from_numpy(np.broadcast_to(w[:, None], (n, m)).astype(np.float32).copy())
+    WY = torch.from_numpy((w[:, None] * (U.T @ Y.astype(np.float64))).astype(np.float32))
+    return {"D1": ((X * X).T.contiguous(), W), "B": (X.T.contiguous(), WY)}
+
+
+@pytest.mark.parametrize("product", ["D1", "B"])
+@pytest.mark.parametrize("order", ["resident", "mma"])
+def test_cut_sums_stray_and_runs_do_not(product, order):
+    """On a BXD-like fixture, against the float64 product of the same
+    float32 operands (RMS error relative to the largest output): under the
+    tensor cores' sums, the kernels' old order (one accumulator carried
+    across the depth) strays farther than the round-to-nearest twin
+    (``matmul_tf32x3``), and the new order (each depth step's run from zero,
+    added into the total rounded to nearest) stays within it."""
+    A, B = _bxd_like_products(3)[product]
+    exact = A.double() @ B.double()
+
+    def rms(out):
+        return float(((out.double() - exact) / exact.abs().max()).square().mean().sqrt())
+
+    first = order == "resident"
+    old = split.matmul_tf32x3_emulated(A, B, smalls_first=first)
+    new = split.matmul_tf32x3_emulated(A, B, smalls_first=first, run=1)
+    rn = rms(split.matmul_tf32x3(A, B))
+    assert rms(old) > 1.2 * rn
+    assert rms(new) <= rn
+
+
+def test_emulated_step_is_exact_for_exact_sums():
+    """Products whose sum with the accumulator is a float32 number lose
+    nothing: small integers, any order, batched as matmul."""
+    rng = np.random.default_rng(4)
+    A = torch.from_numpy(rng.integers(-8, 9, (3, 20, 37)).astype(np.float32))
+    B = torch.from_numpy(rng.integers(-8, 9, (37, 11)).astype(np.float32))
+    want = A @ B
+    for kw in ({}, {"run": 1}, {"smalls_first": True, "run": 1}, {"chunk": 16, "run": 2}):
+        assert torch.equal(split.matmul_tf32x3_emulated(A, B, **kw), want)
 
 
 # --- the permutation kernel's split reference ----------------------------------------
