@@ -58,8 +58,8 @@
 //   spill 444 bytes. A walk that folds adds its last chunks into the totals
 //   too and reads its sums back from them, so that its sets die there:
 //   taking the sums as total + set where they are used spilled as well.
-//   The CPU twin (kernels/split.py::matmul_tf32x3_chunked) folds the same
-//   way.
+//   The CPU twin (kernels/split.py::matmul_tf32x3_emulated, with
+//   chunk=CHUNK_SAMPLES and run=fold_chunks(n)) folds the same way.
 // - A chunk is 40 samples, five depth steps of 8 fixed at compile time:
 //   BXD's 79 samples take two chunks (80, as the resident kernel's 10
 //   steps) and 2,000 take 50, with no step spent on padding. A run-time

@@ -304,6 +304,13 @@ int bulklmm_liteqtl_path(int n, int c, int effects) {
   return is_resident(n, c, effects != 0) ? 1 : 0;
 }
 
+// 1 where the resident 3 x TF32 kernel for c covariate columns and `steps`
+// depth steps takes its leading terms a depth step at a time into a scratch
+// set, 0 where it adds them straight into its sets (lead_runs()).
+int bulklmm_liteqtl_lead_runs(int c, int steps, int effects) {
+  return lead_runs(tf32x3::Policy::kStep, c, steps, effects != 0) ? 1 : 0;
+}
+
 // The floats of device memory that bulklmm_liteqtl_lod needs as `totals`
 // for n samples and c covariate columns (0: none), or -1 with the CUDA error
 // in *error.

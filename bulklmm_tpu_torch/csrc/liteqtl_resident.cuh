@@ -326,15 +326,17 @@ __device__ __forceinline__ void store_pair(float* dst, int row, int col, const f
   }
 }
 
-// Whether the resident kernel built for (P, C, kSteps, kEffects) takes its
-// leading terms a depth step at a time into a scratch set, each step added
-// into its set rounded to nearest (tf32x3), rather than straight into its
-// sets (bf16x3); at c = 3 with the effects variant and 2 depth steps
-// (n <= 16) the scratch set spilled 36 bytes, and that instantiation adds
-// the leading terms into its sets too.
-template <class P, int C, int kSteps, bool kEffects>
-__host__ __device__ constexpr bool lead_runs() {
-  return P::kStep == 8 && !(kEffects && C == 3 && kSteps <= 2);
+// Whether the resident kernel built for a policy's depth step (`step`: 8
+// tf32x3, 16 bf16x3), c covariate columns, `steps` depth steps and the
+// effects variant takes its leading terms a depth step at a time into a
+// scratch set, each step added into its set rounded to nearest (tf32x3),
+// rather than straight into its sets (bf16x3); at c = 3 with the effects
+// variant and 2 depth steps (n <= 16) the scratch set spilled 36 bytes, and
+// that instantiation adds the leading terms into its sets too. The CPU twin
+// (kernels/liteqtl_fused.py::lead_runs) is held against it through
+// bulklmm_liteqtl_lead_runs().
+__host__ __device__ constexpr bool lead_runs(int step, int c, int steps, bool effects) {
+  return step == 8 && !(effects && c == 3 && steps <= 2);
 }
 
 // kSteps: depth steps of the policy P, n padded; a template parameter so
@@ -358,7 +360,7 @@ liteqtl_resident_kernel(const float* __restrict__ X,     // (n, ldx) rotated mar
   constexpr int kDepths = P::kStep / 4;  // a thread's depths of a step
   constexpr int depth = P::kStep * kSteps;
   constexpr int kS = scalar_rows(C, kEffects);
-  constexpr bool kLeadRuns = lead_runs<P, C, kSteps, kEffects>();
+  constexpr bool kLeadRuns = lead_runs(P::kStep, C, kSteps, kEffects);
   constexpr int kAcc = C + 2;  // B, D1, U_0 .. U_{C-1}
   constexpr int kTileFloats = depth * kTileM / (kBf16 ? 2 : 1);  // 32-bit words
   constexpr int kStageFloats = depth * kLdX;

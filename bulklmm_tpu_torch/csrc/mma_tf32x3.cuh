@@ -140,6 +140,7 @@ __device__ __forceinline__ void load_fragments(Fragments<MT, NT>& f, const float
 // registers, not 4 MT NT.
 template <int MT, int NT>
 __device__ __forceinline__ void mma_fragments(float (&acc)[MT][NT][4], const Fragments<MT, NT>& f) {
+  static_assert(MT % 2 == 0, "mma_fragments takes the A-side tiles two at a time");
 #pragma unroll
   for (int i2 = 0; i2 < MT; i2 += 2) {
     float part[2][NT][4] = {};

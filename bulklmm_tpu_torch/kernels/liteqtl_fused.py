@@ -83,12 +83,12 @@ import threading
 import torch
 
 from ..ops.smallchol import (
-    cancel_keep_mask, fwd_subst, pair_indices, residual_sq, unrolled_cholesky,
+    cancel_keep_mask, fwd_subst, off_covariates, pair_indices, residual_sq, unrolled_cholesky,
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
 from .split import (
-    matmul_bf16x3, matmul_tf32x3_chunked, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
+    matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
 )
 
 #: covariate columns (intercept included) the general kernel is instantiated
@@ -120,6 +120,21 @@ RESIDENT_COVARIATES = 3
 #: the most depth steps of 8 samples the resident kernel is built for (its
 #: limit under either products; bf16x3 steps are 16 samples, 6 of them)
 RESIDENT_STEPS = 11
+
+#: (covariate columns, most depth steps) of the resident 3 x TF32 effects
+#: instantiations that add their leading terms straight into their sets: a
+#: scratch set for them spilled there (:func:`lead_runs`)
+DIRECT_LEAD_EFFECTS = (3, 2)
+
+
+def lead_runs(c: int, steps: int, effects: bool) -> bool:
+    """Whether the resident 3 x TF32 kernel for c covariate columns and
+    ``steps`` depth steps takes its leading terms a depth step at a time
+    into a scratch set, each step added into its set rounded to nearest,
+    rather than straight into its sets (``lead_runs()`` in
+    ``csrc/liteqtl_resident.cuh``; ``chip_smoke.py`` holds the two
+    together over every instantiation that ptxas reports)."""
+    return not (effects and c == DIRECT_LEAD_EFFECTS[0] and steps <= DIRECT_LEAD_EFFECTS[1])
 
 #: shared memory a block can use on sm_90, bytes
 SHARED_LIMIT_BYTES = 232_448
@@ -222,29 +237,6 @@ def _descending(lam) -> bool:
     return bool(((lam[1:] <= lam[:-1]).all() & (lam[0] > lam[-1])).item())
 
 
-def off_covariates(X0m, C0):
-    """X0m with its part in the span of C0's columns taken out, unweighted,
-    in X0m's dtype; a column whose remainder is rounding noise of that
-    subtraction (norm^2 at most 1024 float32 eps of its own, the kernels'
-    keep test without the weights) becomes zero.
-
-    The LOD, the effect and its standard error depend on a marker only
-    through its residual on the covariates under each trait's weights, so
-    adding any combination of the covariates to it changes none of them.
-    Taken out here, in float64 under BALANCED, that part no longer enters
-    the float32 products: with the intercept among the covariates the
-    rotated markers' means sit in the samples of the kinship's largest
-    eigenvalues, and D1 - sum Z^2 then cancelled most of D1 in float32,
-    which left the products' and the epilogue's rounding errors at several
-    times their size (``chip_smoke.py`` phase 4's decomposition). The
-    permutation kernel's markers are taken the same way
-    (``models/bulkperm.py::_bulkperm_prep``)."""
-    C = C0.to(X0m.dtype)
-    Xr = X0m - C @ (torch.linalg.pinv(C) @ X0m)
-    keep = cancel_keep_mask((Xr * Xr).sum(0), (X0m * X0m).sum(0), eps=torch.finfo(_F32).eps)
-    return Xr * keep
-
-
 def _marker_operand(X0m):
     """X0m as float32, contiguous, or where p is no multiple of 4 the first
     p columns of a zero-padded (n, p + pad) array."""
@@ -262,7 +254,9 @@ def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False,
     """(X, C, W, WY, scal): the float32 operands of the kernel that ``path``
     names (default: :func:`kernel_path`'s for the shape).
 
-    X (n, p), C (n, c), W and WY (n, m), and scal (S, m) with rows
+    X (n, p) holds the markers off the covariates' span
+    (``ops/smallchol.py::off_covariates``, in X0m's dtype), C (n, c), W and
+    WY (n, m), and scal (S, m) with rows
     ``[L[(i, k)] for k in range(c) for i in range(k, c)] + zeta + [inv_nrm2]``,
     and ``[nrm2]`` after them for the effects variant; for "wide" C is V
     (c, n, m) and scal has no L rows (:func:`_prepare_wide`).
@@ -384,6 +378,8 @@ def _library():
     lib.bulklmm_liteqtl_totals.restype = ctypes.c_longlong
     lib.bulklmm_liteqtl_path.argtypes = [ctypes.c_int] * 3
     lib.bulklmm_liteqtl_path.restype = ctypes.c_int
+    lib.bulklmm_liteqtl_lead_runs.argtypes = [ctypes.c_int] * 3
+    lib.bulklmm_liteqtl_lead_runs.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -534,12 +530,11 @@ def liteqtl_split_reference(X, C, W, WY, scal, *, effects: bool = False):
     passes in the resident kernel's order, summed as its tensor cores sum
     them (``split.py::matmul_tf32x3_emulated``: the small terms of every
     depth step first, then the leading terms a step at a time, each step
-    added into the total rounded to nearest; at c = 3 with the effects
-    variant and 2 depth steps the leading terms go into the total, as that
-    instantiation of the kernel takes them). On any device; no main path
-    takes it."""
+    added into the total rounded to nearest, or straight into the total
+    where that instantiation of the kernel takes them so:
+    :func:`lead_runs`). On any device; no main path takes it."""
     n, c = X.shape[0], C.shape[0] if C.dim() == 3 else C.shape[1]
-    run = None if effects and c == 3 and resident_steps(n) <= 2 else 1
+    run = 1 if lead_runs(c, resident_steps(n), effects) else None
 
     def product(A, B):
         return matmul_tf32x3_emulated(A, B, smalls_first=True, run=run)
@@ -562,10 +557,10 @@ def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
     samples in chunks of :data:`CHUNK_SAMPLES`, each chunk's three TF32
     passes added to one float32 sum as the tensor cores add them, its small
     terms first, and that sum added into a running total every
-    :func:`fold_chunks` chunks (``split.py::matmul_tf32x3_chunked``). On
+    :func:`fold_chunks` chunks (``split.py::matmul_tf32x3_emulated``). On
     either operand form and any device; no main path takes it."""
     def product(A, B):
-        return matmul_tf32x3_chunked(A, B, CHUNK_SAMPLES, fold=fold_chunks(A.shape[-1]))
+        return matmul_tf32x3_emulated(A, B, chunk=CHUNK_SAMPLES, run=fold_chunks(A.shape[-1]))
 
     return _lod_with_product(X, C, W, WY, scal, product, effects)
 

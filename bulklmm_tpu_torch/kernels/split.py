@@ -70,21 +70,6 @@ def matmul_tf32x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A_small @ B_big + A_big @ B_small) + A_big @ B_big
 
 
-def matmul_tf32x3_chunked(A: torch.Tensor, B: torch.Tensor, chunk: int, *,
-                          fold: int | None = None) -> torch.Tensor:
-    """``A @ B`` as the chunked LOD kernels take it: the contraction in
-    chunks of ``chunk`` samples, each chunk's
-    three products of the TF32 halves added one pass after another into one
-    float32 accumulator as the tensor cores add them, the small terms first
-    (A small x B big, A big x B small) and the leading term after them.
-    With ``fold``, the accumulator starts again from zero every ``fold``
-    chunks and each finished run is added into a float32 running total
-    rounded to nearest, as the kernels fold their accumulators
-    (``csrc/liteqtl_chunked.cuh``); without it one accumulator runs across
-    every chunk (:func:`matmul_tf32x3_emulated`)."""
-    return matmul_tf32x3_emulated(A, B, chunk=chunk, run=fold)
-
-
 def round_to_float32(s: torch.Tensor, mode: str) -> torch.Tensor:
     """``s`` (float64) as float32, rounded to nearest even (``"rn"``) or cut
     toward zero (``"rz"``)."""

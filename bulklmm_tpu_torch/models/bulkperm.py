@@ -43,7 +43,6 @@ from ..kernels.bulkperm_fused import (
     fused_perm_maxlods, fused_perm_maxlods_reference, prepare_chunk_inputs,
     prepare_trait_block,
 )
-from ..kernels.liteqtl_fused import off_covariates
 from ..ops.bulkperm import (
     check_permutation_indices, kernel_perm_chunk_cap, lowrank_perm_chunk_cap,
     lowrank_perm_marker_parts, lowrank_perm_trait_marker_parts, max_r2_perms_lowrank,
@@ -56,6 +55,7 @@ from ..ops.lowrank import (
     fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank, null_sigma2_lowrank, refuse_pallas,
 )
 from ..ops.rotation import KinshipDecomposition, resolve_kinship
+from ..ops.smallchol import off_covariates
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell_columns
 from ..utils import memory
@@ -370,12 +370,8 @@ def _bulkperm_prep_traits(
 
 
 def _bulkperm_prep(Y, Xm, C, Ut, lam, h2_grid, **kw):
-    """The rotated markers, their part in the rotated covariates' span taken
-    out (``kernels/liteqtl_fused.py::off_covariates``: exact, since every
-    statistic residualizes the markers on the covariates), and the
-    trait-side preparation."""
-    return ((off_covariates(Ut @ Xm, Ut @ C),)
-            + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw))
+    """The rotated markers and covariates and the trait-side preparation."""
+    return (Ut @ Xm, Ut @ C) + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw)
 
 
 def _trait_block_lods(
@@ -483,11 +479,15 @@ def _lowrank_perm_tiling(mesh: Mesh, n, p, precision, trait_chunk, perm_chunk):
     return trait_chunk, min(perm_chunk, cap)
 
 
-def _full_rank_block_lods(mesh: Mesh, X0m, *, eng, n, pc_dev, precision, interpret):
+def _full_rank_block_lods(mesh: Mesh, X0m, C0, *, eng, n, pc_dev, precision, interpret):
     """``block_lods`` of ``tiles.py::_PermTiles.row`` on a rotated marker
-    panel (a block of one, in the streamed sweep): the panel placed once a
-    device, the permutation kernel's chunks (or the plain engine's) on each
-    tile."""
+    panel X0m (a block of one, in the streamed sweep) and the rotated
+    covariates C0: the panel placed once a device, the permutation kernel's
+    chunks (or the plain engine's) on each tile. The kernel's route takes
+    the markers off the covariates' span first
+    (``ops/smallchol.py::off_covariates``)."""
+    if eng == "pallas":
+        X0m = off_covariates(X0m, C0)
     X = _per_device(mesh, lambda d: X0m.to(d))
     # the kernel reads a contiguous float32 panel; the plain engine none
     X32 = {d: x.to(torch.float32).contiguous() if eng == "pallas" else None for d, x in X.items()}
@@ -602,7 +602,7 @@ def _bulkscan_perms_on_mesh(
     else:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
         with with_highest_matmul():
-            X0m, h2_list, sigma2_list, *trait_ops = _bulkperm_prep(
+            X0m, C0, h2_list, sigma2_list, *trait_ops = _bulkperm_prep(
                 Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype),
                 **prep_kw,
             )
@@ -611,7 +611,7 @@ def _bulkscan_perms_on_mesh(
             trait_chunk=trait_chunk, perm_chunk=perm_chunk,
         )
         rank = f"full{suffix}"
-        block_lods = _full_rank_block_lods(mesh, X0m, eng=eng, n=n, pc_dev=pc_dev,
+        block_lods = _full_rank_block_lods(mesh, X0m, C0, eng=eng, n=n, pc_dev=pc_dev,
                                            precision=precision, interpret=interpret)
     ckpt = _perm_checkpoint(
         checkpoint, n=n, m=m, p=p, nperms=nperms, rndseed=rndseed, method=method, reml=reml,

@@ -640,6 +640,7 @@ def bulkscan_perms_streamed(
     else:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         with with_highest_matmul():
+            C0 = Ut @ covar.to(dtype)
             h2_list, sigma2_list, *trait_ops = _bulkperm_prep_traits(
                 Y.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype), prior=prior,
                 reml=reml, method=method, optim_interval=optim_interval, precision=precision,
@@ -666,7 +667,7 @@ def bulkscan_perms_streamed(
             block_lods = _lowrank_block_lods_on(mesh, Xb.to(precision.resolve_kernel()), U, n=n,
                                                 pc_dev=perm_chunk, precision=precision)
         else:
-            block_lods = _full_rank_block_lods(mesh, _rotate_block(Ut, Xb), eng=eng, n=n,
+            block_lods = _full_rank_block_lods(mesh, _rotate_block(Ut, Xb), C0, eng=eng, n=n,
                                                pc_dev=perm_chunk, precision=precision,
                                                interpret=interpret)
         for ms in range(0, m, trait_chunk):

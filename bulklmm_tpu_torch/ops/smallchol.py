@@ -15,6 +15,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..utils.config import with_highest_matmul
+
 
 def pair_indices(c: int) -> List[Tuple[int, int]]:
     """Upper-triangular (k, l), k <= l, ordering for Gram entries."""
@@ -73,3 +75,25 @@ def cancel_keep_mask(post, pre, rel: float = 1024.0, *, eps=None):
     """Keep mask for norms computed by cancellation (:func:`residual_sq`),
     whose noise is linear in eps: ``post > rel eps pre``."""
     return (post > rel * _eps(post, eps) * pre).to(post.dtype)
+
+
+@with_highest_matmul()
+def off_covariates(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """X (n, p) with its part in the span of C's (n, c) columns taken out,
+    unweighted, in X's dtype; a column whose remainder is rounding noise of
+    that subtraction (:func:`residual_keep_mask` in X's dtype) becomes zero.
+
+    A marker's LOD, effect and standard error depend on it only through its
+    residual on the covariates under each trait's weights, so taking out
+    any combination of the covariates changes none of them. The CUDA
+    kernels' routes take their markers this way, in the solve dtype, before
+    rounding them to float32 (``kernels/liteqtl_fused.py::prepare_inputs``,
+    ``models/bulkperm.py::_full_rank_block_lods``): with the intercept among
+    the covariates the rotated markers' means sit in the samples of the
+    kinship's largest eigenvalues, and the kernels' D1 - sum Z^2 then
+    cancelled most of D1 in float32, which left the products' and the
+    epilogue's rounding errors at several times their size. The plain
+    engines keep the markers as they are."""
+    Cx = C.to(X.dtype)
+    Xr = X - Cx @ (torch.linalg.pinv(Cx) @ X)
+    return Xr * residual_keep_mask((Xr * Xr).sum(0), (X * X).sum(0))

@@ -577,11 +577,31 @@ def serialized_wgmma(log: Path) -> list:
     return sorted({m.group(1) for m in SERIAL_RE.finditer(log.read_text())})
 
 
+#: a resident 3 x TF32 LOD kernel entry: covariate columns, depth steps,
+#: steps in flight, effects
+RESIDENT_TF32_RE = re.compile(r"liteqtl_resident_kernelIN6tf32x36PolicyELi(\d+)ELi(\d+)ELi\d+ELb([01])")
+
+
 def check_ptxas(report: dict, serialized: list) -> None:
     """No kernel spills, no 3 x TF32 instantiation serializes its wgmma
-    products (``serialized``: :func:`serialized_wgmma`), and the LOD-only
-    instantiations' figures are LOD_ONLY_PTXAS's. Checked at the end of the
-    run, so that one run shows every phase."""
+    products (``serialized``: :func:`serialized_wgmma`), the LOD-only
+    instantiations' figures are LOD_ONLY_PTXAS's, and for every resident 3 x
+    TF32 instantiation that ptxas reports the CPU twin's
+    ``liteqtl_fused.py::lead_runs`` is the kernel's ``lead_runs()``.
+    Checked at the end of the run, so that one run shows every phase."""
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    resident = sorted({tuple(int(g) for g in found.groups())
+                       for k in report if (found := RESIDENT_TF32_RE.search(k))})
+    lib = lf._library()
+    twin_off = [r for r in resident if lf.lead_runs(*r) != bool(lib.bulklmm_liteqtl_lead_runs(*r))]
+    print(f"  resident 3 x TF32 instantiations (c, steps, effects) {len(resident)}, leading terms "
+          f"straight into their sets at {[r for r in resident if not lf.lead_runs(*r)]}; the twin's "
+          f"lead_runs differs from the kernel's at {twin_off}")
+    built = 2 * lf.RESIDENT_COVARIATES * len({lf.resident_steps(n) for n in range(1, 89)})
+    check(len(resident) == built, f"ptxas reports {len(resident)} resident 3 x TF32 "
+          f"instantiations, not {built}")
+    check(not twin_off, f"liteqtl_fused.lead_runs differs from the kernel's lead_runs() at {twin_off}")
     spilled = sorted(k for k, (_, st, ld, _) in report.items() if st or ld)
     moved = {k: (report.get(k), want) for k, want in LOD_ONLY_PTXAS.items() if report.get(k) != want}
     tf32 = [k for k in serialized if "bf16x3" not in k]
@@ -1121,11 +1141,15 @@ def _shape_line(entry) -> str:
 
 
 def _perm_block_operands(prep, idx, lo, hi):
-    """The kernel's operands for traits lo..hi of ``_bulkperm_prep``'s state."""
+    """The kernel's operands for traits lo..hi of ``_bulkperm_prep``'s state,
+    the markers off the covariates' span as the kernel's route takes them
+    (``models/bulkperm.py::_full_rank_block_lods``)."""
     import bulklmm_tpu_torch as bt
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.ops.smallchol import off_covariates
 
-    X0m, _, _, sqrtw, Qstack, wrn = prep
+    X0m, C0, _, _, sqrtw, Qstack, wrn = prep
+    X0m = off_covariates(X0m, C0)
     sw, Q = sqrtw[lo:hi], Qstack[lo:hi]
     S2 = bf.prepare_chunk_inputs(sw, Q, wrn[:, lo:hi], idx)
     inv_xn = bf.prepare_trait_block(X0m, sw, Q, precision=bt.BALANCED)
@@ -3086,6 +3110,65 @@ def throughput_kernel_checks(dev) -> None:
         check(from32 > 0, f"the bf16x3 permutation kernel gave the float32 result at {(n, p, mb, c, K)}")
 
 
+def _throughput_perm_decomposition(dev, Yd, Gd, K, ml, exact, same) -> None:
+    """Phase 17 (d), reported: the THROUGHPUT permutation maxima's distance
+    from EXACT64 (``exact``, traits 0..ORACLE_BLOCK; ``same``: the traits of
+    equal grid h2), taken apart on the main path's trait-side operands: the
+    bf16x3 kernel on the markers off the covariates' span (the main path;
+    ``ml`` its maxima from the scan), on the raw rotated markers, and the
+    bf16x3 and float32 plain versions on the main path's operands. Each as
+    the largest, the 99.99th percentile and the mean of |dLOD| over the
+    traits' columns."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.models import bulkperm as mp
+    from bulklmm_tpu_torch.ops.bulkperm import maxr2_to_lod, permutation_indices
+    from bulklmm_tpu_torch.ops.rotation import resolve_kinship
+    from bulklmm_tpu_torch.ops.smallchol import off_covariates
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+
+    # the scan's own preparation: every trait, in THROUGHPUT's solve dtype
+    # (float32); bf16x3 carries an operand's last-place change far
+    dtype = bt.THROUGHPUT.resolve_solve()
+    Ut, lam = resolve_kinship(K, "eigen", dtype, dev)
+    grid = torch.as_tensor(GRID, dtype=dtype, device=dev)
+    ones = torch.ones((N, 1), dtype=dtype, device=dev)
+    with with_highest_matmul():
+        X0m, C0, _, _, sqrtw, Qstack, wrn = mp._bulkperm_prep(
+            Yd.to(dtype), Gd.to(dtype), ones, Ut, lam, grid, prior=PRIOR, reml=False,
+            method="null-grid", optim_interval=1, precision=bt.THROUGHPUT,
+        )
+    idx = permutation_indices(N, NPERMS, 0).to(dev)
+    off = off_covariates(X0m, C0)
+    high = dict(dot_precision="high")
+    runs = {
+        "bf16x3 kernel, markers off the covariates (main path)": (off, bf.bulkperm_maxr2_cuda, high),
+        "bf16x3 kernel, raw rotated markers": (X0m, bf.bulkperm_maxr2_cuda, high),
+        "bf16x3 plain version, markers off the covariates": (off, bf.bulkperm_maxr2_plain, high),
+        "float32 plain version, markers off the covariates": (off, bf.bulkperm_maxr2_plain, {}),
+    }
+    print(f"  THROUGHPUT bulkscan_perms vs EXACT64, traits 0..{ORACLE_BLOCK} of equal grid h2, taken "
+          "apart (max, 99.99th percentile, mean of |dLOD|; reported):")
+    for name, (Xm, fn, kw) in runs.items():
+        cols = []
+        for lo in range(0, ORACLE_BLOCK, PERM_BLOCK):
+            hi = min(lo + PERM_BLOCK, ORACLE_BLOCK)
+            sw, Q = sqrtw[lo:hi], Qstack[lo:hi]
+            S2 = bf.prepare_chunk_inputs(sw, Q, wrn[:, lo:hi], idx)
+            inv_xn = bf.prepare_trait_block(Xm, sw, Q, precision=bt.THROUGHPUT)
+            cols.append(maxr2_to_lod(fn(Xm.to(torch.float32).contiguous(), S2, inv_xn, **kw), N))
+            del S2, inv_xn
+        L = torch.cat(cols, 0)
+        d = (L.double() - exact)[same].abs()
+        line = (f"    {name:54s} {d.max().item():.3e}  {torch.quantile(d, 0.9999).item():.3e}  "
+                f"{d.mean().item():.3e}")
+        if name.endswith("(main path)"):
+            line += f"; vs the scan's maxima {(L - ml).abs().max().item():.3e}"
+        print(line)
+        del L, d, cols
+    torch.cuda.empty_cache()
+
+
 def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches) -> dict:
     """Phase 17 (b)-(d): THROUGHPUT at BXD scale through the entry points,
     each with its launch counts, against EXACT64; each bf16x3 kernel alone
@@ -3180,6 +3263,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
           f"traits with another grid h2; max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_BAR:.0e})")
     check(0 < err < THROUGHPUT_BAR, "THROUGHPUT bulkscan_perms strays from EXACT64")
     out["perm_launches"], out["perm_vs_exact64"] = counts["bulkperm_maxr2_bf16x3"], err
+    _throughput_perm_decomposition(dev, Yd, Gd, K, res.maxlods[cut], exact.maxlods, same)
     del res, exact
     r2 = bf.bulkperm_maxr2_cuda(*perm_ops, dot_precision="high")
     ref = bf.bulkperm_maxr2_plain(*perm_ops, dot_precision="high")

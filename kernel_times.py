@@ -25,7 +25,12 @@ from one seed (``chip_smoke._kernel_inputs``) and prepared by the tree's own
 The same tree named twice shows the spread. Each tree's LOD kernel is
 also held against its plain version at every shape and on
 ``chip_smoke.py`` phase 11's block (the first 8,192 markers of its 2,000 x
-100,000 panel, on the scan's own operands): max |dLOD| of each. Prints the
+100,000 panel, on the scan's own operands): max |dLOD| of each. The
+permutation kernel is also timed on its chunked path at ``PERM_2000``
+(random operands) and held against its plain version there, and the
+BALANCED null-grid scan at ``GENERAL_N`` samples (the general LOD kernel)
+against EXACT64 at each of ``GENERAL_C``: max |dLOD| on the traits of equal
+grid h2 and the h2 flips. Prints the
 card's name and power limit, one line per run and each shape's bound (3 x
 TF32 passes at 495 TFLOP/s, or the bytes at 3.35 TB/s; beside it the
 bf16x3 bound, three bf16 passes at 989 TFLOP/s). Needs a CUDA device.
@@ -76,6 +81,14 @@ LOD_SHAPES = {
     "S5e": Shape(79, 7321, 35554, 12, effects=True),
 }
 SHAPE_SEED = 12
+#: the permutation kernel's chunked path (n > 88): samples, markers, traits
+#: and columns (1,000 permutations and the observed one) of its timed launch
+PERM_2000 = (2000, 20_000, 64, 1001)
+#: samples of the BALANCED null-grid scans that take the general LOD kernel
+#: (88 < n <= 200: four chunks of 40) against EXACT64, on chip_smoke.py's
+#: synthetic BXD-shaped data with its markers and traits, at these
+#: covariate counts (the intercept, and two random columns beside it)
+GENERAL_N, GENERAL_C = 150, (1, 3)
 
 
 def bound_ms(shape: Shape, products: str = "tf32x3") -> tuple[float, str]:
@@ -92,6 +105,14 @@ def bound_ms(shape: Shape, products: str = "tf32x3") -> tuple[float, str]:
     peak = {"tf32x3": 495e12, "bf16x3": 989e12}[products]
     by_ops, by_bytes = 3 * flops / peak * 1e3, nbytes / 3.35e12 * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def perm_bound_ms(n: int, p: int, mb: int, K: int) -> float:
+    """The least time of the permutation kernel's launch, ms: the larger of
+    three TF32 passes of its 2 n p mb K flops at 495 TFLOP/s and its bytes
+    (X, S2, inv_xn, the (mb, K) maxima) at 3.35 TB/s."""
+    nbytes = 4 * (n * p + mb * n * K + mb * p + mb * K)
+    return max(3 * 2.0 * n * p * mb * K / 495e12, nbytes / 3.35e12) * 1e3
 
 
 def time_tree(tree: Path) -> dict:
@@ -159,6 +180,51 @@ def time_tree(tree: Path) -> dict:
         del ops, got, plain
         torch.cuda.empty_cache()
     out["err"]["block"] = _biobank_block_err(cs, bt, lf, dev)
+    n, p, mb, K = PERM_2000
+    if bf.kernel_path(n) != "chunked":
+        raise RuntimeError(f"the permutation kernel at n = {n} does not take its chunked path")
+    perm_ops = cs._perm_operands(n, p, mb, 1, K, np.random.default_rng(SHAPE_SEED), dev)
+    out["perm2000_ms"] = median_ms(lambda: bf.bulkperm_maxr2_cuda(*perm_ops))
+    out["err"]["perm2000_r2"] = float(
+        (bf.bulkperm_maxr2_cuda(*perm_ops) - bf.bulkperm_maxr2_plain(*perm_ops)).abs().max())
+    del perm_ops
+    torch.cuda.empty_cache()
+    out["general_vs_exact64"] = _general_vs_exact64(cs, bt, lf, dev)
+    return out
+
+
+def _general_vs_exact64(cs, bt, lf, dev) -> dict:
+    """{c: (max |dLOD| on traits of equal grid h2, h2 flips, the plain
+    version's max |dLOD| on the same traits)} of the BALANCED null-grid scan
+    at GENERAL_N samples against EXACT64, for each of GENERAL_C; the scans
+    take the general LOD kernel, the plain version
+    (``fused_lods_per_trait_reference``) the tree's own preparation of the
+    same rotated inputs and h2."""
+    import numpy as np
+    import torch
+
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+
+    n = GENERAL_N
+    G, K, Y = cs.synth_bxd(n, cs.P, cs.M)
+    Gd, Yd = torch.from_numpy(G).to(dev), torch.from_numpy(Y).to(dev)
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    out = {}
+    for c in GENERAL_C:
+        if lf.kernel_path(n, c) != "general":
+            raise RuntimeError(f"n = {n}, c = {c} does not take the general LOD kernel")
+        covar = torch.from_numpy(np.random.default_rng(c).normal(size=(n, c - 1))).to(dev)
+        res = bt.bulkscan(Yd, Gd, K, covar if c > 1 else None, precision=bt.BALANCED)
+        ex = bt.bulkscan(Yd, Gd, K, covar if c > 1 else None, precision=bt.EXACT64)
+        same = ex.h2_null_list == res.h2_null_list.double()
+        C = torch.cat([torch.ones((n, 1), dtype=torch.float64, device=dev), covar], 1)
+        with with_highest_matmul():
+            Lp = lf.fused_lods_per_trait_reference(dec.Ut @ Yd.double(), dec.Ut @ Gd.double(),
+                                                   dec.Ut @ C, dec.lam, res.h2_null_list)
+        out[c] = (cs._max_abs_diff_cols(res.L, ex.L, same), int((~same).sum()),
+                  cs._max_abs_diff_cols(Lp, ex.L, same))
+        del res, ex, Lp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -266,11 +332,17 @@ def main() -> None:
               f"{res['bulkperm_ms']:.3f} ms, alt-grid kernel {res['altgrid_ms']:.3f} ms; LOD kernel "
               + ", ".join(f"{name} {res[name]:.3f}" for name in LOD_SHAPES) + " ms; max|dLOD| "
               "vs its plain version " + ", ".join(f"{k} {v:.4e}" for k, v in res["err"].items()))
+        print(f"{'':>16s}  permutation kernel at n, p, mb, K = {PERM_2000} (chunked): "
+              f"{res['perm2000_ms']:.3f} ms; BALANCED null-grid at n = {GENERAL_N} (general kernel) "
+              "vs EXACT64, (max|dLOD|, h2 flips; plain version's max|dLOD|) by covariate count: "
+              + ", ".join(f"c = {c} ({v[0]:.4e}, {v[1]}; {v[2]:.4e})"
+                          for c, v in res["general_vs_exact64"].items()))
         if "bf16x3" in res:
             print(f"{'':>16s}  bf16x3 products: " + ", ".join(
                 f"{k.removesuffix('_ms')} {v:.3f} ms" for k, v in res["bf16x3"].items()))
     print("bounds (ms): " + ", ".join(f"{name} {bound_ms(shape)[0]:.3f}"
                                       for name, shape in LOD_SHAPES.items()))
+    print(f"permutation kernel at {PERM_2000}: bound {perm_bound_ms(*PERM_2000):.3f} ms")
     print("bf16x3 bounds (ms): " + ", ".join(f"{name} {bound_ms(shape, 'bf16x3')[0]:.3f}"
                                              for name, shape in LOD_SHAPES.items()))
 

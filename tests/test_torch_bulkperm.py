@@ -414,6 +414,27 @@ def test_options_match_jax(perm_data, option, preset):
         assert torch.equal(port.perm_maxima, port.maxlods)
 
 
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_small_residual_marker_keeps_its_lod(perm_data, engine):
+    """A marker whose residual on the intercept is 1e-3 of its size, and
+    which carries trait 1's signal, keeps its LOD under EXACT64: the plain
+    engine gives the JAX package's maxima within EXACT64's bar, and the
+    kernel's route (its plain version, the markers off the covariates'
+    span in float64 first) within the kernel's 1e-5 of them."""
+    G, Y, K = perm_data
+    G, Y = G.copy(), Y.copy()
+    z = G[:, 7] - G[:, 7].mean()
+    Y[:, 1] += 2.0 * z / z.std()
+    G[:, 7] = 1.0 + 1e-3 * z / np.abs(z).max()
+    _, ref = _run((G, Y, K), "EXACT64")
+    port = bt.bulkscan_perms(Y, G, K, nperms=NPERMS, rndseed=SEED, precision=bt.EXACT64,
+                             perm_idx=_jax_idx(52), device="cpu", engine=engine,
+                             interpret=engine == "pallas")
+    observed = bl.bulkscan(Y, G, K, precision=jcfg.EXACT64).L[7, 1]
+    assert float(observed) > 5.0 and float(np.asarray(ref.maxlods)[1, 0]) == pytest.approx(float(observed))
+    assert _maxdiff(port.maxlods, ref.maxlods) < (1e-5 if engine == "pallas" else LOD_BAR["EXACT64"])
+
+
 def test_nperms_zero_keeps_the_observed_column(perm_data):
     port, ref = _run(perm_data, "EXACT64", nperms=0)
     assert tuple(port.maxlods.shape) == (4, 1) and port.log10_adj_pvals is None

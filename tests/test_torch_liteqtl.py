@@ -19,6 +19,7 @@ from bulklmm_tpu.pallas import fused_lods_per_trait as jax_fused
 from bulklmm_tpu.utils import config as jcfg
 from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 from bulklmm_tpu_torch.ops.liteqtl import lods_per_trait
+from bulklmm_tpu_torch.ops.smallchol import off_covariates
 from bulklmm_tpu_torch.utils.config import precision_by_name
 
 torch.set_num_threads(1)
@@ -103,7 +104,7 @@ def test_prepare_inputs_layout(p, row):
     every operand is float32 and contiguous, as the kernel's checks want, but
     X where p is no multiple of 4: its rows are then ``row`` floats apart,
     zero-padded, so that each starts at a multiple of 16 bytes. X is the
-    markers off the covariates' span (``off_covariates``)."""
+    markers off the covariates' span (``ops/smallchol.py::off_covariates``)."""
     n, m, c = 20, 11, 3
     _, targs = _both(_mk(n, p, m, c, dtype=np.float64))
     X, C, W, WY, scal = lf.prepare_inputs(*targs)
@@ -113,7 +114,7 @@ def test_prepare_inputs_layout(p, row):
     assert all(t.dtype == torch.float32 for t in (X, C, W, WY, scal))
     assert all(t.is_contiguous() for t in (C, W, WY, scal))
     assert X.stride() == (row, 1) and X.data_ptr() % 16 == 0
-    assert torch.equal(X, lf.off_covariates(targs[1], targs[2]).float())
+    assert torch.equal(X, off_covariates(targs[1], targs[2]).float())
     if row > p:  # the padding behind every row is zeros
         whole = torch.as_strided(X, (n, row), (row, 1))
         assert bool((whole[:, p:] == 0).all())
@@ -443,7 +444,7 @@ def test_off_covariates_keeps_every_weighted_residual(c):
     X[:, 0] = 0.0
     X[:, 1] = 2.5
     X[:, 2] = C @ torch.from_numpy(rng.normal(size=c))
-    Xr = lf.off_covariates(X, C)
+    Xr = off_covariates(X, C)
     assert bool((Xr[:, :3] == 0).all())
     assert float((C.T @ Xr).abs().max()) < 1e-12 * float(X.abs().max())
     for _ in range(3):
@@ -456,6 +457,30 @@ def test_off_covariates_keeps_every_weighted_residual(c):
             return Mw - Q @ (Q.T @ Mw)
 
         assert float((residual(Xr) - residual(X))[:, 3:].abs().max()) < 1e-12 * float(X.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["singleton", "small residual"])
+def test_off_covariates_keeps_a_small_genuine_residual(case, dtype):
+    """Only rounding noise is zeroed, in the markers' own dtype: a singleton
+    coded by the major allele at n = 10,000 (residual norm^2 1e-4 of its
+    own) and a marker whose residual is 1e-3 of its size (norm^2 1e-6) keep
+    their residual, as the float64 model keeps their LOD; a constant marker
+    beside them is zeroed."""
+    n = 10_000 if case == "singleton" else 200
+    rng = np.random.default_rng(4)
+    C = torch.ones((n, 1), dtype=torch.float64)
+    if case == "singleton":
+        x = np.ones(n)
+        x[17] = 0.0
+    else:
+        z = rng.normal(size=n)
+        x = 1.0 + 1e-3 * (z - z.mean()) / z.std()
+    X = torch.from_numpy(np.stack([x, np.full(n, 3.0)], 1)).to(dtype)
+    Xr = off_covariates(X, C)
+    want = X.double()[:, 0] - X.double()[:, 0].mean()
+    assert float((Xr[:, 0].double() - want).abs().max()) < 1e-3 * float(want.abs().max())
+    assert bool((Xr[:, 1] == 0).all())
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])

@@ -215,7 +215,7 @@ def test_matmul_tf32x3_chunked_is_float32_grade(n):
     B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
     exact = A.double() @ B.double()
     err32 = float((A @ B - exact).abs().max())
-    out = split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES, fold=lf.fold_chunks(n))
+    out = split.matmul_tf32x3_emulated(A, B, chunk=lf.CHUNK_SAMPLES, run=lf.fold_chunks(n))
     assert float((out - exact).abs().max()) <= 4 * err32
 
 
@@ -227,7 +227,7 @@ def test_matmul_tf32x3_chunked_one_chunk_is_the_unchunked_form(chunk):
     rng = np.random.default_rng(chunk)
     A = torch.from_numpy(rng.normal(size=(30, 17)).astype(np.float32))
     B = torch.from_numpy(rng.normal(size=(5, 17, 9)).astype(np.float32))
-    out = split.matmul_tf32x3_chunked(A, B, chunk)
+    out = split.matmul_tf32x3_emulated(A, B, chunk=chunk)
     assert torch.equal(out, split.matmul_tf32x3_emulated(A, B, chunk=17))
     assert tuple(out.shape) == (5, 30, 9) and out.dtype == torch.float32
 
@@ -242,7 +242,7 @@ def test_matmul_tf32x3_chunked_folded_is_float32_grade(n):
     B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
     exact = A.double() @ B.double()
     err32 = float((A @ B - exact).abs().max())
-    out = split.matmul_tf32x3_chunked(A, B, lf.CHUNK_SAMPLES, fold=lf.FOLD_CHUNKS)
+    out = split.matmul_tf32x3_emulated(A, B, chunk=lf.CHUNK_SAMPLES, run=lf.FOLD_CHUNKS)
     assert float((out - exact).abs().max()) <= 4 * err32
 
 
@@ -258,11 +258,11 @@ def test_matmul_tf32x3_chunked_fold_adds_runs_into_a_total(fold):
     run = chunk * fold
     want = None
     for r0 in range(0, 130, run):
-        part = split.matmul_tf32x3_chunked(A[:, r0 : r0 + run], B[:, r0 : r0 + run], chunk)
+        part = split.matmul_tf32x3_emulated(A[:, r0 : r0 + run], B[:, r0 : r0 + run], chunk=chunk)
         want = part if want is None else want + part
-    assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=fold), want)
-    assert torch.equal(split.matmul_tf32x3_chunked(A, B, chunk, fold=7),
-                       split.matmul_tf32x3_chunked(A, B, chunk))
+    assert torch.equal(split.matmul_tf32x3_emulated(A, B, chunk=chunk, run=fold), want)
+    assert torch.equal(split.matmul_tf32x3_emulated(A, B, chunk=chunk, run=7),
+                       split.matmul_tf32x3_emulated(A, B, chunk=chunk))
 
 
 # --- the tensor cores' sums -----------------------------------------------------------
