@@ -13,6 +13,9 @@
 // - bulklmm_probe_wgmma: wgmma m64n64k8 (A from registers, B K-major in
 //   shared memory), one warpgroup a 64 x 64 x 8 tile: D = C + A B.
 //
+// accumulate_probe_bf16.cu holds the bf16 forms of THROUGHPUT's bf16x3
+// products (mma.sync m16n8k16, wgmma m64n64k16).
+//
 // A, B and C are float32 with row-major tiles one after another: A (rows x
 // 8), B (8 x columns), C and D (rows x columns). A's and B's values must be
 // TF32 already (13 low mantissa bits zero); they are handed to the tensor

@@ -6,8 +6,13 @@
 //
 // What bounds both on an H100: the operations, 2 (c + 2) n p m flops as
 // three TF32 passes on the tensor cores (at 2,000 x 100,000 x 2,048, c = 1:
-// 2.46e12 flops, 14.9 ms), against one (p, m) write and operands read once.
-// The design:
+// 2.46e12 flops, 14.9 ms), or as three bf16 passes under THROUGHPUT (7.45
+// ms), against one (p, m) write and operands read once. The products'
+// policy is the first template parameter of everything below that touches
+// the products, as in the resident kernel: tf32x3::Policy (depth steps of 8)
+// for every preset but THROUGHPUT, bf16x3::Policy (steps of 16,
+// mma_bf16x3.cuh) for its "high" products; Chunking<P> holds what differs
+// (see its note). The design:
 //
 // - A block of two warpgroups owns 64 traits and walks a group of marker
 //   tiles two at a time, one 64-marker tile a warpgroup. Both warpgroups
@@ -21,21 +26,25 @@
 //   past m arrive as zeros.
 // - Each chunk's trait operands (W and WY for the general kernel; V_k, with
 //   W and WY on the first walk, for the wide one) are split into their TF32
-//   halves once, by all 256 threads, and laid out K-major in shared memory
-//   as wgmma's B operand. The copies and the split do not overlap the
+//   (bf16) halves once, by all 256 threads, and laid out K-major in shared
+//   memory as wgmma's B operand. The copies and the split do not overlap the
 //   products (two barriers a chunk), and each costs a large share of a
 //   launch; a third warpgroup that copies and splits one step ahead of the
 //   other two (named barriers, setmaxnreg 56 / 224) was slower and spilled.
 // - X is the A operand, from registers, as in the resident kernel: one
 //   fragment load gives X, X * X and X * C_k, each rounded to float32 as the
 //   plain version rounds it and then split. Every product set is an m64n64
-//   accumulator of 32 registers a thread.
+//   accumulator of 32 registers a thread. A bf16x3 step of 16 samples takes
+//   two loads of a TF32 step's 8, each made into two of the four packed A
+//   registers (fill_a()), so that a load holds no more registers than
+//   under 3 x TF32.
 // - Within a chunk the small terms of every depth step come first and the
 //   leading terms after them, as in the resident kernel, in three passes
 //   over the chunk (A small x B big, A big x B small, A big x B big; see
 //   Pass).
 // - The tensor cores' float32 accumulation cuts where it should round, so
-//   one accumulator carried across the 50 chunks of 2,000 samples drifts
+//   under 3 x TF32 (Chunking<P> says why bf16x3 does not fold) one
+//   accumulator carried across the 50 chunks of 2,000 samples drifts
 //   by 750 cuts (1.05e-4 in LOD from the plain version at 2,000 x 8,192 x
 //   2,048). A walk therefore adds its sets into float32 running totals,
 //   rounded to nearest, every kFoldChunks chunks past 200 samples and after
@@ -60,9 +69,10 @@
 //   taking the sums as total + set where they are used spilled as well.
 //   The CPU twin (kernels/split.py::matmul_tf32x3_emulated, with
 //   chunk=CHUNK_SAMPLES and run=fold_chunks(n)) folds the same way.
-// - A chunk is 40 samples, five depth steps of 8 fixed at compile time:
-//   BXD's 79 samples take two chunks (80, as the resident kernel's 10
-//   steps) and 2,000 take 50, with no step spent on padding. A run-time
+// - A chunk is 40 samples, five depth steps of 8 fixed at compile time
+//   (bf16x3: 32 samples, two steps of 16; Chunking): BXD's 79 samples take
+//   two chunks (80, as the resident kernel's 10 steps; bf16x3 three, 96)
+//   and 2,000 take 50 (63, 2,016), with no step spent on padding. A run-time
 //   step count (the last chunk cut to the steps that hold samples) put the
 //   products in branches, and ptxas then moved accumulator registers
 //   between them (warpgroup.arrive injected, C7519) and spilled.
@@ -98,21 +108,44 @@
 namespace liteqtl {
 namespace chunked {
 
-constexpr int kChunk = 40;               // samples a chunk
-constexpr int kChunkSteps = kChunk / 8;  // depth steps of 8 a chunk
 constexpr int kRawLd = padded_stride(kTileM);  // row stride of a staged trait operand
-constexpr int kHalfFloats = kChunk * kTileM;   // one TF32 half of one split operand
-constexpr int kXFloats = kChunk * kLdX;        // one warpgroup's chunk of its marker tile
 constexpr uint64_t kStepUnits = 8 * kTileM * 4 / 16;  // one depth step of a split operand, 16-byte units
 constexpr int kZeroFloats = 8 * kTileM;  // a K-major depth step of zeros: zero_sets()' B operand
-constexpr int kFoldChunks = 5;  // chunks a set carries before it joins its running total, past 200 samples
 constexpr int kWgThreads = kThreads / kGroups;    // threads of a warpgroup
 constexpr int kSetFloats = 32 * kWgThreads;       // one warpgroup's product set
 
+// The chunk and the running totals of the policy P. Under tf32x3 a chunk is
+// 40 samples, five steps of 8, and a set joins its running total every 5
+// chunks past 200 samples and after every chunk below (fold_chunks()).
+// Under bf16x3 a chunk is 32 samples, two steps of 16: a half of a split
+// operand then takes 2 bytes a value, but the raw float32 stages grow with
+// the chunk's samples, and at 48 the wide kernel's stages, split operands,
+// D1 and finished tiles (which no longer fit its split W and WY) take
+// 244,736 bytes, past the 232,448 a block may have. The bf16x3 sets never
+// join running totals (kFoldChunks 0): folding as 3 x TF32 does (after
+// every chunk up to 192 samples, every 6 chunks past) took 1.44-1.72x the
+// time at BXD's 79 samples, where bf16x3's own rounding left the distances
+// as they were, and 1.16-1.21x at 2,000, where it halved the distance from
+// the float32 plain version (1.05e-4 to 5.3e-5 in LOD; THROUGHPUT's bar
+// there is 0.1; PERF.md).
+template <class P>
+struct Chunking {
+  static constexpr int kChunk = P::kStep == 8 ? 40 : 32;  // samples a chunk
+  static constexpr int kSteps = kChunk / P::kStep;        // depth steps a chunk
+  // 32-bit words of one half of one split operand
+  static constexpr int kHalfFloats = kChunk * kTileM * 8 / P::kStep;
+  static constexpr int kXFloats = kChunk * kLdX;  // one warpgroup's chunk of its marker tile
+  // chunks a set carries before it joins its running total, past
+  // kFoldChunks chunks of samples; 0: the sets never join one
+  static constexpr int kFoldChunks = P::kStep == 8 ? 5 : 0;
+};
+
 // Floats of one stage: both warpgroups' marker chunks, `ops` raw trait
 // operands and c covariate columns.
+template <class P>
 __host__ __device__ constexpr int stage_floats(int ops, int c) {
-  return kGroups * kXFloats + ops * kChunk * kRawLd + c * kChunk;
+  using K = Chunking<P>;
+  return kGroups * K::kXFloats + ops * K::kChunk * kRawLd + c * K::kChunk;
 }
 
 // Floats of the finished tiles, one a warpgroup.
@@ -122,9 +155,10 @@ constexpr int kFinishedFloats = kGroups * kTileP * kLdOut;
 // the finished tiles (unless `finished_apart` is false: they then take the
 // place of split operands that the kernel's last walk does not read), the
 // zero step and `srows` rows of per-trait scalars.
+template <class P>
 __host__ __device__ constexpr size_t shared_floats(int ops, int c, int srows,
                                                    bool finished_apart = true) {
-  return 2 * (size_t)ops * kHalfFloats + 2 * (size_t)stage_floats(ops, c) +
+  return 2 * (size_t)ops * Chunking<P>::kHalfFloats + 2 * (size_t)stage_floats<P>(ops, c) +
          (finished_apart ? kFinishedFloats : 0) + kZeroFloats + (size_t)srows * kTileM;
 }
 
@@ -150,24 +184,53 @@ __device__ __forceinline__ void wgmma_zero_m64n64k8(float (&d)[32], uint64_t des
       : "r"(zero), "l"(desc_zero));
 }
 
-// Every set of acc zeroed (wgmma_zero_m64n64k8()), as one group, waited for:
-// an instruction that touches a set while its product is in flight (even
-// the empty asm of pin_registers()) makes ptxas serialize every product of
-// the kernel (C7514).
-template <int kSets>
+// The bf16 form of wgmma_zero_m64n64k8(): the zero step's 2,048 bytes are
+// a K-major depth step of 16 bf16 zeros as well.
+__device__ __forceinline__ void wgmma_zero_m64n64k16(float (&d)[32], uint64_t desc_zero) {
+  const uint32_t zero = 0u;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %32, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %32, %32, %32}, %33, p, 1, 1, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(zero), "l"(desc_zero));
+}
+
+// d = 0 by a product of zeros of the policy's own type, so that a kernel
+// issues one kind of wgmma.
+template <class P>
+__device__ __forceinline__ void wgmma_zero(float (&d)[32], uint64_t desc_zero) {
+  if constexpr (P::kStep == 8) wgmma_zero_m64n64k8(d, desc_zero);
+  else wgmma_zero_m64n64k16(d, desc_zero);
+}
+
+// Every set of acc zeroed (wgmma_zero()), as one group, waited for: an
+// instruction that touches a set while its product is in flight (even the
+// empty asm of pin_registers()) makes ptxas serialize every product of the
+// kernel (C7514).
+template <class P, int kSets>
 __device__ __forceinline__ void zero_sets(float (&acc)[kSets][32], uint64_t desc_zero) {
   wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < kSets; ++s) wgmma_zero_m64n64k8(acc[s], desc_zero);
+  for (int s = 0; s < kSets; ++s) wgmma_zero<P>(acc[s], desc_zero);
   wgmma_commit();
   wgmma_wait<0>();
 }
 
 // The sets b, d1, ... zeroed as one group, waited for (zero_sets()).
-template <class... Sets>
+template <class P, class... Sets>
 __device__ __forceinline__ void zero_each(uint64_t desc_zero, Sets&... sets) {
   wgmma_fence();
-  (wgmma_zero_m64n64k8(sets, desc_zero), ...);
+  (wgmma_zero<P>(sets, desc_zero), ...);
   wgmma_commit();
   wgmma_wait<0>();
 }
@@ -189,16 +252,21 @@ __host__ __device__ constexpr long long total_floats(int slots, int sets) {
 }
 
 // Whether a walk over n samples folds its sets into running totals: every
-// walk of more than one chunk.
-__host__ __device__ constexpr bool folds(int n) { return n > kChunk; }
+// walk of more than one chunk, under a policy whose sets join totals.
+template <class P>
+__host__ __device__ constexpr bool folds(int n) {
+  return Chunking<P>::kFoldChunks > 0 && n > Chunking<P>::kChunk;
+}
 
 // Chunks that a walk over n samples carries in its sets before it adds them
 // into their totals: one up to kFoldChunks chunks (BXD's 79 samples take
 // two), so that no sum is cut at the result's full magnitude, and
 // kFoldChunks past that, where a fold every chunk would cost a fold five
-// times as often.
+// times as often (1 where the policy never folds).
+template <class P>
 __host__ __device__ constexpr int fold_chunks(int n) {
-  return n > kFoldChunks * kChunk ? kFoldChunks : 1;
+  using K = Chunking<P>;
+  return n > K::kFoldChunks * K::kChunk && K::kFoldChunks > 0 ? K::kFoldChunks : 1;
 }
 
 // The block's slot, claimed by its thread 0 from `slots` claim flags. At
@@ -309,39 +377,71 @@ __device__ __forceinline__ Effect effect_rn(float num, float d, bool keep, float
   return {beta, __fsqrt_rn(__fmul_rn(__fmul_rn(rss, inv_dof), inv_d))};
 }
 
-// The raw (kChunk, kRawLd) trait operand `raw` split into its TF32 halves at
+// Word e of both bf16 halves of a raw trait operand (split_operand()): word
+// depth s = 4 (e / 256) + e % 4 and column c = e / 4 % 64 pack the samples
+// sample_of_word(s) and that + 4, hi at big[e], lo at big[half + e].
+__device__ __forceinline__ void split_word(float* big, const float* raw, int e, int half) {
+  const int s = 4 * (e / (4 * kTileM)) + e % 4, c = (e / 4) % kTileM;
+  const int s0 = bf16x3::sample_of_word(s);
+  uint32_t hi, lo;
+  bf16x3::split_pair(raw[s0 * kRawLd + c], raw[(s0 + 4) * kRawLd + c], hi, lo);
+  big[e] = __uint_as_float(hi);
+  big[half + e] = __uint_as_float(lo);
+}
+
+// The raw (kChunk, kRawLd) trait operand `raw` split into its halves at
 // `big` and `big + kHalfFloats`, K-major. kmajor_offset(s, c, 64) is
 // 256 (s / 4) + 4 c + s % 4, so thread (c = e / 4 % 64, s % 4 = e % 4)
 // writes consecutive words and reads 32 different banks (row stride 8
-// modulo 32). The split in integer arithmetic (split_by_bits()): the
-// conversion instruction runs at a fraction of the integer units' rate.
+// modulo 32). Under tf32x3 s is a sample, split in integer arithmetic
+// (split_by_bits(): the conversion instruction runs at a fraction of the
+// integer units' rate); under bf16x3 s is a word depth, whose word packs
+// the samples sample_of_word(s) and that + 4 (mma_bf16x3.cuh's slot order),
+// split by cvt.rn.bf16x2 (split_word()). kRolled (bf16x3): one word at a
+// time, where the unrolled loop's temporaries beside the general kernel's
+// five live sets at c = 3 spilled 8 bytes.
+template <class P, bool kRolled = false>
 __device__ __forceinline__ void split_operand(float* big, const float* raw, int tid) {
+  constexpr int kHalf = Chunking<P>::kHalfFloats;
+  if constexpr (kRolled) {
+    static_assert(P::kStep == 16, "only the bf16x3 split is rolled");
+#pragma unroll 1
+    for (int r = 0; r < kHalf / kThreads; ++r) split_word(big, raw, tid + r * kThreads, kHalf);
+  } else {
 #pragma unroll
-  for (int r = 0; r < kHalfFloats / kThreads; ++r) {
-    const int e = tid + r * kThreads;
-    const int s = 4 * (e / (4 * kTileM)) + e % 4, c = (e / 4) % kTileM;
-    uint32_t b, sm;
-    split_by_bits(raw[s * kRawLd + c], b, sm);
-    big[e] = __uint_as_float(b);
-    big[kHalfFloats + e] = __uint_as_float(sm);
+    for (int r = 0; r < kHalf / kThreads; ++r) {
+      const int e = tid + r * kThreads;
+      if constexpr (P::kStep == 8) {
+        const int s = 4 * (e / (4 * kTileM)) + e % 4, c = (e / 4) % kTileM;
+        uint32_t b, sm;
+        split_by_bits(raw[s * kRawLd + c], b, sm);
+        big[e] = __uint_as_float(b);
+        big[kHalf + e] = __uint_as_float(sm);
+      } else {
+        split_word(big, raw, e, kHalf);
+      }
+    }
   }
 }
 
 // Starts the copies of rows [n0, n0 + kChunk) x traits [m0, m0 + 64) of the
 // (n, m) array src into dst (kRawLd a row), tvec floats a copy.
+template <class P>
 __device__ __forceinline__ void stage_operand(float* dst, const float* src, int n, int m, int n0,
                                               int m0, int tvec, int tid) {
-  stage_tile<kTileM>(dst, kRawLd, src, n, m, n0, m0, kChunk, tvec, tid, kThreads);
+  stage_tile<kTileM>(dst, kRawLd, src, n, m, n0, m0, Chunking<P>::kChunk, tvec, tid, kThreads);
 }
 
 // Starts the copies of both warpgroups' marker chunks: tiles `tile` and
 // `tile + 1`, samples [n0, n0 + kChunk); tiles past p arrive as zeros.
+template <class P>
 __device__ __forceinline__ void stage_markers(float* dst, const float* X, int n, int ldx, int n0,
                                               int tile, int tid) {
+  using K = Chunking<P>;
 #pragma unroll
   for (int w = 0; w < kGroups; ++w)
-    stage_tile_vec<kTileP, 4>(dst + w * kXFloats, kLdX, X, n, ldx, n0, (tile + w) * kTileP,
-                              kChunk, tid, kThreads);
+    stage_tile_vec<kTileP, 4>(dst + w * K::kXFloats, kLdX, X, n, ldx, n0, (tile + w) * kTileP,
+                              K::kChunk, tid, kThreads);
 }
 
 // The raw float32 values of one depth step of a thread's A fragment: its two
@@ -356,12 +456,12 @@ __device__ __forceinline__ void load_x(float (&x)[4], const float* acol, int s0)
   }
 }
 
-// The three TF32 passes of a product, one after another over a chunk's
-// depth steps: the small terms (A small x B big, then A big x B small)
-// before the leading one (A big x B big). A pass holds one half of each
-// A fragment, 4 registers a product set and step, where taking both small
-// terms of a step together held 8 and spilled at c = 2 and c = 3; the X
-// forms are made again for each pass.
+// The three passes of a product, one after another over a chunk's depth
+// steps: the small terms (A small x B big, then A big x B small) before the
+// leading one (A big x B big); under bf16x3 lo x hi, hi x lo, hi x hi. A
+// pass holds one half of each A fragment, 4 registers a product set and
+// step, where taking both small terms of a step together held 8 and spilled
+// at c = 2 and c = 3; the X forms are made again for each pass.
 enum Pass { kSmallA = 0, kSmallB = 1, kLeading = 2 };
 
 // The TF32 half of the float32 value x that pass kPass takes for A.
@@ -376,11 +476,44 @@ __device__ __forceinline__ uint32_t a_half(float x) {
   }
 }
 
+// The bf16 halves of x0 and x1 that pass kPass takes for A, packed as
+// bf16x3::round_pair() packs them (x0 in the low half).
+template <int kPass>
+__device__ __forceinline__ uint32_t a_pair(float x0, float x1) {
+  if constexpr (kPass == kSmallA) {
+    uint32_t hi, lo;
+    bf16x3::split_pair(x0, x1, hi, lo);
+    return lo;
+  } else {
+    return bf16x3::round_pair(x0, x1);
+  }
+}
+
+// Loads of 8 samples (two depths of a thread, load_x() or load_step()) that
+// one depth step of P takes: 1 under tf32x3, 2 under bf16x3.
+template <class P>
+constexpr int kLoads = P::kStep / 8;
+
+// The A registers that load kh of a depth step gives pass kPass, from the
+// float32 values f[2 h + r] at depth s0 + 4 h, fragment row g + 8 r: under
+// tf32x3 all four (kh = 0), under bf16x3 registers 2 kh and 2 kh + 1, each
+// packing the samples 8 kh + q and 8 kh + q + 4 of its row (mma_bf16x3.cuh).
+template <class P, int kPass>
+__device__ __forceinline__ void fill_a(uint32_t (&a)[4], const float (&f)[4], int kh) {
+  if constexpr (P::kStep == 8) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = a_half<kPass>(f[r]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) a[2 * kh + r] = a_pair<kPass>(f[r], f[2 + r]);
+  }
+}
+
 // Offset, in 16-byte units, of the half of a split B operand that pass
 // kPass takes: the small half lies kHalfFloats after the big one.
-template <int kPass>
+template <class P, int kPass>
 __host__ __device__ constexpr uint64_t b_half() {
-  return kPass == kSmallB ? kHalfFloats * 4 / 16 : 0;
+  return kPass == kSmallB ? Chunking<P>::kHalfFloats * 4 / 16 : 0;
 }
 
 // One pass of the general kernel's (C + 2) products over a chunk: acc[0] +=
@@ -388,32 +521,41 @@ __host__ __device__ constexpr uint64_t b_half() {
 // thread's markers in the warpgroup's staged chunk; cs: the chunk's
 // covariates [k][kChunk]. d_w and d_wy: descriptors of the big halves'
 // depth step 0. kInFlight: depth steps whose products may still run while
-// the next step's fragments are made. kPrefetch: each step's operands are
-// loaded while the step before multiplies (10 registers at c = 3, where the
-// kernel has none to spare: it loads them when it needs them).
-template <int C, int kInFlight, int kPass, bool kPrefetch>
+// the next step's fragments are made. kPrefetch: each load's operands are
+// loaded while the one before is made into fragments or multiplies (10
+// registers at c = 3, where the kernel has none to spare: it loads them when
+// it needs them). A bf16x3 step takes two loads of 8 samples.
+template <class P, int C, int kInFlight, int kPass, bool kPrefetch>
 __device__ __forceinline__ void general_pass(float (&acc)[C + 2][32], const float* acol,
                                              const float* cs, uint64_t d_w, uint64_t d_wy, int q,
                                              int keep) {
+  using K = Chunking<P>;
   constexpr int kAcc = C + 2;
+  constexpr int kL = kLoads<P>;
   StepOperands<C> now, next;
-  if constexpr (kPrefetch) load_step<C>(now, acol, cs, kChunk, q);
+  if constexpr (kPrefetch) load_step<C>(now, acol, cs, K::kChunk, q);
 #pragma unroll
-  for (int ks = 0; ks < kChunkSteps; ++ks) {
-    if constexpr (!kPrefetch) load_step<C>(now, acol, cs, kChunk, 8 * ks + q);
-    float f[kAcc][4];
-    make_forms<C>(f, now);
+  for (int ks = 0; ks < K::kSteps; ++ks) {
     uint32_t a[kAcc][4];
 #pragma unroll
-    for (int s = 0; s < kAcc; ++s)
+    for (int kh = 0; kh < kL; ++kh) {
+      const int at = kL * ks + kh;  // the load's first depth, in steps of 8
+      if constexpr (!kPrefetch) load_step<C>(now, acol, cs, K::kChunk, 8 * at + q);
+      float f[kAcc][4];
+      make_forms<C>(f, now);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[s][r] = a_half<kPass>(f[s][r]);
-    if (kPrefetch && ks + 1 < kChunkSteps) load_step<C>(next, acol, cs, kChunk, 8 * (ks + 1) + q);
+      for (int s = 0; s < kAcc; ++s) fill_a<P, kPass>(a[s], f[s], kh);
+      if (kPrefetch && at + 1 < kL * K::kSteps)
+        load_step<C>(next, acol, cs, K::kChunk, 8 * (at + 1) + q);
+      if constexpr (kPrefetch && kL > 1) {
+        if (kh + 1 < kL) now = next;
+      }
+    }
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < kAcc; ++s)
-      wgmma_m64n64k8(acc[s], a[s], (s == 0 ? d_wy : d_w) + ks * kStepUnits + b_half<kPass>(),
-                     kPass == kSmallA && ks == 0 ? keep : 1);
+      P::wgmma_m64n64(acc[s], a[s], (s == 0 ? d_wy : d_w) + ks * kStepUnits + b_half<P, kPass>(),
+                      kPass == kSmallA && ks == 0 ? keep : 1);
     wgmma_commit();
     wgmma_wait<kInFlight>();
     if constexpr (kPrefetch) now = next;
@@ -422,47 +564,71 @@ __device__ __forceinline__ void general_pass(float (&acc)[C + 2][32], const floa
 
 // acc += the general kernel's products over one chunk, three passes (acc =
 // them with keep 0: keeps_sets()).
-template <int C, int kInFlight>
+template <class P, int C, int kInFlight>
 __device__ __forceinline__ void general_chunk(float (&acc)[C + 2][32], const float* acol,
                                               const float* cs, uint64_t d_w, uint64_t d_wy, int q,
                                               int keep) {
   constexpr bool kPrefetch = C < 3;
-  general_pass<C, kInFlight, kSmallA, kPrefetch>(acc, acol, cs, d_w, d_wy, q, keep);
-  general_pass<C, kInFlight, kSmallB, kPrefetch>(acc, acol, cs, d_w, d_wy, q, 1);
-  general_pass<C, kInFlight, kLeading, kPrefetch>(acc, acol, cs, d_w, d_wy, q, 1);
+  general_pass<P, C, kInFlight, kSmallA, kPrefetch>(acc, acol, cs, d_w, d_wy, q, keep);
+  general_pass<P, C, kInFlight, kSmallB, kPrefetch>(acc, acol, cs, d_w, d_wy, q, 1);
+  general_pass<P, C, kInFlight, kLeading, kPrefetch>(acc, acol, cs, d_w, d_wy, q, 1);
   wgmma_wait<0>();
 }
 
 // One pass of the wide kernel's products over a chunk: z += X^T V_k and, on
 // the first walk (kFirst), b += X^T WY and d1 += (X * X)^T W. Descriptors
 // as for general_pass().
-template <bool kFirst, int kInFlight, int kPass>
+template <class P, bool kFirst, int kInFlight, int kPass>
 __device__ __forceinline__ void wide_pass(float (&b)[32], float (&d1)[32], float (&z)[32],
                                           const float* acol, uint64_t d_w, uint64_t d_wy,
                                           uint64_t d_v, int q, int keep) {
+  using K = Chunking<P>;
+  constexpr int kL = kLoads<P>;
   // with no step in flight (the effects variant) the operands are loaded
   // when they are needed, for registers
   constexpr bool kPrefetch = kInFlight > 0;
   float now[4], next[4];
   if constexpr (kPrefetch) load_x(now, acol, q);
 #pragma unroll
-  for (int ks = 0; ks < kChunkSteps; ++ks) {
-    if constexpr (!kPrefetch) load_x(now, acol, 8 * ks + q);
+  for (int ks = 0; ks < K::kSteps; ++ks) {
     uint32_t x[4], xx[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x[r] = a_half<kPass>(now[r]);
-      if constexpr (kFirst) xx[r] = a_half<kPass>(__fmul_rn(now[r], now[r]));
+    for (int kh = 0; kh < kL; ++kh) {
+      const int at = kL * ks + kh;  // the load's first depth, in steps of 8
+      if constexpr (!kPrefetch) load_x(now, acol, 8 * at + q);
+      if constexpr (P::kStep == 8) {
+        // x and X * X a value at a time, as before the policy came: the
+        // 3 x TF32 machine code stays as it was (kernel_times.py --sass)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          x[r] = a_half<kPass>(now[r]);
+          if constexpr (kFirst) xx[r] = a_half<kPass>(__fmul_rn(now[r], now[r]));
+        }
+      } else {
+        fill_a<P, kPass>(x, now, kh);
+        if constexpr (kFirst) {
+          float sq[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sq[r] = __fmul_rn(now[r], now[r]);
+          fill_a<P, kPass>(xx, sq, kh);
+        }
+      }
+      if (kPrefetch && at + 1 < kL * K::kSteps) load_x(next, acol, 8 * (at + 1) + q);
+      if constexpr (kPrefetch && kL > 1) {
+        if (kh + 1 < kL) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) now[r] = next[r];
+        }
+      }
     }
-    if (kPrefetch && ks + 1 < kChunkSteps) load_x(next, acol, 8 * (ks + 1) + q);
     wgmma_fence();
-    const uint64_t step = ks * kStepUnits + b_half<kPass>();
+    const uint64_t step = ks * kStepUnits + b_half<P, kPass>();
     const int sd = kPass == kSmallA && ks == 0 ? keep : 1;
     if constexpr (kFirst) {
-      wgmma_m64n64k8(b, x, d_wy + step, sd);
-      wgmma_m64n64k8(d1, xx, d_w + step, sd);
+      P::wgmma_m64n64(b, x, d_wy + step, sd);
+      P::wgmma_m64n64(d1, xx, d_w + step, sd);
     }
-    wgmma_m64n64k8(z, x, d_v + step, sd);
+    P::wgmma_m64n64(z, x, d_v + step, sd);
     wgmma_commit();
     wgmma_wait<kInFlight>();
     if constexpr (kPrefetch) {
@@ -474,13 +640,13 @@ __device__ __forceinline__ void wide_pass(float (&b)[32], float (&d1)[32], float
 
 // The wide kernel's products over one chunk, three passes, added to the
 // sets (keep 1) or in their place (keep 0).
-template <bool kFirst, int kInFlight>
+template <class P, bool kFirst, int kInFlight>
 __device__ __forceinline__ void wide_chunk(float (&b)[32], float (&d1)[32], float (&z)[32],
                                            const float* acol, uint64_t d_w, uint64_t d_wy,
                                            uint64_t d_v, int q, int keep) {
-  wide_pass<kFirst, kInFlight, kSmallA>(b, d1, z, acol, d_w, d_wy, d_v, q, keep);
-  wide_pass<kFirst, kInFlight, kSmallB>(b, d1, z, acol, d_w, d_wy, d_v, q, 1);
-  wide_pass<kFirst, kInFlight, kLeading>(b, d1, z, acol, d_w, d_wy, d_v, q, 1);
+  wide_pass<P, kFirst, kInFlight, kSmallA>(b, d1, z, acol, d_w, d_wy, d_v, q, keep);
+  wide_pass<P, kFirst, kInFlight, kSmallB>(b, d1, z, acol, d_w, d_wy, d_v, q, 1);
+  wide_pass<P, kFirst, kInFlight, kLeading>(b, d1, z, acol, d_w, d_wy, d_v, q, 1);
   wgmma_wait<0>();
 }
 
@@ -605,14 +771,15 @@ struct Totals {
 };
 
 // The slots of the running totals of a launch of `kernel` (its dynamic
-// shared memory limit set to `bytes`) over n samples with `sets` product
-// sets a warpgroup: one for each block the device holds at once, 0 when the
-// walks do not fold. Checks the memory in t, or writes its size to t.need.
+// shared memory limit set to `bytes`) with `sets` product sets a
+// warpgroup: one for each block the device holds at once, 0 when its walks
+// do not fold (`fold`: folds()). Checks the memory in t, or writes its size
+// to t.need.
 template <class Kernel>
-cudaError_t total_slots(Kernel kernel, size_t bytes, int n, int sets, const Totals& t,
+cudaError_t total_slots(Kernel kernel, size_t bytes, bool fold, int sets, const Totals& t,
                         int& slots) {
   slots = 0;
-  if (!folds(n)) {
+  if (!fold) {
     if (t.need) *t.need = 0;
     return cudaSuccess;
   }

@@ -1,0 +1,13 @@
+// The general LOD kernel with bf16x3 products (THROUGHPUT) for 2 covariate
+// columns, the LOD alone and the effects variant.
+
+#include "liteqtl_general.cuh"
+
+namespace liteqtl {
+
+cudaError_t launch_general_bf16_c2(const Operands& o, const chunked::Totals& t, cudaStream_t s) {
+  return o.beta != nullptr ? launch_general<bf16x3::Policy, 2, true>(o, t, s)
+                           : launch_general<bf16x3::Policy, 2, false>(o, t, s);
+}
+
+}  // namespace liteqtl

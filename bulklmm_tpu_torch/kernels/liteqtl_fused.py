@@ -18,27 +18,30 @@ but not bit-equal to the plain version's products: the resident kernel
 in shared memory and copies the marker tiles asynchronously, and its
 epilogue takes reciprocals and the hardware's log2 where the plain version
 divides and calls log10; the general kernel (c <= 3 at any n, taken for
-n > 88; ``csrc/liteqtl_fused.cu``) walks the samples in chunks of
+n > 88; ``csrc/liteqtl_general.cuh``) walks the samples in chunks of
 :data:`CHUNK_SAMPLES` through a ring of asynchronous copies
 (``csrc/liteqtl_chunked.cuh``) and, past 200 samples, float32 running
 totals in device memory that the wrapper allocates, with the exact
 epilogue; the wide kernel
-(any c > 3, ``csrc/liteqtl_wide.cu``) runs the same chunked walk on
+(any c > 3, ``csrc/liteqtl_wide.cuh``) runs the same chunked walk on
 operands whose covariates are already whitened per trait, V = W (C L^{-T})
 (c, n, m), formed here in the inputs' dtype, so that it holds the same five
 accumulator sets a thread for any c and needs no substitution (see the
 sources for the designs).
 
-Under ``dot_precision="high"`` (THROUGHPUT) the resident kernel takes its
-products as three bf16 passes instead (bf16x3, ``csrc/mma_bf16x3.cuh``, the
-JAX package's HIGH); the general and wide kernels keep their three TF32
-passes, stricter than the preset asks (:func:`kernel_route` names the
-products that run). The plain versions split the same way the JAX package
-does: on the CPU the LOD step's plain version keeps float32 products under
-"high", as ``ops/liteqtl.py::lods_per_trait`` at HIGH computes in XLA on a
-CPU, and :func:`liteqtl_bf16x3_reference` is the bf16x3 kernel's plain
-version, which ``chip_smoke.py`` holds it against on the card.
-``dot_precision`` is "highest" or "high"; any other name raises.
+Under ``dot_precision="high"`` (THROUGHPUT) each of the three kernels takes
+its products as three bf16 passes instead (bf16x3, ``csrc/mma_bf16x3.cuh``,
+the JAX package's HIGH), an instantiation of its own
+(:func:`kernel_route` names the products that run): the general and wide
+kernels walk the samples in chunks of :data:`BF16_CHUNK_SAMPLES` then, with
+no running totals (:func:`fold_chunks`). The plain versions split the same
+way the JAX package does: on the CPU the LOD step's plain version keeps
+float32 products under "high", as ``ops/liteqtl.py::lods_per_trait`` at
+HIGH computes in XLA on a CPU, and :func:`liteqtl_bf16x3_reference` (the
+resident kernel) and :func:`liteqtl_bf16x3_chunked_reference` (the general
+and wide kernels) are the bf16x3 kernels' plain versions, which
+``chip_smoke.py`` holds them against on the card. ``dot_precision`` is
+"highest" or "high"; any other name raises.
 
 The effects variant of both kernels (``effects=True``; the path of
 ``bulkscan(output_effects=True)`` under the float32 presets) writes, from
@@ -66,7 +69,8 @@ Layers:
   general and wide kernels' (the same split, the samples in chunks of 40,
   each run of :data:`FOLD_CHUNKS` chunks summed and added into a running
   total), for comparisons; :func:`liteqtl_bf16x3_reference` the resident
-  kernel's under "high".
+  kernel's under "high", :func:`liteqtl_bf16x3_chunked_reference` the
+  general and wide kernels'.
 - :func:`fused_lods_per_trait` and :func:`fused_lods_and_effects_per_trait`:
   the kernel on CUDA tensors, its plain version on CPU tensors.
   :func:`fused_lods_per_trait_reference` always takes the plain version on
@@ -88,7 +92,7 @@ from ..ops.smallchol import (
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
 from .split import (
-    matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
+    matmul_bf16x3, matmul_bf16x3_emulated, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
 )
 
 #: covariate columns (intercept included) the general kernel is instantiated
@@ -96,21 +100,45 @@ from .split import (
 #: takes any more
 GENERAL_COVARIATES = 3
 
-#: samples a chunk of the general and wide kernels' walk (kChunk in
-#: ``csrc/liteqtl_chunked.cuh``)
+#: samples a chunk of the general and wide kernels' walk under 3 x TF32
+#: (``Chunking<tf32x3::Policy>::kChunk`` in ``csrc/liteqtl_chunked.cuh``):
+#: five depth steps of 8
 CHUNK_SAMPLES = 40
+
+#: the same under bf16x3 ("high"): two depth steps of 16, as far as the wide
+#: kernel's shared memory allows
+BF16_CHUNK_SAMPLES = 32
 
 #: chunks that the general and wide kernels add into one product set before
 #: adding the set into its float32 running total past 200 samples
 #: (kFoldChunks); up to 200 samples they add it after every chunk
-#: (:func:`fold_chunks`)
+#: (:func:`fold_chunks`); under bf16x3 they never fold
 FOLD_CHUNKS = 5
 
 
-def fold_chunks(n: int) -> int:
+def chunk_samples(dot_precision: str = "highest") -> int:
+    """Samples a chunk of the general and wide kernels' walk under the
+    products that ``dot_precision`` names."""
+    return BF16_CHUNK_SAMPLES if uses_bf16x3(dot_precision) else CHUNK_SAMPLES
+
+
+def walk_samples(n: int, dot_precision: str = "highest") -> int:
+    """Samples that the general and wide kernels walk for n: n up to a whole
+    chunk, the samples past n zeros (BXD's 79: 80 under 3 x TF32, 96 under
+    bf16x3)."""
+    chunk = chunk_samples(dot_precision)
+    return -(-n // chunk) * chunk
+
+
+def fold_chunks(n: int, dot_precision: str = "highest") -> int | None:
     """Chunks that the general and wide kernels carry in a product set
     before they add it into its running total, for n samples
-    (``fold_chunks()`` in ``csrc/liteqtl_chunked.cuh``)."""
+    (``fold_chunks()`` in ``csrc/liteqtl_chunked.cuh``); None under bf16x3,
+    whose sets never join running totals (``kFoldChunks`` 0): their folds
+    cost 1.16-1.72x the time for an accuracy far inside THROUGHPUT's bar
+    (PERF.md)."""
+    if uses_bf16x3(dot_precision):
+        return None
     return FOLD_CHUNKS if n > FOLD_CHUNKS * CHUNK_SAMPLES else 1
 
 #: covariate columns the resident kernel is instantiated for: it keeps
@@ -194,7 +222,8 @@ def kernel_path(n: int, c: int, effects: bool = False) -> str:
     (c + 2) accumulator sets fit the registers (n <= 88, c <= 3). "wide" for
     more than :data:`GENERAL_COVARIATES` covariate columns, at any n: the
     whitened operands. Else "general": the samples in chunks. All three take
-    3 x TF32 warpgroup products. The effects variant's scalar block is one
+    3 x TF32 warpgroup products, or bf16x3 under "high", on the same path
+    (:func:`kernel_route`). The effects variant's scalar block is one
     row longer; it fits wherever the LOD-only kernel does. The launcher in
     ``csrc/liteqtl_fused.cu`` applies the same rule
     (``bulklmm_liteqtl_path``, :func:`launcher_path`)."""
@@ -212,12 +241,8 @@ def kernel_route(n: int, c: int, effects: bool = False,
                  dot_precision: str = "highest") -> tuple[str, str]:
     """``(kernel_path(n, c, effects), products)``: the kernel that a launch
     takes (the same under both products) and the products that run in it,
-    "bf16x3" for the resident kernel under ``dot_precision="high"``, else
-    "tf32x3" (the general and wide kernels have no bf16x3 form, so "high"
-    at n > 88 or c > 3 runs three TF32 passes)."""
-    path = kernel_path(n, c, effects)
-    bf16 = uses_bf16x3(dot_precision) and path == "resident"
-    return path, "bf16x3" if bf16 else "tf32x3"
+    "bf16x3" on every path under ``dot_precision="high"``, else "tf32x3"."""
+    return kernel_path(n, c, effects), "bf16x3" if uses_bf16x3(dot_precision) else "tf32x3"
 
 
 def _descending(lam) -> bool:
@@ -374,7 +399,7 @@ def _library():
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.bulklmm_liteqtl_totals.argtypes = [*[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int)]
+    lib.bulklmm_liteqtl_totals.argtypes = [*[ctypes.c_int] * 5, ctypes.POINTER(ctypes.c_int)]
     lib.bulklmm_liteqtl_totals.restype = ctypes.c_longlong
     lib.bulklmm_liteqtl_path.argtypes = [ctypes.c_int] * 3
     lib.bulklmm_liteqtl_path.restype = ctypes.c_int
@@ -392,11 +417,13 @@ def launcher_path(n: int, c: int, effects: bool = False) -> str:
     return ("general", "resident", "wide")[_library().bulklmm_liteqtl_path(n, c, int(effects))]
 
 
-def _totals_floats(lib, n: int, c: int, effects: bool, general: bool) -> int:
+def _totals_floats(lib, n: int, c: int, effects: bool, general: bool, bf16: bool) -> int:
     """Floats of the running totals that a launch at n samples and c columns
-    needs on the current device (0 where its walks do not fold)."""
+    with the products ``bf16`` names needs on the current device (0 where
+    its walks do not fold)."""
     err = ctypes.c_int(0)
-    floats = lib.bulklmm_liteqtl_totals(n, c, int(effects), int(general), ctypes.byref(err))
+    floats = lib.bulklmm_liteqtl_totals(n, c, int(effects), int(general), int(bf16),
+                                        ctypes.byref(err))
     if floats < 0:
         raise RuntimeError("liteqtl_lod kernel: sizing its running totals failed: "
                            + lib.bulklmm_cuda_error_string(err.value).decode())
@@ -413,7 +440,8 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
     operands :func:`prepare_inputs` gives for it; ``general=True`` takes the
     general kernel whatever n is, up to :data:`GENERAL_COVARIATES` columns
     (for comparisons at a resident shape). ``dot_precision="high"`` takes
-    the resident kernel's bf16x3 products (:func:`kernel_route`). Raises on a
+    the kernel's bf16x3 instantiation, on every path, and counts the launch
+    in :data:`bf16x3_launches` too (:func:`kernel_route`). Raises on a
     CPU tensor, a wrong dtype, shape or layout, operands of another kernel,
     an unknown ``dot_precision``, a failed build or a launch error. Does not
     synchronize.
@@ -433,7 +461,7 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
             X = rows_at_16_bytes(X.contiguous())
         stream = torch.cuda.current_stream().cuda_stream
         # a walk of more than one chunk keeps running totals in device memory
-        floats = _totals_floats(lib, n, c, effects, general)
+        floats = _totals_floats(lib, n, c, effects, general, bf16)
         totals = torch.zeros(floats, dtype=_F32, device=X.device) if floats else None
         rc = lib.bulklmm_liteqtl_lod(
             X.data_ptr(), X.stride(0), C.data_ptr(), W.data_ptr(), WY.data_ptr(),
@@ -445,9 +473,8 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
             "liteqtl_lod kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    ran_bf16 = not general and kernel_route(n, c, effects, dot_precision)[1] == "bf16x3"
     with _count_lock:
-        bf16x3_launches += ran_bf16
+        bf16x3_launches += bf16
         if effects:
             effects_launches += 1
         else:
@@ -561,6 +588,22 @@ def liteqtl_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
     either operand form and any device; no main path takes it."""
     def product(A, B):
         return matmul_tf32x3_emulated(A, B, chunk=CHUNK_SAMPLES, run=fold_chunks(A.shape[-1]))
+
+    return _lod_with_product(X, C, W, WY, scal, product, effects)
+
+
+def liteqtl_bf16x3_chunked_reference(X, C, W, WY, scal, *, effects: bool = False):
+    """The kernel's function with the general and wide kernels' arithmetic
+    under ``dot_precision="high"``: the operands rounded as
+    :func:`liteqtl_split_reference` rounds them, the samples in chunks of
+    :data:`BF16_CHUNK_SAMPLES`, each chunk's three bf16 passes (lo x hi,
+    hi x lo, hi x hi) added to one float32 sum as the tensor cores add bf16
+    products, over the whole walk in one accumulator
+    (``split.py::matmul_bf16x3_emulated``). The plain version that the
+    bf16x3 general and wide kernels are held against on the card; on either
+    operand form and any device."""
+    def product(A, B):
+        return matmul_bf16x3_emulated(A, B, chunk=BF16_CHUNK_SAMPLES)
 
     return _lod_with_product(X, C, W, WY, scal, product, effects)
 

@@ -25,7 +25,11 @@ instead: every operand is written as ``hi + lo``, both rounded to bfloat16
 as ``lo_a * hi_b + hi_a * lo_b + hi_a * hi_b`` (the JAX package's HIGH, which
 its Pallas kernels split by hand). :func:`matmul_bf16x3` is that arithmetic,
 and the plain version of the alt-grid and permutation kernels under "high"
-on any device; the LOD step's on the card (``liteqtl_bf16x3_reference``).
+on any device; the LOD step's resident kernel's on the card
+(``liteqtl_bf16x3_reference``). :func:`matmul_bf16x3_emulated` takes it in
+the chunked LOD kernels' order and sums as the tensor cores sum bf16
+products (:data:`BF16_TENSOR_CORE_SUM`): their plain version on the card
+(``liteqtl_bf16x3_chunked_reference``).
 """
 
 from __future__ import annotations
@@ -118,17 +122,23 @@ def tensor_core_sum(acc: torch.Tensor, prods: torch.Tensor, *, extra: int, adden
 #: sum cut toward zero to float32 (:func:`tensor_core_sum`'s parameters)
 TENSOR_CORE_SUM = dict(extra=2, addend="rz", finish="rz", group=8)
 STEP = 8  # samples of one TF32 depth step (mma.sync m16n8k8, wgmma m64nNk8)
+#: How the card's tensor cores finish a float32 sum of bf16 products, as the
+#: probe found it on an H100 for mma.sync m16n8k16 and wgmma m64n64k16 alike
+#: (chip_smoke.py's phase 2b)
+BF16_TENSOR_CORE_SUM = dict(extra=2, addend="rz", finish="rz", group=16)
+BF16_STEP = 16  # samples of one bf16 depth step (mma.sync m16n8k16, wgmma m64nNk16)
 #: float64 elements of the expanded products of one block of rows
 _BLOCK_ELEMENTS = 1 << 25
 
 
-def _tensor_core_step(acc, a, b):
-    """``acc + a @ b`` as the tensor cores take one product of depth
-    ``a.shape[-1] <= STEP`` (:data:`TENSOR_CORE_SUM`): ``a`` (..., M, k)
-    and ``b`` (..., k, N) hold TF32 values, so every elementwise product is
-    exact in float64; ``acc`` is float32 of the product's shape, or None for
-    zero. Rows of ``a`` in blocks, so that the (..., M, N, k) products stay
-    under :data:`_BLOCK_ELEMENTS`."""
+def _tensor_core_step(acc, a, b, model=TENSOR_CORE_SUM):
+    """``acc + a @ b`` as the tensor cores take one product of one depth
+    step (``model``: :data:`TENSOR_CORE_SUM`, or :data:`BF16_TENSOR_CORE_SUM`
+    for bf16 halves): ``a`` (..., M, k) and ``b`` (..., k, N) hold TF32 (or
+    bf16) values, so every elementwise product is exact in float64; ``acc``
+    is float32 of the product's shape, or None for zero. Rows of ``a`` in
+    blocks, so that the (..., M, N, k) products stay under
+    :data:`_BLOCK_ELEMENTS`."""
     shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1])
     out = torch.empty(shape, dtype=torch.float32, device=a.device)
     rows = max(1, _BLOCK_ELEMENTS // max(1, out[..., :1, :].numel() * a.shape[-1]))
@@ -137,7 +147,7 @@ def _tensor_core_step(acc, a, b):
         prods = a[..., r0 : r0 + rows, None, :].double() * bt  # (..., rows, N, k)
         part = (torch.zeros(prods.shape[:-1], dtype=torch.float32, device=a.device)
                 if acc is None else acc[..., r0 : r0 + rows, :])
-        out[..., r0 : r0 + rows, :] = tensor_core_sum(part, prods, **TENSOR_CORE_SUM)
+        out[..., r0 : r0 + rows, :] = tensor_core_sum(part, prods, **model)
     return out
 
 
@@ -164,10 +174,7 @@ def matmul_tf32x3_emulated(A: torch.Tensor, B: torch.Tensor, *, chunk: int = STE
     """
     A_big, A_small = tf32_split(A)
     B_big, B_small = tf32_split(B)
-    depth = A.shape[-1]
-    chunks = [[slice(k, min(k + STEP, c0 + chunk, depth))
-               for k in range(c0, min(c0 + chunk, depth), STEP)]
-              for c0 in range(0, depth, chunk)]
+    chunks = _chunk_steps(A.shape[-1], chunk, STEP)
     total = None
     passes = [(A_small, B_big), (A_big, B_small), (A_big, B_big)]
     if smalls_first:
@@ -175,15 +182,31 @@ def matmul_tf32x3_emulated(A: torch.Tensor, B: torch.Tensor, *, chunk: int = STE
             for a, b in passes[:2]:
                 total = _tensor_core_step(total, a[..., s], b[..., s, :])
         passes = passes[2:]
+    return _runs(total, chunks, passes, run, TENSOR_CORE_SUM)
+
+
+def _runs(total, chunks, passes, run, model):
+    """``total`` plus the passes over the chunks' depth steps (each chunk's
+    passes one after another), ``run`` chunks into one accumulator that
+    starts from zero and is then added into the float32 total rounded to
+    nearest (None: one accumulator from ``total`` over the whole depth)."""
     every = len(chunks) if run is None else run
     for r0 in range(0, len(chunks), every):
         part = total if run is None else None
         for chunk_steps in chunks[r0 : r0 + every]:
             for a, b in passes:
                 for s in chunk_steps:
-                    part = _tensor_core_step(part, a[..., s], b[..., s, :])
+                    part = _tensor_core_step(part, a[..., s], b[..., s, :], model)
         total = part if run is None or total is None else total + part
     return total
+
+
+def _chunk_steps(depth: int, chunk: int, step: int):
+    """The depth's chunks of ``chunk`` samples, each a list of its steps of
+    ``step`` samples (slices; the last ones cut at the depth)."""
+    return [[slice(k, min(k + step, c0 + chunk, depth))
+             for k in range(c0, min(c0 + chunk, depth), step)]
+            for c0 in range(0, depth, chunk)]
 
 
 @with_highest_matmul()
@@ -219,6 +242,27 @@ def matmul_bf16x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     A_hi, A_lo = bf16_split(A)
     B_hi, B_lo = bf16_split(B)
     return (A_lo @ B_hi + A_hi @ B_lo) + A_hi @ B_hi
+
+
+@with_highest_matmul()
+def matmul_bf16x3_emulated(A: torch.Tensor, B: torch.Tensor, *, chunk: int = BF16_STEP,
+                           run: int | None = None) -> torch.Tensor:
+    """``A @ B`` (float32, batched as ``torch.matmul``) as the chunked LOD
+    kernels take it under "high" (``csrc/liteqtl_chunked.cuh`` on
+    ``bf16x3::Policy``): the three products of the bf16 halves (A lo x B hi,
+    A hi x B lo, A hi x B hi) in depth steps of :data:`BF16_STEP`, the depth
+    in chunks of ``chunk`` samples whose three passes follow one another
+    over the chunk's steps, each step's products added into a float32
+    accumulator as the tensor cores add bf16 products
+    (:data:`BF16_TENSOR_CORE_SUM`), ``run`` chunks into one accumulator
+    added into a float32 total rounded to nearest (None: one accumulator
+    for the whole depth), as :func:`matmul_tf32x3_emulated` takes its TF32
+    halves. The ``lo * lo`` term is dropped, as in :func:`matmul_bf16x3`."""
+    A_hi, A_lo = bf16_split(A)
+    B_hi, B_lo = bf16_split(B)
+    chunks = _chunk_steps(A.shape[-1], chunk, BF16_STEP)
+    passes = [(A_lo, B_hi), (A_hi, B_lo), (A_hi, B_hi)]
+    return _runs(None, chunks, passes, run, BF16_TENSOR_CORE_SUM)
 
 
 def uses_bf16x3(dot_precision: str) -> bool:

@@ -12,14 +12,15 @@ exits nonzero:
    checkout's sources and prints the build time.
 2b. The accumulate probe (``csrc/accumulate_probe.cu``,
    ``kernels/accumulate_probe.py``): one ``mma.sync`` m16n8k8 and one
-   ``wgmma`` m64n64k8 TF32 product on crafted operands (accumulators 1.0,
-   1.5 and their negatives, products at known fractions of 1.0's last
-   place, both signs; seeded random tiles beside them) print how the tensor
-   cores finish a float32 sum; the models of
-   ``kernels/split.py::tensor_core_sum`` that give every result bit for bit
-   are printed, and the twin's (``TENSOR_CORE_SUM``: cut toward zero, each
-   addend cut 2 bits below float32's last place of the largest term) must
-   be among them for both forms.
+   ``wgmma`` m64n64k8 TF32 product, and their bf16 forms m16n8k16 and
+   m64n64k16, on crafted operands (accumulators 1.0, 1.5 and their
+   negatives, products at known fractions of 1.0's last place, both signs;
+   seeded random tiles beside them) print how the tensor cores finish a
+   float32 sum; the models of ``kernels/split.py::tensor_core_sum`` that
+   give every result bit for bit are printed, and the twin's
+   (``TENSOR_CORE_SUM``: cut toward zero, each addend cut 2 bits below
+   float32's last place of the largest term; ``BF16_TENSOR_CORE_SUM`` for
+   the bf16 forms) must be among them for each form.
 3. Each kernel vs its plain version on the card, at small shapes. The LOD
    kernel: c = 1, 2 and 3 covariate columns on the resident kernel and 4 and
    8 on the wide one, a ragged 70 x 45 tile edge, n = 79, 80, 81, 88 (the
@@ -272,17 +273,21 @@ exits nonzero:
     goldens, under the JAX sweep's bars); any path that misses its bar
     fails the run.
 17. THROUGHPUT on the card: the "high" products, bf16x3 (three bf16
-    passes, ``csrc/mma_bf16x3.cuh``), in the resident LOD kernel (LOD and
-    effects), both paths of the permutation kernel and the alt-grid kernel.
-    (a) Each bf16x3 kernel against its bf16x3 plain version
-    (``liteqtl_bf16x3_reference``, ``altgrid_plain`` and
-    ``bulkperm_maxr2_plain`` with ``dot_precision="high"``) at phase 3's
-    shapes, n <= 88 for the resident kernels (n = 88 pads to 96) and n =
-    89 and 2,000 for the chunked permutation path, under phase 3's bars;
-    the distance from the float32 plain version is printed and must be
-    above 0. Under "high" the general and wide LOD kernels must give their
-    3 x TF32 result bit for bit and count no bf16x3 launch. (b) THROUGHPUT
-    ``bulkscan`` null-grid and with effects at BXD scale against EXACT64
+    passes, ``csrc/mma_bf16x3.cuh``), in every LOD kernel (resident,
+    general and wide; LOD and effects), both paths of the permutation
+    kernel and the alt-grid kernel. (a) Each bf16x3 kernel against its
+    bf16x3 plain version (``liteqtl_bf16x3_reference``, ``altgrid_plain``
+    and ``bulkperm_maxr2_plain`` with ``dot_precision="high"``) at phase
+    3's shapes, n <= 88 for the resident kernels (n = 88 pads to 96) and
+    n = 89 and 2,000 for the chunked permutation path, under phase 3's
+    bars; the general LOD kernel at n = 89, 150 and 2,000 (c = 1, 2, 3) and
+    the wide one at c = 4, 8 and 12 (n = 48, 79 and 2,000) against
+    ``liteqtl_bf16x3_chunked_reference`` within CHUNKED_BF16_BAR (1e-5,
+    whatever n) and within a quarter of the distance of a 3 x TF32 launch
+    on the same operands from the same plain version, each bf16x3 launch
+    counted as bf16x3; the distance from the float32 plain version is
+    printed and must be above 0. (b)
+    THROUGHPUT ``bulkscan`` null-grid and with effects at BXD scale against EXACT64
     (max |dLOD| <= 4e-3 on the equal-h2 traits, the effects relative
     errors too, the JAX package's THROUGHPUT bar), alt-grid (< 2e-2, h2
     panel flips under 20 % of the pairs) and ``bulkscan_perms`` with 1,000
@@ -294,7 +299,17 @@ exits nonzero:
     its bf16x3 plain version (phase 3's bars). (c) Times by CUDA events,
     median of 5 after a warm-up, each bf16x3 kernel and its 3 x TF32 twin
     in turns on the same operands, beside the bf16x3 bound (the larger of
-    three bf16 passes at 989 TFLOP/s and the bytes at 3.35 TB/s).
+    three bf16 passes at 989 TFLOP/s and the bytes at 3.35 TB/s). The
+    general and wide LOD kernels: THROUGHPUT null-grid against EXACT64 on
+    phase 11's 2,000-sample block and at phase 15's c = 12 (4e-3 x
+    max(1, n / 79), every LOD launch bf16x3), a THROUGHPUT
+    ``bulkscan_streamed`` over phase 11's panel launching bf16x3 general
+    kernels alone, on both main paths' operands the kernel against
+    ``liteqtl_bf16x3_reference`` and on their first 512 markers and traits
+    against ``liteqtl_bf16x3_chunked_reference`` (KERNEL_BAR, and
+    BF16_LONG_DEPTH_BAR at 2,000, and on the corner a mean distance within
+    a quarter of a 3 x TF32 launch's), and each kernel's time at S1, S4,
+    S5 and S6 beside its 3 x TF32 twin in turns and its bf16x3 bound.
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
@@ -321,7 +336,14 @@ bf16x3), ``bf16x3_max_abs_err`` (the bf16x3 kernel against its bf16x3
 plain version at BXD scale), ``throughput_vs_exact64`` (and for the LOD
 kernel ``throughput_effects_vs_exact64``: LOD, effect and SE), and
 ``bf16x3_ms``, ``tf32x3_ms`` (its 3 x TF32 twin in the same turns),
-``bf16x3_bound_ms``, ``bf16x3_bound_by`` and ``bf16x3_share``. No
+``bf16x3_bound_ms``, ``bf16x3_bound_by`` and ``bf16x3_share``, and the LOD
+kernel ``bf16x3_chunked``: the general and wide kernels' THROUGHPUT
+launches and distances from EXACT64, on the main paths' operands
+(``vs_bf16x3_plain``) their distances from the bf16x3 plain versions
+beside the 3 x TF32 launch's and the float32 plain version's, in
+``kernel_checks`` phase 17 (a)'s largest distance from the chunked bf16x3
+plain version beside the 3 x TF32 launches' least, and their times at S1,
+S4, S5, S6. No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -334,6 +356,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -360,6 +383,13 @@ KERNEL_BAR = 5e-5  # max |dLOD|, kernel vs plain, n <= 79
 #: last place of 1 - r2 scaled by n / (2 ln 10), near 2.62e-5
 FMAF_LONG_DEPTH = 2.6703e-5
 LONG_DEPTH_BAR = 2 * FMAF_LONG_DEPTH
+#: max |dLOD| at n = 2,000 of a bf16x3 general or wide kernel from a bf16x3
+#: plain version that sums in another order: four units in the LOD's last
+#: place there. The kernels keep one accumulator over the walk under bf16x3
+#: (no running totals), and read 7.915e-5 on phase 11's block from
+#: ``liteqtl_bf16x3_reference`` and 1.054e-4 at S4 from the float32 plain
+#: version (NVIDIA H100 80GB HBM3, 700.00 W)
+BF16_LONG_DEPTH_BAR = 4 * FMAF_LONG_DEPTH
 R2_BAR = 1e-5  # max |d max r^2|, permutation kernel vs plain
 ORACLE_BAR = 1e-4  # max |dLOD|, BALANCED vs EXACT64 on equal-h2 traits
 #: BASELINE.md's accuracy bar: at BXD scale under BALANCED the null-grid,
@@ -385,22 +415,25 @@ BIOBANK_BLOCK = 8192  # phase 11: markers of the kernel-vs-plain and EXACT64 che
 ENTRY_RE = re.compile(r"Compiling entry function '\w*\d([a-z_]+_kernel(?:I(?:L[ib]\d+E|N\w+?E)+)?)E")
 #: ptxas's note that it serialized a function's wgmma products (C7510-C7515)
 SERIAL_RE = re.compile(r"\(C751[0-5]\)[^\n]*?function '(\w+)'")
+#: ptxas's note that it injected a warpgroup.wait (C7517) or a
+#: warpgroup.arrive (C7519) around a function's wgmma products
+INJECTED_RE = re.compile(r"\((C751[79])\)[^\n]*?function '(\w+)'")
 #: ptxas's (registers, spill stores, spill loads, static shared bytes) of the
 #: LOD kernel's LOD-only 3 x TF32 instantiations, as phase 2 printed them
 #: (NVIDIA H100, CUDA 12.8's nvcc): the resident kernel's with its leading
-#: terms a depth step at a time into a scratch set (its entries named with
-#: the products' policy since the bf16x3 instantiations came beside them),
-#: the general and wide kernels' for their chunked 3 x TF32 sources; a
+#: terms a depth step at a time into a scratch set, the general and wide
+#: kernels' for their chunked 3 x TF32 sources (every entry named with the
+#: products' policy since the bf16x3 instantiations came beside them); a
 #: change to their sources must bring them up to date
 LOD_ONLY_PTXAS = {
-    "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb0E": (247, 0, 0, 0),
-    "liteqtl_general_wgmma_kernelILi3ELi0ELb0ELb1E": (255, 0, 0, 128),
-    "liteqtl_general_wgmma_kernelILi2ELi1ELb0ELb0E": (239, 0, 0, 0),
-    "liteqtl_general_wgmma_kernelILi2ELi1ELb0ELb1E": (255, 0, 0, 128),
-    "liteqtl_general_wgmma_kernelILi1ELi1ELb0ELb0E": (205, 0, 0, 0),
-    "liteqtl_general_wgmma_kernelILi1ELi1ELb0ELb1E": (254, 0, 0, 128),
-    "liteqtl_wide_wgmma_kernelILi1ELb0ELb0E": (236, 0, 0, 0),
-    "liteqtl_wide_wgmma_kernelILi1ELb0ELb1E": (254, 0, 0, 128),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi3ELi0ELb0ELb0E": (247, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi3ELi0ELb0ELb1E": (255, 0, 0, 128),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi2ELi1ELb0ELb0E": (239, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi2ELi1ELb0ELb1E": (255, 0, 0, 128),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi1ELi1ELb0ELb0E": (205, 0, 0, 0),
+    "liteqtl_general_wgmma_kernelIN6tf32x36PolicyELi1ELi1ELb0ELb1E": (254, 0, 0, 128),
+    "liteqtl_wide_wgmma_kernelIN6tf32x36PolicyELi1ELb0ELb0E": (236, 0, 0, 0),
+    "liteqtl_wide_wgmma_kernelIN6tf32x36PolicyELi1ELb0ELb1E": (254, 0, 0, 128),
     "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi11ELi1ELb0E": (224, 0, 0, 0),
     "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi10ELi1ELb0E": (224, 0, 0, 0),
     "liteqtl_resident_kernelIN6tf32x36PolicyELi1ELi8ELi1ELb0E": (224, 0, 0, 0),
@@ -552,8 +585,9 @@ def ptxas_report(log: Path) -> dict:
 
 def build() -> tuple:
     """Builds the library and prints the build time and ptxas's report;
-    returns the report (:func:`ptxas_report`) and the entries whose wgmma
-    products ptxas serialized (:func:`serialized_wgmma`)."""
+    returns the report (:func:`ptxas_report`), the entries whose wgmma
+    products ptxas serialized (:func:`serialized_wgmma`) and its injected
+    warpgroup barriers (:func:`injected_barriers`)."""
     from bulklmm_tpu_torch.kernels.build import BUILD_DIR, load_library
 
     t0 = time.perf_counter()
@@ -567,8 +601,8 @@ def build() -> tuple:
                 print("  ptxas:", entry.group(1))
             elif "registers" in line or "spill" in line:
                 print("  ptxas:  ", line.replace("ptxas info    : ", "").strip())
-        return ptxas_report(log), serialized_wgmma(log)
-    return {}, []
+        return ptxas_report(log), serialized_wgmma(log), injected_barriers(log)
+    return {}, [], {}
 
 
 def serialized_wgmma(log: Path) -> list:
@@ -577,18 +611,36 @@ def serialized_wgmma(log: Path) -> list:
     return sorted({m.group(1) for m in SERIAL_RE.finditer(log.read_text())})
 
 
+def injected_barriers(log: Path) -> dict:
+    """{(code, mangled entry): count} of a build log's injected
+    warpgroup.wait (C7517) and warpgroup.arrive (C7519) notes."""
+    out = {}
+    for m in INJECTED_RE.finditer(log.read_text()):
+        out[m.groups()] = out.get(m.groups(), 0) + 1
+    return out
+
+
 #: a resident 3 x TF32 LOD kernel entry: covariate columns, depth steps,
 #: steps in flight, effects
 RESIDENT_TF32_RE = re.compile(r"liteqtl_resident_kernelIN6tf32x36PolicyELi(\d+)ELi(\d+)ELi\d+ELb([01])")
+#: a chunked (general or wide) bf16x3 LOD kernel entry
+CHUNKED_BF16_RE = re.compile(r"liteqtl_(?:general|wide)_wgmma_kernel\w*N6bf16x36PolicyE")
+#: the chunked bf16x3 instantiations: the general kernel's c = 1, 2, 3 and the
+#: wide kernel's, each LOD alone and effects, none of them folding
+CHUNKED_BF16_BUILT = 8
 
 
-def check_ptxas(report: dict, serialized: list) -> None:
-    """No kernel spills, no 3 x TF32 instantiation serializes its wgmma
-    products (``serialized``: :func:`serialized_wgmma`), the LOD-only
-    instantiations' figures are LOD_ONLY_PTXAS's, and for every resident 3 x
-    TF32 instantiation that ptxas reports the CPU twin's
-    ``liteqtl_fused.py::lead_runs`` is the kernel's ``lead_runs()``.
-    Checked at the end of the run, so that one run shows every phase."""
+def check_ptxas(report: dict, serialized: list, injected: dict) -> None:
+    """No kernel spills, no 3 x TF32 instantiation and no chunked bf16x3
+    one serializes its wgmma products (``serialized``:
+    :func:`serialized_wgmma`), the LOD-only 3 x TF32 instantiations'
+    figures are LOD_ONLY_PTXAS's, the chunked bf16x3 instantiations are
+    CHUNKED_BF16_BUILT, none with more injected warpgroup waits or arrives
+    (``injected``: :func:`injected_barriers`, C7517 and C7519) than the most
+    of a chunked 3 x TF32 instantiation, and for every resident 3 x TF32 instantiation that
+    ptxas reports the CPU twin's ``liteqtl_fused.py::lead_runs`` is the
+    kernel's ``lead_runs()``. Checked at the end of the run, so that one run
+    shows every phase."""
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     resident = sorted({tuple(int(g) for g in found.groups())
@@ -604,37 +656,50 @@ def check_ptxas(report: dict, serialized: list) -> None:
     check(not twin_off, f"liteqtl_fused.lead_runs differs from the kernel's lead_runs() at {twin_off}")
     spilled = sorted(k for k, (_, st, ld, _) in report.items() if st or ld)
     moved = {k: (report.get(k), want) for k, want in LOD_ONLY_PTXAS.items() if report.get(k) != want}
-    tf32 = [k for k in serialized if "bf16x3" not in k]
-    print(f"  ptxas: kernels that spill {spilled}; 3 x TF32 kernels whose wgmma products are "
-          f"serialized {tf32} (bf16x3: {len(serialized) - len(tf32)}); LOD-only instantiations "
-          f"whose figures moved {moved}")
+    tf32 = [k for k in serialized if "bf16x3" not in k or CHUNKED_BF16_RE.search(k)]
+    chunked = sorted(k for k in report if CHUNKED_BF16_RE.search(k))
+    print(f"  ptxas: kernels that spill {spilled}; 3 x TF32 and chunked bf16x3 kernels whose wgmma "
+          f"products are serialized {tf32} (other bf16x3: {len(serialized) - len(tf32)}); LOD-only "
+          f"instantiations whose figures moved {moved}; chunked bf16x3 instantiations "
+          + ", ".join(f"{k} {report[k]}" for k in chunked))
     check(not spilled, f"ptxas spills in {spilled}")
     check(not tf32, f"ptxas serializes the wgmma products of {tf32}")
+    check(len(chunked) == CHUNKED_BF16_BUILT,
+          f"ptxas reports {len(chunked)} chunked bf16x3 instantiations, not {CHUNKED_BF16_BUILT}")
+    twins = {code: max((k for (c, e), k in injected.items() if c == code and "tf32x36Policy" in e
+                        and re.search(r"liteqtl_(?:general|wide)_wgmma", e)), default=0)
+             for code in ("C7517", "C7519")}
+    more = sorted({e for (c, e), k in injected.items() if CHUNKED_BF16_RE.search(e) and k > twins[c]})
+    print(f"  ptxas: injected warpgroup waits (C7517) and arrives (C7519) at most {twins} a chunked "
+          f"3 x TF32 instantiation; chunked bf16x3 instantiations with more {more}")
+    check(not more, f"ptxas injects more warpgroup barriers in {more} than in their 3 x TF32 twins")
     check(not moved, f"the LOD-only instantiations' ptxas figures changed: {moved}")
 
 
 def accumulate_probe(dev) -> dict:
     """Phase 2b: how the tensor cores finish a float32 sum, for mma.sync
-    m16n8k8 and wgmma m64n64k8 TF32 (``kernels/accumulate_probe.py``): the
-    documented cases, and the models of ``split.py::tensor_core_sum`` that
-    give every result of those and of the random tiles bit for bit. Fails
-    if no model does, or if the twin's model (``TENSOR_CORE_SUM``) is not
-    among them."""
+    m16n8k8 and wgmma m64n64k8 TF32 and their bf16 forms m16n8k16 and
+    m64n64k16 (``kernels/accumulate_probe.py``): the documented cases, and
+    the models of ``split.py::tensor_core_sum`` that give every result of
+    those and of the random tiles bit for bit. Fails if no model does, or if
+    the twin's model (``TENSOR_CORE_SUM``, ``BF16_TENSOR_CORE_SUM`` for the
+    bf16 forms) is not among them."""
     from bulklmm_tpu_torch.kernels import accumulate_probe as ap
-    from bulklmm_tpu_torch.kernels.split import TENSOR_CORE_SUM
+    from bulklmm_tpu_torch.kernels.split import BF16_TENSOR_CORE_SUM, TENSOR_CORE_SUM
 
     found = {}
-    for form in ("mma", "wgmma"):
+    for form in ("mma", "wgmma", "mma_bf16", "wgmma_bf16"):
         res = ap.run(form, dev)
-        print(f"  {form}: accumulator + sum of 8 products (in units of 2^-23) -> the card's result "
-              "minus the accumulator, in units of 2^-23:")
+        twin = BF16_TENSOR_CORE_SUM if form.endswith("bf16") else TENSOR_CORE_SUM
+        print(f"  {form}: accumulator + sum of {ap.DEPTHS[form]} products (in units of 2^-23) -> the "
+              "card's result minus the accumulator, in units of 2^-23:")
         for name, acc, exact, got in res["documented"]:
-            print(f"    {name:36s} acc {acc:+5.2f}: exact {exact:+.6f} -> {(got - acc) / ap.ULP:+.6f}")
+            print(f"    {name:56s} acc {acc:+5.2f}: exact {exact:+.6f} -> {(got - acc) / ap.ULP:+.6f}")
         models = res["models"]
         print(f"  {form}: models that give all {len(res['documented'])} documented and "
               f"{ap.RANDOM_TILES[form]} random tiles' results bit for bit: {models}")
         check(bool(models), f"no model of the tensor cores' sum fits {form}")
-        check(TENSOR_CORE_SUM in models, f"the twin's model {TENSOR_CORE_SUM} does not fit {form}")
+        check(twin in models, f"the twin's model {twin} does not fit {form}")
         found[form] = models
     return found
 
@@ -3009,13 +3074,92 @@ def _bf16x3_bound(flops, operands, out_bytes):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def throughput_kernel_checks(dev) -> None:
+#: phase 17 (a): the shapes (n, p, m, c) of the bf16x3 general LOD kernel
+#: (n = 89, 150 and 2,000 at c = 1, 2, 3) and of the bf16x3 wide one (c = 4,
+#: 8 and 12 at n = 48, 79 and 2,000) against their chunked bf16x3 plain
+#: version; ragged tiles at n = 150 and 79
+CHUNKED_BF16_SHAPES = [(n, 129 if n == 150 else 96, 65 if n == 150 else 64, c)
+                       for n in (89, 150, 2000) for c in (1, 2, 3)] + [
+    (n, 129 if n == 79 else 96, 65 if n == 79 else 64, c) for c in (4, 8, 12) for n in (48, 79, 2000)]
+
+
+#: phase 17 (a): max |dLOD| of a bf16x3 general or wide LOD kernel (and of
+#: its effects variant) from its chunked bf16x3 plain version at every n of
+#: CHUNKED_BF16_SHAPES. Their readings were 7.2e-7 to 2.03e-6 at n <= 150
+#: and 0.0 at 2,000; a 3 x TF32 launch on the same operands read 2.12e-5 to
+#: 4.48e-5 from the same plain version (the products' own distance), so the
+#: bar fails the 3 x TF32 kernel where phase 3's (5e-5 x n / 48) does not
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+CHUNKED_BF16_BAR = 1e-5
+#: phase 17 (a) and (b): the largest share of the 3 x TF32 launch's distance
+#: from the chunked bf16x3 plain version, on the same operands, that the
+#: bf16x3 launch's distance may take (the largest in (a), the mean in (b)):
+#: the check that the products ran as bf16x3 whatever the bar's room
+BF16_TWIN_SHARE = 0.25
+
+
+def chunked_bf16x3_checks(dev) -> dict:
+    """Phase 17 (a), the general and wide LOD kernels under "high": each
+    bf16x3 instantiation, LOD and effects, against its plain version
+    ``liteqtl_bf16x3_chunked_reference`` at CHUNKED_BF16_SHAPES, within
+    CHUNKED_BF16_BAR (tighter than phase 3's bars, which a 3 x TF32 launch
+    would pass) and within BF16_TWIN_SHARE of the 3 x TF32 launch's distance
+    from the same plain version on the same operands; the distance from the
+    float32 plain version must be above 0, and each launch is counted as
+    bf16x3, the 3 x TF32 one not. Returns, for each path, the largest
+    distance of the bf16x3 kernel and the least of the 3 x TF32 one."""
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    rng = np.random.default_rng(16)
+    seen = {}
+    for n, p, m, c in CHUNKED_BF16_SHAPES:
+        path = lf.kernel_path(n, c)
+        check(path == ("wide" if c > 3 else "general")
+              and lf.kernel_route(n, c, dot_precision="high") == (path, "bf16x3"),
+              f"n={n}, c={c} does not take the bf16x3 {path} kernel")
+        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
+        lod_ops = (*ops[:4], ops[4][:-1])
+        before = lf.bf16x3_launches
+        out = lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")
+        eff = lf.liteqtl_lod_cuda(*ops, effects=True, dot_precision="high")
+        tf32 = lf.liteqtl_lod_cuda(*lod_ops)  # the 3 x TF32 twin on the same operands
+        torch.cuda.synchronize()
+        check(lf.bf16x3_launches == before + 2, "the bf16x3 chunked LOD launches were not counted")
+        twin = lf.liteqtl_bf16x3_chunked_reference(*lod_ops)
+        err = (out - twin).abs().max().item()
+        tf32_err = (tf32 - twin).abs().max().item()
+        from32 = (out - lf.liteqtl_lod_plain(*lod_ops)).abs().max().item()
+        lod_err, beta_err, se_err = _effects_errors(
+            eff, lf.liteqtl_bf16x3_chunked_reference(*ops, effects=True))
+        same = (eff[0] - out).abs().max().item()
+        torch.cuda.synchronize()
+        print(f"  bf16x3 LOD kernel ({path}) vs its chunked bf16x3 plain version n={n} p={p} m={m} "
+              f"c={c}: max|dLOD| = {err:.3e} (bars {CHUNKED_BF16_BAR:.0e} and {BF16_TWIN_SHARE} x the "
+              f"3 x TF32 launch's {tf32_err:.3e}); from the float32 plain version {from32:.3e}; "
+              f"effects variant {lod_err:.3e}, {beta_err:.3e}, {se_err:.3e} (bars "
+              f"{CHUNKED_BF16_BAR:.0e}, {EFFECT_BAR:.0e}, {EFFECT_BAR:.0e}), its LOD vs the LOD-only "
+              f"kernel's {same:.3e}")
+        check(out.shape == (p, m) and bool(torch.isfinite(out).all())
+              and all(bool(torch.isfinite(t).all()) for t in eff), "bf16x3 chunked LOD output not finite")
+        check(max(err, lod_err) <= CHUNKED_BF16_BAR and beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR,
+              f"the bf16x3 {path} LOD kernel disagrees with its plain version at {(n, p, m, c)}")
+        check(max(err, lod_err) <= BF16_TWIN_SHARE * tf32_err,
+              f"the bf16x3 {path} LOD kernel is no nearer its plain version than the 3 x TF32 "
+              f"launch at {(n, p, m, c)}")
+        check(same <= SAME_LOD_BAR, f"the bf16x3 effects variant's LOD is not the LOD kernel's at {(n, p, m, c)}")
+        check(from32 > 0, f"the bf16x3 {path} LOD kernel gave the float32 result at {(n, p, m, c)}")
+        worst, least = seen.get(path, (0.0, float("inf")))
+        seen[path] = (max(worst, err, lod_err), min(least, tf32_err))
+    return {path: {"max_abs_err": worst, "tf32x3_min_err": least}
+            for path, (worst, least) in seen.items()}
+
+
+def throughput_kernel_checks(dev) -> dict:
     """Phase 17 (a): each bf16x3 kernel (``dot_precision="high"``) against
     its bf16x3 plain version at phase 3's shapes, under phase 3's bars; the
     distance from the float32 plain version is printed and must be above 0
-    (the products were split). Under "high" the LOD step's general and wide
-    kernels must give their 3 x TF32 result bit for bit and count no bf16x3
-    launch."""
+    (the products were split). The general and wide LOD kernels:
+    :func:`chunked_bf16x3_checks`, whose readings this returns."""
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
@@ -3050,15 +3194,7 @@ def throughput_kernel_checks(dev) -> None:
               f"the bf16x3 LOD kernel disagrees with its plain version at {(n, p, m, c)}")
         check(same <= SAME_LOD_BAR, f"the bf16x3 effects variant's LOD is not the LOD kernel's at {(n, p, m, c)}")
         check(from32 > 0, f"the bf16x3 LOD kernel gave the float32 result at {(n, p, m, c)}")
-    for n, p, m, c in [(89, 96, 64, 1), (2000, 96, 64, 2), (48, 96, 64, 4), (79, 129, 65, 8)]:
-        ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev))
-        before = lf.bf16x3_launches
-        high = lf.liteqtl_lod_cuda(*ops, dot_precision="high")
-        check(lf.bf16x3_launches == before and lf.kernel_route(n, c, dot_precision="high")[1] == "tf32x3"
-              and torch.equal(high, lf.liteqtl_lod_cuda(*ops)),
-              f"\"high\" at n={n}, c={c} did not run the {lf.kernel_path(n, c)} kernel's 3 x TF32 products")
-    print("  under \"high\" the general and wide LOD kernels at n = 89, 2,000 and c = 4, 8 give their "
-          "3 x TF32 result bit for bit")
+    chunked = chunked_bf16x3_checks(dev)
 
     rng = np.random.default_rng(14)
     for n, p, m, c, g in [(48, 96, 64, 1, 10), (48, 96, 64, 2, 10), (48, 96, 64, 3, 10),
@@ -3108,6 +3244,7 @@ def throughput_kernel_checks(dev) -> None:
         check(r2_err <= R2_BAR and lod_err <= bar,
               f"the bf16x3 permutation kernel disagrees with its plain version at {(n, p, mb, c, K)}")
         check(from32 > 0, f"the bf16x3 permutation kernel gave the float32 result at {(n, p, mb, c, K)}")
+    return chunked
 
 
 def _throughput_perm_decomposition(dev, Yd, Gd, K, ml, exact, same) -> None:
@@ -3307,6 +3444,190 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     return out
 
 
+#: phase 17 (c): the shapes at which each bf16x3 general and wide LOD kernel
+#: is timed beside its 3 x TF32 twin, from kernel_times.py's LOD_SHAPES
+CHUNKED_BF16_TIMED = ("S1", "S4", "S5", "S6")
+
+
+#: phase 17 (b): markers and traits of the corner of a main path's operands
+#: on which the bf16x3 general or wide kernel is held against its chunked
+#: bf16x3 plain version (an emulation: it takes every depth step's products
+#: apart)
+TWIN_CORNER = 512
+
+
+def _corner(ops, k: int):
+    """The first k markers and k traits of the LOD kernels' operands."""
+    X, C, W, WY, scal = ops
+    return (X[:, :k], C[:, :, :k].contiguous() if C.dim() == 3 else C, W[:, :k].contiguous(),
+            WY[:, :k].contiguous(), scal[:, :k].contiguous())
+
+
+def _chunked_vs_bf16x3_plain(ops, what: str) -> dict:
+    """Phase 17 (b): the bf16x3 general or wide kernel on a main path's
+    operands ``ops``, beside a 3 x TF32 launch on the same operands. Whole,
+    against ``liteqtl_bf16x3_reference`` (the resident kernel's order:
+    float32 sums over the whole depth) within KERNEL_BAR, and
+    BF16_LONG_DEPTH_BAR at 2,000 samples. There the 3 x TF32 launch is
+    nearer that plain version than the bf16x3 one, whose one accumulator
+    over the walk drifts further than the order of the sums, and one unit
+    in the LOD's last place is 2.6e-5. So on the TWIN_CORNER corner the
+    kernel is held against ``liteqtl_bf16x3_chunked_reference``, its own
+    order, under the same bar and with a mean |dLOD| at most
+    BF16_TWIN_SHARE of the 3 x TF32 launch's: the check that the products
+    ran as bf16x3. Each bf16x3 launch is counted, the 3 x TF32 one not."""
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+
+    n = ops[0].shape[0]
+    bar = BF16_LONG_DEPTH_BAR if n >= BIOBANK_N else KERNEL_BAR
+    out = {}
+    for name, args, plain in (("whole", ops, lf.liteqtl_bf16x3_reference),
+                              ("corner", _corner(ops, TWIN_CORNER), lf.liteqtl_bf16x3_chunked_reference)):
+        ref = plain(*args)
+        before = lf.bf16x3_launches
+        d16 = (lf.liteqtl_lod_cuda(*args, dot_precision="high") - ref).abs()
+        d32 = (lf.liteqtl_lod_cuda(*args) - ref).abs()
+        from32 = (lf.liteqtl_lod_plain(*args) - ref).abs().max().item()
+        torch.cuda.synchronize()
+        check(lf.bf16x3_launches == before + 1, f"the bf16x3 launch on {what} was not counted alone")
+        err, mean, tf32_err, tf32_mean = (d16.max().item(), d16.mean().item(), d32.max().item(),
+                                          d32.mean().item())
+        print(f"  the bf16x3 kernel on {what} ({name}: {tuple(args[0].shape)[1]} markers x "
+              f"{tuple(args[2].shape)[1]} traits) vs {plain.__name__}: max|dLOD| = {err:.3e} (bar "
+              f"{bar:.2e}), mean {mean:.3e}; the 3 x TF32 launch's {tf32_err:.3e}, mean "
+              f"{tf32_mean:.3e}; the float32 plain version's max {from32:.3e}")
+        check(err <= bar, f"the bf16x3 kernel disagrees with {plain.__name__} on {what}")
+        if name == "corner":
+            check(mean <= BF16_TWIN_SHARE * tf32_mean,
+                  f"the bf16x3 kernel on {what} is no nearer its chunked plain version than the 3 x "
+                  "TF32 launch")
+        out[name] = {"bf16x3_max_abs_err": err, "bf16x3_mean_abs_err": mean, "tf32x3_max_abs_err": tf32_err,
+                     "tf32x3_mean_abs_err": tf32_mean, "float32_plain_max_abs_err": from32}
+        del ref, d16, d32
+    torch.cuda.empty_cache()
+    return {"vs_bf16x3_plain": out}
+
+
+def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
+    """Phase 17 (b) and (c) for the general and wide LOD kernels: THROUGHPUT
+    null-grid ``bulkscan`` against EXACT64 on phase 11's 2,000-sample block
+    (the general kernel) and at phase 15's c = WIDE_C at BXD scale (the wide
+    kernel), max |dLOD| on the traits of equal grid h2 within
+    THROUGHPUT_LOD_BAR x max(1, n / 79), every LOD launch with bf16x3
+    products; a THROUGHPUT ``bulkscan_streamed`` over phase 11's panel that
+    launches bf16x3 general kernels alone, its first block against the
+    in-memory call; on both main paths' operands the kernel against its
+    bf16x3 plain version (:func:`_chunked_vs_bf16x3_plain`); then each
+    kernel's time at CHUNKED_BF16_TIMED beside its 3 x TF32 twin, in turns,
+    and its bf16x3 bound."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def lod_only(counts, what):
+        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"]
+              and sum(counts.values()) == 2 * counts["liteqtl_lod"],
+              f"{what} launched {counts}, not bf16x3 LOD launches alone")
+
+    # phase 11's panel and its block
+    rng = np.random.default_rng(SEED)
+    G = rng.random((BIOBANK_N, BIOBANK_P), dtype=np.float32)
+    Yb = torch.from_numpy(rng.standard_normal((BIOBANK_N, BIOBANK_M), dtype=np.float32)).to(dev)
+    Kb = bt.calc_kinship(torch.from_numpy(G).to(dev), precision=bt.EXACT64).cpu().numpy()
+    dec = bt.decompose_kinship(Kb, dtype=torch.float64, device=dev)
+    Gb = torch.from_numpy(np.ascontiguousarray(G[:, :BIOBANK_BLOCK])).to(dev)
+    check(lf.kernel_path(BIOBANK_N, 1) == "general", "biobank n does not take the general kernel")
+    res, counts = _drive(f"THROUGHPUT null-grid bulkscan at biobank n, the first {BIOBANK_BLOCK} markers",
+                         lambda: bt.bulkscan(Yb, Gb, dec, precision=bt.THROUGHPUT))
+    lod_only(counts, "the THROUGHPUT block call")
+    exact = bt.bulkscan(Yb, Gb, dec, precision=bt.EXACT64)
+    same = exact.h2_null_list == res.h2_null_list.double()
+    err = _max_abs_diff_cols(res.L, exact.L, same)
+    bar = THROUGHPUT_LOD_BAR * BIOBANK_N / N
+    print(f"  THROUGHPUT vs EXACT64 at biobank n ({BIOBANK_N} x {BIOBANK_BLOCK} x {BIOBANK_M}, the "
+          f"general kernel): {int((~same).sum())} of {BIOBANK_M} traits with another grid h2; "
+          f"max|dLOD| on the rest = {err:.3e} (bar {bar:.3e})")
+    check(0 < err <= bar, "THROUGHPUT strays from EXACT64 at biobank n")
+    out["general"] = {"launches": counts["liteqtl_lod_bf16x3"], "throughput_vs_exact64": err}
+    block_L = res.L
+    del exact
+    with with_highest_matmul():
+        ones = torch.ones((BIOBANK_N, 1), dtype=torch.float64, device=dev)
+        ops = lf.prepare_inputs(dec.Ut @ Yb.double(), dec.Ut @ Gb.double(), dec.Ut @ ones, dec.lam,
+                                res.h2_null_list)
+    out["general"].update(_chunked_vs_bf16x3_plain(
+        ops, f"the {BIOBANK_N} x {BIOBANK_BLOCK} x {BIOBANK_M} block"))
+    del ops, res, Gb
+    with tempfile.TemporaryDirectory() as tmp:
+        L = np.lib.format.open_memmap(Path(tmp) / "L.npy", mode="w+", dtype=np.float32,
+                                      shape=(BIOBANK_P, BIOBANK_M))
+        res, counts = _drive("THROUGHPUT null-grid bulkscan_streamed at biobank n",
+                             lambda: bt.bulkscan_streamed(Yb, G, dec, precision=bt.THROUGHPUT, out=L))
+        lod_only(counts, "the THROUGHPUT streamed call")
+        check(res.L is L and bool(np.isfinite(L).all()), "THROUGHPUT streamed L is not finite")
+        serr = (torch.from_numpy(np.asarray(L[:BIOBANK_BLOCK])).to(dev) - block_L).abs().max().item()
+        print(f"  THROUGHPUT streamed: {counts['liteqtl_lod_bf16x3']} bf16x3 general kernel launches; "
+              f"its first {BIOBANK_BLOCK} markers vs the in-memory call's max|dLOD| = {serr:.3e} "
+              f"(bar {ORACLE_BAR * BIOBANK_N / N:.2e})")
+        check(serr <= ORACLE_BAR * BIOBANK_N / N, "the THROUGHPUT streamed scan strays from the in-memory one")
+        out["general"]["streamed_launches"] = counts["liteqtl_lod_bf16x3"]
+        del res, L
+    del G, Yb, dec, block_L
+    torch.cuda.empty_cache()
+
+    # phase 15's c = 12 at BXD scale: the wide kernel
+    covar = torch.from_numpy(np.random.default_rng(SEED).normal(size=(N, WIDE_C - 1))).to(dev)
+    res, counts = _drive(f"THROUGHPUT null-grid bulkscan, c = {WIDE_C}",
+                         lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.THROUGHPUT))
+    lod_only(counts, f"the THROUGHPUT c = {WIDE_C} call")
+    check(lf.kernel_path(N, WIDE_C) == "wide", f"c = {WIDE_C} does not take the wide kernel")
+    exact = bt.bulkscan(Yd, Gd, K, covar, precision=bt.EXACT64)
+    same = exact.h2_null_list == res.h2_null_list.double()
+    err = _max_abs_diff_cols(res.L, exact.L, same)
+    print(f"  THROUGHPUT vs EXACT64 at c = {WIDE_C} (the wide kernel): {int((~same).sum())} of {M} "
+          f"traits with another grid h2; max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_LOD_BAR:.0e})")
+    check(0 < err <= THROUGHPUT_LOD_BAR, f"THROUGHPUT strays from EXACT64 at c = {WIDE_C}")
+    out["wide"] = {"launches": counts["liteqtl_lod_bf16x3"], "throughput_vs_exact64": err}
+    ops = lf.prepare_inputs(*_rotated_bxd(K, Yd, Gd, dev, covar), res.h2_null_list)
+    out["wide"].update(_chunked_vs_bf16x3_plain(ops, f"BXD scale at c = {WIDE_C}"))
+    del res, exact, ops
+    torch.cuda.empty_cache()
+
+    # (c) each kernel beside its 3 x TF32 twin, in turns
+    out["shapes"] = {}
+    print(f"  the bf16x3 general and wide LOD kernels on {card}, median of 5 in turns with the 3 x "
+          "TF32 twin (ms a launch):")
+    for name in CHUNKED_BF16_TIMED:
+        shape = LOD_SHAPES[name]
+        ops = lf.prepare_inputs(*_kernel_inputs(*shape[:4], np.random.default_rng(SHAPE_SEED), dev))
+        launch = {dp: (lambda dp=dp: lf.liteqtl_lod_cuda(*ops, general=shape.general, dot_precision=dp))
+                  for dp in ("high", "highest")}
+        ms = {dp: [] for dp in launch}
+        for dp in launch:
+            _time_ms(launch[dp])
+        for _ in range(5):
+            for dp in launch:
+                ms[dp].append(_time_ms(launch[dp]))
+        bf16, tf32 = statistics.median(ms["high"]), statistics.median(ms["highest"])
+        bound, by = bound_ms(shape, "bf16x3")
+        kind = "general" if shape.general or shape.c <= 3 else "wide"
+        out["shapes"][name] = {"kernel": kind, "bf16x3_ms": bf16, "tf32x3_ms": tf32,
+                               "bf16x3_bound_ms": bound, "bf16x3_bound_by": by,
+                               "bf16x3_share": bound / bf16}
+        print(f"    {name} ({kind}, {shape.n} x {shape.p} x {shape.m}, c = {shape.c}): bf16x3 "
+              f"{bf16:.3f} {[round(x, 3) for x in ms['high']]}, 3 x TF32 {tf32:.3f} "
+              f"{[round(x, 3) for x in ms['highest']]}, {tf32 / bf16:.2f}x; bf16x3 bound {bound:.3f} "
+              f"ms by {by}, {100 * bound / bf16:.1f} % of it")
+        check(bound <= bf16, f"the bf16x3 {kind} LOD kernel runs faster than its bound at {name}")
+        del ops, launch
+        torch.cuda.empty_cache()
+    print(f"  phase 17's general and wide kernels took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def validation_sweep(card) -> None:
     """Phase 16: ``python -m bulklmm_tpu_torch.validation``'s sweep in this
     process; fails if any path misses its bar."""
@@ -3341,7 +3662,7 @@ def main() -> None:
     card = device_check()
     dev = torch.device("cuda", 0)
     print("[2] build")
-    report, serialized = build()
+    report, serialized, injected = build()
     check(bool(report), "the build left no ptxas report")
     print("[2b] the accumulate probe: how the tensor cores finish a float32 sum")
     accumulate_probe(dev)
@@ -3389,9 +3710,12 @@ def main() -> None:
     validation_sweep(card)
     print("[17] THROUGHPUT on the card: the bf16x3 kernels vs their bf16x3 plain versions, THROUGHPUT "
           f"at BXD scale ({N} x {P} x {M}) against EXACT64, times beside the 3 x TF32 twins")
-    throughput_kernel_checks(dev)
+    kernel_readings = throughput_kernel_checks(dev)
     tp = throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, {
         "liteqtl_lod": lod_launches, "altgrid": alt_launches, "bulkperm_maxr2": perm_launches})
+    chunked = throughput_chunked(dev, card, Yd, Gd, K)
+    for path, readings in kernel_readings.items():
+        chunked[path]["kernel_checks"] = readings
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -3418,6 +3742,7 @@ def main() -> None:
         "wide_max_abs_err": wide["kernel"]["err"],
         "shapes": {name: lod_shapes[name] if name in lod_shapes else wide["shapes"][name]
                    for name in SMOKE_SHAPES},
+        "bf16x3_chunked": chunked,
         "bound": _bound(2.0 * N * P * M * (lod_ops[1].shape[1] + 2), lod_ops, 4 * P * M),
     }, {
         "name": "altgrid",
@@ -3454,6 +3779,7 @@ def main() -> None:
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
         k.setdefault("shapes", None)  # the LOD kernel's general and wide paths, S1-S6
+        k.setdefault("bf16x3_chunked", None)  # their bf16x3 instantiations
         for key in ("effects_ms", "effects_plain_ms", "effects_bound_ms", "wide_c", "wide_launches",
                     "wide_ms", "wide_plain_ms", "wide_bound_ms", "wide_simt_bound_ms",
                     "wide_max_abs_err"):
@@ -3463,7 +3789,7 @@ def main() -> None:
               f"{k['bound_unit']} ({k['simt_bound_ms']:.3f} ms on the CUDA cores; the kernel runs "
               f"at {share:.1f} % of the bound's rate), {k['launches']} launches on its path")
         check(share <= 100.0, f"{k['name']} runs faster than its bound")
-    check_ptxas(report, serialized)
+    check_ptxas(report, serialized, injected)
     check(not _PARITY_FAILED, f"BASELINE.md's bar is not met on {_PARITY_FAILED}")
     print(json.dumps({"kernels": kernels}))
     print(card)

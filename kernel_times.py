@@ -22,18 +22,30 @@ BXD with 4, 8 and 12 covariate columns, 2,000 x 100,000 x 2,048 with one and
 effects variant at S1, S2, S4 and S5 (S1e, S2e, S4e, S5e), on random operands drawn
 from one seed (``chip_smoke._kernel_inputs``) and prepared by the tree's own
 ``prepare_inputs``, so that each tree takes its own kernel for the shape.
-The same tree named twice shows the spread. Each tree's LOD kernel is
-also held against its plain version at every shape and on
+The same tree named twice shows the spread. In a tree whose wrappers take
+``dot_precision`` each shape is timed with bf16x3 products too, in turns
+with the 3 x TF32 launch (the bf16x3 general and wide kernels where the
+tree has them), and held against the float32 plain version. Each tree's LOD
+kernel is also held against its plain version at every shape and on
 ``chip_smoke.py`` phase 11's block (the first 8,192 markers of its 2,000 x
 100,000 panel, on the scan's own operands): max |dLOD| of each. The
 permutation kernel is also timed on its chunked path at ``PERM_2000``
 (random operands) and held against its plain version there, and the
 BALANCED null-grid scan at ``GENERAL_N`` samples (the general LOD kernel)
 against EXACT64 at each of ``GENERAL_C``: max |dLOD| on the traits of equal
-grid h2 and the h2 flips. Prints the
+grid h2 and the h2 flips (and the THROUGHPUT scan's). Prints the
 card's name and power limit, one line per run and each shape's bound (3 x
 TF32 passes at 495 TFLOP/s, or the bytes at 3.35 TB/s; beside it the
 bf16x3 bound, three bf16 passes at 989 TFLOP/s). Needs a CUDA device.
+
+    python3 kernel_times.py --plain
+
+times, in this checkout, the kernels' plain versions instead (median of 3
+after a warm-up, CUDA events): the LOD step's float32 and bf16x3
+(``liteqtl_bf16x3_reference``) plain versions on the main path's BXD
+operands and at S4, S5 and S6, the alt-grid and permutation kernels'
+bf16x3 plain versions (``dot_precision="high"``) on theirs, and the
+permutation kernel's float32 and bf16x3 plain versions at ``PERM_2000``.
 
     python3 kernel_times.py --sass build/parent .
 
@@ -168,18 +180,41 @@ def time_tree(tree: Path) -> dict:
     del G, Gd, Yd, rotated, alt_ops, lod_ops, prep, perm_ops
     torch.cuda.empty_cache()
     out["err"] = {}
+    if "bf16x3" in out:
+        out["bf16x3"]["shapes"], out["bf16x3"]["err"] = {}, {}
     for name, shape in LOD_SHAPES.items():
         rng = np.random.default_rng(SHAPE_SEED)
         ops = lf.prepare_inputs(*cs._kernel_inputs(*shape[:4], rng, dev), effects=shape.effects)
-        launch = lambda: lf.liteqtl_lod_cuda(*ops, general=shape.general, effects=shape.effects)  # noqa: E731
-        out[name] = median_ms(launch)
-        got, plain = launch(), lf.liteqtl_lod_plain(*ops, effects=shape.effects)
+
+        def launch(**kw):
+            return lf.liteqtl_lod_cuda(*ops, general=shape.general, effects=shape.effects, **kw)
+
+        plain = lf.liteqtl_lod_plain(*ops, effects=shape.effects)
         if shape.effects:
-            got, plain = got[0], plain[0]
+            plain = plain[0]
+        if "bf16x3" in out:
+            # each products' launch in turns with the other's
+            ms = {"highest": [], "high": []}
+            for dp in ms:
+                cs._event_ms(lambda: launch(dot_precision=dp))
+            for _ in range(5):
+                for dp in ms:
+                    ms[dp].append(cs._event_ms(lambda: launch(dot_precision=dp)))
+            out[name] = statistics.median(ms["highest"])
+            out["bf16x3"]["shapes"][name] = statistics.median(ms["high"])
+            got = launch(dot_precision="high")
+            got = got[0] if shape.effects else got
+            out["bf16x3"]["err"][name] = float((got - plain).abs().max())
+        else:
+            out[name] = median_ms(launch)
+        got = launch()
+        got = got[0] if shape.effects else got
         out["err"][name] = float((got - plain).abs().max())
         del ops, got, plain
         torch.cuda.empty_cache()
-    out["err"]["block"] = _biobank_block_err(cs, bt, lf, dev)
+    out["err"]["block"], block_bf16 = _biobank_block_err(cs, bt, lf, dev, "bf16x3" in out)
+    if block_bf16 is not None:
+        out["bf16x3"]["err"]["block"] = block_bf16
     n, p, mb, K = PERM_2000
     if bf.kernel_path(n) != "chunked":
         raise RuntimeError(f"the permutation kernel at n = {n} does not take its chunked path")
@@ -195,11 +230,11 @@ def time_tree(tree: Path) -> dict:
 
 def _general_vs_exact64(cs, bt, lf, dev) -> dict:
     """{c: (max |dLOD| on traits of equal grid h2, h2 flips, the plain
-    version's max |dLOD| on the same traits)} of the BALANCED null-grid scan
-    at GENERAL_N samples against EXACT64, for each of GENERAL_C; the scans
-    take the general LOD kernel, the plain version
-    (``fused_lods_per_trait_reference``) the tree's own preparation of the
-    same rotated inputs and h2."""
+    version's max |dLOD| on the same traits, and the THROUGHPUT scan's max
+    |dLOD| and h2 flips)} of the BALANCED null-grid scan at GENERAL_N
+    samples against EXACT64, for each of GENERAL_C; the scans take the
+    general LOD kernel, the plain version (``fused_lods_per_trait_reference``)
+    the tree's own preparation of the same rotated inputs and h2."""
     import numpy as np
     import torch
 
@@ -221,18 +256,22 @@ def _general_vs_exact64(cs, bt, lf, dev) -> dict:
         with with_highest_matmul():
             Lp = lf.fused_lods_per_trait_reference(dec.Ut @ Yd.double(), dec.Ut @ Gd.double(),
                                                    dec.Ut @ C, dec.lam, res.h2_null_list)
+        tp = bt.bulkscan(Yd, Gd, K, covar if c > 1 else None, precision=bt.THROUGHPUT)
+        tsame = ex.h2_null_list == tp.h2_null_list.double()
         out[c] = (cs._max_abs_diff_cols(res.L, ex.L, same), int((~same).sum()),
-                  cs._max_abs_diff_cols(Lp, ex.L, same))
-        del res, ex, Lp
+                  cs._max_abs_diff_cols(Lp, ex.L, same), cs._max_abs_diff_cols(tp.L, ex.L, tsame),
+                  int((~tsame).sum()))
+        del res, ex, Lp, tp
         torch.cuda.empty_cache()
     return out
 
 
-def _biobank_block_err(cs, bt, lf, dev) -> float:
+def _biobank_block_err(cs, bt, lf, dev, bf16=False) -> tuple:
     """max |dLOD| of the LOD kernel against its plain version on
     chip_smoke.py phase 11's block: the first 8,192 markers of its 2,000 x
     100,000 panel (seed 2026) with its 2,048 traits, on the rotated
-    operands and the BALANCED null-grid h2 of that panel."""
+    operands and the BALANCED null-grid h2 of that panel; with ``bf16``
+    also the kernel's bf16x3 launch's (else None)."""
     import numpy as np
     import torch
 
@@ -250,7 +289,68 @@ def _biobank_block_err(cs, bt, lf, dev) -> float:
     with with_highest_matmul():
         ones = torch.ones((n, 1), dtype=torch.float64, device=dev)
         ops = lf.prepare_inputs(dec.Ut @ Y.double(), dec.Ut @ G.double(), dec.Ut @ ones, dec.lam, h2)
-    return float((lf.liteqtl_lod_cuda(*ops) - lf.liteqtl_lod_plain(*ops)).abs().max())
+    plain = lf.liteqtl_lod_plain(*ops)
+    high = (float((lf.liteqtl_lod_cuda(*ops, dot_precision="high") - plain).abs().max())
+            if bf16 else None)
+    return float((lf.liteqtl_lod_cuda(*ops) - plain).abs().max()), high
+
+
+def plain_times() -> dict:
+    """{what: ms} of the kernels' plain versions in this checkout (see the
+    module's note on ``--plain``)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from bulklmm_tpu_torch.kernels import altgrid_fused as af
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.models import bulkperm as mp
+    from bulklmm_tpu_torch.ops.bulkperm import permutation_indices
+    from bulklmm_tpu_torch.utils.config import with_highest_matmul
+    import bulklmm_tpu_torch as bt
+
+    dev = torch.device("cuda", 0)
+
+    def median_ms(fn):
+        cs._event_ms(fn)
+        return statistics.median(cs._event_ms(fn) for _ in range(3))
+
+    G, K, Y = cs.synth_bxd()
+    Gd, Yd = torch.from_numpy(G).to(dev), torch.from_numpy(Y).to(dev)
+    grid = torch.as_tensor(cs.GRID, dtype=torch.float64, device=dev)
+    rotated = cs._rotated_bxd(K, Yd, Gd, dev)
+    lod_ops = lf.prepare_inputs(*rotated, bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED).h2_null_list)
+    out = {"lod float32": median_ms(lambda: lf.liteqtl_lod_plain(*lod_ops)),
+           "lod bf16x3": median_ms(lambda: lf.liteqtl_bf16x3_reference(*lod_ops))}
+    del lod_ops
+    alt_ops = af.prepare_inputs(*rotated, grid, prior=cs.PRIOR)
+    out["altgrid bf16x3"] = median_ms(lambda: af.altgrid_plain(*alt_ops, dot_precision="high")[0])
+    del alt_ops
+    dec = bt.decompose_kinship(K, dtype=torch.float64, device=dev)
+    ones = torch.ones((cs.N, 1), dtype=torch.float64, device=dev)
+    with with_highest_matmul():
+        prep = mp._bulkperm_prep(
+            Yd.double(), Gd.double(), ones, dec.Ut, dec.lam, grid, prior=cs.PRIOR, reml=False,
+            method="null-grid", optim_interval=1, precision=bt.BALANCED,
+        )
+    perm_ops = cs._perm_block_operands(prep, permutation_indices(cs.N, cs.NPERMS, 0).to(dev), 0,
+                                       cs.PERM_BLOCK)
+    out["bulkperm bf16x3"] = median_ms(lambda: bf.bulkperm_maxr2_plain(*perm_ops, dot_precision="high"))
+    del G, Gd, Yd, rotated, prep, perm_ops
+    torch.cuda.empty_cache()
+    for name in ("S4", "S5", "S6"):
+        ops = lf.prepare_inputs(*cs._kernel_inputs(*LOD_SHAPES[name][:4],
+                                                   np.random.default_rng(SHAPE_SEED), dev))
+        out[f"{name} float32"] = median_ms(lambda: lf.liteqtl_lod_plain(*ops))
+        out[f"{name} bf16x3"] = median_ms(lambda: lf.liteqtl_bf16x3_reference(*ops))
+        del ops
+        torch.cuda.empty_cache()
+    n, p, mb, K = PERM_2000
+    perm_ops = cs._perm_operands(n, p, mb, 1, K, np.random.default_rng(SHAPE_SEED), dev)
+    for dp, what in (("highest", "float32"), ("high", "bf16x3")):
+        out[f"perm2000 {what}"] = median_ms(lambda: bf.bulkperm_maxr2_plain(*perm_ops, dot_precision=dp))
+    return out
 
 
 def _library(tree: Path) -> Path:
@@ -311,9 +411,18 @@ def main() -> None:
     parser.add_argument("--one", type=Path, help="time this tree in this process (internal)")
     parser.add_argument("--sass", type=Path, nargs="+",
                         help="compare the kernels' machine code of these trees instead")
+    parser.add_argument("--plain", action="store_true",
+                        help="time the kernels' plain versions in this checkout instead")
     args = parser.parse_args()
     if args.sass:
         sass_diff(args.sass)
+        return
+    if args.plain:
+        import chip_smoke
+
+        chip_smoke.device_check()
+        print("plain versions (ms, median of 3): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in plain_times().items()))
         return
     if args.one is not None:
         print(json.dumps(time_tree(args.one)))
@@ -334,12 +443,17 @@ def main() -> None:
               "vs its plain version " + ", ".join(f"{k} {v:.4e}" for k, v in res["err"].items()))
         print(f"{'':>16s}  permutation kernel at n, p, mb, K = {PERM_2000} (chunked): "
               f"{res['perm2000_ms']:.3f} ms; BALANCED null-grid at n = {GENERAL_N} (general kernel) "
-              "vs EXACT64, (max|dLOD|, h2 flips; plain version's max|dLOD|) by covariate count: "
-              + ", ".join(f"c = {c} ({v[0]:.4e}, {v[1]}; {v[2]:.4e})"
+              "vs EXACT64, (max|dLOD|, h2 flips; plain version's max|dLOD|; THROUGHPUT's max|dLOD|, "
+              "h2 flips) by covariate count: "
+              + ", ".join(f"c = {c} ({v[0]:.4e}, {v[1]}; {v[2]:.4e}; {v[3]:.4e}, {v[4]})"
                           for c, v in res["general_vs_exact64"].items()))
         if "bf16x3" in res:
+            b = res["bf16x3"]
             print(f"{'':>16s}  bf16x3 products: " + ", ".join(
-                f"{k.removesuffix('_ms')} {v:.3f} ms" for k, v in res["bf16x3"].items()))
+                f"{k.removesuffix('_ms')} {v:.3f} ms" for k, v in b.items() if k.endswith("_ms")))
+            print(f"{'':>16s}  bf16x3 LOD kernel, in turns with the 3 x TF32 one: " + ", ".join(
+                f"{name} {b['shapes'][name]:.3f}" for name in LOD_SHAPES) + " ms; max|dLOD| vs the "
+                "float32 plain version " + ", ".join(f"{k} {v:.4e}" for k, v in b["err"].items()))
     print("bounds (ms): " + ", ".join(f"{name} {bound_ms(shape)[0]:.3f}"
                                       for name, shape in LOD_SHAPES.items()))
     print(f"permutation kernel at {PERM_2000}: bound {perm_bound_ms(*PERM_2000):.3f} ms")

@@ -242,12 +242,11 @@ def test_resident_steps(n, steps):
 @pytest.mark.parametrize("n", [1, 79, 88, 89, 2000])
 @pytest.mark.parametrize("c", [1, 3, 4])
 def test_kernel_route_names_the_products(n, c):
-    """Under "high" the resident kernel runs bf16x3; the general and wide
-    kernels keep three TF32 passes; the path is the same under both names."""
+    """Under "high" every kernel, resident, general and wide, runs bf16x3;
+    the path is the same under both names."""
     path = lf.kernel_path(n, c)
     assert lf.kernel_route(n, c) == (path, "tf32x3")
-    assert lf.kernel_route(n, c, dot_precision="high") == (
-        path, "bf16x3" if path == "resident" else "tf32x3")
+    assert lf.kernel_route(n, c, dot_precision="high") == (path, "bf16x3")
     assert lf.kernel_route(n, c, True, "high") == lf.kernel_route(n, c, dot_precision="high")
     if path == "resident":
         for effects in (False, True):
@@ -425,6 +424,78 @@ def test_chunked_reference_matches_plain_and_jax(n, c, effects):
         assert float((np.abs(b.double().numpy() - jb) / (np.abs(jb) + js)).max()) < 1e-4
         assert float((np.abs(s.double().numpy() - js) / js).max()) < 1e-4
     assert lf.launches == 0 and lf.effects_launches == 0
+
+
+# --- the chunked kernels under "high" (bf16x3) -----------------------------------------
+
+
+@pytest.mark.parametrize("dot_precision, chunk", [("highest", 40), ("high", 32)])
+def test_chunk_samples_by_products(dot_precision, chunk):
+    """Five TF32 steps of 8 a chunk, or two bf16 steps of 16 (the wide
+    kernel's shared memory allows no more)."""
+    assert lf.chunk_samples(dot_precision) == chunk
+    assert chunk % (16 if dot_precision == "high" else 8) == 0
+
+
+@pytest.mark.parametrize("n, tf32, bf16", [(1, 40, 32), (40, 40, 64), (48, 80, 64), (79, 80, 96),
+                                           (89, 120, 96), (150, 160, 160), (2000, 2000, 2016)])
+def test_walk_samples_pad_to_whole_chunks(n, tf32, bf16):
+    """The chunked kernels walk n up to a whole chunk, the rest zeros: BXD's
+    79 samples take 80 under 3 x TF32 and 96 (17 padded) under bf16x3."""
+    assert lf.walk_samples(n) == tf32 and lf.walk_samples(n, "high") == bf16
+
+
+@pytest.mark.parametrize("n", [1, 79, 89, 200, 201, 2000])
+def test_fold_chunks_by_products(n):
+    """3 x TF32: a fold after every chunk up to 200 samples, every 5 chunks
+    past them; bf16x3: no fold, the whole walk in one accumulator."""
+    assert lf.fold_chunks(n) == (1 if n <= 200 else lf.FOLD_CHUNKS)
+    assert lf.fold_chunks(n, "high") is None
+    with pytest.raises(ValueError, match="GEMM precision"):
+        lf.fold_chunks(n, "medium")
+
+
+#: the chunked bf16x3 twin's shapes (n, c): the general kernel at 150 and
+#: 2,000 samples, the wide one at c = 4 and 12
+BF16_CHUNKED_SHAPES = [(150, 1), (150, 3), (2000, 1), (2000, 3), (150, 4), (150, 12)]
+
+
+@pytest.mark.parametrize("n, c", BF16_CHUNKED_SHAPES)
+def test_bf16x3_chunked_reference_is_throughput_grade(n, c):
+    """The general and wide kernels' arithmetic under "high"
+    (``liteqtl_bf16x3_chunked_reference``) on the operands of the kernel's
+    own path, 120 markers x 80 traits from a numpy seed, against the JAX
+    package's ``lods_per_trait`` under EXACT64: within its THROUGHPUT bound
+    4e-3 (tests/test_bulkscan.py:138), scaled by n / 79 past BXD's 79
+    samples as the chip smoke run scales its bars, and not equal to it.
+    Against the resident kernel's bf16x3 plain version
+    (``liteqtl_bf16x3_reference``, round-to-nearest sums in one order):
+    TWIN_BAR, the bar of the 3 x TF32 twin against the float32 plain
+    version (both sides bf16x3 float32 sums in other orders)."""
+    p, m = 120, 80
+    args = _mk(n, p, m, c)
+    ops = lf.prepare_inputs(*[torch.from_numpy(a) for a in args])
+    assert lf.kernel_path(n, c) == ("wide" if c > 3 else "general")
+    out = lf.liteqtl_bf16x3_chunked_reference(*ops)
+    assert out.shape == (p, m) and out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    exact = jax_lods_per_trait(*[jnp.asarray(a.astype(np.float64)) for a in args],
+                               precision=jcfg.EXACT64)
+    assert 0 < _maxdiff(out, exact) < 4e-3 * max(1.0, n / 79)
+    assert float((out - lf.liteqtl_bf16x3_reference(*ops)).abs().max()) < TWIN_BAR[max(200, n)]
+    assert lf.launches == lf.bf16x3_launches == 0
+
+
+def test_bf16x3_chunked_reference_effects():
+    """The effects variant of the same arithmetic: its LOD is the LOD-only
+    reference's, and its effects stay within 1e-4 of (|effect| + SE) and of
+    SE from the float32 plain version, as the kernels' effects are held."""
+    _, targs = _both(_mk(150, 70, 45, 4))
+    ops = lf.prepare_inputs(*targs, effects=True)
+    L, b, s = lf.liteqtl_bf16x3_chunked_reference(*ops, effects=True)
+    Lp, bp, sp = lf.liteqtl_lod_plain(*ops, effects=True)
+    assert torch.equal(L, lf.liteqtl_bf16x3_chunked_reference(*ops[:4], ops[4][:-1]))
+    assert float(((b - bp).abs() / (bp.abs() + sp)).max()) < 1e-4
+    assert float(((s - sp).abs() / sp).max()) < 1e-4
 
 
 # --- the markers off the covariates' span -----------------------------------------

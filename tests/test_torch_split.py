@@ -265,6 +265,78 @@ def test_matmul_tf32x3_chunked_fold_adds_runs_into_a_total(fold):
                        split.matmul_tf32x3_emulated(A, B, chunk=chunk))
 
 
+# --- the chunked bf16x3 twin (the general and wide LOD kernels under "high") ----------
+
+
+def test_matmul_bf16x3_emulated_one_chunk_is_matmul_bf16x3():
+    """One chunk as deep as the contraction: the three bf16 passes into one
+    accumulator give ``matmul_bf16x3``'s products where every sum is exact
+    (integers of up to 10 bits, a hi and a lo half each, 20 deep: every sum
+    below 2^24; the lo x lo term dropped by both), bit for bit; batched as
+    matmul."""
+    rng = np.random.default_rng(5)
+    A = torch.from_numpy(rng.integers(-600, 601, (3, 20, 20)).astype(np.float32))
+    B = torch.from_numpy(rng.integers(-600, 601, (20, 11)).astype(np.float32))
+    assert bool((split.bf16_split(A)[1] != 0).any())  # the lo halves are used
+    out = split.matmul_bf16x3_emulated(A, B, chunk=20)
+    assert tuple(out.shape) == (3, 20, 11) and out.dtype == torch.float32
+    assert torch.equal(out, split.matmul_bf16x3(A, B))
+    assert not torch.equal(out, A @ B)  # the dropped lo x lo term
+
+
+@pytest.mark.parametrize("run", [None, 2], ids=["one accumulator", "folded"])
+@pytest.mark.parametrize("n", [52, 2000])
+def test_matmul_bf16x3_emulated_is_bf16x3_grade(n, run):
+    """The chunked form (chunks of BF16_CHUNK_SAMPLES, the kernels' one
+    accumulator over the walk) and a folded one (runs of 2 chunks into a
+    total) against float64: within 2^-16 sum |a b| plus 4 x the exact
+    float32 product's error, as ``matmul_bf16x3``; and apart from the exact
+    float32 product by more than its error (the dropped lo x lo terms)."""
+    rng = np.random.default_rng(n + 3)
+    A = torch.from_numpy(rng.normal(size=(96, n)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    exact = A.double() @ B.double()
+    err32 = float((A @ B - exact).abs().max())
+    scale = A.double().abs() @ B.double().abs()
+    out = split.matmul_bf16x3_emulated(A, B, chunk=lf.BF16_CHUNK_SAMPLES, run=run)
+    assert bool(((out.double() - exact).abs() <= 2.0**-16 * scale + 4 * err32).all())
+    assert float((out.double() - exact).abs().max()) > err32
+
+
+@pytest.mark.parametrize("fold", [1, 2, 3])
+def test_matmul_bf16x3_emulated_adds_runs_into_a_total(fold):
+    """A run of ``fold`` chunks summed as the unfolded form sums it, the
+    runs' sums added in order, rounded to nearest; a run as deep as the
+    contraction is the unfolded form, bit-equal."""
+    rng = np.random.default_rng(fold + 10)
+    A = torch.from_numpy(rng.normal(size=(30, 130)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(3, 130, 9)).astype(np.float32))
+    chunk = 32
+    want = None
+    for r0 in range(0, 130, chunk * fold):
+        cut = slice(r0, r0 + chunk * fold)
+        part = split.matmul_bf16x3_emulated(A[:, cut], B[:, cut], chunk=chunk)
+        want = part if want is None else want + part
+    assert torch.equal(split.matmul_bf16x3_emulated(A, B, chunk=chunk, run=fold), want)
+    assert torch.equal(split.matmul_bf16x3_emulated(A, B, chunk=chunk, run=5),
+                       split.matmul_bf16x3_emulated(A, B, chunk=chunk))
+
+
+def test_matmul_bf16x3_emulated_sums_as_the_tensor_cores():
+    """Each depth step of 16 is one tensor-core sum of the bf16 model: on
+    one step the twin is ``tensor_core_sum`` of the three passes' exact
+    products, pass after pass."""
+    rng = np.random.default_rng(6)
+    A = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(16, 5)).astype(np.float32))
+    (Ah, Al), (Bh, Bl) = split.bf16_split(A), split.bf16_split(B)
+    acc = torch.zeros((8, 5), dtype=torch.float32)
+    for a, b in ((Al, Bh), (Ah, Bl), (Ah, Bh)):
+        prods = a.double()[:, None, :] * b.double().T[None, :, :]
+        acc = split.tensor_core_sum(acc, prods, **split.BF16_TENSOR_CORE_SUM)
+    assert torch.equal(split.matmul_bf16x3_emulated(A, B, chunk=32), acc)
+
+
 # --- the tensor cores' sums -----------------------------------------------------------
 
 #: The probe's documented cases as the card gave them (chip_smoke.py phase
@@ -327,6 +399,81 @@ def test_probe_fit_names_the_twins_model_alone():
     models = ap.fit(A, C, D)
     assert split.TENSOR_CORE_SUM in models
     assert all(m["finish"] == "rz" and m["extra"] == 2 for m in models)
+
+
+#: The bf16 forms' documented cases as the card gave them (chip_smoke.py
+#: phase 2b, NVIDIA H100 80GB HBM3, mma.sync m16n8k16 and wgmma m64n64k16
+#: alike): as PROBE_CASES, at depth 16
+BF16_PROBE_CASES = {
+    "one product +0.25 ulp": (0.0, 0.5, 0.0, 1.0),
+    "one product -0.25 ulp": (-0.5, 0.0, -1.0, 0.0),
+    "one product +0.5 ulp": (0.0, 0.5, 0.0, 1.0),
+    "one product -0.5 ulp": (-0.5, 0.0, -1.0, 0.0),
+    "one product +0.75 ulp": (0.0, 1.0, 0.0, 1.0),
+    "one product -0.75 ulp": (-1.0, 0.0, -1.0, 0.0),
+    "one product +1.25 ulp": (1.0, 1.5, 1.0, 2.0),
+    "one product -1.25 ulp": (-1.5, -1.0, -2.0, -1.0),
+    "one product +1.5 ulp": (1.0, 1.5, 1.0, 2.0),
+    "one product -1.5 ulp": (-1.5, -1.0, -2.0, -1.0),
+    "eight products 2^-1 ulp": (4.0, 4.0, 4.0, 4.0),
+    "eight products 2^-2 ulp": (2.0, 2.0, 2.0, 2.0),
+    "eight products 2^-3 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-4 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-5 ulp": (0.0, 0.0, 0.0, 0.0),
+    "eight products 2^-6 ulp": (0.0, 0.0, 0.0, 0.0),
+    "four products 1/4 ulp, first half": (1.0, 1.0, 1.0, 1.0),
+    "two 1/4 ulp in each half": (1.0, 1.0, 1.0, 1.0),
+    "sixteen products 2^-1 ulp": (8.0, 8.0, 8.0, 8.0),
+    "sixteen products 2^-2 ulp": (4.0, 4.0, 4.0, 4.0),
+    "sixteen products 2^-3 ulp": (0.0, 0.0, 0.0, 0.0),
+    "sixteen products 2^-4 ulp": (0.0, 0.0, 0.0, 0.0),
+    "sixteen products 2^-5 ulp": (0.0, 0.0, 0.0, 0.0),
+    "sixteen products 2^-6 ulp": (0.0, 0.0, 0.0, 0.0),
+    "four products 1/4 ulp, second eight": (1.0, 1.0, 1.0, 1.0),
+    "one 1/4 ulp in each quarter": (1.0, 1.0, 1.0, 1.0),
+    "one product -1/4 ulp, then 3/4 ulp in the second eight": (0.0, 0.5, 0.0, 1.0),
+}
+
+
+def test_bf16_probe_cases_are_the_documented_ones():
+    names, acc, prods = ap.documented_cases(ap.BF16_DEPTH)
+    assert names == list(BF16_PROBE_CASES)
+    assert acc.shape == (len(names), len(ap.ACCUMULATORS)) and prods.shape == (len(names), 16)
+    assert names[: len(PROBE_CASES)] == list(PROBE_CASES)  # the depth-8 cases, padded
+    assert not prods[: len(PROBE_CASES), 8:].any()
+
+
+@pytest.mark.parametrize("name", list(BF16_PROBE_CASES))
+def test_bf16_tensor_core_sum_reproduces_the_probe(name):
+    """The twin's model of the tensor cores' sum of bf16 products
+    (split.BF16_TENSOR_CORE_SUM: one group of 16, cut toward zero, 2 bits
+    past float32's last place) gives the card's result of every documented
+    bf16 case bit for bit."""
+    names, acc, prods = ap.documented_cases(ap.BF16_DEPTH)
+    r = names.index(name)
+    a = torch.tensor(acc[r], dtype=torch.float32)
+    pr = torch.from_numpy(np.broadcast_to(prods[r], (len(ap.ACCUMULATORS), 16)).copy())
+    want = a.double() + torch.tensor(BF16_PROBE_CASES[name], dtype=torch.float64) * ap.ULP
+    got = split.tensor_core_sum(a, pr, **split.BF16_TENSOR_CORE_SUM)
+    assert torch.equal(got, want.float()) and torch.equal(want.float().double(), want)
+
+
+def test_bf16_probe_fit_names_one_group_of_sixteen():
+    """Of every candidate at depth 16, the documented bf16 cases' card
+    results are given by the twin's model, and only by models that sum the
+    16 products as one group, cut toward zero, 2 bits past float32's last
+    place: the TF32 model's groups of 8 do not fit (the case of -1/4 ulp
+    and then 3/4 ulp in the second eight tells them apart)."""
+    names, acc, prods = ap.documented_cases(ap.BF16_DEPTH)
+    A, C = ap._tiles_of(acc, prods, "mma_bf16")
+    D = C.reshape(-1, C.shape[-1]).copy()
+    table = np.array([BF16_PROBE_CASES[n] for n in names])
+    for j in range(D.shape[1]):
+        D[: len(names), j] = acc[:, j % acc.shape[1]] + table[:, j % acc.shape[1]] * ap.ULP
+    models = ap.fit(A, C, D.reshape(C.shape))
+    assert split.BF16_TENSOR_CORE_SUM in models
+    assert all((m["finish"], m["extra"], m["group"]) == ("rz", 2, 16) for m in models)
+    assert split.TENSOR_CORE_SUM not in models
 
 
 def _bxd_like_products(seed):
