@@ -310,6 +310,30 @@ exits nonzero:
     BF16_LONG_DEPTH_BAR at 2,000, and on the corner a mean distance within
     a quarter of a 3 x TF32 launch's), and each kernel's time at S1, S4,
     S5 and S6 beside its 3 x TF32 twin in turns and its bf16x3 bound.
+18. The measurement drivers (``bulklmm_tpu_torch/throughput_fwer.py``,
+    ``biobank.py``, ``lowrank_cohort.py``, the ports of the JAX package's
+    ``benchmarks/`` scripts of those names). (a) The FWER study at the JAX
+    script's size (79 x 7,321 x 256, 10 seeds, BALANCED and THROUGHPUT
+    ``bulkscan_perms`` with 1,000 permutations, ``get_thresholds_bulk`` at
+    five alphas): every row printed, and at every alpha the paired tier
+    difference over the seed-to-seed spread (``delta_over_spread_max``)
+    under 0.1; the engine table (THROUGHPUT on the card against the port's
+    CPU EXACT64 at 79 x 512 x 64), null-grid, null-exact and streamed
+    within 4e-3 and alt-grid and permutations within 2e-2 (phase 17's bars),
+    the rest reported, every kernel launched in bf16x3; the time of
+    ``get_thresholds_bulk`` on 35,554 x 1,001 maxima (median of 5, host
+    clock). (b) ``biobank --full`` (5,000 x 100,000 x 20,000, the cohort
+    drawn on the host, the decomposition cached in a temporary directory,
+    the general LOD kernel): its line under BALANCED; the first 8,192
+    markers' BALANCED scan on the float64 factors against EXACT64 (1e-4 x
+    n/79, BASELINE.md's 1e-5 reported); then ``--perms 256 --perm-traits
+    128`` (the chunked permutation kernel) under BALANCED and THROUGHPUT,
+    their lines, and on the float64 factors each against the EXACT64 plain
+    engine on the same shuffle indices (1e-4 x n/79 and 2e-2 x n/79 on the
+    equal-h2 traits). (c) ``lowrank_cohort --compare-full`` under BALANCED
+    at 5,000 x 20,000 x 512, k = 1,024: its lines and fidelity line, the
+    grid h2 of the traits, and the full-rank scan against EXACT64 on the
+    same factors (1e-4 x n/79). The phase's time and the run's are printed.
 
 Every path runs with every kernel's launch counter set to 0 just before it
 and read just after. The second-to-last line is one JSON object describing
@@ -343,7 +367,8 @@ launches and distances from EXACT64, on the main paths' operands
 beside the 3 x TF32 launch's and the float32 plain version's, in
 ``kernel_checks`` phase 17 (a)'s largest distance from the chunked bf16x3
 plain version beside the 3 x TF32 launches' least, and their times at S1,
-S4, S5, S6. No
+S4, S5, S6. Phase 18 adds ``drivers_launches``: its launches in each of the
+measurement drivers' paths that launched it. No
 single PyTorch call computes any of the three kernels' functions, so
 ``library_ms`` is null. The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -457,8 +482,8 @@ GRID = np.arange(0.0, 0.91, 0.1)  # bulkscan's default h2 grid
 PRIOR = (1.0, 0.0)  # bulkscan's default prior
 SCAN_NPERMS = 1024  # permutations of the single-trait scans
 COHORT_N, COHORT_P = 2000, 20000  # the single-trait cohort size
-#: phase 12 (b): benchmarks/lowrank_cohort.py's cohort, its rank and ancestry
-LR_N, LR_P, LR_M, LR_RANK, LR_ANCESTRY = 20_000, 50_000, 2_000, 2_048, 8
+#: phase 12 (b): benchmarks/lowrank_cohort.py's cohort and its rank
+LR_N, LR_P, LR_M, LR_RANK = 20_000, 50_000, 2_000, 2_048
 LR_PERM_TRAITS, LR_NPERMS = 256, 100  # phase 12 (b)'s bulkscan_perms cut
 LR_STREAM_BLOCK = 8192  # phase 12 (b)'s marker block
 RAYLEIGH_BAR = 0.05  # max_i ||K u_i - lam_i u_i|| / lam_1 (tests/test_lowrank.py:96)
@@ -499,6 +524,19 @@ WIDE_BUDGET = 8 * 2**30
 THROUGHPUT_LOD_BAR = 4e-3
 THROUGHPUT_BAR = 2e-2
 THROUGHPUT_FLIP_SHARE = 0.2
+#: phase 18 (a), benchmarks/throughput_fwer.py's claim as a gate: at every
+#: alpha the tiers' paired threshold difference, trait by trait, stays under
+#: this share of the seed-to-seed spread of BALANCED's thresholds
+FWER_SPREAD_BAR = 0.1
+#: phase 18 (a)'s engine table: phase 17's THROUGHPUT bars where phase 17
+#: has one for the path; the other engines are reported
+ENGINE_BARS = {"bulk_null_grid": THROUGHPUT_LOD_BAR, "bulk_null_exact": THROUGHPUT_LOD_BAR,
+               "streamed": THROUGHPUT_LOD_BAR, "bulk_alt_grid": THROUGHPUT_BAR,
+               "bulk_perms": THROUGHPUT_BAR}
+#: phase 18 (b): benchmarks/refresh_all.sh's permutation run of the driver
+DRIVER_PERMS, DRIVER_PERM_TRAITS = 256, 128
+#: phase 18 (c): the cohort driver cut so that its host eigh stays within seconds
+COHORT_CUT_N, COHORT_CUT_P, COHORT_CUT_M, COHORT_CUT_K = 5000, 20_000, 512, 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -2031,22 +2069,6 @@ def lowrank_at_bxd(dev, Yd, Gd, K) -> None:
     del res, ref, lr
 
 
-def _lowrank_cohort(dev, n, p, m, ancestry=LR_ANCESTRY, seed=SEED, block=8192):
-    """benchmarks/lowrank_cohort.py's cohort, drawn on the card: 0/1
-    genotypes whose frequencies follow ``ancestry`` directions through a
-    sigmoid load, and normal traits. Returns (G, Y), float32."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    F = torch.randn((n, ancestry), generator=gen, device=dev)
-    W = torch.randn((ancestry, p), generator=gen, device=dev)
-    G = torch.empty((n, p), device=dev)
-    for s in range(0, p, block):
-        load = torch.sigmoid(0.5 * (F @ W[:, s : s + block]))
-        G[:, s : s + block] = (torch.rand(load.shape, generator=gen, device=dev) < load).float()
-    Y = torch.randn((n, m), generator=gen, device=dev)
-    return G, Y
-
-
 def _rayleigh_residual(G, lr, block=8192) -> float:
     """max_i ||K u_i - lam_i u_i|| / lam_1 for K = calc_kinship(G) (2 X X'/p
     + 0.5, X = G - 0.5, unit diagonal), applied a block of markers at a time
@@ -2090,10 +2112,11 @@ def lowrank_cohort(dev, card, n=LR_N, p=LR_P, m=LR_M, k=LR_RANK) -> None:
     genotypes to the scans, each BALANCED call against EXACT64 on the same
     factors."""
     import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch.lowrank_cohort import cohort
     from bulklmm_tpu_torch.ops import brent
 
     t_phase = time.perf_counter()
-    G, Y = _lowrank_cohort(dev, n, p, m)
+    G, Y = cohort(n, p, m, seed=SEED, device=dev)
     torch.cuda.synchronize()
     print(f"  cohort {n} x {p} x {m} drawn on the card in {time.perf_counter() - t_phase:.1f} s "
           f"({G.numel() * 4 / 1e9:.1f} GB float32 panel)")
@@ -3639,6 +3662,178 @@ def validation_sweep(card) -> None:
     check(rc == 0, "a path of the validation sweep missed its bar")
 
 
+def fwer_study(dev, card) -> dict:
+    """Phase 18 (a): ``throughput_fwer``'s study at the JAX script's size,
+    its engine table, and ``get_thresholds_bulk`` at BXD scale. Returns the
+    paths' launch counts."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch import throughput_fwer as tf
+
+    t0 = time.perf_counter()
+    G, K, Y = tf.synth()
+    rows, counts = _drive(f"the FWER study, {Y.shape[1]} traits x {G.shape[1]} markers, "
+                          f"{tf.NSEEDS} seeds x BALANCED and THROUGHPUT x {tf.NPERMS} permutations",
+                          lambda: tf.fwer_measurement(G, K, Y, device=dev))
+    check(counts["bulkperm_maxr2"] == 2 * counts["bulkperm_maxr2_bf16x3"] > 0,
+          f"the FWER study did not launch the permutation kernel in both products: {counts}")
+    for row in rows:
+        print(f"  {json.dumps(row)}")
+    worst = max(row["delta_over_spread_max"] for row in rows)
+    print(f"  the tiers' threshold difference over the seed-to-seed spread: at most {worst:.3e} "
+          f"(bar {FWER_SPREAD_BAR} at every alpha)")
+    check(worst < FWER_SPREAD_BAR, "THROUGHPUT's thresholds stray past a tenth of the seed spread")
+    launches = {"fwer_study": counts}
+
+    table, counts = _drive("the THROUGHPUT engine table (79 x 512 x 64, CPU EXACT64 goldens)",
+                           lambda: tf.engine_accuracy_table(dev))
+    check(all(counts[k] == counts[f"{k}_bf16x3"] > 0 for k in ("liteqtl_lod", "altgrid",
+                                                                "bulkperm_maxr2")),
+          f"the engine table did not launch every kernel, each in bf16x3 products: {counts}")
+    launches["engine_table"] = counts
+    for name, err in table.items():
+        bar = ENGINE_BARS.get(name)
+        print(f"  THROUGHPUT {name}: max|dLOD| vs EXACT64 = {err:.3e}"
+              + (f" (bar {bar:.0e})" if bar else " (reported)"))
+        check(bar is None or err <= bar, f"THROUGHPUT {name} strays from EXACT64")
+
+    peaks = torch.rand((M, NPERMS + 1), device=dev) * 4  # BXD-scale maxima
+    bt.get_thresholds_bulk(peaks, tf.ALPHAS)
+    ms = [_host_ms(lambda: bt.get_thresholds_bulk(peaks, tf.ALPHAS)) for _ in range(5)]
+    print(f"  get_thresholds_bulk at {M} x {NPERMS + 1}, {len(tf.ALPHAS)} levels, on {card}: "
+          f"{statistics.median(ms):.2f} ms (median of 5, host clock: {[round(x, 2) for x in ms]})")
+    print(f"  phase 18 (a) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def biobank_full(dev, card) -> dict:
+    """Phase 18 (b): ``biobank --full`` under BALANCED, a block against
+    EXACT64 on the float64 factors, then ``--perms 256 --perm-traits 128``
+    under BALANCED and THROUGHPUT against the EXACT64 plain engine on the
+    same shuffle indices. Returns the paths' launch counts."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch import biobank as bb
+    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
+    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.ops.bulkperm import permutation_indices
+    from bulklmm_tpu_torch.ops.rotation import decomposition_from_numpy
+
+    t0 = time.perf_counter()
+    n, p, m = bb.FULL
+    check(lf.kernel_path(n, 1) == "general" and bf.kernel_path(n) == "chunked",
+          "biobank n does not take the general LOD kernel and the chunked permutation kernel")
+    G, Y = bb.synth_cohort(n, p, m)
+    synth_s = time.perf_counter() - t0
+    Gd, Yd = torch.from_numpy(G).to(dev), torch.from_numpy(Y).to(dev)
+    del G, Y
+    with tempfile.TemporaryDirectory() as cache:
+        K32, eigh_s = bb.kinship_for_run(Gd, cache_dir=cache)
+        Ut, lam, _ = bb.host_decomposition(Gd, cache)
+    dec = decomposition_from_numpy(Ut, lam, device=dev, dtype=torch.float64)
+    del Ut, lam
+    print(f"  cohort {n} x {p} x {m} drawn on the host in {synth_s:.1f} s; kinship and host eigh "
+          f"{eigh_s:.1f} s")
+    launches = {}
+    dt, counts = _drive("biobank --full, BALANCED, warm-up and timed call",
+                        lambda: bb.timed(lambda: bb.scan_checksum(Yd, Gd, K32,
+                                                                  precision=bt.BALANCED)))
+    check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod_bf16x3"] == 0,
+          f"biobank --full did not launch the LOD kernel: {counts}")
+    launches["biobank_scan"] = counts
+    print(f"  {json.dumps(bb.bulkscan_line(n, p, m, dt, eigh_s, 0))} on {card}")
+
+    Gb = Gd[:, :BIOBANK_BLOCK].contiguous()
+    bal = bt.bulkscan(Yd, Gb, dec, precision=bt.BALANCED)
+    exact = bt.bulkscan(Yd, Gb, dec, precision=bt.EXACT64)
+    same = exact.h2_null_list == bal.h2_null_list.double()
+    err = _max_abs_diff_cols(bal.L, exact.L, same)
+    bar = ORACLE_BAR * n / N
+    print(f"  BALANCED vs EXACT64 on the first {BIOBANK_BLOCK} markers (float64 factors): "
+          f"{int((~same).sum())} of {m} traits with another grid h2; max|dLOD| on the rest = "
+          f"{err:.3e} (bar {bar:.2e}; BASELINE.md's {PARITY_BAR:.0e}: "
+          f"{'met' if err <= PARITY_BAR else 'NOT met'})")
+    check(err <= bar, "BALANCED strays from EXACT64 at n = 5,000")
+    del bal, exact, Gb
+    torch.cuda.empty_cache()
+
+    Yp = Yd[:, :DRIVER_PERM_TRAITS]
+    idx = permutation_indices(n, DRIVER_PERMS, 0)  # the driver's rndseed
+    exact = bt.bulkscan_perms(Yp, Gd, dec, nperms=DRIVER_PERMS, precision=bt.EXACT64, perm_idx=idx)
+    for name, prec, pbar in (("BALANCED", bt.BALANCED, ORACLE_BAR),
+                             ("THROUGHPUT", bt.THROUGHPUT, THROUGHPUT_BAR)):
+        run = lambda prec=prec: float(bt.bulkscan_perms(  # noqa: E731
+            Yp, Gd, K32, nperms=DRIVER_PERMS, precision=prec).maxlods.sum())
+        dt, counts = _drive(f"biobank --full --perms {DRIVER_PERMS} --perm-traits "
+                            f"{DRIVER_PERM_TRAITS}, {name}, warm-up and timed call",
+                            lambda run=run: bb.timed(run))
+        bf16 = counts["bulkperm_maxr2_bf16x3"]
+        check(counts["bulkperm_maxr2"] > 0 and bf16 == (counts["bulkperm_maxr2"] if prec is
+                                                           bt.THROUGHPUT else 0),
+              f"the {name} permutation run launched {counts}")
+        launches[f"biobank_perms_{name.lower()}"] = counts
+        print(f"  {json.dumps(bb.bulkperms_line(n, p, DRIVER_PERM_TRAITS, DRIVER_PERMS, dt, eigh_s, 0))}"
+              f" on {card}")
+        res = bt.bulkscan_perms(Yp, Gd, dec, nperms=DRIVER_PERMS, precision=prec, perm_idx=idx)
+        same = exact.h2_null_list == res.h2_null_list.double()
+        err = (res.maxlods.double() - exact.maxlods)[same].abs().max().item()
+        bar = pbar * n / N
+        print(f"  {name} vs EXACT64 (plain engine, the same indices, float64 factors): "
+              f"{int((~same).sum())} of {DRIVER_PERM_TRAITS} traits with another grid h2; max|dLOD| "
+              f"on the rest = {err:.3e} (bar {bar:.2e}; BASELINE.md's {PARITY_BAR:.0e} reported)")
+        check(0 < err <= bar, f"{name} bulkscan_perms strays from EXACT64 at n = 5,000")
+        del res
+    print(f"  phase 18 (b) took {time.perf_counter() - t0:.1f} s")
+    del Gd, Yd, Yp, K32, dec, exact
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cohort_compare_full(dev, card) -> dict:
+    """Phase 18 (c): ``lowrank_cohort --compare-full`` under BALANCED at a
+    cut size, the full-rank scan against EXACT64 on the same factors.
+    Returns the path's launch counts."""
+    import bulklmm_tpu_torch as bt
+    from bulklmm_tpu_torch import lowrank_cohort as lc
+
+    t0 = time.perf_counter()
+    n = COHORT_CUT_N
+    G, Y = lc.cohort(n, COHORT_CUT_P, COHORT_CUT_M, device=dev)
+    out, counts = _drive(f"lowrank_cohort --n {n} --p {COHORT_CUT_P} --m {COHORT_CUT_M} --k "
+                         f"{COHORT_CUT_K} --compare-full, BALANCED",
+                         lambda: lc.drive(G, Y, COHORT_CUT_K, compare_full=True,
+                                          precision=bt.BALANCED, log=lambda s: print(f"  {s}")))
+    check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod_bf16x3"] == 0,
+          f"the full-rank scan did not launch the LOD kernel: {counts}")
+    h2 = out["full"].h2_null_list
+    print(f"  the full-rank grid h2: {int((h2 == 0).sum())} of {COHORT_CUT_M} traits at 0, the "
+          f"largest {h2.max().item():.1f}")
+    exact = bt.bulkscan(Y, G, out["decomp"], precision=bt.EXACT64)
+    same = exact.h2_null_list == h2.double()
+    err = _max_abs_diff_cols(out["full"].L, exact.L, same)
+    bar = ORACLE_BAR * n / N
+    print(f"  full-rank BALANCED vs EXACT64 at n = {n}: {int((~same).sum())} traits with another "
+          f"grid h2; max|dLOD| on the rest = {err:.3e} (bar {bar:.2e}; BASELINE.md's "
+          f"{PARITY_BAR:.0e}: {'met' if err <= PARITY_BAR else 'NOT met'})")
+    check(err <= bar, "the cohort's full-rank BALANCED scan strays from EXACT64")
+    print(f"  phase 18 (c) took {time.perf_counter() - t0:.1f} s on {card}")
+    del G, Y, out, exact
+    torch.cuda.empty_cache()
+    return {"cohort_full_rank": counts}
+
+
+def measurement_drivers(dev, card) -> dict:
+    """Phase 18: the three measurement drivers on the card. Returns each
+    kernel's launches in them, by path."""
+    t0 = time.perf_counter()
+    print("[18a] throughput_fwer: the FWER study and the engine table")
+    launches = fwer_study(dev, card)
+    print("[18b] biobank --full, then --perms 256 --perm-traits 128")
+    launches |= biobank_full(dev, card)
+    print("[18c] lowrank_cohort --compare-full at a cut size")
+    launches |= cohort_compare_full(dev, card)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _bound(flops, operands, out_bytes):
     """The least time the card could take, ms: the larger of the bytes moved
     once over the memory rate and the operations over the faster unit's
@@ -3657,6 +3852,7 @@ def _bound(flops, operands, out_bytes):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import_port()
     print("[1] device check")
     card = device_check()
@@ -3716,6 +3912,10 @@ def main() -> None:
     chunked = throughput_chunked(dev, card, Yd, Gd, K)
     for path, readings in kernel_readings.items():
         chunked[path]["kernel_checks"] = readings
+    torch.cuda.empty_cache()
+    print("[18] the measurement drivers: throughput_fwer, biobank --full, lowrank_cohort "
+          "--compare-full")
+    drivers = measurement_drivers(dev, card)
     import_port()
     kernels = [{
         "name": "liteqtl_lod",
@@ -3776,6 +3976,7 @@ def main() -> None:
                   "throughput_vs_exact64": tp[f"{short}_vs_exact64"], **tp[k["name"]],
                   "throughput_effects_vs_exact64": tp["effects_vs_exact64"] if short == "lod" else None})
         k["library_ms"] = None  # no single PyTorch call computes this function
+        k["drivers_launches"] = {path: c[k["name"]] for path, c in drivers.items() if c[k["name"]]}
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
         k.setdefault("shapes", None)  # the LOD kernel's general and wide paths, S1-S6
@@ -3791,6 +3992,7 @@ def main() -> None:
         check(share <= 100.0, f"{k['name']} runs faster than its bound")
     check_ptxas(report, serialized, injected)
     check(not _PARITY_FAILED, f"BASELINE.md's bar is not met on {_PARITY_FAILED}")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
