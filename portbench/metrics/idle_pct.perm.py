@@ -1,0 +1,8 @@
+"""idle_pct.perm: share of the traced window of a permutation cell in which
+no kernel, copy or fill ran on the device."""
+
+from portbench.core import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx)

@@ -1,0 +1,8 @@
+"""perm_roofline: the permutation kernel's least time over its device time,
+as lod_roofline."""
+
+from portbench.core import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, 'perm')
