@@ -57,6 +57,7 @@ import torch
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
+from ..utils.profiling import span, spanned
 from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
@@ -77,6 +78,7 @@ _F32 = torch.float32
 _TINY = torch.finfo(_F32).tiny
 
 
+@spanned("bulklmm.prep.inputs")
 @with_highest_matmul()
 def prepare_inputs(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False):
     """(Xn, Yn, cmat): the kernel's float32 contiguous operands.
@@ -92,7 +94,8 @@ def prepare_inputs(Y0, X0m, C0, lam, h2_grid, *, prior, reml=False):
     from ..models.bulkscan import grid_null_ell
 
     n = Y0.shape[0]
-    ells = grid_null_ell(Y0, C0, lam, h2_grid, prior, reml=reml)  # (g, m)
+    with span("bulklmm.prep.null_fit"):
+        ells = grid_null_ell(Y0, C0, lam, h2_grid, prior, reml=reml)  # (g, m)
     cmat = torch.exp(-(2.0 / n) * (ells - ells.max(0).values))
 
     S = torch.sqrt(make_weights(h2_grid, lam).abs())  # (g, n)

@@ -63,6 +63,7 @@ import torch
 
 from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
 from ..utils.config import with_highest_matmul
+from ..utils.profiling import spanned
 from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
 
 #: launches of the CUDA kernel in this process; chip_smoke.py resets and
@@ -90,6 +91,7 @@ PLAIN_BUDGET_BYTES = 1024**3
 _F32 = torch.float32
 
 
+@spanned("bulklmm.prep.inputs")
 def prepare_trait_block(X0m, sqrtw_blk, Qblk, *, precision):
     """``inv_xn`` (mb, p) float32: ``1 / |(I - P_t)(x_i * sw_t)|^2`` from
     ``ops/bulkperm.py::perm_trait_marker_parts``, 0 where the marker is
@@ -99,6 +101,7 @@ def prepare_trait_block(X0m, sqrtw_blk, Qblk, *, precision):
     return torch.where(torch.isfinite(inv), inv, torch.zeros_like(inv)).contiguous()
 
 
+@spanned("bulklmm.prep.inputs")
 @with_highest_matmul()
 def prepare_chunk_inputs(sqrtw_blk, Qblk, wrn_blk, idx_blk):
     """``S2`` (mb, n, Kc) float32 contiguous, from ``sqrtw_blk`` (mb, n),

@@ -91,6 +91,7 @@ from ..ops.smallchol import (
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
+from ..utils.profiling import span, spanned
 from .split import (
     matmul_bf16x3, matmul_bf16x3_emulated, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
 )
@@ -259,7 +260,8 @@ def _descending(lam) -> bool:
     the svd order, 6.2e-6 reversed)."""
     if lam.numel() < 2:
         return False
-    return bool(((lam[1:] <= lam[:-1]).all() & (lam[0] > lam[-1])).item())
+    with span("bulklmm.sync.scalar"):
+        return bool(((lam[1:] <= lam[:-1]).all() & (lam[0] > lam[-1])).item())
 
 
 def _marker_operand(X0m):
@@ -273,6 +275,7 @@ def _marker_operand(X0m):
     return X0m.to(_F32).contiguous()
 
 
+@spanned("bulklmm.prep.inputs")
 @with_highest_matmul()
 def prepare_inputs(Y0, X0m, C0, lam, h2_per_trait, *, effects: bool = False,
                    path: str | None = None):

@@ -61,7 +61,8 @@ from ..ops.wls import wls_ell_columns
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
-from ..utils.host import to_numpy
+from ..utils.host import to_device, to_numpy
+from ..utils.profiling import span, spanned
 from .bulkscan import _take_rows, _traits_covar_grid, grid_null_ell
 from .missing import (
     finite_flag, group_checkpoint, maybe_masked, raise_if_missing, subset_kinship,
@@ -335,6 +336,7 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
     return "xla", cap, trait_chunk
 
 
+@spanned("bulklmm.prep.shuffles")
 def shuffle_indices(perm_idx, n: int, nperms: int, rndseed, original: bool):
     """The (K, n) shuffle indices of a sweep over n samples: drawn from
     ``rndseed``, or the caller's ``perm_idx`` (an array, or a function of n
@@ -353,25 +355,30 @@ def _bulkperm_prep_traits(
     and whitening parts. Returns ``(h2_list, sigma2_list, sqrtw, Qstack,
     wrn)`` with sqrtw (m, n), Qstack (m, c, n) and wrn (n, m) in the kernel
     dtype."""
-    Y0, C0 = Ut @ Y, Ut @ C
-    if method == "null-grid":
-        kdt = precision.resolve_kernel()
-        ells = grid_null_ell(
-            Y0.to(kdt), C0.to(kdt), lam.to(kdt), h2_grid.to(kdt), prior, reml=reml
-        )
-        h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
-    else:
-        h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
-    # every trait's sigma2 at its own h2, one batched call over (m, n) weights
-    sigma2_list = wls_ell_columns(Y0, C0, make_weights(h2_list, lam), prior, reml=reml)[1]
+    with span("bulklmm.prep.rotate"):
+        Y0, C0 = Ut @ Y, Ut @ C
+    with span("bulklmm.prep.null_fit"):
+        if method == "null-grid":
+            kdt = precision.resolve_kernel()
+            ells = grid_null_ell(
+                Y0.to(kdt), C0.to(kdt), lam.to(kdt), h2_grid.to(kdt), prior, reml=reml
+            )
+            h2_list = h2_grid[torch.argmax(ells, dim=0)]  # first max wins
+        else:
+            h2_list = fit_h2_traits(Y0, C0, lam, prior, reml=reml, optim_interval=optim_interval)
+        # every trait's sigma2 at its own h2, one batched call over (m, n) weights
+        sigma2_list = wls_ell_columns(Y0, C0, make_weights(h2_list, lam), prior, reml=reml)[1]
     sqrtw, Q, wrn = perm_trait_parts(Y0, C0, lam, h2_list, precision=precision)
     Qstack = torch.stack(Q, dim=0).permute(2, 0, 1).contiguous()  # (m, c, n)
     return h2_list, sigma2_list, sqrtw.T.contiguous(), Qstack, wrn
 
 
+@spanned("bulklmm.prep.inputs")
 def _bulkperm_prep(Y, Xm, C, Ut, lam, h2_grid, **kw):
     """The rotated markers and covariates and the trait-side preparation."""
-    return (Ut @ Xm, Ut @ C) + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw)
+    with span("bulklmm.prep.rotate"):
+        X0m, C0 = Ut @ Xm, Ut @ C
+    return (X0m, C0) + _bulkperm_prep_traits(Y, C, Ut, lam, h2_grid, **kw)
 
 
 def _trait_block_lods(
@@ -437,6 +444,7 @@ def _lowrank_block_lods(X, U, mparts, sm1_b, Q_b, wrn_b, idx, *, n, perm_chunk, 
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
 
+@spanned("bulklmm.entry.budget")
 def _mesh_perm_tiling(mesh: Mesh, *, engine, n, p, precision, interpret, trait_chunk,
                       perm_chunk):
     """Engine choice and tiling of a dense-kinship permutation sweep on a
@@ -479,6 +487,7 @@ def _lowrank_perm_tiling(mesh: Mesh, n, p, precision, trait_chunk, perm_chunk):
     return trait_chunk, min(perm_chunk, cap)
 
 
+@spanned("bulklmm.prep.inputs")
 def _full_rank_block_lods(mesh: Mesh, X0m, C0, *, eng, n, pc_dev, precision, interpret):
     """``block_lods`` of ``tiles.py::_PermTiles.row`` on a rotated marker
     panel X0m (a block of one, in the streamed sweep) and the rotated
@@ -574,7 +583,7 @@ def _bulkscan_perms_on_mesh(
     )
     Y, covar, h2_grid, add_intercept = _traits_covar_grid(Y, covar, h2_grid, add_intercept, dev0)
     finite = finite_flag(Y)
-    G = torch.as_tensor(G, device=dev0)
+    G = to_device(G, dev0)
     n, m = Y.shape
     if weights is not None:
         _refuse_weights_on_factors(K, " or rank-k factorization")
@@ -600,7 +609,8 @@ def _bulkscan_perms_on_mesh(
         block_lods = _lowrank_block_lods_on(mesh, G.to(precision.resolve_kernel()), U, n=n,
                                             pc_dev=pc_dev, precision=precision)
     else:
-        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
+        with span("bulklmm.prep.rotate"):
+            Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
         with with_highest_matmul():
             X0m, C0, h2_list, sigma2_list, *trait_ops = _bulkperm_prep(
                 Y.to(dtype), G.to(dtype), covar.to(dtype), Ut, lam, h2_grid.to(dtype),
@@ -618,18 +628,20 @@ def _bulkscan_perms_on_mesh(
         original=original, trait_chunk=trait_chunk, h2_grid=h2_grid, prior=prior, rank=rank,
         precision=precision, engine=eng, data_digest=data_digest,
     )
-    tiles = _PermTiles(mesh, idx, trait_ops, row_quant=row_quant)
+    with span("bulklmm.prep.shuffles"):
+        tiles = _PermTiles(mesh, idx, trait_ops, row_quant=row_quant)
     rows = []
     for ms in range(0, m, trait_chunk):
         me = min(ms + trait_chunk, m)
-        done = ckpt.load(ms, me) if ckpt is not None else None
-        if done is not None:
-            rows.append(torch.as_tensor(done, device=dev0))
-            continue
-        row = tiles.row(ms, me, block_lods)
-        if ckpt is not None:
-            ckpt.save(ms, me, row)
-        rows.append(row)
+        with span("bulklmm.entry.chunk", {"traits": me - ms}):
+            done = ckpt.load(ms, me) if ckpt is not None else None
+            if done is not None:
+                rows.append(torch.as_tensor(done, device=dev0))
+                continue
+            row = tiles.row(ms, me, block_lods)
+            if ckpt is not None:
+                ckpt.save(ms, me, row)
+            rows.append(row)
     res = BulkPermResult(
         maxlods=rows[0] if len(rows) == 1 else torch.cat(rows, dim=0),
         h2_null_list=h2_list, sigma2_e_list=sigma2_list, nperms=nperms, original=original,
@@ -638,6 +650,7 @@ def _bulkscan_perms_on_mesh(
     return _attach_adj_pvals(res) if _adj_pvals else res
 
 
+@spanned("bulklmm.entry.bulkscan_perms", numbered=True)
 def bulkscan_perms(
     Y,
     G,

@@ -72,7 +72,8 @@ from ..ops.wls import wls_ell
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
-from ..utils.host import PinnedCopies, to_numpy
+from ..utils.host import PinnedCopies, to_device, to_numpy
+from ..utils.profiling import span, spanned
 from .missing import (
     _ncov_total, finite_flag, maybe_masked, raise_if_missing, subset_kinship,
     validate_missing_kwarg,
@@ -158,6 +159,7 @@ def _alt_grid_impl(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
     return L, h2_grid[kmax]
 
 
+@spanned("bulklmm.prep.null_fit")
 def _null_h2(method, Y0, C0, lam, h2_grid, *, prior, reml, optim_interval, precision):
     """Each trait's null h2 from the rotated traits: the grid argmax
     (:func:`_grid_h2`) or, for null-exact, a batched Brent fit in the solve
@@ -172,22 +174,25 @@ def _chunked(impl, Y0, trait_chunk, *per_trait):
     """``impl(Y0, *per_trait)`` for an int ``trait_chunk``: trait blocks of
     that width in turn (of Y0 and of each (m,) ``per_trait`` tensor), each
     written into one preallocated output per result (the traits are each
-    result's last axis; a None result stays None)."""
+    result's last axis; a None result stays None). Each block, or the one
+    block, runs under a ``bulklmm.entry.chunk`` span with its width."""
     m = Y0.shape[1]
     if trait_chunk is None or trait_chunk >= m:
-        return impl(Y0, *per_trait)
+        with span("bulklmm.entry.chunk", {"traits": m}):
+            return impl(Y0, *per_trait)
     outs = None
     for s in range(0, m, trait_chunk):
-        res = impl(Y0[:, s : s + trait_chunk], *(a[s : s + trait_chunk] for a in per_trait))
-        if outs is None:
-            outs = tuple(
-                None if r is None
-                else torch.empty(r.shape[:-1] + (m,), dtype=r.dtype, device=r.device)
-                for r in res
-            )
-        for o, r in zip(outs, res):
-            if o is not None:
-                o[..., s : s + trait_chunk] = r
+        with span("bulklmm.entry.chunk", {"traits": min(trait_chunk, m - s)}):
+            res = impl(Y0[:, s : s + trait_chunk], *(a[s : s + trait_chunk] for a in per_trait))
+            if outs is None:
+                outs = tuple(
+                    None if r is None
+                    else torch.empty(r.shape[:-1] + (m,), dtype=r.dtype, device=r.device)
+                    for r in res
+                )
+            for o, r in zip(outs, res):
+                if o is not None:
+                    o[..., s : s + trait_chunk] = r
     return outs
 
 
@@ -217,20 +222,20 @@ def _traits_covar_grid(Y, covar, h2_grid, add_intercept, device):
     """(Y, covar, h2_grid, add_intercept) as tensors on ``device``: Y (n, m),
     the default grid and the default intercept-only covariates filled in, a
     rank-deficient covariate design refused."""
-    Y = torch.as_tensor(Y, device=device)
+    Y = to_device(Y, device)
     Y = Y[:, None] if Y.ndim == 1 else Y
     n = Y.shape[0]
     if h2_grid is None:
         h2_grid = np.arange(0.0, 0.91, 0.1)  # the values of jnp.arange's grid
     if not torch.is_tensor(h2_grid):
         h2_grid = np.asarray(h2_grid, dtype=np.float64)  # no float32 detour
-    h2_grid = torch.as_tensor(h2_grid, device=device)
+    h2_grid = to_device(h2_grid, device)
     if covar is None:
         covar = torch.ones((n, 1), dtype=Y.dtype, device=device)
         add_intercept = False
     else:
         check_covar_full_rank(covar, add_intercept)
-        covar = torch.as_tensor(covar, device=device)
+        covar = to_device(covar, device)
         covar = covar[:, None] if covar.ndim == 1 else covar
     return Y, covar, h2_grid, add_intercept
 
@@ -279,6 +284,7 @@ def _altgrid_uses_kernel(engine: str, precision: PrecisionConfig, device) -> boo
     return engine == "auto" and cuda and float32
 
 
+@spanned("bulklmm.entry.bulkscan", numbered=True)
 def bulkscan(
     Y,
     G,
@@ -400,6 +406,7 @@ def _chunk_dims(Y, G, K, covar, h2_grid, add_intercept, *, method, precision, ou
     return 1 if len(shape) == 1 else shape[1], dims
 
 
+@spanned("bulklmm.entry.budget")
 def _auto_chunk(mesh: Mesh, *, m: int, dims: dict) -> Optional[int]:
     """The global ``trait_chunk`` when the caller gives none:
     ``utils/memory.py::auto_trait_chunk`` for one tile, (n, p / marker
@@ -472,8 +479,8 @@ def _bulkscan_on_mesh(
 
         Yt = Y.to(dtype)
     else:
-        Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
-        with with_highest_matmul():
+        with span("bulklmm.prep.rotate"), with_highest_matmul():
+            Ut, lam = resolve_kinship(K, decomp_scheme, dtype, dev0)
             Yt, C0 = Ut @ Y.to(dtype), Ut @ covar.to(dtype)
             X0m = {}
             for j, d in Gs:  # each marker shard rotated once
@@ -481,9 +488,9 @@ def _bulkscan_on_mesh(
                 if (j, col) not in X0m:
                     X0m[(j, col)] = Ut.to(col) @ Gs[(j, col)]
                 X0m[(j, d)] = X0m[(j, col)].to(d)
+            lamd = _per_device(mesh, lambda d: lam.to(d))
+            C0d = _per_device(mesh, lambda d: C0.to(d))
         del Gs
-        lamd = _per_device(mesh, lambda d: lam.to(d))
-        C0d = _per_device(mesh, lambda d: C0.to(d))
         if alt:
             kernel = {d: _altgrid_uses_kernel(engine, precision, d) for d in lamd}
 

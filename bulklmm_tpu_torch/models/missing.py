@@ -33,6 +33,7 @@ import torch
 from ..ops.lowrank import LowRankKinship, as_lowrank, is_lowrank
 from ..ops.rotation import KinshipDecomposition, host_factors
 from ..utils.host import to_numpy
+from ..utils.profiling import span
 
 _MODES = ("error", "mask", "drop")
 
@@ -56,7 +57,9 @@ def finite_flag(Y: torch.Tensor) -> torch.Tensor:
 
 def raise_if_missing(flag, what: str) -> None:
     """Read the guard's flag; refuse with the remediation recipe."""
-    if not bool(flag):
+    with span("bulklmm.sync.scalar"):
+        finite = bool(flag)
+    if not finite:
         raise ValueError(
             f"{what}: the phenotype matrix contains non-finite (missing) "
             "values. Pass missing='mask' for per-trait complete-case "

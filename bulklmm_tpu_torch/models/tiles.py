@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils.config import with_highest_matmul
+from ..utils.host import to_device
 
 TRAITS_AXIS = "traits"
 MARKERS_AXIS = "markers"
@@ -263,7 +264,7 @@ class _PermTiles:
         self.idx = {}
         for _, j, d in mesh.tiles():
             if (j, d) not in self.idx:
-                self.idx[(j, d)] = idx[j * self.ks:(j + 1) * self.ks].to(d)
+                self.idx[(j, d)] = to_device(idx[j * self.ks:(j + 1) * self.ks], d)
 
     def row(self, ms: int, me: int, block_lods) -> torch.Tensor:
         """(me - ms, K) genome-wide maxima of traits ms..me on the mesh's

@@ -35,6 +35,7 @@ import torch
 
 from ..utils import memory
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
+from ..utils.host import to_numpy
 from .liteqtl import _fast_log
 from .smallchol import (
     cancel_keep_mask, fwd_subst, pair_indices, residual_keep_mask, residual_sq,
@@ -78,9 +79,7 @@ def check_permutation_indices(perm_idx, n: int, nperms: int, *, original: bool =
     K = nperms (+1 when ``original``) rows that are each a permutation of
     0..n-1, the first the identity when ``original``."""
     K = _n_columns(nperms, original)
-    if torch.is_tensor(perm_idx):
-        perm_idx = perm_idx.detach().cpu().numpy()
-    idx = np.asarray(perm_idx)
+    idx = to_numpy(perm_idx)
     if idx.dtype.kind not in "iu":
         raise TypeError(f"perm_idx must hold integers, got dtype {idx.dtype}")
     if idx.shape != (K, n):

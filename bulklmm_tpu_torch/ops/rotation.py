@@ -24,7 +24,7 @@ import torch
 
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from ..utils.device import resolve_device
-from ..utils.host import to_numpy
+from ..utils.host import to_device, to_numpy
 from .bulkperm import check_permutation_indices
 from .stats import shuffle_vector
 from .weights import make_weights
@@ -128,8 +128,8 @@ def resolve_kinship_with_host(K, decomp_scheme: str, dtype, device):
         return (Ut, lam) + host_factors(K)
     Ut_h, lam_h = kinship_eigen(K, decomp_scheme)
     return (
-        torch.as_tensor(Ut_h, dtype=dtype, device=device),
-        torch.as_tensor(lam_h, dtype=dtype, device=device),
+        to_device(Ut_h, device, dtype),
+        to_device(lam_h, device, dtype),
         Ut_h,
         lam_h,
     )

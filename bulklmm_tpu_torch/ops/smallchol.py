@@ -16,6 +16,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from ..utils.config import with_highest_matmul
+from ..utils.profiling import span
 
 
 def pair_indices(c: int) -> List[Tuple[int, int]]:
@@ -95,5 +96,7 @@ def off_covariates(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     epilogue's rounding errors at several times their size. The plain
     engines keep the markers as they are."""
     Cx = C.to(X.dtype)
-    Xr = X - Cx @ (torch.linalg.pinv(Cx) @ X)
+    with span("bulklmm.sync.pinv"):  # on a card its SVD waits for the device
+        Cp = torch.linalg.pinv(Cx)
+    Xr = X - Cx @ (Cp @ X)
     return Xr * residual_keep_mask((Xr * Xr).sum(0), (X * X).sum(0))

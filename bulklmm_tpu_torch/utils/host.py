@@ -6,12 +6,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def to_numpy(x, dtype=None) -> np.ndarray:
-    """``x`` (a tensor on any device, or anything numpy takes) as a host array."""
+    """``x`` (a tensor on any device, or anything numpy takes) as a host
+    array; a tensor's copy runs under a ``bulklmm.sync.download`` span (on a
+    card it waits for the device)."""
     if torch.is_tensor(x):
-        x = x.detach().cpu().numpy()
+        with span("bulklmm.sync.download"):
+            x = x.detach().cpu().numpy()
     return np.asarray(x, dtype=dtype)
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``. Unless ``x`` is a
+    tensor on ``device`` already, under a ``bulklmm.sync.upload`` span: on a
+    card a copy from pageable host memory waits for the device's stream."""
+    if torch.is_tensor(x) and x.device == torch.device(device):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    with span("bulklmm.sync.upload"):
+        return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 class PinnedCopies:

@@ -27,6 +27,8 @@ import os
 
 import torch
 
+from .profiling import span
+
 #: share of the free device memory the model may plan for: the caching
 #: allocator rounds every block up (to 2 MiB segments for large ones) and
 #: fragments; the forced-budget run of ``chip_smoke.py`` phase 10 checks
@@ -105,7 +107,8 @@ def device_memory_budget(device=None) -> int:
         device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
+        with span("bulklmm.sync.mem_get_info"):
+            free, _ = torch.cuda.mem_get_info(device)
         cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
         return int((free + cached) * _USABLE_FRACTION)
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2

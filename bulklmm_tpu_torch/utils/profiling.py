@@ -1,17 +1,66 @@
-"""Wall-clock timing of a call.
+"""Wall-clock timing of a call, and the port's spans.
 
 Counterpart of ``bulklmm_tpu/utils/profiling.py::timed``. Its ``trace``
-(a ``jax.profiler`` capture) has no counterpart here: ``profile_paths.py``
-traces the port's paths with ``torch.profiler``.
+(a ``jax.profiler`` capture) has no counterpart: :func:`span` marks the
+port's layer boundaries in any ``torch.profiler`` session instead.
+
+Spans are on exactly while a ``torch.profiler`` session records; there is
+no setting. Each is a host record named ``bulklmm.<layer>.<what>``, on the
+profiler's clock, so a trace shows it above the kernels it launched. Off,
+a span costs one check and returns a shared no-op.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import itertools
 import time
 from typing import Callable, Tuple
 
 import torch
+
+#: what :func:`span` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+#: the process's calls of the spanned entry points, numbered from 1
+_calls = itertools.count(1)
+
+
+def span(name: str, args: dict | None = None):
+    """A context that records ``name`` as a ``torch.profiler`` span while a
+    profiler session records, and the shared no-op otherwise. ``args``
+    (names to ints or strings) go with the record: a trace taken with
+    ``record_shapes=True`` shows them, under ``kwinputs`` of its events and
+    beside the span in ``export_chrome_trace``.
+
+    The record is a host record alone. ``torch.profiler.record_function``
+    would also lay an annotation on the card's timeline over the kernels it
+    encloses, which a reader of the device records can take for device work
+    (PyTorch 2.11's events carry no activity type to tell them apart), and
+    it drops ``args``."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name, (), args or {})
+
+
+def spanned(name: str, *, numbered: bool = False):
+    """Decorator: each call of the function runs inside ``span(name)``;
+    ``numbered`` (the entry points) adds the process's call number as the
+    span's ``call`` argument, so every span of a call lies inside one
+    numbered span."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            call = next(_calls) if numbered else None
+            with span(name, None if call is None else {"call": call}):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 def _cuda_devices(x, found=None) -> set:

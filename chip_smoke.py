@@ -1874,13 +1874,20 @@ def calibrate_memory(dev, Yd, Gd, K) -> None:
     del G2, Y2, dec, covar
 
 
+def _device_us(event) -> float:
+    """A ``key_averages()`` row's own device time, us."""
+    # the attribute's name changed between PyTorch versions
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    raise AttributeError("the profiler's events carry no device time")
+
+
 def _busy_ms(fn) -> float:
     """The device's busy time over one call of ``fn``, ms: the profiler's
     sum of kernels' and copies' own times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from bulklmm_tpu_torch.profile_paths import _device_us
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2091,8 +2098,6 @@ def _where_time_goes(what, fn, wall_ms, top=3) -> None:
     device kernels by time, from the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from bulklmm_tpu_torch.profile_paths import _device_us
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()

@@ -295,7 +295,8 @@ def test_exports_only_shrink():
 #: the names of each sub-package's ``__all__`` in the JAX package that the
 #: port's lacks, on purpose: ``ops.wls`` is a module of the port (the
 #: function is ``bt.wls``), ``utils.trace`` a ``jax.profiler`` capture
-#: (``profile_paths.py`` traces the port), ``parallel.train_step_sharded``
+#: (the port's spans, ``utils/profiling.py::span``, show in any
+#: ``torch.profiler`` session), ``parallel.train_step_sharded``
 #: a dry-run alias (ROADMAP.md, "Don't port these")
 SUBPACKAGE_NOT_PORTED = {
     "analysis": set(), "models": set(), "ops": {"wls"}, "parallel": {"train_step_sharded"},
