@@ -292,12 +292,14 @@ def _perm_checkpoint(checkpoint, *, n, m, p, nperms, rndseed, method, reml,
 
 
 def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, trait_chunk=None,
-                         budget_bytes=None):
+                         traits=None, budget_bytes=None):
     """``(eng, cap, trait_chunk)``: the engine ("pallas", the fused CUDA
     kernel, or "xla", the plain engine), its permutation-chunk bound and the
     trait-block width (1,024 for the kernel and 16 for the plain engine
-    when ``trait_chunk`` is None). ``budget_bytes`` bounds the kernel's
-    permutation chunk in place of a quarter of ``device``'s budget
+    when ``trait_chunk`` is None). The bound is the engine's memory rule for
+    the traits a block actually holds: ``min(trait_chunk, traits)``, the
+    block itself when ``traits`` is None. ``budget_bytes`` bounds the
+    kernel's permutation chunk in place of a quarter of ``device``'s budget
     (``ops/bulkperm.py::kernel_perm_chunk_cap``).
 
     "auto" takes the kernel on a CUDA device under a float32 GEMM dtype and
@@ -323,13 +325,14 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
                 f"not {torch.device(device)}; pass interpret=True (the kernel's plain "
                 "version, for tests) or use engine='xla'."
             )
-    if engine == "pallas" or (engine == "auto" and cuda and float32):
-        trait_chunk = 1024 if trait_chunk is None else trait_chunk
-        cap = kernel_perm_chunk_cap(n, trait_chunk, budget_bytes, device=device)
-        return "pallas", cap, trait_chunk
-    trait_chunk = 16 if trait_chunk is None else trait_chunk
+    eng = "pallas" if engine == "pallas" or (engine == "auto" and cuda and float32) else "xla"
+    if trait_chunk is None:
+        trait_chunk = 1024 if eng == "pallas" else 16
+    held = trait_chunk if traits is None else min(trait_chunk, traits)
+    if eng == "pallas":
+        return eng, kernel_perm_chunk_cap(n, held, budget_bytes, device=device), trait_chunk
     cap = plain_perm_chunk_cap(
-        n, p, trait_chunk=trait_chunk,
+        n, p, trait_chunk=held,
         gemm_itemsize=precision.resolve_gemm().itemsize,
         kernel_itemsize=precision.resolve_kernel().itemsize,
     )
@@ -445,7 +448,7 @@ def _lowrank_block_lods(X, U, mparts, sm1_b, Q_b, wrn_b, idx, *, n, perm_chunk, 
 
 
 @spanned("bulklmm.entry.budget")
-def _mesh_perm_tiling(mesh: Mesh, *, engine, n, p, precision, interpret, trait_chunk,
+def _mesh_perm_tiling(mesh: Mesh, *, engine, n, m, p, precision, interpret, trait_chunk,
                       perm_chunk):
     """Engine choice and tiling of a dense-kinship permutation sweep on a
     mesh (one position for ``bulkscan_perms``): the one place that computes
@@ -457,9 +460,12 @@ def _mesh_perm_tiling(mesh: Mesh, *, engine, n, p, precision, interpret, trait_c
     for the kernel and 16 for the plain engine, on every trait shard),
     rounded up to the trait quantum, the traits axis; the permutation-row
     quantum is the markers axis. The per-device permutation width is
-    ``perm_chunk`` capped by the engine's memory rule for one device's
-    trait block, the kernel's against one mesh position's budget
-    (``utils/memory.py::mesh_position_budget``). The JAX package's TPU
+    ``perm_chunk`` capped by the engine's memory rule for the traits one
+    device holds of a block of the sweep's ``m`` traits,
+    ``min(trait_chunk / shards, ceil(m / shards))``, the kernel's against
+    one mesh position's budget (``utils/memory.py::mesh_position_budget``):
+    a sweep of fewer traits than a block takes wider, fewer permutation
+    chunks under the same budget. The JAX package's TPU
     quanta (8 traits a shard for the Pallas output tiles, 128 permutation
     rows a shard) have no counterpart here.
 
@@ -469,7 +475,8 @@ def _mesh_perm_tiling(mesh: Mesh, *, engine, n, p, precision, interpret, trait_c
     block = None if trait_chunk is None else -(-max(int(trait_chunk), 1) // tshards)
     eng, cap, block = _resolve_perm_engine(
         engine, n, device=mesh.first, precision=precision, interpret=interpret, p=p,
-        trait_chunk=block, budget_bytes=memory.mesh_position_budget(mesh.flat) // 4,
+        trait_chunk=block, traits=-(-max(int(m), 1) // tshards),
+        budget_bytes=memory.mesh_position_budget(mesh.flat) // 4,
     )
     return eng, block * tshards, min(perm_chunk, cap), tshards, mshards
 
@@ -617,7 +624,7 @@ def _bulkscan_perms_on_mesh(
                 **prep_kw,
             )
         eng, trait_chunk, pc_dev, _, row_quant = _mesh_perm_tiling(
-            mesh, engine=engine, n=n, p=p, precision=precision, interpret=interpret,
+            mesh, engine=engine, n=n, m=m, p=p, precision=precision, interpret=interpret,
             trait_chunk=trait_chunk, perm_chunk=perm_chunk,
         )
         rank = f"full{suffix}"
@@ -699,7 +706,8 @@ def bulkscan_perms(
     dtype and the plain engine otherwise. ``trait_chunk`` (default 1,024
     for the kernel, 16 for the plain engine) and ``perm_chunk`` bound the
     device memory of one step; ``perm_chunk`` is also capped from the
-    engine's memory rule (``ops/bulkperm.py``). ``tile_p`` is accepted for
+    engine's memory rule (``ops/bulkperm.py``) for the traits a block
+    actually holds, at most the sweep's m. ``tile_p`` is accepted for
     the surface's sake and ignored: the CUDA kernel has no marker-tile
     parameter. ``solve_method`` is checked and has no effect (no
     coefficient solve is returned).

@@ -626,7 +626,7 @@ def bulkscan_perms_streamed(
                                                        perm_chunk)
     else:
         eng, trait_chunk, perm_chunk, _, row_quant = _mesh_perm_tiling(
-            mesh, engine=engine, n=n, p=block, precision=precision, interpret=interpret,
+            mesh, engine=engine, n=n, m=m, p=block, precision=precision, interpret=interpret,
             trait_chunk=trait_chunk, perm_chunk=perm_chunk,
         )
     idx = shuffle_indices(perm_idx, n, nperms, rndseed, original)

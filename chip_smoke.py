@@ -2708,7 +2708,7 @@ def mesh_perms(dev, card, Yd, Gd, K, meshes):
                                               rndseed=0, precision=bt.BALANCED)
         res, counts = _drive(f"bulkscan_perms_sharded, {NPERMS} permutations, "
                              f"{_mesh_name(mesh)}", call)
-        eng, tc, pc, _, rq = _mesh_perm_tiling(mesh, engine="auto", n=N, p=P,
+        eng, tc, pc, _, rq = _mesh_perm_tiling(mesh, engine="auto", n=N, m=M, p=P,
                                                precision=bt.BALANCED, interpret=False,
                                                trait_chunk=None, perm_chunk=2048)
         rows = -(-(NPERMS + 1) // rq) * rq // mesh.shape["markers"]

@@ -763,6 +763,80 @@ def test_engine_resolution(budget_8gib):
     assert eng == "pallas" and cap == 64
 
 
+@pytest.mark.parametrize("engine, shape, n, m, trait_chunk, held, at_least", [
+    # 32 traits at n = 5,000: the 1,001 columns in one chunk, not the
+    # 104 that a 1,024-trait block would leave room for
+    ("pallas", (1, 1), 5000, 32, None, 32, 1001),
+    ("pallas", (1, 1), 5000, 1024, None, 1024, 64),
+    ("pallas", (1, 1), 5000, 20_000, None, 1024, 64),
+    # on a 2 x 2 virtual mesh each trait shard holds ceil(m / 2)
+    ("pallas", (2, 2), 5000, 32, None, 16, 1001),
+    ("pallas", (2, 2), 5000, 33, None, 17, 1001),
+    ("pallas", (2, 2), 5000, 4096, 64, 32, 64),
+    ("xla", (1, 1), 2000, 4, None, 4, 64),
+    ("xla", (2, 2), 2000, 7, None, 4, 64),
+    ("xla", (1, 1), 2000, 100, None, 16, 64),
+])
+def test_perm_tiling_caps_the_chunk_for_the_traits_held(budget_8gib, engine, shape, n, m,
+                                                        trait_chunk, held, at_least):
+    """The permutation chunk is the engine's cap for the traits one device
+    holds of a block, ``min(block, ceil(m / trait shards))``; the trait
+    block and the quanta are the full-block tiling's, and a sweep that fills
+    its blocks gets exactly the full-block cap. S2 (4 traits n Kc bytes)
+    stays inside the kernel's quarter of one position's budget, the plain
+    engine's three copies inside its 2 GiB."""
+    ts, ms = shape
+    mesh = bt.parallel.make_mesh(devices=["cpu"] * (ts * ms), marker_shards=ms)
+    p = 100_000
+    kw = dict(engine=engine, n=n, p=p, precision=bt.BALANCED, interpret=engine == "pallas",
+              trait_chunk=trait_chunk, perm_chunk=2048)
+    eng, tc, pc, tq, rq = tmodel._mesh_perm_tiling(mesh, m=m, **kw)
+    full = tmodel._mesh_perm_tiling(mesh, m=1 << 30, **kw)
+    assert (eng, tc, tq, rq) == (full[0], full[1], ts, ms) and eng == engine
+    block = tc // ts
+    assert held == min(block, -(-m // ts))
+    if engine == "pallas":
+        budget = 8 * 1024**3 // (ts * ms) // 4
+        assert pc == min(2048, tops.kernel_perm_chunk_cap(n, held, budget))
+        assert full[2] == min(2048, tops.kernel_perm_chunk_cap(n, block, budget))
+        assert 4 * held * n * pc <= budget
+    else:
+        assert pc == min(2048, tops.plain_perm_chunk_cap(n, p, held, 4, 4))
+        assert full[2] == min(2048, tops.plain_perm_chunk_cap(n, p, block, 4, 4))
+        assert 3 * 4 * held * (n + p) * pc <= 2 * 1024**3
+    assert pc >= at_least
+    assert pc == full[2] if held == block else pc > full[2]
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_small_block_sweep_agrees_across_column_chunkings(perm_data, engine, monkeypatch):
+    """A sweep of fewer traits than a block takes its 201 columns in one
+    chunk by default, and its maxima are those of 64-column chunks to
+    float32 rounding of another product width (BALANCED; the plain engine
+    and the kernel's plain version)."""
+    G, Y, K = perm_data
+    step = "fused_perm_maxlods_reference" if engine == "pallas" else "max_r2_perms_plain"
+    widths = []
+    inner = getattr(tmodel, step)
+
+    def counted(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        widths.append(out.shape[1])
+        return out
+
+    monkeypatch.setattr(tmodel, step, counted)
+    kw = dict(nperms=200, rndseed=7, precision=bt.BALANCED, device="cpu", engine=engine,
+              interpret=engine == "pallas")
+    one = bt.bulkscan_perms(Y, G, K, **kw)
+    assert widths == [201]
+    widths.clear()
+    chunked = bt.bulkscan_perms(Y, G, K, perm_chunk=64, **kw)
+    assert widths == [64, 64, 64, 9]
+    assert one.maxlods.dtype == chunked.maxlods.dtype == torch.float32
+    assert torch.equal(one.h2_null_list, chunked.h2_null_list)
+    torch.testing.assert_close(one.maxlods, chunked.maxlods)
+
+
 @pytest.mark.parametrize("n, K, path, blocks", [
     (79, 1, "resident", 1), (79, 24, "resident", 1), (79, 256, "resident", 1),
     (79, 257, "resident", 2), (79, 1001, "resident", 4), (88, 1001, "resident", 4),
