@@ -60,7 +60,8 @@ Layers:
 - :func:`liteqtl_lod_cuda`: the kernels' wrapper. CUDA tensors only; it
   checks its inputs, allocates the outputs, launches on the current stream,
   raises on a launch error and counts its launches in :data:`launches`
-  (:data:`effects_launches` for the effects variant).
+  (:data:`effects_launches` for the effects variant; :data:`wide_launches`
+  counts the wide kernel's, either variant, besides).
 - :func:`liteqtl_lod_plain`: the same function in plain torch, exact
   float32, on either form of the operands (the wide one walks V a column
   at a time, as the wide kernel does). :func:`liteqtl_split_reference`
@@ -180,6 +181,9 @@ effects_launches = 0
 
 #: launches of either variant with bf16x3 products, likewise
 bf16x3_launches = 0
+
+#: launches of the wide kernel (c > 3), either variant, likewise
+wide_launches = 0
 
 #: the counts are read-modify-written by the host threads of a mesh's devices
 _count_lock = threading.Lock()
@@ -343,12 +347,14 @@ def _prepare_wide(Y0, X0m, C0, lam, h2_per_trait, effects):
     W = Wd.to(_F32).contiguous()
     WY = (W * Y0.to(_F32)).contiguous()
     C = C0.to(sd)
-    gram = ((C[:, :, None] * C[:, None, :]).reshape(n, c * c).T @ Wd).T.reshape(m, c, c)
-    chol = torch.linalg.cholesky(gram)
-    whitened_t = torch.linalg.solve_triangular(chol, C.T.expand(m, c, n), upper=False)
-    del gram, chol
-    V = whitened_t.permute(1, 2, 0) * Wd  # (c, n, m)
-    del whitened_t
+    with span("bulklmm.prep.whiten"):
+        gram = ((C[:, :, None] * C[:, None, :]).reshape(n, c * c).T @ Wd).T.reshape(m, c, c)
+        with span("bulklmm.sync.cholesky"):  # on a card it waits for its error check
+            chol = torch.linalg.cholesky(gram)
+        whitened_t = torch.linalg.solve_triangular(chol, C.T.expand(m, c, n), upper=False)
+        del gram, chol
+        V = whitened_t.permute(1, 2, 0) * Wd  # (c, n, m)
+        del whitened_t
     Y = Y0.to(sd)
     zeta = (V * Y).sum(1)  # (c, m)
     yty = (Wd * Y * Y).sum(0)
@@ -444,12 +450,12 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
     general kernel whatever n is, up to :data:`GENERAL_COVARIATES` columns
     (for comparisons at a resident shape). ``dot_precision="high"`` takes
     the kernel's bf16x3 instantiation, on every path, and counts the launch
-    in :data:`bf16x3_launches` too (:func:`kernel_route`). Raises on a
+    in :data:`bf16x3_launches` too (:func:`kernel_route`); a launch of the
+    wide kernel counts in :data:`wide_launches` too. Raises on a
     CPU tensor, a wrong dtype, shape or layout, operands of another kernel,
     an unknown ``dot_precision``, a failed build or a launch error. Does not
     synchronize.
     """
-    global launches, effects_launches, bf16x3_launches
     bf16 = uses_bf16x3(dot_precision)
     n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
     if general and c > GENERAL_COVARIATES:
@@ -476,13 +482,22 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
             "liteqtl_lod kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
+    _count_launch(effects=effects, bf16=bf16, wide=C.dim() == 3)
+    return tuple(outs) if effects else outs[0]
+
+
+def _count_launch(*, effects: bool, bf16: bool, wide: bool) -> None:
+    """Count one launch: in :data:`effects_launches` or :data:`launches`,
+    and besides in :data:`bf16x3_launches` and :data:`wide_launches` where it
+    took bf16x3 products or the wide kernel."""
+    global launches, effects_launches, bf16x3_launches, wide_launches
     with _count_lock:
         bf16x3_launches += bf16
+        wide_launches += wide
         if effects:
             effects_launches += 1
         else:
             launches += 1
-    return tuple(outs) if effects else outs[0]
 
 
 def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):

@@ -402,6 +402,7 @@ def _chunk_dims(Y, G, K, covar, h2_grid, add_intercept, *, method, precision, ou
         # the (p, m) results on the device: L, the h2 panel, beta and SE, p-values
         n_outputs=1 + (method == "alt-grid") + 2 * int(output_effects) + int(output_pvals),
         alt_grid=method == "alt-grid", rank=np.shape(K.U)[1] if is_lowrank(K) else None,
+        kernel=_uses_kernel(precision),
     )
     return 1 if len(shape) == 1 else shape[1], dims
 

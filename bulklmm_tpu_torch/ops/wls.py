@@ -15,6 +15,8 @@ formulas (2) and (3) of Kang 2008):
 - :func:`wls_ell` and :func:`wls_ell_columns`: the likelihood alone, with no
   linear-algebra primitive (the unrolled covariate Cholesky), for a shared
   weight vector or a batch of them, and for one weight vector per column;
+  :func:`wls_ell` past :data:`UNROLLED_COLUMNS` columns by one batched
+  factorization;
 - :func:`wls_ell_markers`: the likelihood of the design ``[C, x_j]`` for
   every marker j at once, the objective of the single-trait alt scan;
 - :func:`resid` and :func:`rss`: OLS residuals and their sums of squares
@@ -110,6 +112,29 @@ def _chol_logdet(Lc, p):
     return sum(2.0 * torch.log(Lc[(k, k)]) for k in range(p))
 
 
+#: design columns up to which :func:`wls_ell` factors the weighted Gram by
+#: the unrolled Cholesky, ~p^3 / 3 elementwise operations on the batch's
+#: shape, each a launch on a card: at GTEx v8's 69 covariate columns that
+#: was 124,788 launches a null-grid scan and most of its time, on the host
+#: (an H100, PERF.md). Every count up to 16, the widest the tests hold
+#: against the JAX package, keeps the unrolled form and its rounding.
+UNROLLED_COLUMNS = 16
+
+
+def _batched_zeta(y, X, w):
+    """``(zeta, logdet)`` of :func:`wls_ell` by one batched factorization:
+    zeta, the list of the p rows of ``L^{-1} X^T W y``, each (..., q), and
+    log det(X^T W X), (..., 1), with L the Cholesky factor of the weighted
+    Gram for each weight vector of ``w`` ((n,) or (..., n)). ``cholesky_ex``
+    leaves its error flag on the device, as the unrolled factor leaves a
+    NaN; the caller's covariates are checked for full rank beforehand."""
+    Xw = w[..., :, None] * X  # (..., n, p)
+    L = torch.linalg.cholesky_ex(Xw.mT @ X).L  # (..., p, p)
+    zeta = torch.linalg.solve_triangular(L, Xw.mT @ y, upper=False)  # (..., p, q)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1, keepdim=True)
+    return list(zeta.unbind(-2)), logdet
+
+
 @with_highest_matmul()
 def wls_ell(
     y: torch.Tensor,
@@ -119,17 +144,25 @@ def wls_ell(
     *,
     reml: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ell, sigma2) per column of ``y``, with no linear-algebra primitive.
+    """(ell, sigma2) per column of ``y``, with no linear-algebra primitive
+    up to :data:`UNROLLED_COLUMNS` design columns.
 
     ``y``: (n,) or (n, q); ``X``: (n, p) design; ``w``: (n,) weights, or
     (g, n) for g weight vectors at once (the batch dimension that replaces
     JAX's ``vmap`` over the h2 grid), giving (q,) or (g, q) outputs.
 
     Uses ``rss = ||W^1/2 y||^2 - ||L^{-1} X^T W y||^2`` with ``L`` the
-    unrolled Cholesky factor of the weighted Gram ``X^T W X`` (p is tiny).
+    unrolled Cholesky factor of the weighted Gram ``X^T W X`` (p is tiny);
+    past :data:`UNROLLED_COLUMNS` columns, the factor of one batched
+    factorization and its triangular solve (:func:`_batched_zeta`).
     """
     y = y[:, None] if y.ndim == 1 else y
     n, p = X.shape
+    if p > UNROLLED_COLUMNS:
+        zeta, logdet = _batched_zeta(y, X, w)
+        rss0 = residual_sq(w @ (y * y), zeta)
+        return _likelihood(rss0, torch.log(w).sum(-1, keepdim=True), logdet if reml else None,
+                           n, p, prior, reml)
 
     # Gram entries (..., 1) broadcast against the (..., q) right-hand sides
     G = {

@@ -60,10 +60,21 @@ _P_COPIES_A_COVARIATE = 2
 _N_CHUNK_COPIES = 12
 
 #: (n,)-sized live copies a trait holds per covariate column on the wide LOD
-#: kernel's path (c >= :data:`WIDE_FROM`): its (c, n, m) float32 operand and
-#: its preparation in the solve dtype (the whitened covariates, their
-#: weighted product and one temporary), in the widest dtype
-_WIDE_N_COPIES = 4
+#: kernel's route (the float32 presets' fused LOD step at c >= :data:`WIDE_FROM`):
+#: its (c, n, m) float32 operand and its preparation in the solve dtype (the
+#: whitened covariates, their weighted product and one temporary), in the
+#: widest dtype. Measured on an H100 at 706 x 20,000 x 20,000, c = 69, BALANCED
+#: null-grid in one trait chunk: peak 16.44 GB, 812 KB a trait, 2.09 such
+#: copies a column with everything else a trait holds (two float64 (c, n)
+#: arrays live at once in the whitening); at 2,000 x 64 x 8,192, c = 4: 10.0
+#: (n,)-sized copies in all (chip_smoke.py phase 10)
+_WIDE_N_COPIES = 3
+
+#: (p,)-sized live copies a trait holds on the wide kernel's route beyond its
+#: outputs, in the widest dtype: the kernel holds none of the plain step's U_k
+#: and Z_k, only its chunk's float32 (p,) result (0.5); its plain version on the
+#: CPU holds B, D1, N, D and one Z_k at a time in float32 (~3)
+_WIDE_P_COPIES = 3
 
 #: the covariate count from which the LOD step takes the wide kernel
 #: (``kernels/liteqtl_fused.py::GENERAL_COVARIATES`` + 1)
@@ -138,15 +149,20 @@ def bulkscan_static_bytes(n: int, p: int, m: int, c: int, itemsize: int, *, n_ou
 
 
 def bulkscan_chunk_bytes(n: int, p: int, mc: int, grid: int, c: int, itemsize: int,
-                         *, alt_grid: bool = False) -> int:
+                         *, alt_grid: bool = False, kernel: bool = False) -> int:
     """Modelled live temporaries of one trait chunk of ``mc`` traits;
-    ``alt_grid`` adds the alt-grid path's (g, n)-sized operands a trait, and
-    c >= :data:`WIDE_FROM` the wide LOD kernel's (c, n) operand a trait."""
+    ``alt_grid`` adds the alt-grid path's (g, n)-sized operands a trait.
+    ``kernel`` (the null methods' LOD step on the fused kernel's route, the
+    float32 presets) at c >= :data:`WIDE_FROM` takes the wide LOD kernel's
+    live set instead of the plain step's: its (c, n) operand and whitening a
+    trait, and none of the plain step's per-covariate (p,) products."""
     per_grid_point = 1 + (_ALT_GRID_N_COPIES * n if alt_grid else 0)
+    if kernel and c >= WIDE_FROM and not alt_grid:
+        return itemsize * mc * (_WIDE_P_COPIES * p + (_N_CHUNK_COPIES + _WIDE_N_COPIES * c) * n
+                                + grid)
     p_copies = _P_CHUNK_COPIES + _P_COPIES_A_COVARIATE * (c - 1)
-    wide = _WIDE_N_COPIES * c * n if c >= WIDE_FROM and not alt_grid else 0
     return itemsize * mc * (
-        p_copies * p + _N_CHUNK_COPIES * n * max(1, (c + 2) // 2) + wide + grid * per_grid_point
+        p_copies * p + _N_CHUNK_COPIES * n * max(1, (c + 2) // 2) + grid * per_grid_point
     )
 
 
@@ -167,12 +183,13 @@ def lowrank_chunk_bytes(n: int, p: int, k: int, mc: int, grid: int, itemsize: in
     return itemsize * mc * (_LR_P_CHUNK_COPIES * p + _LR_K_CHUNK_COPIES * k + 2 * n + grid)
 
 
-def _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank):
+def _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank, kernel):
     """(static bytes, bytes of a chunk of ``mc`` traits as a function) of
     the rotated engine, or of the rank-k engine when ``rank`` is given."""
     if rank is None:
         static = bulkscan_static_bytes(n, p, m, c, itemsize, n_outputs=n_outputs)
-        return static, lambda mc: bulkscan_chunk_bytes(n, p, mc, grid, c, itemsize, alt_grid=alt_grid)
+        return static, lambda mc: bulkscan_chunk_bytes(n, p, mc, grid, c, itemsize,
+                                                       alt_grid=alt_grid, kernel=kernel)
     static = lowrank_static_bytes(n, p, m, c, rank, itemsize, n_outputs=n_outputs)
     return static, lambda mc: lowrank_chunk_bytes(n, p, rank, mc, grid, itemsize)
 
@@ -183,9 +200,10 @@ def _whole_tiles(width: int, m: int) -> int:
 
 def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, itemsize: int = 4,
                      n_outputs: int = 1, alt_grid: bool = False, budget: int | None = None,
-                     device=None, rank: int | None = None) -> int | None:
+                     device=None, rank: int | None = None, kernel: bool = False) -> int | None:
     """Trait-chunk width of the in-memory ``bulkscan``; ``rank`` (k) sizes
-    the rank-k engine's instead of the rotated one's.
+    the rank-k engine's instead of the rotated one's; ``kernel`` as for
+    :func:`bulkscan_chunk_bytes`.
 
     None when the whole problem fits in one block; else the widest chunk of
     whole 64-trait tiles (the CUDA kernels' trait tile; no wider quantum is
@@ -196,7 +214,7 @@ def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, item
     """
     if budget is None:
         budget = device_memory_budget(device)
-    static, chunk = _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank)
+    static, chunk = _footprint(n, p, m, c, itemsize, n_outputs, grid, alt_grid, rank, kernel)
     static = int(static * _STATIC_HEADROOM)
     if static + chunk(m) <= budget:
         return None
@@ -214,15 +232,16 @@ def auto_trait_chunk(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, item
 
 def auto_host_block(n: int, p: int, m: int, *, grid: int = 10, c: int = 1, itemsize: int = 4,
                     n_outputs: int = 1, alt_grid: bool = False, budget: int | None = None,
-                    device=None, rank: int | None = None) -> int:
+                    device=None, rank: int | None = None, kernel: bool = False) -> int:
     """Traits of one sequential device call when the (p, m) result lives on
     the host. The device holds the marker-side residents and the whole
     trait matrix, and per trait of a block its chunk temporaries and
     ``n_outputs`` (p,) results of TWO blocks: the one being copied to the
-    host and the next one, running. ``rank`` as for :func:`auto_trait_chunk`."""
+    host and the next one, running. ``rank`` and ``kernel`` as for
+    :func:`auto_trait_chunk`."""
     if budget is None:
         budget = device_memory_budget(device)
-    static, chunk = _footprint(n, p, 0, c, itemsize, n_outputs, grid, alt_grid, rank)
+    static, chunk = _footprint(n, p, 0, c, itemsize, n_outputs, grid, alt_grid, rank, kernel)
     base = int((static + 2 * n * m * itemsize) * _STATIC_HEADROOM)
     per_trait = chunk(1) + int(
         2 * n_outputs * p * itemsize * _STATIC_HEADROOM

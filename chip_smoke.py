@@ -1861,9 +1861,10 @@ def calibrate_memory(dev, Yd, Gd, K) -> None:
     _, extra = _peak_over(lambda: bt.bulkscan(Y2, G2, dec, covar, precision=bt.BALANCED,
                                               trait_chunk=m))
     copies_c4 = extra / (8 * n2 * m) - 1
-    model_c4 = memory._N_CHUNK_COPIES * max(1, (c4 + 2) // 2) + memory._WIDE_N_COPIES * c4
+    # the wide kernel's route of the model, a trait's bytes in (n,) float64 copies
+    model_c4 = memory.bulkscan_chunk_bytes(n2, 64, 1, len(GRID), c4, 8, kernel=True) / (8 * n2)
     print(f"  live set of null-grid BALANCED at {n2} x 64 x {m}, c = {c4}: {extra / 2**30:.3f} GiB = "
-          f"{copies_c4:.2f} (n, m) float64 arrays beyond the rotated traits (model {model_c4})")
+          f"{copies_c4:.2f} (n, m) float64 arrays beyond the rotated traits (model {model_c4:.2f})")
     print(f"  memory model: the most (p,)-sized copies a trait held {worst:.2f} (model "
           f"{memory._P_CHUNK_COPIES}), the most (n,)-sized {worst_n:.2f} (model "
           f"{memory._N_CHUNK_COPIES}), alt-grid {worst_alt:.2f} a grid point (model "

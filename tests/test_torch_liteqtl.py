@@ -290,15 +290,17 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("c", [9, 12, 16])
+@pytest.mark.parametrize("c", [9, 12, 16, 69])
 def test_wide_arithmetic_matches_plain(c, dtype):
     """The wide kernel's arithmetic (V = W C L^{-T} formed in the inputs'
     dtype, then Z_k = X^T V_k in float32, one column at a time) against the
     plain version on the general kernel's operands (the packed factor and
     the forward substitution, the TPU kernel's arithmetic): 5e-5 in LOD, and
     the effects within 1e-4 of (|effect| + SE) and of SE; the split
-    reference on the wide operands within 5e-5 too."""
-    _, targs = _both(_mk(40, 32, 24, c, dtype=dtype))
+    reference on the wide operands within 5e-5 too. c = 69 is GTEx v8's
+    covariate design (the intercept, 5 genotype PCs, 60 PEER factors,
+    platform, protocol and sex), at 100 samples."""
+    _, targs = _both(_mk(40 if c < 40 else 100, 32, 24, c, dtype=dtype))
     wide = lf.prepare_inputs(*targs, effects=True)
     general = lf.prepare_inputs(*targs, effects=True, path="general")
     assert wide[1].dim() == 3 and general[1].dim() == 2
@@ -311,6 +313,55 @@ def test_wide_arithmetic_matches_plain(c, dtype):
     assert torch.equal(lf.liteqtl_lod_plain(*wide[:4], wide[4][:-1]), L)
     split = lf.liteqtl_split_reference(*wide[:4], wide[4][:-1])
     assert float((split - L).abs().max()) < KERNEL_BAR
+
+
+def test_prepare_wide_records_the_whitening():
+    """Under a profiler the wide operands' whitening (the Gram, the batched
+    factorisation, the solve and V) records ``bulklmm.prep.whiten`` inside
+    ``bulklmm.prep.inputs``, with the factorisation's wait,
+    ``bulklmm.sync.cholesky``, inside it; the general operands record
+    neither, and the operands are those formed with no profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, targs = _both(_mk(40, 9, 11, 12, dtype=np.float64))
+    off = lf.prepare_inputs(*targs)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = lf.prepare_inputs(*targs)
+        lf.prepare_inputs(*targs, path="general")
+    spans = sorted((e for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("bulklmm.")), key=lambda e: (e.start_ns(), -e.end_ns()))
+    names = [e.name() for e in spans]
+    assert names.count("bulklmm.prep.whiten") == names.count("bulklmm.sync.cholesky") == 1
+    assert names.count("bulklmm.prep.inputs") == 2
+
+    def inside(inner, outer):
+        return outer.start_ns() <= inner.start_ns() and inner.end_ns() <= outer.end_ns()
+
+    whiten = names.index("bulklmm.prep.whiten")
+    assert inside(spans[whiten], spans[names.index("bulklmm.prep.inputs")])
+    assert inside(spans[names.index("bulklmm.sync.cholesky")], spans[whiten])
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+
+
+def test_wide_launches_count_only_the_wide_kernel():
+    """``wide_launches`` counts a launch of the wide kernel, of either
+    variant and either products, beside its count in ``launches`` or
+    ``effects_launches``; a resident or general launch leaves it alone."""
+    names = ("launches", "effects_launches", "bf16x3_launches", "wide_launches")
+    saved = {k: getattr(lf, k) for k in names}
+    try:
+        for k in names:
+            setattr(lf, k, 0)
+        lf._count_launch(effects=False, bf16=False, wide=False)
+        lf._count_launch(effects=False, bf16=True, wide=False)
+        assert lf.wide_launches == 0 and lf.launches == 2
+        lf._count_launch(effects=False, bf16=False, wide=True)
+        lf._count_launch(effects=True, bf16=False, wide=True)
+        lf._count_launch(effects=False, bf16=True, wide=True)
+        assert (lf.launches, lf.effects_launches, lf.bf16x3_launches, lf.wide_launches) == (4, 1, 2, 3)
+    finally:
+        for k, v in saved.items():
+            setattr(lf, k, v)
 
 
 def test_prepare_inputs_wide_layout():

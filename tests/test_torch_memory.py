@@ -169,30 +169,60 @@ def test_host_blocked_bulkscan_equals_one_block(small_data, monkeypatch, case):
 
 
 def test_wide_covariates_count_their_operand():
-    """More covariate columns cost their (p,)-sized products on the plain
-    LOD step, and past the general kernel's 3 the wide kernel's (c, n)
-    operand a trait; at c = 32 the flagship takes chunks on the H100 that
-    fit its budget."""
+    """More covariate columns cost the plain LOD step its (p,)-sized U_k and
+    Z_k products; on the fused kernel's route (``kernel``, the float32
+    presets) past the general kernel's 3 they cost the wide kernel's (c, n)
+    operand and whitening a trait instead, and no (p,)-sized products. Up to
+    3 columns the two routes are charged alike. At c = 32 the flagship takes
+    chunks on the plain route that fit the H100's budget, and GTEx v8's
+    706 x 20,000 x 20,000 at c = 69 is one block on the kernel's route, as
+    the card ran it (peak 16.44 GB in one chunk)."""
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     assert mem.WIDE_FROM == lf.GENERAL_COVARIATES + 1 == 4
     n, p = 79, 7321
     c0 = mem.WIDE_FROM
-    per_trait = {c: mem.bulkscan_chunk_bytes(n, p, 1, 10, c, 8) for c in (1, c0 - 1, c0, 32)}
-    assert per_trait[1] < per_trait[c0 - 1] < per_trait[c0] < per_trait[32]
-    wide = 8 * mem._WIDE_N_COPIES * c0 * n
+
+    def per_trait(c, kernel=False, alt_grid=False):
+        return mem.bulkscan_chunk_bytes(n, p, 1, 10, c, 8, kernel=kernel, alt_grid=alt_grid)
+
+    # the plain route: each column its (p,)-sized products, each pair of
+    # columns its (n,)-sized copies, whatever c is
+    assert per_trait(1) < per_trait(c0 - 1) < per_trait(c0) < per_trait(32)
     step = 8 * (mem._P_COPIES_A_COVARIATE * p
                 + mem._N_CHUNK_COPIES * n * ((c0 + 2) // 2 - (c0 + 1) // 2))
-    assert per_trait[c0] - per_trait[c0 - 1] == wide + step
-    # past the first wide count, each column adds its own (n,)-sized operand
-    assert (mem.bulkscan_chunk_bytes(n, p, 1, 10, 9, 8) - mem.bulkscan_chunk_bytes(n, p, 1, 10, 8, 8)
-            == 8 * (mem._WIDE_N_COPIES * n + mem._P_COPIES_A_COVARIATE * p
-                    + mem._N_CHUNK_COPIES * n * (11 // 2 - 10 // 2)))
-    # alt-grid takes no LOD kernel: no wide operand
-    assert (mem.bulkscan_chunk_bytes(n, p, 1, 10, c0, 8, alt_grid=True)
-            - mem.bulkscan_chunk_bytes(n, p, 1, 10, c0 - 1, 8, alt_grid=True)) == step
+    assert per_trait(c0) - per_trait(c0 - 1) == step
+    assert per_trait(9) - per_trait(8) == 8 * (mem._P_COPIES_A_COVARIATE * p
+                                               + mem._N_CHUNK_COPIES * n * (11 // 2 - 10 // 2))
+    # the kernel's route is the plain route's up to 3 columns, bit for bit
+    for c in range(1, c0):
+        assert per_trait(c, kernel=True) == per_trait(c)
+    # past them, the wide kernel's: each column its (n,)-sized operand alone
+    wide = 8 * (mem._WIDE_P_COPIES * p + (mem._N_CHUNK_COPIES + mem._WIDE_N_COPIES * c0) * n + 10)
+    assert per_trait(c0, kernel=True) == wide < per_trait(c0)
+    assert per_trait(9, kernel=True) - per_trait(8, kernel=True) == 8 * mem._WIDE_N_COPIES * n
+    # alt-grid takes no LOD kernel: its own route at any c
+    for c in (c0, 32):
+        assert per_trait(c, kernel=True, alt_grid=True) == per_trait(c, alt_grid=True)
     mc = mem.auto_trait_chunk(n, p, 35554, c=32, itemsize=8, budget=H100_BUDGET)
     assert mc is not None and mc % mem.TRAIT_QUANTUM == 0
     used = (mem.bulkscan_static_bytes(n, p, 35554, 32, 8) * mem._STATIC_HEADROOM
             + mem.bulkscan_chunk_bytes(n, p, mc, 10, 32, 8))
     assert used <= H100_BUDGET
+
+
+@pytest.mark.parametrize("budget", [75_407_187_456, H100_BUDGET], ids=["card", "H100"])
+def test_gtex_muscle_is_one_block_on_the_wide_kernel(budget):
+    """GTEx v8 skeletal muscle (706 donors, 69 covariate columns) at 20,000
+    markers x 20,000 genes under BALANCED: the card's budget as the
+    benchmark read it (75.4 GB) and the nominal H100's keep the call in one
+    block, whose charge lies above the 16.44 GB peak the card measured in
+    one chunk (the rule before the wide route charged 27 MB a trait and
+    took chunks of 2,624 traits, 8 a call, at a peak of 4.49 GB); the plain
+    route (EXACT64) still takes chunks."""
+    dims = dict(n=706, p=20_000, m=20_000, c=69, itemsize=8)
+    assert mem.auto_trait_chunk(**dims, kernel=True, budget=budget) is None
+    charged = (mem.bulkscan_static_bytes(706, 20_000, 20_000, 69, 8) * mem._STATIC_HEADROOM
+               + mem.bulkscan_chunk_bytes(706, 20_000, 20_000, 10, 69, 8, kernel=True))
+    assert 16.44e9 < charged <= budget
+    assert mem.auto_trait_chunk(**dims, budget=budget) is not None

@@ -106,8 +106,12 @@ def test_keep_masks(rng, mask, eps):
 
 @pytest.mark.parametrize("reml", [False, True])
 @pytest.mark.parametrize("prior", [(0.0, 0.0), (1.0, 4.0)])
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 24])
 def test_wls_ell(rng, c, prior, reml):
+    """The port's likelihood against the JAX package's, the unrolled factor
+    on both sides up to ``UNROLLED_COLUMNS`` columns; at 24 columns the
+    port's batched factorization against the JAX package's unrolled one."""
+    assert (c > twls.UNROLLED_COLUMNS) == (c == 24)
     n, q = 30, 6
     y = rng.normal(size=(n, q))
     X = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, c - 1))], axis=1)

@@ -40,6 +40,9 @@ def _call(path, d):
     Y, G, K = d["Y"], d["G"], d["K"]
     if path == "null-grid":
         return bt.bulkscan(Y, G, K, **kw)
+    if path == "null-grid-wide":  # 5 covariate columns: the wide kernel's operands
+        covar = torch.from_numpy(np.random.default_rng(6).normal(size=(N, 4)))
+        return bt.bulkscan(Y, G, K, covar, **kw)
     if path == "null-grid-chunks":
         return bt.bulkscan(Y, G, bt.decompose_kinship(K, device="cpu"), trait_chunk=5, **kw)
     if path == "alt-grid":
@@ -57,6 +60,12 @@ EXPECTED = {
         "bulklmm.entry.bulkscan": 1, "bulklmm.entry.budget": 1, "bulklmm.entry.chunk": 2,
         "bulklmm.prep.rotate": 1, "bulklmm.prep.null_fit": 1, "bulklmm.prep.inputs": 1,
         "bulklmm.sync.upload": 3, "bulklmm.sync.scalar": 2, "bulklmm.sync.pinv": 1,
+    },
+    "null-grid-wide": {  # the covariates' rank check downloads them; the whitening and its wait
+        "bulklmm.entry.bulkscan": 1, "bulklmm.entry.budget": 1, "bulklmm.entry.chunk": 2,
+        "bulklmm.prep.rotate": 1, "bulklmm.prep.null_fit": 1, "bulklmm.prep.inputs": 1,
+        "bulklmm.prep.whiten": 1, "bulklmm.sync.upload": 3, "bulklmm.sync.download": 1,
+        "bulklmm.sync.scalar": 2, "bulklmm.sync.pinv": 1, "bulklmm.sync.cholesky": 1,
     },
     "null-grid-chunks": {  # a cached decomposition; 3 trait chunks for the fit, 3 for the LODs
         "bulklmm.entry.bulkscan": 1, "bulklmm.entry.chunk": 6, "bulklmm.prep.rotate": 1,
