@@ -258,20 +258,6 @@ inline bool is_resident(int n, int c, bool effects) {
          4 * resident_shared_floats(built_steps(n), c, effects) <= (size_t)kSharedLimit;
 }
 
-// tf32x3::split() in integer arithmetic: the same bits (round to nearest on
-// the 13 low mantissa bits, ties away from zero, is half a unit added to the
-// magnitude and the low bits cut), for finite x. The conversion instruction
-// runs at a fraction of the integer units' rate on this card, and this
-// kernel splits three forms of every X it loads.
-__device__ __forceinline__ uint32_t round_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_by_bits(float x, uint32_t& big, uint32_t& small) {
-  big = round_tf32(x);
-  small = round_tf32(x - __uint_as_float(big));
-}
-
 // One depth step's raw operands of a thread: its two markers (fragment rows
 // g and g + 8 are neighbours in the staged tile and load as one word) at its
 // kDepths depths s0, s0 + 4, .. (two a TF32 step, four a bf16 step), and the

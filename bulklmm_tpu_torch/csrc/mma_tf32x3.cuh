@@ -57,6 +57,20 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   small = to_tf32(x - __uint_as_float(big));
 }
 
+// split() in integer arithmetic: the same bits (round to nearest on the 13
+// low mantissa bits, ties away from zero, is half a unit added to the
+// magnitude and the low bits cut), for finite x. The conversion instruction
+// runs at a fraction of the integer units' rate on this card, and the
+// kernels that split every value they load take this form.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_by_bits(float x, uint32_t& big, uint32_t& small) {
+  big = round_tf32(x);
+  small = round_tf32(x - __uint_as_float(big));
+}
+
 // c += a * b for one 16 x 8 x 8 tile; a row-major (16 x 8), b column-major
 // (8 x 8), TF32 operands, float32 accumulators.
 __device__ __forceinline__ void mma_m16n8k8(float (&c)[4], const uint32_t (&a)[4],

@@ -34,15 +34,22 @@ Layers:
   ``sw_t * (I - Q_t^T Q_t) S_t`` (the projector moved from the marker side by
   self-adjointness, so the kernel runs one product per trait).
 - :func:`bulkperm_maxr2_cuda`: the kernel's wrapper. CUDA tensors only; it
-  checks its inputs, allocates the output, launches on the current stream,
-  raises on a launch error and counts its launches in :data:`launches`.
+  checks its inputs, allocates the output (zeros on the chunked path, whose
+  marker groups take their maxima into it), launches on the current stream,
+  raises on a launch error and counts its launches in :data:`launches`, and
+  those whose marker walk was split across blocks in :data:`split_launches`.
 - :func:`bulkperm_maxr2_plain`: the same function in plain torch, exact
   float32 (bf16x3 under "high"). :func:`bulkperm_maxr2_split_reference`
   repeats the kernel's 3 x TF32 arithmetic instead (``kernels/split.py``),
-  for comparisons.
+  for comparisons: on the chunked path the samples in chunks of
+  :data:`CHUNK_SAMPLES`, each chunk's three passes one after another, and
+  every run of :data:`FOLD_CHUNKS` chunks added into float32 running totals
+  rounded to nearest, as the kernel's warpgroup products take them.
 - :func:`kernel_path`: whether the trait's operand stays in shared memory
   for the launch, from n; :func:`kernel_route` names the products beside
-  it.
+  it; :func:`marker_groups` is the chunked launch's split of the marker
+  walk across blocks (``bulklmm_bulkperm_marker_groups`` in the kernel's
+  library states the same rule for the current device).
 - :func:`fused_perm_maxlods`: max LODs through the kernel on CUDA tensors,
   through its plain version on CPU tensors.
   :func:`fused_perm_maxlods_reference` always takes the plain version (the
@@ -73,6 +80,10 @@ launches = 0
 #: those of them with bf16x3 products (``dot_precision="high"``), likewise
 bf16x3_launches = 0
 
+#: those of them whose marker walk was split across blocks (chunked path,
+#: :func:`marker_groups` above 1), likewise
+split_launches = 0
+
 #: the counts are read-modify-written by the host threads of a mesh's devices
 _count_lock = threading.Lock()
 
@@ -84,6 +95,19 @@ SHARED_LIMIT_BYTES = 232_448
 
 #: the most depth steps of 8 samples the resident kernel is built for
 RESIDENT_STEPS = 11
+
+#: markers and permutations of a thread block of the chunked kernel (n > 88)
+CHUNK_TILE = 128
+
+#: samples of one chunk of the chunked kernel's walk over n
+CHUNK_SAMPLES = 32
+
+#: chunks whose products the chunked kernel carries in one accumulator
+#: before adding them into float32 running totals rounded to nearest
+FOLD_CHUNKS = 2
+
+#: blocks an SM that the chunked kernel's marker groups aim at
+MARKER_WAVES = 8
 
 #: the plain version's (traits, p, K) numerator stays under this many bytes
 PLAIN_BUDGET_BYTES = 1024**3
@@ -155,6 +179,8 @@ def _library():
     fn.restype = ctypes.c_int
     lib.bulklmm_bulkperm_is_resident.argtypes = [ctypes.c_int]
     lib.bulklmm_bulkperm_is_resident.restype = ctypes.c_int
+    lib.bulklmm_bulkperm_marker_groups.argtypes = [ctypes.c_int] * 4
+    lib.bulklmm_bulkperm_marker_groups.restype = ctypes.c_int
     lib.bulklmm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bulklmm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -181,8 +207,8 @@ def resident_shared_bytes(n: int, dot_precision: str = "highest") -> int:
 def kernel_path(n: int) -> str:
     """"resident" where the trait's operand fits shared memory beside the
     marker stages (n <= 88): asynchronous warpgroup products on it. Else
-    "chunked": the kernel walks n in staged chunks of 64 samples. The
-    launcher in ``csrc/bulkperm_fused.cu`` applies the same rule
+    "chunked": the kernel walks n in staged chunks of :data:`CHUNK_SAMPLES`
+    samples. The launcher in ``csrc/bulkperm_fused.cu`` applies the same rule
     (``bulklmm_bulkperm_is_resident``)."""
     fits = padded_depth(n) <= 8 * RESIDENT_STEPS and resident_shared_bytes(n) <= SHARED_LIMIT_BYTES
     return "resident" if fits else "chunked"
@@ -195,6 +221,23 @@ def kernel_route(n: int, dot_precision: str = "highest") -> tuple[str, str]:
     return kernel_path(n), "bf16x3" if uses_bf16x3(dot_precision) else "tf32x3"
 
 
+def marker_groups(n: int, p: int, mb: int, K: int, sms: int) -> int:
+    """The blocks that share one (trait, 128-permutation tile)'s marker walk
+    in a launch at n samples, p markers, mb traits and K permutations on a
+    card of ``sms`` SMs: 1 on the resident path; on the chunked path as
+    many as give about :data:`MARKER_WAVES` blocks an SM where the (trait,
+    permutation tile) pairs alone do not, each an equal run of 128-marker
+    tiles and none empty. ``csrc/bulkperm_fused.cu``'s launcher takes the
+    same rule (``bulklmm_bulkperm_marker_groups``, for the current device)."""
+    if kernel_path(n) == "resident":
+        return 1
+    pairs = mb * -(-K // CHUNK_TILE)
+    ptiles = -(-p // CHUNK_TILE)
+    groups = min(max(-(-MARKER_WAVES * sms // pairs), 1), ptiles)
+    group_tiles = -(-ptiles // groups)
+    return -(-ptiles // group_tiles)
+
+
 def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
     """(mb, K) float32 max r^2 from the kernel's operands, on their CUDA
     device: ``X0m`` (n, p), ``S2`` (mb, n, K), ``inv_xn`` (mb, p), all
@@ -205,25 +248,31 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
     ``dot_precision``, a failed build or a launch error. Does not
     synchronize.
     """
-    global launches, bf16x3_launches
+    global launches, bf16x3_launches, split_launches
     bf16 = uses_bf16x3(dot_precision)
     n, p, mb, K = _check_operands(X0m, S2, inv_xn)
     lib = _library()
-    out = torch.empty((mb, K), dtype=_F32, device=X0m.device)
+    chunked = kernel_path(n) == "chunked"
+    out = (torch.zeros if chunked else torch.empty)((mb, K), dtype=_F32, device=X0m.device)
     with torch.cuda.device(X0m.device):
+        groups = lib.bulklmm_bulkperm_marker_groups(n, p, mb, K)
         Xa = rows_at_16_bytes(X0m)
+        # the chunked path copies S2's rows from 16-byte boundaries
+        S2 = S2 if S2.data_ptr() % 16 == 0 else S2.clone()
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bulklmm_bulkperm_maxr2(
             Xa.data_ptr(), Xa.shape[-1], S2.data_ptr(), inv_xn.data_ptr(), out.data_ptr(),
             n, p, mb, K, int(bf16), stream,
         )
-    if rc != 0:
+    if groups < 1 or rc != 0:
         raise RuntimeError(
-            "bulkperm kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
+            "bulkperm kernel launch failed: "
+            + lib.bulklmm_cuda_error_string(rc if rc else -groups).decode()
         )
     with _count_lock:
         launches += 1
         bf16x3_launches += bf16
+        split_launches += groups > 1
     return out
 
 
@@ -258,14 +307,17 @@ def bulkperm_maxr2_split_reference(X0m, S2, inv_xn):
     (``split.py::matmul_tf32x3_emulated``), in the order of the path that n
     takes: the resident path's small terms of every depth step first and
     its leading terms after them, all in one accumulator; the chunked
-    path's three passes a step at a time, each step's sum added into the
-    total rounded to nearest. On any device; no main path takes it."""
+    path's samples in chunks of :data:`CHUNK_SAMPLES`, each chunk's three
+    passes one after another over its depth steps, every run of
+    :data:`FOLD_CHUNKS` chunks in one accumulator that starts from zero and
+    is then added into the total rounded to nearest. On any device; no main
+    path takes it."""
     if kernel_path(X0m.shape[0]) == "resident":
         def product(A, B):
             return matmul_tf32x3_emulated(A, B, smalls_first=True)
     else:
         def product(A, B):
-            return matmul_tf32x3_emulated(A, B, run=1)
+            return matmul_tf32x3_emulated(A, B, chunk=CHUNK_SAMPLES, run=FOLD_CHUNKS)
 
     return _maxr2_by_blocks(X0m, S2, inv_xn, product)
 

@@ -666,11 +666,15 @@ CHUNKED_BF16_RE = re.compile(r"liteqtl_(?:general|wide)_wgmma_kernel\w*N6bf16x36
 #: the chunked bf16x3 instantiations: the general kernel's c = 1, 2, 3 and the
 #: wide kernel's, each LOD alone and effects, none of them folding
 CHUNKED_BF16_BUILT = 8
+#: the chunked permutation kernel's entries (n > 88): one a products' policy
+PERM_CHUNKED_BUILT = ("bulkperm_chunked_kernelIN6tf32x36PolicyE",
+                      "bulkperm_chunked_kernelIN6bf16x36PolicyE")
 
 
 def check_ptxas(report: dict, serialized: list, injected: dict) -> None:
     """No kernel spills, no 3 x TF32 instantiation and no chunked bf16x3
-    one serializes its wgmma products (``serialized``:
+    one (the chunked permutation kernel's under both policies,
+    PERM_CHUNKED_BUILT, among them) serializes its wgmma products (``serialized``:
     :func:`serialized_wgmma`), the LOD-only 3 x TF32 instantiations'
     figures are LOD_ONLY_PTXAS's, the chunked bf16x3 instantiations are
     CHUNKED_BF16_BUILT, none with more injected warpgroup waits or arrives
@@ -694,8 +698,12 @@ def check_ptxas(report: dict, serialized: list, injected: dict) -> None:
     check(not twin_off, f"liteqtl_fused.lead_runs differs from the kernel's lead_runs() at {twin_off}")
     spilled = sorted(k for k, (_, st, ld, _) in report.items() if st or ld)
     moved = {k: (report.get(k), want) for k, want in LOD_ONLY_PTXAS.items() if report.get(k) != want}
-    tf32 = [k for k in serialized if "bf16x3" not in k or CHUNKED_BF16_RE.search(k)]
+    tf32 = [k for k in serialized if "bf16x3" not in k or CHUNKED_BF16_RE.search(k)
+            or "bulkperm_chunked" in k]
     chunked = sorted(k for k in report if CHUNKED_BF16_RE.search(k))
+    perm = {k: report.get(k) for k in PERM_CHUNKED_BUILT}
+    print(f"  ptxas: the chunked permutation kernel's instantiations {perm}")
+    check(all(perm.values()), f"ptxas reports no chunked permutation instantiation for {perm}")
     print(f"  ptxas: kernels that spill {spilled}; 3 x TF32 and chunked bf16x3 kernels whose wgmma "
           f"products are serialized {tf32} (other bf16x3: {len(serialized) - len(tf32)}); LOD-only "
           f"instantiations whose figures moved {moved}; chunked bf16x3 instantiations "
@@ -909,17 +917,22 @@ def bulkperm_checks(dev) -> None:
     cases = [(48, 96, 8, c, 24) for c in (1, 2, 3)] + [
         (48, 96, 8, 1, 1), (48, 65, 8, 2, 257), (48, 70, 5, 2, 130), (79, 96, 8, 1, 24),
         (80, 96, 8, 2, 24), (81, 96, 8, 1, 24), (88, 96, 8, 1, 24), (89, 96, 8, 3, 257),
-        (2000, 96, 8, 2, 24),
+        (2000, 96, 8, 2, 24), (89, 300, 3, 2, 1001), (5000, 700, 2, 1, 1001),
     ]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, p, mb, c, K in cases:
         path = bf.kernel_path(n)
         check((path == "resident") == bool(bf._library().bulklmm_bulkperm_is_resident(n)),
               f"the launcher and kernel_path disagree on the path at n={n}")
+        groups = bf._library().bulklmm_bulkperm_marker_groups(n, p, mb, 1001)
+        check(groups == bf.marker_groups(n, p, mb, 1001, sms),
+              f"the launcher and marker_groups disagree at {(n, p, mb)}: {groups}")
         ops = _perm_operands(n, p, mb, c, K, rng, dev)
         r2_err, lod_err, out, _ = _perm_kernel_errors(ops, n)
         split_err = (out - bf.bulkperm_maxr2_split_reference(*ops)).abs().max().item()
         bar = KERNEL_BAR * max(1.0, n / 48)
-        print(f"  permutation kernel ({path}) vs plain n={n} p={p} mb={mb} c={c} K={K}: "
+        print(f"  permutation kernel ({path}, {bf.marker_groups(n, p, mb, K, sms)} marker groups) "
+              f"vs plain n={n} p={p} mb={mb} c={c} K={K}: "
               f"max|d r2| = {r2_err:.3e} (bar {R2_BAR:.0e}), max|dLOD| = {lod_err:.3e} "
               f"(bar {bar:.2e}); vs its split reference max|d r2| = {split_err:.3e}")
         check(r2_err <= R2_BAR and lod_err <= bar,
@@ -967,13 +980,14 @@ def _reset_counts():
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 
     lf.launches = lf.effects_launches = af.launches = bf.launches = 0
-    lf.bf16x3_launches = af.bf16x3_launches = bf.bf16x3_launches = 0
+    lf.bf16x3_launches = af.bf16x3_launches = bf.bf16x3_launches = bf.split_launches = 0
 
 
 def _counts():
     """Every kernel's launches, and apart from them how many of those took
-    bf16x3 products (``*_bf16x3``; never under BALANCED, so a phase's sum of
-    the counts is its launches there)."""
+    bf16x3 products (``*_bf16x3``; never under BALANCED, so a phase's
+    :func:`_total` is its launches there) and how many permutation launches
+    split their marker walk across blocks (``bulkperm_maxr2_split``)."""
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
@@ -981,7 +995,13 @@ def _counts():
     return {"liteqtl_lod": lf.launches, "liteqtl_lod_effects": lf.effects_launches,
             "altgrid": af.launches, "bulkperm_maxr2": bf.launches,
             "liteqtl_lod_bf16x3": lf.bf16x3_launches, "altgrid_bf16x3": af.bf16x3_launches,
-            "bulkperm_maxr2_bf16x3": bf.bf16x3_launches}
+            "bulkperm_maxr2_bf16x3": bf.bf16x3_launches, "bulkperm_maxr2_split": bf.split_launches}
+
+
+def _total(counts) -> int:
+    """The sum of :func:`_counts`, the split permutation launches left out
+    (they are among ``bulkperm_maxr2``'s)."""
+    return sum(v for k, v in counts.items() if k != "bulkperm_maxr2_split")
 
 
 def _drive(what, fn):
@@ -2336,7 +2356,7 @@ def loco_bulkscan(dev, card, Yd, Gd, K, chrom, Ks, method):
     call = lambda: bt.bulkscan_loco(Yd, Gd, chrom, method=method, precision=bt.BALANCED)  # noqa: E731
     res, counts = _drive(f"BALANCED {method} bulkscan_loco", call)
     nchrom = len(MOUSE_CHROMS)
-    check(counts[counter] == nchrom and sum(counts.values()) == nchrom,
+    check(counts[counter] == nchrom and _total(counts) == nchrom,
           f"{method} bulkscan_loco launched {counts}, not {nchrom} {counter} launches")
     check(tuple(res.L.shape) == (P, M) and res.L.is_cuda and res.L.dtype == torch.float64,
           f"{method} LOCO L is not float64 ({P}, {M}) on the card")
@@ -2394,7 +2414,7 @@ def loco_perms(dev, card, Yd, Gd, K, chrom, Ks):
     res, counts = _drive(f"BALANCED bulkscan_perms_loco, {NPERMS} permutations", call)
     nchrom = len(MOUSE_CHROMS)
     want = -(-M // PERM_BLOCK) * nchrom
-    check(counts["bulkperm_maxr2"] == want and sum(counts.values()) == want,
+    check(counts["bulkperm_maxr2"] == want and _total(counts) == want,
           f"bulkscan_perms_loco launched {counts}, not {want} permutation-kernel launches")
     ml = res.maxlods
     check(tuple(ml.shape) == (M, NPERMS + 1) and ml.is_cuda and bool(torch.isfinite(ml).all()),
@@ -2659,7 +2679,7 @@ def mesh_scans(dev, card, Yd, Gd, K, meshes):
             want = tiles * -(-w // -(-MESH_TRAIT_CHUNK // mesh.shape["traits"]))
             print(f"    {counts[counter]} {counter} launches: {tiles} tiles x "
                   f"{want // tiles} trait chunks a tile")
-            check(counts[counter] == want and sum(counts.values()) == want,
+            check(counts[counter] == want and _total(counts) == want,
                   f"{method} on the mesh launched {counts}, not {want} {counter} launches")
             L = res.L
             check(tuple(L.shape) == (P, M) and L.device == dev and L.dtype == one.L.dtype
@@ -2719,7 +2739,7 @@ def mesh_perms(dev, card, Yd, Gd, K, meshes):
               f"blocks of {tc} x {tiles} tiles x {-(-rows // pc)} permutation chunks of "
               f"{rows} rows a tile ({eng})")
         check(eng == "pallas" and counts["bulkperm_maxr2"] == want
-              and sum(counts.values()) == want,
+              and _total(counts) == want,
               f"the sharded permutations launched {counts}, not {want} kernel launches")
         ml = res.maxlods
         check(tuple(ml.shape) == (M, NPERMS + 1) and ml.device == dev
@@ -2809,7 +2829,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
                                           **({"mesh": m} if m else {}))
     st, counts = _drive(f"streamed alt-grid, blocks of {STREAM_BLOCK}, {_mesh_name(mesh)}",
                         lambda: call(mesh))
-    check(counts["altgrid"] == blocks * tiles and sum(counts.values()) == blocks * tiles,
+    check(counts["altgrid"] == blocks * tiles and _total(counts) == blocks * tiles,
           f"the streamed alt-grid on the mesh launched {counts}, not {blocks} x {tiles}")
     one = call(None)
     err = float(np.abs(st.L - one.L).max())
@@ -2834,7 +2854,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
                          lambda: bt.bulkscan_loco(Yd, Gd, chrom, mesh=mesh,
                                                   precision=bt.BALANCED))
     want = nchrom * tiles
-    check(counts["liteqtl_lod"] == want and sum(counts.values()) == want,
+    check(counts["liteqtl_lod"] == want and _total(counts) == want,
           f"LOCO on the mesh launched {counts}, not {nchrom} x {tiles}")
     one = bt.bulkscan_loco(Yd, Gd, chrom, precision=bt.BALANCED)
     same = torch.stack([res.h2_null_by_chrom[c] == one.h2_null_by_chrom[c]
@@ -2940,7 +2960,7 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
         res, counts = _drive(f"BALANCED {method} bulkscan, c = {WIDE_C}",
                              lambda: bt.bulkscan(Yd, Gd, K, covar, method=method,
                                                  precision=bt.BALANCED))
-        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == sum(counts.values()),
+        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == _total(counts),
               f"the c = {WIDE_C} {method} bulkscan launched {counts}")
         check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()),
               f"the c = {WIDE_C} {method} L is not finite ({P}, {M})")
@@ -3353,7 +3373,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
                          lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT))
     want = launches["liteqtl_lod"]
     check(counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"] == want
-          and sum(counts.values()) == 2 * want,
+          and _total(counts) == 2 * want,
           f"THROUGHPUT null-grid launched {counts}, not {want} bf16x3 LOD launches alone")
     check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()), "THROUGHPUT L not finite")
     exact = bt.bulkscan(Yd, Gd, K, precision=bt.EXACT64, output_effects=True)
@@ -3367,7 +3387,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     eff, counts = _drive("THROUGHPUT null-grid bulkscan, output_effects",
                          lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT, output_effects=True))
     check(counts["liteqtl_lod_effects"] == counts["liteqtl_lod_bf16x3"] == want
-          and sum(counts.values()) == 2 * want, f"THROUGHPUT effects launched {counts}")
+          and _total(counts) == 2 * want, f"THROUGHPUT effects launched {counts}")
     same = exact.h2_null_list == eff.h2_null_list.double()
     lod_err = _max_abs_diff_cols(eff.L, exact.L, same)
     beta_err, se_err = _effects_err_cols((eff.beta_mat, eff.beta_se_mat),
@@ -3391,7 +3411,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     res, counts = _drive("THROUGHPUT alt-grid bulkscan",
                          lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.THROUGHPUT))
     want = launches["altgrid"]
-    check(counts["altgrid"] == counts["altgrid_bf16x3"] == want and sum(counts.values()) == 2 * want,
+    check(counts["altgrid"] == counts["altgrid_bf16x3"] == want and _total(counts) == 2 * want,
           f"THROUGHPUT alt-grid launched {counts}")
     exact = bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.EXACT64)
     err = _max_abs_diff_cols(res.L, exact.L, all_cols)
@@ -3419,7 +3439,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
                                                    precision=bt.THROUGHPUT))
     want = launches["bulkperm_maxr2"]
     check(counts["bulkperm_maxr2"] == counts["bulkperm_maxr2_bf16x3"] == want
-          and sum(counts.values()) == 2 * want, f"THROUGHPUT bulkscan_perms launched {counts}")
+          and _total(counts) == 2 * want, f"THROUGHPUT bulkscan_perms launched {counts}")
     check(bool(torch.isfinite(res.maxlods).all()), "THROUGHPUT maxlods not finite")
     cut = slice(0, ORACLE_BLOCK)
     exact = bt.bulkscan_perms(Yd[:, cut], Gd, K, nperms=NPERMS, rndseed=0, precision=bt.EXACT64)
@@ -3558,7 +3578,7 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
 
     def lod_only(counts, what):
         check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"]
-              and sum(counts.values()) == 2 * counts["liteqtl_lod"],
+              and _total(counts) == 2 * counts["liteqtl_lod"],
               f"{what} launched {counts}, not bf16x3 LOD launches alone")
 
     # phase 11's panel and its block

@@ -30,7 +30,8 @@ kernel is also held against its plain version at every shape and on
 ``chip_smoke.py`` phase 11's block (the first 8,192 markers of its 2,000 x
 100,000 panel, on the scan's own operands): max |dLOD| of each. The
 permutation kernel is also timed on its chunked path at ``PERM_2000``
-(random operands) and held against its plain version there, and the
+(random operands) and held against its plain version there, and at
+``PERM_BIOBANK`` (random operands drawn on the card, timed only), and the
 BALANCED null-grid scan at ``GENERAL_N`` samples (the general LOD kernel)
 against EXACT64 at each of ``GENERAL_C``: max |dLOD| on the traits of equal
 grid h2 and the h2 flips (and the THROUGHPUT scan's). Prints the
@@ -96,6 +97,10 @@ SHAPE_SEED = 12
 #: the permutation kernel's chunked path (n > 88): samples, markers, traits
 #: and columns (1,000 permutations and the observed one) of its timed launch
 PERM_2000 = (2000, 20_000, 64, 1001)
+#: the permutation kernel's launch in the benchmark's biobank.perms cell
+#: (chunked, 32 traits: the marker walk split across blocks where the tree
+#: does so), timed on random operands drawn on the card
+PERM_BIOBANK = (5000, 100_000, 32, 1001)
 #: samples of the BALANCED null-grid scans that take the general LOD kernel
 #: (88 < n <= 200: four chunks of 40) against EXACT64, on chip_smoke.py's
 #: synthetic BXD-shaped data with its markers and traits, at these
@@ -223,6 +228,13 @@ def time_tree(tree: Path) -> dict:
     out["err"]["perm2000_r2"] = float(
         (bf.bulkperm_maxr2_cuda(*perm_ops) - bf.bulkperm_maxr2_plain(*perm_ops)).abs().max())
     del perm_ops
+    n, p, mb, K = PERM_BIOBANK
+    gen = torch.Generator(device=dev).manual_seed(SHAPE_SEED)
+    X = torch.randn((n, p), generator=gen, device=dev)
+    S2 = torch.randn((mb, n, K), generator=gen, device=dev) / n**0.5
+    inv = (1.0 / X.square().sum(0)).expand(mb, p).contiguous()
+    out["perm_biobank_ms"] = median_ms(lambda: bf.bulkperm_maxr2_cuda(X, S2, inv))
+    del X, S2, inv
     torch.cuda.empty_cache()
     out["general_vs_exact64"] = _general_vs_exact64(cs, bt, lf, dev)
     return out
@@ -442,7 +454,7 @@ def main() -> None:
               + ", ".join(f"{name} {res[name]:.3f}" for name in LOD_SHAPES) + " ms; max|dLOD| "
               "vs its plain version " + ", ".join(f"{k} {v:.4e}" for k, v in res["err"].items()))
         print(f"{'':>16s}  permutation kernel at n, p, mb, K = {PERM_2000} (chunked): "
-              f"{res['perm2000_ms']:.3f} ms; BALANCED null-grid at n = {GENERAL_N} (general kernel) "
+              f"{res['perm2000_ms']:.3f} ms, at {PERM_BIOBANK}: {res['perm_biobank_ms']:.3f} ms; BALANCED null-grid at n = {GENERAL_N} (general kernel) "
               "vs EXACT64, (max|dLOD|, h2 flips; plain version's max|dLOD|; THROUGHPUT's max|dLOD|, "
               "h2 flips) by covariate count: "
               + ", ".join(f"c = {c} ({v[0]:.4e}, {v[1]}; {v[2]:.4e}; {v[3]:.4e}, {v[4]})"
@@ -456,7 +468,8 @@ def main() -> None:
                 "float32 plain version " + ", ".join(f"{k} {v:.4e}" for k, v in b["err"].items()))
     print("bounds (ms): " + ", ".join(f"{name} {bound_ms(shape)[0]:.3f}"
                                       for name, shape in LOD_SHAPES.items()))
-    print(f"permutation kernel at {PERM_2000}: bound {perm_bound_ms(*PERM_2000):.3f} ms")
+    print(f"permutation kernel at {PERM_2000}: bound {perm_bound_ms(*PERM_2000):.3f} ms; at "
+          f"{PERM_BIOBANK}: bound {perm_bound_ms(*PERM_BIOBANK):.3f} ms")
     print("bf16x3 bounds (ms): " + ", ".join(f"{name} {bound_ms(shape, 'bf16x3')[0]:.3f}"
                                              for name, shape in LOD_SHAPES.items()))
 

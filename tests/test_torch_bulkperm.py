@@ -840,10 +840,29 @@ def test_small_block_sweep_agrees_across_column_chunkings(perm_data, engine, mon
 @pytest.mark.parametrize("n, K, path, blocks", [
     (79, 1, "resident", 1), (79, 24, "resident", 1), (79, 256, "resident", 1),
     (79, 257, "resident", 2), (79, 1001, "resident", 4), (88, 1001, "resident", 4),
-    (89, 1001, "chunked", 4), (2000, 130, "chunked", 1), (20000, 64, "chunked", 1)])
+    (89, 1001, "chunked", 8), (2000, 130, "chunked", 2), (20000, 64, "chunked", 1)])
 def test_kernel_launch_shape_follows_n_and_K(n, K, path, blocks):
-    """The kernel's launch from its operands' shape: one 256-permutation tile
-    width, thread blocks per trait from K, and the trait's operand resident
-    in shared memory or walked in chunks, from n."""
+    """The kernel's launch from its operands' shape: permutation tiles per
+    trait from K (256 permutations a block on the resident path, 128 on the
+    chunked one), and the trait's operand resident in shared memory or
+    walked in chunks, from n."""
     assert bf.kernel_path(n) == path
-    assert -(-K // bf.TILE_K) == blocks
+    assert -(-K // (bf.TILE_K if path == "resident" else bf.CHUNK_TILE)) == blocks
+
+
+@pytest.mark.parametrize("n, p, mb, K, groups", [
+    (79, 7321, 1024, 1001, 1), (79, 100_000, 1, 1, 1), (5000, 100_000, 32, 1001, 5),
+    (5000, 100_000, 1024, 1001, 1), (2000, 20_000, 64, 1001, 3), (300, 4000, 1, 1001, 32),
+    (300, 4000, 160, 1001, 1), (89, 96, 8, 257, 1), (89, 1000, 1, 1, 8)])
+def test_marker_groups_split_the_walk_by_shape(n, p, mb, K, groups):
+    """The chunked launch's marker groups on a 132-SM card: 1 on the resident
+    path and where the (trait, permutation tile) pairs give MARKER_WAVES
+    blocks an SM, else as many as reach that, at most one a 128-marker tile,
+    each an equal run of tiles and none empty."""
+    got = bf.marker_groups(n, p, mb, K, 132)
+    assert got == groups
+    ptiles, pairs = -(-p // bf.CHUNK_TILE), mb * -(-K // bf.CHUNK_TILE)
+    run = -(-ptiles // got)
+    assert (got - 1) * run < ptiles <= got * run
+    if got > 1:
+        assert got * pairs >= bf.MARKER_WAVES * 132 or got == ptiles

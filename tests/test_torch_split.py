@@ -600,6 +600,60 @@ def test_split_reference_sub_blocks_do_not_show(perm_rotated, monkeypatch):
     assert torch.equal(bf.bulkperm_maxr2_split_reference(X, S2, inv), whole)
 
 
+def _unit_operands(n, p=40, mb=3, K=11, seed=5):
+    """(X, S2, inv_xn) float32 with unit-norm marker and permutation columns,
+    so that every r^2 is a squared correlation in [0, 1]."""
+    rng = np.random.default_rng(seed + n)
+    X = rng.normal(size=(n, p))
+    S2 = rng.normal(size=(mb, n, K))
+    X /= np.linalg.norm(X, axis=0)
+    S2 /= np.linalg.norm(S2, axis=1, keepdims=True)
+    inv = np.ones((mb, p))
+    return [torch.from_numpy(a).float() for a in (X, S2, inv)]
+
+
+def _maxr2_of(num, inv):
+    return (num * num * inv[:, :, None]).max(1).values
+
+
+RUN = bf.CHUNK_SAMPLES * bf.FOLD_CHUNKS  # samples of one fold run of the chunked kernel
+
+
+@pytest.mark.parametrize("n", [RUN - 7, RUN, RUN + 9], ids=["below-a-run", "one-run", "above-a-run"])
+def test_bulkperm_chunked_split_reference_folds_runs(n, monkeypatch):
+    """The chunked branch's sum, forced at any n: up to one fold run the
+    product is one accumulator over the whole depth in chunks of
+    CHUNK_SAMPLES, bit for bit; past it the first run's sum and the next
+    run's are added with round to nearest, bit for bit; within 1e-6 of the
+    plain version in max r^2 either way."""
+    X, S2, inv = _unit_operands(n)
+    monkeypatch.setattr(bf, "kernel_path", lambda n: "chunked")
+    out = bf.bulkperm_maxr2_split_reference(X, S2, inv)
+    A = X.T.contiguous()
+    first = split.matmul_tf32x3_emulated(A[:, :RUN], S2[:, :RUN], chunk=bf.CHUNK_SAMPLES)
+    if n <= RUN:
+        assert torch.equal(out, _maxr2_of(first, inv))
+    else:
+        rest = split.matmul_tf32x3_emulated(A[:, RUN:], S2[:, RUN:], chunk=bf.CHUNK_SAMPLES)
+        assert torch.equal(out, _maxr2_of(first + rest, inv))
+    assert float((out - bf.bulkperm_maxr2_plain(X, S2, inv)).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [89, 300])
+def test_bulkperm_chunked_split_reference_beats_one_accumulator(n):
+    """At n > 88 (the chunked path) the split reference's folded runs are
+    within 1e-6 of the plain version in max r^2 and no farther from the
+    float64 product than one accumulator carried over the whole depth."""
+    X, S2, inv = _unit_operands(n, p=64, mb=2, K=9)
+    assert bf.kernel_path(n) == "chunked"
+    out = bf.bulkperm_maxr2_split_reference(X, S2, inv)
+    carried = _maxr2_of(split.matmul_tf32x3_emulated(X.T.contiguous(), S2, chunk=bf.CHUNK_SAMPLES),
+                        inv)
+    exact = _maxr2_of(torch.matmul(X.double().T, S2.double()), inv.double())
+    assert float((out - bf.bulkperm_maxr2_plain(X, S2, inv)).abs().max()) <= 1e-6
+    assert float((out.double() - exact).abs().max()) <= float((carried.double() - exact).abs().max())
+
+
 # --- the alt-grid kernel's split reference ----------------------------------------------
 
 
