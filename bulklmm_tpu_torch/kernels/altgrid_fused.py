@@ -34,7 +34,8 @@ Layers:
   body is then a pure contraction plus the epilogue).
 - :func:`altgrid_cuda`: the kernel's wrapper. CUDA tensors only; it checks
   its inputs, allocates the outputs, launches on the current stream, raises
-  on a launch error and counts its launches in :data:`launches`.
+  on a launch error and counts each launch under its route
+  (``utils/profiling.py::count_launch``).
 - :func:`altgrid_plain`: the same function in plain torch, one (p, n)(n, m)
   product and the epilogue per grid step, exact float32 (bf16x3 under
   "high").
@@ -50,25 +51,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from ..utils.profiling import span, spanned
+from ..utils.profiling import count_launch, span, spanned
 from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
-
-#: launches of the CUDA kernel in this process; chip_smoke.py resets and
-#: reads it to show that the alt-grid path ran through the kernel
-launches = 0
-
-#: those of them with bf16x3 products (``dot_precision="high"``), likewise
-bf16x3_launches = 0
-
-#: the counts are read-modify-written by the host threads of a mesh's devices
-_count_lock = threading.Lock()
 
 #: the most markers one launch takes: 65,535 blocks of 128 markers on the
 #: launch grid's y axis (the trait axis has no practical limit)
@@ -159,13 +149,13 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True, dot_precision: str = "high
     float32 and kidx (p, m) int32, the first grid step of the minimum, or
     None when ``panel`` is False (the kernel then carries no index). The
     products are three TF32 passes, or three bf16 passes under
-    ``dot_precision="high"``.
+    ``dot_precision="high"``. A launch counts under "altgrid", the path
+    "fused" and its products.
 
     Raises on a CPU tensor, a wrong dtype, shape or layout, an unknown
     ``dot_precision``, a failed build or a launch error. Does not
     synchronize.
     """
-    global launches, bf16x3_launches
     bf16 = uses_bf16x3(dot_precision)
     g, n, p, m = _check_operands(Xn, Yn, cmat)
     lib = _library()
@@ -182,9 +172,7 @@ def altgrid_cuda(Xn, Yn, cmat, *, panel: bool = True, dot_precision: str = "high
         raise RuntimeError(
             "altgrid kernel launch failed: " + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    with _count_lock:
-        launches += 1
-        bf16x3_launches += bf16
+    count_launch("altgrid", "fused", "bf16x3" if bf16 else "tf32x3")
     return out, kidx
 
 

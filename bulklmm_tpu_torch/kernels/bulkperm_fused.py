@@ -36,8 +36,9 @@ Layers:
 - :func:`bulkperm_maxr2_cuda`: the kernel's wrapper. CUDA tensors only; it
   checks its inputs, allocates the output (zeros on the chunked path, whose
   marker groups take their maxima into it), launches on the current stream,
-  raises on a launch error and counts its launches in :data:`launches`, and
-  those whose marker walk was split across blocks in :data:`split_launches`.
+  raises on a launch error and counts each launch under its route
+  (``utils/profiling.py::count_launch``; a chunked launch whose marker walk
+  was split across blocks under the path "chunked_split").
 - :func:`bulkperm_maxr2_plain`: the same function in plain torch, exact
   float32 (bf16x3 under "high"). :func:`bulkperm_maxr2_split_reference`
   repeats the kernel's 3 x TF32 arithmetic instead (``kernels/split.py``),
@@ -64,28 +65,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from ..ops.bulkperm import maxr2_to_lod, perm_trait_marker_parts
 from ..utils.config import with_highest_matmul
-from ..utils.profiling import spanned
+from ..utils.profiling import count_launch, spanned
 from .split import matmul_bf16x3, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3
-
-#: launches of the CUDA kernel in this process; chip_smoke.py resets and
-#: reads it to show that the permutation path ran through the kernel
-launches = 0
-
-#: those of them with bf16x3 products (``dot_precision="high"``), likewise
-bf16x3_launches = 0
-
-#: those of them whose marker walk was split across blocks (chunked path,
-#: :func:`marker_groups` above 1), likewise
-split_launches = 0
-
-#: the counts are read-modify-written by the host threads of a mesh's devices
-_count_lock = threading.Lock()
 
 #: permutations per thread block of the kernel
 TILE_K = 256
@@ -244,15 +230,17 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
     float32 and contiguous. The products are three TF32 passes, or three
     bf16 passes under ``dot_precision="high"``.
 
-    Raises on a CPU tensor, a wrong dtype, shape or layout, an unknown
-    ``dot_precision``, a failed build or a launch error. Does not
+    A launch counts under "bulkperm_maxr2", its path (:func:`kernel_route`;
+    "chunked_split" where :func:`marker_groups` is above 1) and its
+    products. Raises on a CPU tensor, a wrong dtype, shape or layout, an
+    unknown ``dot_precision``, a failed build or a launch error. Does not
     synchronize.
     """
-    global launches, bf16x3_launches, split_launches
     bf16 = uses_bf16x3(dot_precision)
     n, p, mb, K = _check_operands(X0m, S2, inv_xn)
     lib = _library()
-    chunked = kernel_path(n) == "chunked"
+    path, products = kernel_route(n, dot_precision)
+    chunked = path == "chunked"
     out = (torch.zeros if chunked else torch.empty)((mb, K), dtype=_F32, device=X0m.device)
     with torch.cuda.device(X0m.device):
         groups = lib.bulklmm_bulkperm_marker_groups(n, p, mb, K)
@@ -269,10 +257,7 @@ def bulkperm_maxr2_cuda(X0m, S2, inv_xn, *, dot_precision: str = "highest"):
             "bulkperm kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc if rc else -groups).decode()
         )
-    with _count_lock:
-        launches += 1
-        bf16x3_launches += bf16
-        split_launches += groups > 1
+    count_launch("bulkperm_maxr2", "chunked_split" if groups > 1 else path, products)
     return out
 
 

@@ -59,9 +59,8 @@ Layers:
   and a scalar block without the factor.
 - :func:`liteqtl_lod_cuda`: the kernels' wrapper. CUDA tensors only; it
   checks its inputs, allocates the outputs, launches on the current stream,
-  raises on a launch error and counts its launches in :data:`launches`
-  (:data:`effects_launches` for the effects variant; :data:`wide_launches`
-  counts the wide kernel's, either variant, besides).
+  raises on a launch error and counts each launch under its route
+  (``utils/profiling.py::count_launch``).
 - :func:`liteqtl_lod_plain`: the same function in plain torch, exact
   float32, on either form of the operands (the wide one walks V a column
   at a time, as the wide kernel does). :func:`liteqtl_split_reference`
@@ -83,7 +82,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -92,7 +90,7 @@ from ..ops.smallchol import (
 )
 from ..ops.weights import make_weights
 from ..utils.config import with_highest_matmul
-from ..utils.profiling import span, spanned
+from ..utils.profiling import count_launch, span, spanned
 from .split import (
     matmul_bf16x3, matmul_bf16x3_emulated, matmul_tf32x3_emulated, rows_at_16_bytes, uses_bf16x3,
 )
@@ -171,22 +169,6 @@ SHARED_LIMIT_BYTES = 232_448
 
 #: markers a tile and traits a block of both kernels
 TILE_P = TILE_M = 64
-
-#: launches of the CUDA kernel in this process; chip_smoke.py resets and
-#: reads it to show that the main path ran through the kernel
-launches = 0
-
-#: launches of the kernel's effects variant in this process, likewise
-effects_launches = 0
-
-#: launches of either variant with bf16x3 products, likewise
-bf16x3_launches = 0
-
-#: launches of the wide kernel (c > 3), either variant, likewise
-wide_launches = 0
-
-#: the counts are read-modify-written by the host threads of a mesh's devices
-_count_lock = threading.Lock()
 
 _F32 = torch.float32
 
@@ -449,12 +431,11 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
     operands :func:`prepare_inputs` gives for it; ``general=True`` takes the
     general kernel whatever n is, up to :data:`GENERAL_COVARIATES` columns
     (for comparisons at a resident shape). ``dot_precision="high"`` takes
-    the kernel's bf16x3 instantiation, on every path, and counts the launch
-    in :data:`bf16x3_launches` too (:func:`kernel_route`); a launch of the
-    wide kernel counts in :data:`wide_launches` too. Raises on a
-    CPU tensor, a wrong dtype, shape or layout, operands of another kernel,
-    an unknown ``dot_precision``, a failed build or a launch error. Does not
-    synchronize.
+    the kernel's bf16x3 instantiation, on every path (:func:`kernel_route`).
+    A launch counts under "liteqtl_lod" or "liteqtl_lod_effects", its path
+    and its products. Raises on a CPU tensor, a wrong dtype, shape or
+    layout, operands of another kernel, an unknown ``dot_precision``, a
+    failed build or a launch error. Does not synchronize.
     """
     bf16 = uses_bf16x3(dot_precision)
     n, p, m, c = _check_operands(X, C, W, WY, scal, effects)
@@ -482,22 +463,10 @@ def liteqtl_lod_cuda(X, C, W, WY, scal, *, general: bool = False, effects: bool 
             "liteqtl_lod kernel launch failed: "
             + lib.bulklmm_cuda_error_string(rc).decode()
         )
-    _count_launch(effects=effects, bf16=bf16, wide=C.dim() == 3)
+    path, products = kernel_route(n, c, effects, dot_precision)
+    count_launch("liteqtl_lod_effects" if effects else "liteqtl_lod",
+                 "general" if general else path, products)
     return tuple(outs) if effects else outs[0]
-
-
-def _count_launch(*, effects: bool, bf16: bool, wide: bool) -> None:
-    """Count one launch: in :data:`effects_launches` or :data:`launches`,
-    and besides in :data:`bf16x3_launches` and :data:`wide_launches` where it
-    took bf16x3 products or the wide kernel."""
-    global launches, effects_launches, bf16x3_launches, wide_launches
-    with _count_lock:
-        bf16x3_launches += bf16
-        wide_launches += wide
-        if effects:
-            effects_launches += 1
-        else:
-            launches += 1
 
 
 def _lod_from_products(B, D1, U, scal, n: int, effects: bool = False):

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib
 import json
 import os
 import tempfile
@@ -52,7 +53,7 @@ from ..ops.bulkperm import (
 from ..ops.lmm import fit_h2_traits
 from ..ops.lowrank import (
     LowRankKinship, _parts_kwargs, _shared_parts, _trait_side_parts, as_lowrank,
-    fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank, null_sigma2_lowrank, refuse_pallas,
+    fit_h2_lowrank, grid_null_ell_lowrank, is_lowrank, null_sigma2_lowrank,
 )
 from ..ops.rotation import KinshipDecomposition, resolve_kinship
 from ..ops.smallchol import off_covariates
@@ -63,13 +64,18 @@ from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matm
 from ..utils.device import resolve_device
 from ..utils.host import to_device, to_numpy
 from ..utils.profiling import span, spanned
-from .bulkscan import _take_rows, _traits_covar_grid, grid_null_ell
+from .bulkscan import PERM_TEXTS, _take_rows, _traits_covar_grid, grid_null_ell
 from .missing import (
     finite_flag, group_checkpoint, maybe_masked, raise_if_missing, subset_kinship,
     validate_missing_kwarg,
 )
 from .scan import _apply_weights, _refuse_weights_on_factors
 from .tiles import MARKERS_AXIS, TRAITS_AXIS, Mesh, _PermTiles, _per_device, make_mesh
+
+#: ``models/bulkscan.py`` (the package's attribute of that name is the entry
+#: point): its engine rule, ``takes_cuda_kernel``, is looked up there at
+#: each call, so that one patch reaches every entry point
+_bulkscan = importlib.import_module(".bulkscan", __package__)
 
 
 @dataclasses.dataclass
@@ -300,32 +306,12 @@ def _resolve_perm_engine(engine, n, *, device, precision, interpret=False, p, tr
     the traits a block actually holds: ``min(trait_chunk, traits)``, the
     block itself when ``traits`` is None. ``budget_bytes`` bounds the
     kernel's permutation chunk in place of a quarter of ``device``'s budget
-    (``ops/bulkperm.py::kernel_perm_chunk_cap``).
-
-    "auto" takes the kernel on a CUDA device under a float32 GEMM dtype and
-    the plain engine otherwise. An explicit "pallas" raises instead of
-    downgrading: under a non-float32 GEMM dtype (the kernel is float32) and
-    off CUDA, unless ``interpret=True``, which runs the kernel's plain
-    version on any device under any preset.
+    (``ops/bulkperm.py::kernel_perm_chunk_cap``). The engine is
+    ``bulkscan.py::takes_cuda_kernel``'s, ``interpret=True`` running the
+    kernel's plain version on any device under any preset.
     """
-    float32 = precision.resolve_gemm() == torch.float32
-    cuda = torch.device(device).type == "cuda"
-    if engine == "pallas" and not interpret:
-        if not float32:
-            raise ValueError(
-                "engine='pallas' runs the fused CUDA kernel in float32; the current "
-                "precision config resolves GEMMs to "
-                f"{_dtype_name(precision.resolve_gemm())}, which it would silently "
-                "downgrade. Use engine='xla' (honors the config) or a precision "
-                "whose GEMM dtype is float32."
-            )
-        if not cuda:
-            raise ValueError(
-                "engine='pallas' runs the fused CUDA kernel and needs a CUDA device, "
-                f"not {torch.device(device)}; pass interpret=True (the kernel's plain "
-                "version, for tests) or use engine='xla'."
-            )
-    eng = "pallas" if engine == "pallas" or (engine == "auto" and cuda and float32) else "xla"
+    eng = "pallas" if _bulkscan.takes_cuda_kernel(engine, precision, device, interpret=interpret,
+                                                  texts=PERM_TEXTS) else "xla"
     if trait_chunk is None:
         trait_chunk = 1024 if eng == "pallas" else 16
     held = trait_chunk if traits is None else min(trait_chunk, traits)
@@ -533,8 +519,7 @@ def _lowrank_block_lods_on(mesh: Mesh, X, U, *, n, pc_dev, precision):
 def _check_perm_args(method, engine, solve_method) -> None:
     if method not in ("null-grid", "null-exact"):
         raise ValueError("method must be one of 'null-grid', 'null-exact'")
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
+    _bulkscan.takes_cuda_kernel(engine)
     if method == "null-exact" and solve_method not in ("qr", "cholesky"):
         raise ValueError(f"unknown method {solve_method!r}; use 'qr' or 'cholesky'")
 
@@ -562,8 +547,7 @@ def _bulkscan_perms_on_mesh(
     validate_missing_kwarg(missing)
     _check_perm_args(method, engine, solve_method)
     lowrank = is_lowrank(K)
-    if lowrank:
-        refuse_pallas(engine, perms=True)
+    _bulkscan.takes_cuda_kernel(engine, lowrank=lowrank, texts=PERM_TEXTS)  # "pallas" raises
     kw = dict(
         mesh=mesh, sharded=sharded, nperms=nperms, rndseed=rndseed, method=method,
         h2_grid=h2_grid, add_intercept=add_intercept, prior_variance=prior_variance,

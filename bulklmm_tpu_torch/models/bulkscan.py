@@ -23,10 +23,11 @@ fused kernel, ``kernels/liteqtl_fused.py`` (the CUDA kernel on CUDA tensors,
 its plain version on CPU tensors); otherwise (MIXED, EXACT64) plain
 ``ops/liteqtl.py::lods_per_trait`` in the preset's own dtypes.
 
-The alt-grid engine is chosen by ``engine``: "pallas" is the CUDA kernel
-``kernels/altgrid_fused.py`` (float32 products, CUDA tensors, else a
-``ValueError``); "auto" takes it on CUDA tensors under a float32 GEMM dtype
-and the plain path otherwise; "xla" is always the plain path.
+The alt-grid engine is chosen by ``engine``, in :func:`takes_cuda_kernel`,
+the one rule of ``engine=`` (the permutation sweep's too): "pallas" is the
+CUDA kernel ``kernels/altgrid_fused.py`` (float32 products, CUDA tensors,
+else a ``ValueError``); "auto" takes it on CUDA tensors under a float32 GEMM
+dtype and the plain path otherwise; "xla" is always the plain path.
 
 ``output_effects=True`` (null methods) adds each (marker, trait) GLS effect
 and its standard error from the same LOD step: the kernel's effects variant
@@ -52,7 +53,7 @@ one position, apart from its host trait blocks.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,9 +63,7 @@ from ..kernels.liteqtl_fused import fused_lods_and_effects_per_trait, fused_lods
 from ..ops.liteqtl import lods_and_effects_per_trait, lods_per_trait, lods_shared
 from ..ops.lmm import fit_h2_traits
 from ..ops.lod import lod2log10p
-from ..ops.lowrank import (
-    _bulkscan_lowrank_core, _trait_fit_lowrank, as_lowrank, is_lowrank, refuse_pallas,
-)
+from ..ops.lowrank import _bulkscan_lowrank_core, _trait_fit_lowrank, as_lowrank, is_lowrank
 from ..ops.rotation import KinshipDecomposition, decompose_kinship, resolve_kinship
 from ..ops.stats import check_covar_full_rank
 from ..ops.weights import make_weights
@@ -196,6 +195,74 @@ def _chunked(impl, Y0, trait_chunk, *per_trait):
     return outs
 
 
+class KernelTexts(NamedTuple):
+    """What the refusals of ``engine="pallas"`` say of one kernel, which
+    differ between the alt-grid scan and the permutation sweep as the JAX
+    package's do: the kernel's name, what it needs and the advice in the
+    CUDA refusal, and the reason in the rank-k one."""
+
+    kernel: str
+    needs: str
+    advice: str
+    lowrank: str
+
+
+ALT_GRID_TEXTS = KernelTexts(
+    kernel="fused alt-grid CUDA kernel", needs="tensors on a CUDA device",
+    advice="use engine='xla' (or call kernels.altgrid_fused.fused_alt_grid_reference for "
+           "the kernel's plain version).",
+    lowrank="(the rank-k engine is XLA-only)",
+)
+
+PERM_TEXTS = KernelTexts(
+    kernel="fused CUDA kernel", needs="a CUDA device",
+    advice="pass interpret=True (the kernel's plain version, for tests) or use engine='xla'.",
+    lowrank="(the fused kernel assumes the rotated basis's diagonal whitening); use "
+            "engine='xla' or 'auto'.",
+)
+
+
+def takes_cuda_kernel(engine: str, precision: Optional[PrecisionConfig] = None, device=None, *,
+                      lowrank: bool = False, interpret: bool = False,
+                      texts: KernelTexts = ALT_GRID_TEXTS) -> bool:
+    """Whether a call takes the CUDA kernel (True) or the plain engine: the
+    one rule of ``engine=``, for the alt-grid scan and the permutation sweep
+    (the null methods' LOD step follows the precision alone,
+    :func:`_uses_kernel`).
+
+    "auto" takes the kernel on a CUDA ``device`` under a float32 GEMM dtype,
+    "xla" never, "pallas" always, or it raises instead of downgrading: under
+    a GEMM dtype other than float32 (the kernel's) and off CUDA, unless
+    ``interpret`` (the sweep's plain version of the kernel, on any device
+    under any preset). Any other name raises, and so does "pallas" on a
+    rank-k kinship (``lowrank``), which no kernel takes. Without a
+    ``device`` (an entry point's argument checks) the rule stops after those
+    two refusals. ``texts`` are the caller's kernel's."""
+    if engine not in ("auto", "xla", "pallas"):
+        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
+    if lowrank and engine == "pallas":
+        raise ValueError(
+            f"engine='pallas' is not available for LowRankKinship inputs {texts.lowrank}"
+        )
+    if lowrank or device is None:
+        return False
+    float32 = precision.resolve_gemm() == torch.float32
+    cuda = torch.device(device).type == "cuda"
+    if engine == "pallas" and not interpret:
+        if not float32:
+            raise ValueError(
+                f"engine='pallas' runs the {texts.kernel} in float32; the current precision "
+                "config resolves GEMMs to "
+                f"{str(precision.resolve_gemm()).removeprefix('torch.')}, which it would "
+                "silently downgrade. Use engine='xla' (honors the config) or a precision "
+                "whose GEMM dtype is float32."
+            )
+        if not cuda:
+            raise ValueError(f"engine='pallas' runs the {texts.kernel} and needs {texts.needs}, "
+                             f"not {torch.device(device)}; {texts.advice}")
+    return engine == "pallas" or (engine == "auto" and cuda and float32)
+
+
 def _scan_common_inputs(Y, covar, h2_grid, add_intercept, *, method, engine, device):
     """Argument checks and trait/covariate preparation (JAX :152-182)."""
     _check_method_engine(method, engine)
@@ -207,8 +274,7 @@ def _check_method_engine(method: str, engine: str) -> None:
         raise ValueError(
             "method must be one of 'null-grid', 'null-exact', 'alt-grid'"
         )
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError("engine must be one of 'auto', 'xla', 'pallas'")
+    takes_cuda_kernel(engine)
     if engine == "pallas" and method != "alt-grid":
         raise ValueError(
             "engine='pallas' is only available for method='alt-grid' "
@@ -257,31 +323,6 @@ def _take_rows(a, rows):
     if torch.is_tensor(a):
         return a[torch.as_tensor(rows, device=a.device)]
     return to_numpy(a)[rows]
-
-
-def _altgrid_uses_kernel(engine: str, precision: PrecisionConfig, device) -> bool:
-    """Whether alt-grid runs the CUDA kernel; ``engine="pallas"`` refuses
-    what the kernel cannot honour instead of downgrading it silently."""
-    float32 = precision.resolve_gemm() == torch.float32
-    cuda = torch.device(device).type == "cuda"
-    if engine == "pallas":
-        if not float32:
-            raise ValueError(
-                "engine='pallas' runs the fused alt-grid CUDA kernel in float32; "
-                "the current precision config resolves GEMMs to "
-                f"{str(precision.resolve_gemm()).removeprefix('torch.')}, which it "
-                "would silently downgrade. Use engine='xla' (honors the config) or "
-                "a precision whose GEMM dtype is float32."
-            )
-        if not cuda:
-            raise ValueError(
-                "engine='pallas' runs the fused alt-grid CUDA kernel and needs "
-                f"tensors on a CUDA device, not {torch.device(device)}; use "
-                "engine='xla' (or call kernels.altgrid_fused."
-                "fused_alt_grid_reference for the kernel's plain version)."
-            )
-        return True
-    return engine == "auto" and cuda and float32
 
 
 @spanned("bulklmm.entry.bulkscan", numbered=True)
@@ -353,9 +394,7 @@ def bulkscan(
     validate_missing_kwarg(missing)
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
-    lowrank = is_lowrank(K)
-    if lowrank:
-        refuse_pallas(engine)
+    takes_cuda_kernel(engine, lowrank=is_lowrank(K))  # "pallas" on a rank-k kinship raises
     device = resolve_device(device, Y, G, K, covar)
     kw = dict(
         method=method, h2_grid=h2_grid, add_intercept=add_intercept,
@@ -438,7 +477,7 @@ def _bulkscan_on_mesh(
     shard (:func:`_null_h2`, or the rank-k fit), then every tile runs the
     LOD step at those h2s (the CUDA LOD kernel, or its effects variant,
     under the float32 presets); alt-grid runs the alt-grid kernel or the
-    plain formulation on every tile (:func:`_altgrid_uses_kernel`, by the
+    plain formulation on every tile (:func:`takes_cuda_kernel`, by the
     tile's device). ``what`` names the entry point in a missing-value error.
     """
     lowrank = is_lowrank(K)
@@ -493,7 +532,7 @@ def _bulkscan_on_mesh(
             C0d = _per_device(mesh, lambda d: C0.to(d))
         del Gs
         if alt:
-            kernel = {d: _altgrid_uses_kernel(engine, precision, d) for d in lamd}
+            kernel = {d: takes_cuda_kernel(engine, precision, d) for d in lamd}
 
             def core(Yi, j, dev, chunk):
                 X, C, lm, g = X0m[(j, dev)], C0d[dev], lamd[dev], grid[dev]

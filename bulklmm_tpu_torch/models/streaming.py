@@ -41,6 +41,8 @@ a mesh of one position.
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
@@ -48,7 +50,7 @@ from ..kernels.altgrid_fused import fused_alt_grid
 from ..ops.lod import lod2log10p
 from ..ops.lowrank import (
     LowRankKinship, _alt_grid_lowrank, _marker_side_parts, _parts_kwargs, _trait_fit_lowrank,
-    as_lowrank, is_lowrank, lods_and_effects_lowrank, lods_per_trait_lowrank, refuse_pallas,
+    as_lowrank, is_lowrank, lods_and_effects_lowrank, lods_per_trait_lowrank,
 )
 from ..ops.rotation import resolve_kinship
 from ..utils import memory
@@ -61,8 +63,8 @@ from .bulkperm import (
     _lowrank_perm_tiling, _mesh_perm_tiling, _perm_checkpoint, shuffle_indices,
 )
 from .bulkscan import (
-    _alt_grid_impl, _altgrid_uses_kernel, _check_method_engine, _check_output_effects,
-    _lod_effects_step, _lod_step, _null_h2, _scan_common_inputs, _traits_covar_grid,
+    PERM_TEXTS, _alt_grid_impl, _check_method_engine, _check_output_effects, _lod_effects_step,
+    _lod_step, _null_h2, _scan_common_inputs, _traits_covar_grid,
 )
 from .missing import (
     ColSubsetOut, RowSubsetView, _check_group_sizes, _check_side_inputs, _ncov_total,
@@ -71,6 +73,11 @@ from .missing import (
 )
 from .results import BulkScanResult
 from .tiles import MARKERS_AXIS, TRAITS_AXIS, Mesh, _assemble, _PermTiles, _run_tiles
+
+#: ``models/bulkscan.py`` (the package's attribute of that name is the entry
+#: point): its engine rule, ``takes_cuda_kernel``, is looked up there at
+#: each call, so that one patch reaches every entry point
+_bulkscan = importlib.import_module(".bulkscan", __package__)
 
 
 def _blocks(p: int, block: int):
@@ -334,8 +341,7 @@ def bulkscan_streamed(
     _check_method_engine(method, engine)
     _check_output_effects(output_effects, method)
     lowrank = is_lowrank(K)
-    if lowrank:
-        refuse_pallas(engine)
+    _bulkscan.takes_cuda_kernel(engine, lowrank=lowrank)  # "pallas" on a rank-k kinship raises
     mesh, device = _mesh_and_device(mesh, device, Y, K, covar)
     kwargs = dict(
         method=method, marker_block=marker_block, h2_grid=h2_grid,
@@ -419,9 +425,9 @@ def bulkscan_streamed(
         trait, shared = {"Y0": Y0}, {"C0": C0, "Ut": Ut, "lam": lam, "grid": grid_d}
 
         def tile(Xb, Y0, C0, Ut, lam, grid):
+            kernel = _bulkscan.takes_cuda_kernel(engine, precision, Xb.device)
             return _block_alt_grid(Y0, Xb, C0, Ut, lam, grid, prior=prior, reml=reml,
-                                   precision=precision,
-                                   use_kernel=_altgrid_uses_kernel(engine, precision, Xb.device))
+                                   precision=precision, use_kernel=kernel)
     else:
         Ut, lam = resolve_kinship(K, decomp_scheme, dtype, device)
         Y0, C0, h2_list = _fit_h2_rotated(
@@ -620,7 +626,7 @@ def bulkscan_perms_streamed(
                                                 rank=np.shape(K.U)[1] if lowrank else None)
     block = _mesh_block(mesh, marker_block, p)
     if lowrank:
-        refuse_pallas(engine, perms=True)
+        _bulkscan.takes_cuda_kernel(engine, lowrank=True, texts=PERM_TEXTS)  # "pallas" raises
         eng, row_quant = "xla", mesh.shape[MARKERS_AXIS]
         trait_chunk, perm_chunk = _lowrank_perm_tiling(mesh, n, block, precision, trait_chunk,
                                                        perm_chunk)

@@ -1,6 +1,6 @@
-"""Low-rank kinship engine: LMM scans without the n x n eigendecomposition.
+"""Low-rank kinship: LMM scans without the n x n eigendecomposition.
 
-Counterpart of ``bulklmm_tpu/ops/lowrank.py``. The full-rank engines
+Counterpart of ``bulklmm_tpu/ops/lowrank.py``. The full-rank scans
 (``ops/rotation.py`` + ``ops/liteqtl.py``) decompose K on the host (float64
 ``eigh``, O(n^3)) and upload the (n, n) eigenvectors; at cohort scale
 (n >= 20,000) that dominates the wall time. This module keeps the top-k
@@ -19,7 +19,7 @@ The h2-independent base Grams (X'Y, X'C, ...) are formed once; the
 per-trait weight corrections become (p, k)(k, m) products with each
 trait's factors folded into the (k, m) projection. Every product is a plain
 ``torch.matmul``, as the JAX package's are plain XLA products: the low-rank
-engine runs no kernel of its own in either package.
+scans run no kernel of their own in either package.
 
 The top-k eigenpairs come from randomized subspace iteration (Halko,
 Martinsson & Tropp 2011) on the tensors' device: CholeskyQR2 orthonormalizes
@@ -42,7 +42,7 @@ Where this module differs from the JAX package's:
 - ``jax.vmap`` over traits, markers and grid points is batched tensor code,
   and ``jax.lax.scan`` over the alt-grid is a Python loop over grid points;
 - null-exact's per-trait Brent runs in the solve dtype (float64 under
-  BALANCED), as both packages' rotated engines do; the JAX package runs its
+  BALANCED), as both packages' rotated scans do; the JAX package runs its
   rank-k one in the kernel dtype, whose float32 window (3.4e-4 in h2) can
   move BALANCED's LODs past the preset's 1e-4 from EXACT64's.
 """
@@ -93,22 +93,6 @@ def is_lowrank(K) -> bool:
     package's :class:`LowRankKinship`, the JAX package's, or any such
     pair)."""
     return hasattr(K, "U") and hasattr(K, "lam")
-
-
-def refuse_pallas(engine: str, *, perms: bool = False) -> None:
-    """``engine="pallas"`` on a rank-k kinship raises the JAX package's
-    ``ValueError``: the rank-k engine runs no kernel in either package."""
-    if engine != "pallas":
-        return
-    if perms:
-        raise ValueError(
-            "engine='pallas' is not available for LowRankKinship inputs (the fused kernel "
-            "assumes the rotated basis's diagonal whitening); use engine='xla' or 'auto'."
-        )
-    raise ValueError(
-        "engine='pallas' is not available for LowRankKinship inputs (the rank-k engine is "
-        "XLA-only)"
-    )
 
 
 def as_lowrank(K, dtype=None, device=None) -> LowRankKinship:
@@ -291,7 +275,7 @@ def _wquad(base, corr):
     vectors (nearly) in span(U) as h2 -> 1 (dm1 -> -1). A negative total
     defeats ``residual_sq``'s relative floor: sigma2 floors at the dtype's
     tiny, the log-likelihood explodes to ~+1e35 and the h2 fit locks onto
-    it. The clamp restores the full-rank engine's nonnegativity."""
+    it. The clamp restores the full-rank scans' nonnegativity."""
     return torch.clamp(base + corr, min=0.0)
 
 
@@ -367,7 +351,7 @@ def null_sigma2_lowrank(parts, lam, h2_list, prior, *, n, reml=False):
 
 def fit_h2_lowrank(parts, lam, prior, *, n, reml=False, optim_interval=1):
     """(m,) per-trait Brent null h2 on the rank-k likelihood, in ``lam``'s
-    dtype (the engines pass the solve dtype's).
+    dtype (the callers pass the solve dtype's).
 
     Each likelihood evaluation is O(k + c^2) work a trait from the shared
     projections, so one batched Brent (``ops/brent.py``) advances all m

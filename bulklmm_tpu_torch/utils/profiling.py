@@ -1,8 +1,13 @@
-"""Wall-clock timing of a call, and the port's spans.
+"""Wall-clock timing of a call, the port's spans and its launch record.
 
 Counterpart of ``bulklmm_tpu/utils/profiling.py::timed``. Its ``trace``
 (a ``jax.profiler`` capture) has no counterpart: :func:`span` marks the
 port's layer boundaries in any ``torch.profiler`` session instead.
+
+:data:`launch_counts` records which hand-written kernel ran: each CUDA
+wrapper counts a launch there, after it succeeds, under the route it
+launched (:func:`count_launch`). It is always on and costs one locked
+increment a launch; ``launch_counts.clear()`` starts it afresh.
 
 Spans are on exactly while a ``torch.profiler`` session records; there is
 no setting. Each is a host record named ``bulklmm.<layer>.<what>``, on the
@@ -12,10 +17,12 @@ a span costs one check and returns a shared no-op.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import itertools
+import threading
 import time
 from typing import Callable, Tuple
 
@@ -26,6 +33,25 @@ _NO_SPAN = contextlib.nullcontext()
 
 #: the process's calls of the spanned entry points, numbered from 1
 _calls = itertools.count(1)
+
+#: launches of the hand-written kernels in this process, by route:
+#: "<kernel>.<path>.<products>", e.g. "liteqtl_lod.resident.tf32x3"
+launch_counts: collections.Counter = collections.Counter()
+
+#: the host threads of a mesh's devices launch at once
+_launch_lock = threading.Lock()
+
+
+def count_launch(kernel: str, path: str, products: str) -> None:
+    """Count one launch of ``kernel`` on ``path`` with ``products`` in
+    :data:`launch_counts`. The names are the wrappers' own: ``kernel`` is
+    "liteqtl_lod", "liteqtl_lod_effects", "bulkperm_maxr2" or "altgrid";
+    ``path`` the ``kernel_route`` path ("resident", "general", "wide";
+    "resident", "chunked", or "chunked_split" where the marker walk was
+    split across blocks; "fused" for the alt-grid kernel); ``products``
+    "tf32x3" or "bf16x3"."""
+    with _launch_lock:
+        launch_counts[f"{kernel}.{path}.{products}"] += 1
 
 
 def span(name: str, args: dict | None = None):

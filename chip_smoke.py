@@ -295,7 +295,7 @@ exits nonzero:
     engine), each distance above 0; every call launches exactly its
     BALANCED call's count of its kernel (phases 4, 5, 7), every launch
     with bf16x3 products, and phases 4-16 count no bf16x3 launch at all
-    (``_counts``). Each bf16x3 kernel on the main path's operands against
+    (``_drive``). Each bf16x3 kernel on the main path's operands against
     its bf16x3 plain version (phase 3's bars). (c) Times by CUDA events,
     median of 5 after a warm-up, each bf16x3 kernel and its 3 x TF32 twin
     in turns on the same operands, beside the bf16x3 bound (the larger of
@@ -335,8 +335,8 @@ exits nonzero:
     grid h2 of the traits, and the full-rank scan against EXACT64 on the
     same factors (1e-4 x n/79). The phase's time and the run's are printed.
 
-Every path runs with every kernel's launch counter set to 0 just before it
-and read just after. The second-to-last line is one JSON object describing
+Every path runs with the launch record (``utils/profiling.py::launch_counts``,
+launches by route) cleared just before it and read just after. The second-to-last line is one JSON object describing
 each kernel, with its bound on this card (``loco_launches`` is its launch
 count on phase 13's LOCO path: the null-grid call for the LOD kernel): the larger of its bytes (each
 operand read once, each result written once) over 3.35 TB/s and the least
@@ -376,6 +376,8 @@ single PyTorch call computes any of the three kernels' functions, so
 
 from __future__ import annotations
 
+import collections
+import fnmatch
 import json
 import re
 import statistics
@@ -974,49 +976,33 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def _reset_counts():
-    from bulklmm_tpu_torch.kernels import altgrid_fused as af
-    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
-    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
-
-    lf.launches = lf.effects_launches = af.launches = bf.launches = 0
-    lf.bf16x3_launches = af.bf16x3_launches = bf.bf16x3_launches = bf.split_launches = 0
-
-
-def _counts():
-    """Every kernel's launches, and apart from them how many of those took
-    bf16x3 products (``*_bf16x3``; never under BALANCED, so a phase's
-    :func:`_total` is its launches there) and how many permutation launches
-    split their marker walk across blocks (``bulkperm_maxr2_split``)."""
-    from bulklmm_tpu_torch.kernels import altgrid_fused as af
-    from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
-    from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
-
-    return {"liteqtl_lod": lf.launches, "liteqtl_lod_effects": lf.effects_launches,
-            "altgrid": af.launches, "bulkperm_maxr2": bf.launches,
-            "liteqtl_lod_bf16x3": lf.bf16x3_launches, "altgrid_bf16x3": af.bf16x3_launches,
-            "bulkperm_maxr2_bf16x3": bf.bf16x3_launches, "bulkperm_maxr2_split": bf.split_launches}
+def _total(counts, route="*") -> int:
+    """The launches in ``counts`` (the launch record or a copy of it, keyed
+    "<kernel>.<path>.<products>") whose route matches the pattern ``route``:
+    "altgrid.*" every alt-grid launch, "*.*.bf16x3" every bf16x3 one; all of
+    them by default."""
+    return sum(v for k, v in counts.items() if fnmatch.fnmatchcase(k, route))
 
 
-def _total(counts) -> int:
-    """The sum of :func:`_counts`, the split permutation launches left out
-    (they are among ``bulkperm_maxr2``'s)."""
-    return sum(v for k, v in counts.items() if k != "bulkperm_maxr2_split")
+def _drive(what, fn, products="tf32x3"):
+    """One path with the launch record (``utils/profiling.py::launch_counts``)
+    cleared just before and copied just after; prints the first call's time
+    and the peak device memory. Every launch must have taken ``products``
+    (None: either): no bf16x3 launch outside THROUGHPUT's calls."""
+    from bulklmm_tpu_torch.utils.profiling import launch_counts
 
-
-def _drive(what, fn):
-    """One path with every launch count set to 0 just before and read just
-    after; prints the first call's time and the peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
+    launch_counts.clear()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = _counts()
-    print(f"  {what}, first call: {first_s:.3f} s, kernel launches: {counts}, "
+    counts = collections.Counter(launch_counts)
+    print(f"  {what}, first call: {first_s:.3f} s, kernel launches: {dict(counts)}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(products is None or _total(counts, f"*.*.{products}") == _total(counts),
+          f"{what} launched {dict(counts)}, not {products} products alone")
     return res, counts
 
 
@@ -1044,7 +1030,7 @@ def slice_at_bxd(dev):
     Yd = torch.from_numpy(Y).to(dev)
     res, counts = _drive("BALANCED null-grid bulkscan",
                          lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED))
-    launches = counts["liteqtl_lod"]
+    launches = _total(counts, "liteqtl_lod.*")
     check(launches > 0, "the BALANCED bulkscan did not launch the CUDA kernel")
     check(tuple(res.L.shape) == (P, M), f"L has shape {tuple(res.L.shape)}")
     check(res.L.is_cuda and res.L.dtype == torch.float32, "L is not float32 on the card")
@@ -1109,7 +1095,7 @@ def altgrid_at_bxd(dev, Yd, Gd, K):
         "BALANCED alt-grid bulkscan",
         lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.BALANCED),
     )
-    launches = counts["altgrid"]
+    launches = _total(counts, "altgrid.*")
     check(launches > 0, "the BALANCED alt-grid bulkscan did not launch the alt-grid kernel")
     check(tuple(res.L.shape) == (P, M) and tuple(res.h2_panel.shape) == (P, M),
           f"alt-grid L {tuple(res.L.shape)}, panel {tuple(res.h2_panel.shape)}")
@@ -1169,7 +1155,8 @@ def nullexact_at_bxd(dev, Yd, Gd, K):
         lambda: bt.bulkscan(Yd, Gd, K, method="null-exact", precision=bt.BALANCED),
     )
     iters = brent.iterations
-    check(counts["liteqtl_lod"] > 0, "the BALANCED null-exact bulkscan did not launch the LOD kernel")
+    check(_total(counts, "liteqtl_lod.*") > 0,
+          "the BALANCED null-exact bulkscan did not launch the LOD kernel")
     check(tuple(res.L.shape) == (P, M) and res.L.dtype == torch.float32, "null-exact L shape or dtype")
     check(res.h2_null_list.dtype == torch.float64, "null-exact h2 is not float64 under BALANCED")
     check(bool(torch.isfinite(res.L).all()), "null-exact L is not finite")
@@ -1291,7 +1278,7 @@ def perms_at_bxd(dev, Yd, Gd, K, lod_max):
         "BALANCED bulkscan_perms",
         lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0, precision=bt.BALANCED),
     )
-    launches = counts["bulkperm_maxr2"]
+    launches = _total(counts, "bulkperm_maxr2.*")
     check(launches > 0, "the BALANCED bulkscan_perms did not launch the permutation kernel")
     ml = res.maxlods
     check(tuple(ml.shape) == (M, NPERMS + 1), f"maxlods has shape {tuple(ml.shape)}")
@@ -1678,7 +1665,8 @@ def bulk_options_at_bxd(dev, card, Yd, Gd, K):
     # effects: the effects variant on the main path, its LOD the LOD kernel's
     res, counts = _drive("BALANCED null-grid bulkscan, output_effects",
                          lambda: bt.bulkscan(Yd, Gd, K, precision=bt.BALANCED, output_effects=True))
-    check(counts["liteqtl_lod_effects"] > 0, "output_effects did not launch the effects variant")
+    check(_total(counts, "liteqtl_lod_effects.*") > 0,
+          "output_effects did not launch the effects variant")
     check(all(t.is_cuda and t.dtype == torch.float32 and t.shape == (P, M)
               for t in (res.L, res.beta_mat, res.beta_se_mat)), "effects outputs' shape or dtype")
     check(bool(torch.isfinite(res.beta_mat).all()) and bool(torch.isfinite(res.beta_se_mat).all()),
@@ -1726,7 +1714,7 @@ def bulk_options_at_bxd(dev, card, Yd, Gd, K):
     masked_call()
     torch.cuda.synchronize()
     mask_s = time.perf_counter() - t0
-    check(counts["liteqtl_lod"] > 0 and bool(torch.isfinite(res.L).all()), "masked L")
+    check(_total(counts, "liteqtl_lod.*") > 0 and bool(torch.isfinite(res.L).all()), "masked L")
     ref = bt.bulkscan(Ymd, Gd, K, precision=bt.EXACT64, missing="mask")
     torch.cuda.synchronize()
     eq = ref.h2_null_list == res.h2_null_list.double()
@@ -1755,7 +1743,8 @@ def bulk_options_at_bxd(dev, card, Yd, Gd, K):
         f"BALANCED bulkscan_perms, missing='mask', {MASK_NPERMS} permutations, {OPTION_TRAITS} traits",
         lambda: bt.bulkscan_perms(Ymd[:, sub_m], Gd, K, nperms=MASK_NPERMS, precision=bt.BALANCED,
                                   missing="mask"))
-    check(counts["bulkperm_maxr2"] > 0, "masked bulkscan_perms did not launch the permutation kernel")
+    check(_total(counts, "bulkperm_maxr2.*") > 0,
+          "masked bulkscan_perms did not launch the permutation kernel")
     ref = bt.bulkscan_perms(Ymd[:, sub_m], Gd, K, nperms=MASK_NPERMS, precision=bt.EXACT64,
                             missing="mask")
     eq = ref.h2_null_list == res.h2_null_list.double()
@@ -1800,7 +1789,8 @@ def bulk_options_at_bxd(dev, card, Yd, Gd, K):
         f"BALANCED alt-grid bulkscan_streamed, blocks of {STREAM_BLOCK} markers",
         lambda: bt.bulkscan_streamed(Yd, G_host, K, method="alt-grid", precision=bt.BALANCED,
                                      marker_block=STREAM_BLOCK))
-    check(counts["altgrid"] == -(-P // STREAM_BLOCK), "the streamed alt-grid did not launch its kernel "
+    check(_total(counts, "altgrid.*") == -(-P // STREAM_BLOCK),
+          "the streamed alt-grid did not launch its kernel "
           "once a block")
     serr = _max_abs_diff_cols(torch.from_numpy(res.L).to(dev), alt.L, all_cols)
     flips = int((torch.from_numpy(res.h2_panel).to(dev) != alt.h2_panel).sum())
@@ -1815,7 +1805,8 @@ def bulk_options_at_bxd(dev, card, Yd, Gd, K):
         f"BALANCED bulkscan_perms_streamed, {MASK_NPERMS} permutations, {OPTION_TRAITS} traits",
         lambda: bt.bulkscan_perms_streamed(Ysub, G_host, K, nperms=MASK_NPERMS,
                                            precision=bt.BALANCED, marker_block=STREAM_BLOCK))
-    check(counts["bulkperm_maxr2"] > 0, "the streamed sweep did not launch the permutation kernel")
+    check(_total(counts, "bulkperm_maxr2.*") > 0,
+          "the streamed sweep did not launch the permutation kernel")
     perr = (res.maxlods - inmem.maxlods).abs().max().item()
     print(f"  streamed permutation maxima vs bulkscan_perms: max|dLOD| = {perr:.3e} "
           f"(bar {KERNEL_BAR:.0e})")
@@ -1944,7 +1935,8 @@ def streaming_at_biobank_n(dev, card) -> dict:
                                         shape=(BIOBANK_P, BIOBANK_M))
         stream = lambda: bt.bulkscan_streamed(Yd, G, dec, precision=bt.BALANCED, out=out)  # noqa: E731
         res, counts = _drive("BALANCED null-grid bulkscan_streamed at biobank n", stream)
-        check(counts["liteqtl_lod"] > 0 and res.L is out, "the streamed scan did not launch the LOD kernel")
+        check(_total(counts, "liteqtl_lod.*") > 0 and res.L is out,
+              "the streamed scan did not launch the LOD kernel")
         check(bool(np.isfinite(out).all()), "streamed L is not finite")
         Gd = torch.from_numpy(G).to(dev)
         inmem = lambda: bt.bulkscan(Yd, Gd, dec, precision=bt.BALANCED)  # noqa: E731
@@ -2022,7 +2014,7 @@ def _host_ms(fn) -> float:
 
 def _no_kernel(counts, what) -> None:
     """The rank-k engine runs none of the three kernels, in either package."""
-    check(not any(counts.values()), f"{what} launched a kernel: {counts}")
+    check(not _total(counts), f"{what} launched a kernel: {dict(counts)}")
 
 
 def _null_errors(res, ref, method):
@@ -2356,7 +2348,7 @@ def loco_bulkscan(dev, card, Yd, Gd, K, chrom, Ks, method):
     call = lambda: bt.bulkscan_loco(Yd, Gd, chrom, method=method, precision=bt.BALANCED)  # noqa: E731
     res, counts = _drive(f"BALANCED {method} bulkscan_loco", call)
     nchrom = len(MOUSE_CHROMS)
-    check(counts[counter] == nchrom and _total(counts) == nchrom,
+    check(_total(counts, f"{counter}.*") == nchrom and _total(counts) == nchrom,
           f"{method} bulkscan_loco launched {counts}, not {nchrom} {counter} launches")
     check(tuple(res.L.shape) == (P, M) and res.L.is_cuda and res.L.dtype == torch.float64,
           f"{method} LOCO L is not float64 ({P}, {M}) on the card")
@@ -2401,7 +2393,7 @@ def loco_bulkscan(dev, card, Yd, Gd, K, chrom, Ks, method):
     check(err <= ORACLE_BAR, f"{method} LOCO BALANCED strays from the EXACT64 LOCO call")
     print(f"  {method} on {card}: bulkscan_loco {loco_ms:.1f} ms (second call, host clock; "
           f"{nchrom} chromosomes) against the whole-genome bulkscan's {whole_ms:.1f} ms")
-    return res, exact, counts[counter], loco_ms, whole_ms
+    return res, exact, _total(counts, f"{counter}.*"), loco_ms, whole_ms
 
 
 def loco_perms(dev, card, Yd, Gd, K, chrom, Ks):
@@ -2414,7 +2406,7 @@ def loco_perms(dev, card, Yd, Gd, K, chrom, Ks):
     res, counts = _drive(f"BALANCED bulkscan_perms_loco, {NPERMS} permutations", call)
     nchrom = len(MOUSE_CHROMS)
     want = -(-M // PERM_BLOCK) * nchrom
-    check(counts["bulkperm_maxr2"] == want and _total(counts) == want,
+    check(_total(counts, "bulkperm_maxr2.*") == want and _total(counts) == want,
           f"bulkscan_perms_loco launched {counts}, not {want} permutation-kernel launches")
     ml = res.maxlods
     check(tuple(ml.shape) == (M, NPERMS + 1) and ml.is_cuda and bool(torch.isfinite(ml).all()),
@@ -2448,7 +2440,7 @@ def loco_perms(dev, card, Yd, Gd, K, chrom, Ks):
     check(err <= ORACLE_BAR, "bulkscan_perms_loco strays from its EXACT64 run")
     print(f"  permutations on {card}: bulkscan_perms_loco {loco_ms:.1f} ms (second call, host "
           f"clock) against the whole-genome bulkscan_perms' {whole_ms:.1f} ms")
-    return counts["bulkperm_maxr2"], loco_ms, whole_ms
+    return _total(counts, "bulkperm_maxr2.*"), loco_ms, whole_ms
 
 
 def _write_csvs(tmp: Path, G, Y, chrom):
@@ -2677,9 +2669,9 @@ def mesh_scans(dev, card, Yd, Gd, K, meshes):
             tiles = len(mesh.tiles())
             w = -(-M // mesh.shape["traits"])
             want = tiles * -(-w // -(-MESH_TRAIT_CHUNK // mesh.shape["traits"]))
-            print(f"    {counts[counter]} {counter} launches: {tiles} tiles x "
+            print(f"    {_total(counts, counter + '.*')} {counter} launches: {tiles} tiles x "
                   f"{want // tiles} trait chunks a tile")
-            check(counts[counter] == want and _total(counts) == want,
+            check(_total(counts, f"{counter}.*") == want and _total(counts) == want,
                   f"{method} on the mesh launched {counts}, not {want} {counter} launches")
             L = res.L
             check(tuple(L.shape) == (P, M) and L.device == dev and L.dtype == one.L.dtype
@@ -2705,7 +2697,7 @@ def mesh_scans(dev, card, Yd, Gd, K, meshes):
                 check(flips <= INDEX_FLIP_SHARE * P * M, "alt-grid on the mesh flips h2 panels")
             check(oerr <= ORACLE_BAR, f"{method} on the mesh strays from EXACT64")
             if method != "null-exact":  # the LOD kernel's count is null-grid's
-                launches[counter] = counts[counter]
+                launches[counter] = _total(counts, f"{counter}.*")
             del res, L
         single = _host_ms(lambda: bt.bulkscan(Yd, Gd, K, method=method, precision=bt.BALANCED))
         print(f"    {method} on one device, second call: {single:.1f} ms (host clock)")
@@ -2735,10 +2727,11 @@ def mesh_perms(dev, card, Yd, Gd, K, meshes):
         rows = -(-(NPERMS + 1) // rq) * rq // mesh.shape["markers"]
         tiles = len(mesh.tiles())
         want = -(-M // tc) * tiles * -(-rows // pc)
-        print(f"    {counts['bulkperm_maxr2']} permutation-kernel launches: {-(-M // tc)} trait "
+        print(f"    {_total(counts, 'bulkperm_maxr2.*')} permutation-kernel launches: "
+              f"{-(-M // tc)} trait "
               f"blocks of {tc} x {tiles} tiles x {-(-rows // pc)} permutation chunks of "
               f"{rows} rows a tile ({eng})")
-        check(eng == "pallas" and counts["bulkperm_maxr2"] == want
+        check(eng == "pallas" and _total(counts, "bulkperm_maxr2.*") == want
               and _total(counts) == want,
               f"the sharded permutations launched {counts}, not {want} kernel launches")
         ml = res.maxlods
@@ -2759,7 +2752,7 @@ def mesh_perms(dev, card, Yd, Gd, K, meshes):
     single = _host_ms(lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0,
                                                 precision=bt.BALANCED))
     print(f"    bulkscan_perms on one device, second call: {single:.1f} ms (host clock)")
-    return counts["bulkperm_maxr2"]
+    return _total(counts, "bulkperm_maxr2.*")
 
 
 def mesh_pod(dev, card, Yd, Gd, K):
@@ -2829,7 +2822,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
                                           **({"mesh": m} if m else {}))
     st, counts = _drive(f"streamed alt-grid, blocks of {STREAM_BLOCK}, {_mesh_name(mesh)}",
                         lambda: call(mesh))
-    check(counts["altgrid"] == blocks * tiles and _total(counts) == blocks * tiles,
+    check(_total(counts, "altgrid.*") == blocks * tiles and _total(counts) == blocks * tiles,
           f"the streamed alt-grid on the mesh launched {counts}, not {blocks} x {tiles}")
     one = call(None)
     err = float(np.abs(st.L - one.L).max())
@@ -2842,7 +2835,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
     kw = dict(nperms=MASK_NPERMS, rndseed=0, marker_block=STREAM_BLOCK, precision=bt.BALANCED)
     sp, counts = _drive("streamed permutations on the mesh",
                         lambda: bt.bulkscan_perms_streamed(Yd[:, sub], Gh, K, mesh=mesh, **kw))
-    check(counts["bulkperm_maxr2"] > 0, "the streamed permutations on the mesh ran no kernel")
+    check(_total(counts, "bulkperm_maxr2.*") > 0, "the streamed permutations on the mesh ran no kernel")
     ref = bt.bulkscan_perms_streamed(Yd[:, sub], Gh, K, **kw).maxlods
     err = (sp.maxlods - ref).abs().max().item()
     print(f"    against the single-device streamed sweep: max|dLOD| = {err:.3e}")
@@ -2854,7 +2847,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
                          lambda: bt.bulkscan_loco(Yd, Gd, chrom, mesh=mesh,
                                                   precision=bt.BALANCED))
     want = nchrom * tiles
-    check(counts["liteqtl_lod"] == want and _total(counts) == want,
+    check(_total(counts, "liteqtl_lod.*") == want and _total(counts) == want,
           f"LOCO on the mesh launched {counts}, not {nchrom} x {tiles}")
     one = bt.bulkscan_loco(Yd, Gd, chrom, precision=bt.BALANCED)
     same = torch.stack([res.h2_null_by_chrom[c] == one.h2_null_by_chrom[c]
@@ -2867,7 +2860,7 @@ def mesh_streamed_loco(dev, card, Yd, Gd, K, mesh):
     kw = dict(nperms=MASK_NPERMS, rndseed=0, precision=bt.BALANCED)
     pl, counts = _drive("bulkscan_perms_loco on the mesh",
                         lambda: bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, mesh=mesh, **kw))
-    check(counts["bulkperm_maxr2"] > 0, "bulkscan_perms_loco on the mesh ran no kernel")
+    check(_total(counts, "bulkperm_maxr2.*") > 0, "bulkscan_perms_loco on the mesh ran no kernel")
     ref = bt.bulkscan_perms_loco(Yd[:, sub], Gd, chrom, **kw).maxlods
     err = (pl.maxlods - ref).abs().max().item()
     print(f"    against the single-device LOCO sweep: max|dLOD| = {err:.3e}")
@@ -2960,8 +2953,8 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
         res, counts = _drive(f"BALANCED {method} bulkscan, c = {WIDE_C}",
                              lambda: bt.bulkscan(Yd, Gd, K, covar, method=method,
                                                  precision=bt.BALANCED))
-        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == _total(counts),
-              f"the c = {WIDE_C} {method} bulkscan launched {counts}")
+        check(0 < _total(counts, "liteqtl_lod.wide.*") == _total(counts),
+              f"the c = {WIDE_C} {method} bulkscan launched {dict(counts)}")
         check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()),
               f"the c = {WIDE_C} {method} L is not finite ({P}, {M})")
         exact = bt.bulkscan(Yd, Gd, K, covar, method=method, precision=bt.EXACT64)
@@ -2978,9 +2971,9 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
             flips = 0  # Brent's h2 is continuous: no flip to count
         print(f"  c = {WIDE_C} {method} BALANCED vs EXACT64: max|dLOD| = {err:.3e} ({what}; bar "
               f"{ORACLE_BAR:.0e}; BASELINE.md's {PARITY_BAR:.0e}: "
-              f"{'met' if err <= PARITY_BAR else 'NOT met'}); {counts['liteqtl_lod']} launches")
+              f"{'met' if err <= PARITY_BAR else 'NOT met'}); {_total(counts, 'liteqtl_lod.*')} launches")
         check(flips == 0 and err <= ORACLE_BAR, f"the c = {WIDE_C} {method} scan strays from EXACT64")
-        out[method] = (counts["liteqtl_lod"], err)
+        out[method] = (_total(counts, "liteqtl_lod.*"), err)
         del exact
         if method == "null-grid":
             base = res
@@ -2991,7 +2984,7 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
     covar4 = covar[:, :3].contiguous()
     res4, counts4 = _drive("BALANCED null-grid bulkscan, c = 4",
                            lambda: bt.bulkscan(Yd, Gd, K, covar4, precision=bt.BALANCED))
-    check(counts4["liteqtl_lod"] > 0 and lf.kernel_path(N, 4) == "wide",
+    check(0 < _total(counts4, "liteqtl_lod.wide.*") == _total(counts4),
           f"the c = 4 null-grid bulkscan launched {counts4}")
     exact4 = bt.bulkscan(Yd, Gd, K, covar4, precision=bt.EXACT64)
     torch.cuda.synchronize()
@@ -3000,15 +2993,16 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
     err4 = _max_abs_diff_cols(res4.L, exact4.L, same4)
     print(f"  c = 4 null-grid BALANCED vs EXACT64: max|dLOD| = {err4:.3e} ({flips4} of {M} traits with "
           f"another grid h2; bar {ORACLE_BAR:.0e}; BASELINE.md's {PARITY_BAR:.0e}: "
-          f"{'met' if err4 <= PARITY_BAR else 'NOT met'}); {counts4['liteqtl_lod']} launches")
+          f"{'met' if err4 <= PARITY_BAR else 'NOT met'}); {_total(counts4, 'liteqtl_lod.*')} launches")
     check(flips4 == 0 and err4 <= ORACLE_BAR, "the c = 4 null-grid scan strays from EXACT64")
-    out["c4"] = (counts4["liteqtl_lod"], err4)
+    out["c4"] = (_total(counts4, "liteqtl_lod.*"), err4)
     del res4, exact4
 
     res, counts = _drive(f"BALANCED null-grid bulkscan, c = {WIDE_C}, output_effects",
                          lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.BALANCED,
                                              output_effects=True))
-    check(counts["liteqtl_lod_effects"] > 0, "the c = 12 effects call did not launch the variant")
+    check(_total(counts, "liteqtl_lod_effects.*") > 0,
+          "the c = 12 effects call did not launch the variant")
     exact = bt.bulkscan(Yd, Gd, K, covar, precision=bt.EXACT64, output_effects=True)
     same = exact.h2_null_list == res.h2_null_list.double()
     beta_err, se_err = _effects_err_cols((res.beta_mat, res.beta_se_mat),
@@ -3019,7 +3013,7 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
           f"LOD-only scan's {lsame:.3e} (bar {SAME_LOD_BAR:.0e})")
     check(beta_err <= EFFECT_BAR and se_err <= EFFECT_BAR and lsame <= SAME_LOD_BAR,
           f"the c = {WIDE_C} effects stray")
-    out["effects"] = counts["liteqtl_lod_effects"]
+    out["effects"] = _total(counts, "liteqtl_lod_effects.*")
     del res, exact
 
     # the kernel alone at the main-path shape, beside its plain version
@@ -3085,11 +3079,11 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
                          lambda: bt.bulkscan_streamed(Yd, G_host, K, covar, precision=bt.BALANCED,
                                                       marker_block=STREAM_BLOCK))
     blocks = -(-P // STREAM_BLOCK)
-    check(counts["liteqtl_lod"] == blocks, f"the c = 12 streamed call launched {counts}")
+    check(_total(counts, "liteqtl_lod.*") == blocks, f"the c = 12 streamed call launched {counts}")
     serr = _max_abs_diff_cols(torch.from_numpy(np.asarray(res.L)).to(dev), inmem.L, all_cols)
     print(f"  c = {WIDE_C} streamed vs in-memory: max|dLOD| = {serr:.3e} (bar {STREAM_BAR:.0e})")
     check(serr <= STREAM_BAR, "the c = 12 streamed scan strays from the in-memory one")
-    out["streamed"] = counts["liteqtl_lod"]
+    out["streamed"] = _total(counts, "liteqtl_lod.*")
     del res, inmem
 
     chrom = loco_chromosomes(P)
@@ -3097,7 +3091,7 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
     res, counts = _drive(f"BALANCED bulkscan_loco, c = {WIDE_C}",
                          lambda: bt.bulkscan_loco(Yd, Gd, chrom, covar, precision=bt.BALANCED))
     nchrom = len(MOUSE_CHROMS)
-    check(counts["liteqtl_lod"] == nchrom, f"the c = 12 LOCO call launched {counts}")
+    check(_total(counts, "liteqtl_lod.*") == nchrom, f"the c = 12 LOCO call launched {counts}")
     Ks = bt.loco_kinship(Gd, chrom, bt.BALANCED)
     comp = 0.0
     for c in MOUSE_CHROMS:
@@ -3107,7 +3101,7 @@ def wide_at_bxd(dev, card, Yd, Gd, K) -> dict:
     print(f"  c = {WIDE_C} LOCO vs its {nchrom} per-chromosome bulkscan calls: max|dLOD| = "
           f"{comp:.3e} (bar {LOCO_BAR:.0e})")
     check(comp <= LOCO_BAR, "the c = 12 LOCO rows differ from the per-chromosome scans")
-    out["loco"] = counts["liteqtl_lod"]
+    out["loco"] = _total(counts, "liteqtl_lod.*")
     del res, Ks
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
@@ -3158,6 +3152,7 @@ def chunked_bf16x3_checks(dev) -> dict:
     bf16x3, the 3 x TF32 one not. Returns, for each path, the largest
     distance of the bf16x3 kernel and the least of the 3 x TF32 one."""
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils.profiling import launch_counts
 
     rng = np.random.default_rng(16)
     seen = {}
@@ -3168,12 +3163,14 @@ def chunked_bf16x3_checks(dev) -> dict:
               f"n={n}, c={c} does not take the bf16x3 {path} kernel")
         ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
         lod_ops = (*ops[:4], ops[4][:-1])
-        before = lf.bf16x3_launches
+        launch_counts.clear()
         out = lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")
         eff = lf.liteqtl_lod_cuda(*ops, effects=True, dot_precision="high")
         tf32 = lf.liteqtl_lod_cuda(*lod_ops)  # the 3 x TF32 twin on the same operands
         torch.cuda.synchronize()
-        check(lf.bf16x3_launches == before + 2, "the bf16x3 chunked LOD launches were not counted")
+        check(launch_counts == {f"liteqtl_lod.{path}.bf16x3": 1, f"liteqtl_lod.{path}.tf32x3": 1,
+                                f"liteqtl_lod_effects.{path}.bf16x3": 1},
+              f"the chunked LOD launches were not counted by route: {dict(launch_counts)}")
         twin = lf.liteqtl_bf16x3_chunked_reference(*lod_ops)
         err = (out - twin).abs().max().item()
         tf32_err = (tf32 - twin).abs().max().item()
@@ -3212,6 +3209,7 @@ def throughput_kernel_checks(dev) -> dict:
     from bulklmm_tpu_torch.kernels import altgrid_fused as af
     from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils.profiling import launch_counts
 
     rng = np.random.default_rng(13)
     for n, p, m, c in [(48, 96, 64, 1), (48, 96, 64, 2), (48, 96, 64, 3), (48, 70, 45, 1),
@@ -3221,11 +3219,13 @@ def throughput_kernel_checks(dev) -> dict:
               f"the LOD kernel takes no bf16x3 products at n={n}, c={c}")
         ops = lf.prepare_inputs(*_kernel_inputs(n, p, m, c, rng, dev), effects=True)
         lod_ops = (*ops[:4], ops[4][:-1])
-        before = lf.bf16x3_launches
+        launch_counts.clear()
         out = lf.liteqtl_lod_cuda(*lod_ops, dot_precision="high")
         eff = lf.liteqtl_lod_cuda(*ops, effects=True, dot_precision="high")
         torch.cuda.synchronize()
-        check(lf.bf16x3_launches == before + 2, "the bf16x3 LOD launches were not counted")
+        check(launch_counts == {"liteqtl_lod.resident.bf16x3": 1,
+                                "liteqtl_lod_effects.resident.bf16x3": 1},
+              f"the bf16x3 LOD launches were not counted by route: {dict(launch_counts)}")
         ref = lf.liteqtl_bf16x3_reference(*lod_ops)
         err = (out - ref).abs().max().item()
         from32 = (out - lf.liteqtl_lod_plain(*lod_ops)).abs().max().item()
@@ -3370,11 +3370,10 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     all_cols = torch.ones(M, dtype=torch.bool, device=dev)
     # (b) null-grid, and with effects
     res, counts = _drive("THROUGHPUT null-grid bulkscan",
-                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT))
+                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT), "bf16x3")
     want = launches["liteqtl_lod"]
-    check(counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"] == want
-          and _total(counts) == 2 * want,
-          f"THROUGHPUT null-grid launched {counts}, not {want} bf16x3 LOD launches alone")
+    check(_total(counts, "liteqtl_lod.*") == _total(counts) == want,
+          f"THROUGHPUT null-grid launched {dict(counts)}, not {want} bf16x3 LOD launches alone")
     check(tuple(res.L.shape) == (P, M) and bool(torch.isfinite(res.L).all()), "THROUGHPUT L not finite")
     exact = bt.bulkscan(Yd, Gd, K, precision=bt.EXACT64, output_effects=True)
     same = exact.h2_null_list == res.h2_null_list.double()
@@ -3382,12 +3381,13 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     print(f"  THROUGHPUT vs EXACT64 null-grid: {int((~same).sum())} of {M} traits with another grid h2; "
           f"max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_LOD_BAR:.0e})")
     check(0 < err <= THROUGHPUT_LOD_BAR, "THROUGHPUT null-grid strays from EXACT64")
-    out["lod_launches"], out["lod_vs_exact64"] = counts["liteqtl_lod_bf16x3"], err
+    out["lod_launches"], out["lod_vs_exact64"] = _total(counts, "liteqtl_lod.*"), err
     del res
     eff, counts = _drive("THROUGHPUT null-grid bulkscan, output_effects",
-                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT, output_effects=True))
-    check(counts["liteqtl_lod_effects"] == counts["liteqtl_lod_bf16x3"] == want
-          and _total(counts) == 2 * want, f"THROUGHPUT effects launched {counts}")
+                         lambda: bt.bulkscan(Yd, Gd, K, precision=bt.THROUGHPUT, output_effects=True),
+                         "bf16x3")
+    check(_total(counts, "liteqtl_lod_effects.*") == _total(counts) == want,
+          f"THROUGHPUT effects launched {dict(counts)}")
     same = exact.h2_null_list == eff.h2_null_list.double()
     lod_err = _max_abs_diff_cols(eff.L, exact.L, same)
     beta_err, se_err = _effects_err_cols((eff.beta_mat, eff.beta_se_mat),
@@ -3409,10 +3409,11 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
 
     # (c) alt-grid
     res, counts = _drive("THROUGHPUT alt-grid bulkscan",
-                         lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.THROUGHPUT))
+                         lambda: bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.THROUGHPUT),
+                         "bf16x3")
     want = launches["altgrid"]
-    check(counts["altgrid"] == counts["altgrid_bf16x3"] == want and _total(counts) == 2 * want,
-          f"THROUGHPUT alt-grid launched {counts}")
+    check(_total(counts, "altgrid.*") == _total(counts) == want,
+          f"THROUGHPUT alt-grid launched {dict(counts)}")
     exact = bt.bulkscan(Yd, Gd, K, method="alt-grid", precision=bt.EXACT64)
     err = _max_abs_diff_cols(res.L, exact.L, all_cols)
     flips = int((res.h2_panel != exact.h2_panel).sum())
@@ -3420,7 +3421,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
           f"flips {flips} ({flips / (P * M):.3e} of the pairs, bar {THROUGHPUT_FLIP_SHARE})")
     check(0 < err < THROUGHPUT_BAR and flips < THROUGHPUT_FLIP_SHARE * P * M,
           "THROUGHPUT alt-grid strays from EXACT64")
-    out["alt_launches"], out["alt_vs_exact64"] = counts["altgrid_bf16x3"], err
+    out["alt_launches"], out["alt_vs_exact64"] = _total(counts, "altgrid.*"), err
     del res, exact
     Lk, kk = af.altgrid_cuda(*alt_ops, dot_precision="high")
     Lp, kp = af.altgrid_plain(*alt_ops, dot_precision="high")
@@ -3436,10 +3437,10 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     # (d) permutations
     res, counts = _drive("THROUGHPUT bulkscan_perms",
                          lambda: bt.bulkscan_perms(Yd, Gd, K, nperms=NPERMS, rndseed=0,
-                                                   precision=bt.THROUGHPUT))
+                                                   precision=bt.THROUGHPUT), "bf16x3")
     want = launches["bulkperm_maxr2"]
-    check(counts["bulkperm_maxr2"] == counts["bulkperm_maxr2_bf16x3"] == want
-          and _total(counts) == 2 * want, f"THROUGHPUT bulkscan_perms launched {counts}")
+    check(_total(counts, "bulkperm_maxr2.*") == _total(counts) == want,
+          f"THROUGHPUT bulkscan_perms launched {dict(counts)}")
     check(bool(torch.isfinite(res.maxlods).all()), "THROUGHPUT maxlods not finite")
     cut = slice(0, ORACLE_BLOCK)
     exact = bt.bulkscan_perms(Yd[:, cut], Gd, K, nperms=NPERMS, rndseed=0, precision=bt.EXACT64)
@@ -3448,7 +3449,7 @@ def throughput_at_bxd(dev, card, Yd, Gd, K, lod_ops, alt_ops, perm_ops, launches
     print(f"  THROUGHPUT vs EXACT64 bulkscan_perms on traits 0..{ORACLE_BLOCK}: {int((~same).sum())} "
           f"traits with another grid h2; max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_BAR:.0e})")
     check(0 < err < THROUGHPUT_BAR, "THROUGHPUT bulkscan_perms strays from EXACT64")
-    out["perm_launches"], out["perm_vs_exact64"] = counts["bulkperm_maxr2_bf16x3"], err
+    out["perm_launches"], out["perm_vs_exact64"] = _total(counts, "bulkperm_maxr2.*"), err
     _throughput_perm_decomposition(dev, Yd, Gd, K, res.maxlods[cut], exact.maxlods, same)
     del res, exact
     r2 = bf.bulkperm_maxr2_cuda(*perm_ops, dot_precision="high")
@@ -3526,6 +3527,7 @@ def _chunked_vs_bf16x3_plain(ops, what: str) -> dict:
     BF16_TWIN_SHARE of the 3 x TF32 launch's: the check that the products
     ran as bf16x3. Each bf16x3 launch is counted, the 3 x TF32 one not."""
     from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
+    from bulklmm_tpu_torch.utils.profiling import launch_counts
 
     n = ops[0].shape[0]
     bar = BF16_LONG_DEPTH_BAR if n >= BIOBANK_N else KERNEL_BAR
@@ -3533,12 +3535,13 @@ def _chunked_vs_bf16x3_plain(ops, what: str) -> dict:
     for name, args, plain in (("whole", ops, lf.liteqtl_bf16x3_reference),
                               ("corner", _corner(ops, TWIN_CORNER), lf.liteqtl_bf16x3_chunked_reference)):
         ref = plain(*args)
-        before = lf.bf16x3_launches
+        launch_counts.clear()
         d16 = (lf.liteqtl_lod_cuda(*args, dot_precision="high") - ref).abs()
         d32 = (lf.liteqtl_lod_cuda(*args) - ref).abs()
         from32 = (lf.liteqtl_lod_plain(*args) - ref).abs().max().item()
         torch.cuda.synchronize()
-        check(lf.bf16x3_launches == before + 1, f"the bf16x3 launch on {what} was not counted alone")
+        check((_total(launch_counts, "liteqtl_lod.*.bf16x3"), _total(launch_counts)) == (1, 2),
+              f"the bf16x3 launch on {what} was not counted alone: {dict(launch_counts)}")
         err, mean, tf32_err, tf32_mean = (d16.max().item(), d16.mean().item(), d32.max().item(),
                                           d32.mean().item())
         print(f"  the bf16x3 kernel on {what} ({name}: {tuple(args[0].shape)[1]} markers x "
@@ -3576,10 +3579,9 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
     t_phase = time.perf_counter()
     out = {}
 
-    def lod_only(counts, what):
-        check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod"] == counts["liteqtl_lod_bf16x3"]
-              and _total(counts) == 2 * counts["liteqtl_lod"],
-              f"{what} launched {counts}, not bf16x3 LOD launches alone")
+    def lod_only(counts, what, path):
+        check(0 < _total(counts, f"liteqtl_lod.{path}.*") == _total(counts),
+              f"{what} launched {dict(counts)}, not {path} LOD launches alone")
 
     # phase 11's panel and its block
     rng = np.random.default_rng(SEED)
@@ -3590,8 +3592,8 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
     Gb = torch.from_numpy(np.ascontiguousarray(G[:, :BIOBANK_BLOCK])).to(dev)
     check(lf.kernel_path(BIOBANK_N, 1) == "general", "biobank n does not take the general kernel")
     res, counts = _drive(f"THROUGHPUT null-grid bulkscan at biobank n, the first {BIOBANK_BLOCK} markers",
-                         lambda: bt.bulkscan(Yb, Gb, dec, precision=bt.THROUGHPUT))
-    lod_only(counts, "the THROUGHPUT block call")
+                         lambda: bt.bulkscan(Yb, Gb, dec, precision=bt.THROUGHPUT), "bf16x3")
+    lod_only(counts, "the THROUGHPUT block call", "general")
     exact = bt.bulkscan(Yb, Gb, dec, precision=bt.EXACT64)
     same = exact.h2_null_list == res.h2_null_list.double()
     err = _max_abs_diff_cols(res.L, exact.L, same)
@@ -3600,7 +3602,7 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
           f"general kernel): {int((~same).sum())} of {BIOBANK_M} traits with another grid h2; "
           f"max|dLOD| on the rest = {err:.3e} (bar {bar:.3e})")
     check(0 < err <= bar, "THROUGHPUT strays from EXACT64 at biobank n")
-    out["general"] = {"launches": counts["liteqtl_lod_bf16x3"], "throughput_vs_exact64": err}
+    out["general"] = {"launches": _total(counts, "liteqtl_lod.*"), "throughput_vs_exact64": err}
     block_L = res.L
     del exact
     with with_highest_matmul():
@@ -3614,15 +3616,16 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
         L = np.lib.format.open_memmap(Path(tmp) / "L.npy", mode="w+", dtype=np.float32,
                                       shape=(BIOBANK_P, BIOBANK_M))
         res, counts = _drive("THROUGHPUT null-grid bulkscan_streamed at biobank n",
-                             lambda: bt.bulkscan_streamed(Yb, G, dec, precision=bt.THROUGHPUT, out=L))
-        lod_only(counts, "the THROUGHPUT streamed call")
+                             lambda: bt.bulkscan_streamed(Yb, G, dec, precision=bt.THROUGHPUT, out=L),
+                             "bf16x3")
+        lod_only(counts, "the THROUGHPUT streamed call", "general")
         check(res.L is L and bool(np.isfinite(L).all()), "THROUGHPUT streamed L is not finite")
         serr = (torch.from_numpy(np.asarray(L[:BIOBANK_BLOCK])).to(dev) - block_L).abs().max().item()
-        print(f"  THROUGHPUT streamed: {counts['liteqtl_lod_bf16x3']} bf16x3 general kernel launches; "
+        print(f"  THROUGHPUT streamed: {_total(counts, 'liteqtl_lod.*')} bf16x3 general kernel launches; "
               f"its first {BIOBANK_BLOCK} markers vs the in-memory call's max|dLOD| = {serr:.3e} "
               f"(bar {ORACLE_BAR * BIOBANK_N / N:.2e})")
         check(serr <= ORACLE_BAR * BIOBANK_N / N, "the THROUGHPUT streamed scan strays from the in-memory one")
-        out["general"]["streamed_launches"] = counts["liteqtl_lod_bf16x3"]
+        out["general"]["streamed_launches"] = _total(counts, "liteqtl_lod.*")
         del res, L
     del G, Yb, dec, block_L
     torch.cuda.empty_cache()
@@ -3630,16 +3633,15 @@ def throughput_chunked(dev, card, Yd, Gd, K) -> dict:
     # phase 15's c = 12 at BXD scale: the wide kernel
     covar = torch.from_numpy(np.random.default_rng(SEED).normal(size=(N, WIDE_C - 1))).to(dev)
     res, counts = _drive(f"THROUGHPUT null-grid bulkscan, c = {WIDE_C}",
-                         lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.THROUGHPUT))
-    lod_only(counts, f"the THROUGHPUT c = {WIDE_C} call")
-    check(lf.kernel_path(N, WIDE_C) == "wide", f"c = {WIDE_C} does not take the wide kernel")
+                         lambda: bt.bulkscan(Yd, Gd, K, covar, precision=bt.THROUGHPUT), "bf16x3")
+    lod_only(counts, f"the THROUGHPUT c = {WIDE_C} call", "wide")
     exact = bt.bulkscan(Yd, Gd, K, covar, precision=bt.EXACT64)
     same = exact.h2_null_list == res.h2_null_list.double()
     err = _max_abs_diff_cols(res.L, exact.L, same)
     print(f"  THROUGHPUT vs EXACT64 at c = {WIDE_C} (the wide kernel): {int((~same).sum())} of {M} "
           f"traits with another grid h2; max|dLOD| on the rest = {err:.3e} (bar {THROUGHPUT_LOD_BAR:.0e})")
     check(0 < err <= THROUGHPUT_LOD_BAR, f"THROUGHPUT strays from EXACT64 at c = {WIDE_C}")
-    out["wide"] = {"launches": counts["liteqtl_lod_bf16x3"], "throughput_vs_exact64": err}
+    out["wide"] = {"launches": _total(counts, "liteqtl_lod.*"), "throughput_vs_exact64": err}
     ops = lf.prepare_inputs(*_rotated_bxd(K, Yd, Gd, dev, covar), res.h2_null_list)
     out["wide"].update(_chunked_vs_bf16x3_plain(ops, f"BXD scale at c = {WIDE_C}"))
     del res, exact, ops
@@ -3699,8 +3701,8 @@ def fwer_study(dev, card) -> dict:
     G, K, Y = tf.synth()
     rows, counts = _drive(f"the FWER study, {Y.shape[1]} traits x {G.shape[1]} markers, "
                           f"{tf.NSEEDS} seeds x BALANCED and THROUGHPUT x {tf.NPERMS} permutations",
-                          lambda: tf.fwer_measurement(G, K, Y, device=dev))
-    check(counts["bulkperm_maxr2"] == 2 * counts["bulkperm_maxr2_bf16x3"] > 0,
+                          lambda: tf.fwer_measurement(G, K, Y, device=dev), None)
+    check(_total(counts, "bulkperm_maxr2.*") == 2 * _total(counts, "bulkperm_maxr2.*.bf16x3") > 0,
           f"the FWER study did not launch the permutation kernel in both products: {counts}")
     for row in rows:
         print(f"  {json.dumps(row)}")
@@ -3711,9 +3713,8 @@ def fwer_study(dev, card) -> dict:
     launches = {"fwer_study": counts}
 
     table, counts = _drive("the THROUGHPUT engine table (79 x 512 x 64, CPU EXACT64 goldens)",
-                           lambda: tf.engine_accuracy_table(dev))
-    check(all(counts[k] == counts[f"{k}_bf16x3"] > 0 for k in ("liteqtl_lod", "altgrid",
-                                                                "bulkperm_maxr2")),
+                           lambda: tf.engine_accuracy_table(dev), "bf16x3")
+    check(all(_total(counts, f"{k}.*") > 0 for k in ("liteqtl_lod", "altgrid", "bulkperm_maxr2")),
           f"the engine table did not launch every kernel, each in bf16x3 products: {counts}")
     launches["engine_table"] = counts
     for name, err in table.items():
@@ -3762,7 +3763,7 @@ def biobank_full(dev, card) -> dict:
     dt, counts = _drive("biobank --full, BALANCED, warm-up and timed call",
                         lambda: bb.timed(lambda: bb.scan_checksum(Yd, Gd, K32,
                                                                   precision=bt.BALANCED)))
-    check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod_bf16x3"] == 0,
+    check(_total(counts, "liteqtl_lod.*") > 0,
           f"biobank --full did not launch the LOD kernel: {counts}")
     launches["biobank_scan"] = counts
     print(f"  {json.dumps(bb.bulkscan_line(n, p, m, dt, eigh_s, 0))} on {card}")
@@ -3790,10 +3791,9 @@ def biobank_full(dev, card) -> dict:
             Yp, Gd, K32, nperms=DRIVER_PERMS, precision=prec).maxlods.sum())
         dt, counts = _drive(f"biobank --full --perms {DRIVER_PERMS} --perm-traits "
                             f"{DRIVER_PERM_TRAITS}, {name}, warm-up and timed call",
-                            lambda run=run: bb.timed(run))
-        bf16 = counts["bulkperm_maxr2_bf16x3"]
-        check(counts["bulkperm_maxr2"] > 0 and bf16 == (counts["bulkperm_maxr2"] if prec is
-                                                           bt.THROUGHPUT else 0),
+                            lambda run=run: bb.timed(run),
+                            "bf16x3" if prec is bt.THROUGHPUT else "tf32x3")
+        check(_total(counts, "bulkperm_maxr2.*") > 0,
               f"the {name} permutation run launched {counts}")
         launches[f"biobank_perms_{name.lower()}"] = counts
         print(f"  {json.dumps(bb.bulkperms_line(n, p, DRIVER_PERM_TRAITS, DRIVER_PERMS, dt, eigh_s, 0))}"
@@ -3827,7 +3827,7 @@ def cohort_compare_full(dev, card) -> dict:
                          f"{COHORT_CUT_K} --compare-full, BALANCED",
                          lambda: lc.drive(G, Y, COHORT_CUT_K, compare_full=True,
                                           precision=bt.BALANCED, log=lambda s: print(f"  {s}")))
-    check(counts["liteqtl_lod"] > 0 and counts["liteqtl_lod_bf16x3"] == 0,
+    check(_total(counts, "liteqtl_lod.*") > 0,
           f"the full-rank scan did not launch the LOD kernel: {counts}")
     h2 = out["full"].h2_null_list
     print(f"  the full-rank grid h2: {int((h2 == 0).sum())} of {COHORT_CUT_M} traits at 0, the "
@@ -4002,7 +4002,8 @@ def main() -> None:
                   "throughput_vs_exact64": tp[f"{short}_vs_exact64"], **tp[k["name"]],
                   "throughput_effects_vs_exact64": tp["effects_vs_exact64"] if short == "lod" else None})
         k["library_ms"] = None  # no single PyTorch call computes this function
-        k["drivers_launches"] = {path: c[k["name"]] for path, c in drivers.items() if c[k["name"]]}
+        launched = {path: _total(c, k["name"] + ".*") for path, c in drivers.items()}
+        k["drivers_launches"] = {path: v for path, v in launched.items() if v}
         k.setdefault("product_only_ms", None)  # timed for the permutation kernel alone
         k.setdefault("general_kernel_ms", None)  # the LOD kernel's other path at the same shape
         k.setdefault("shapes", None)  # the LOD kernel's general and wide paths, S1-S6

@@ -25,6 +25,7 @@ from bulklmm_tpu.pallas.altgrid_fused import fused_alt_grid as jax_fused_alt_gri
 from bulklmm_tpu.utils import config as jcfg
 import bulklmm_tpu_torch as bt
 from bulklmm_tpu_torch.kernels import altgrid_fused as af
+from bulklmm_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -74,7 +75,7 @@ def test_plain_version_matches_pallas(rotated, reml):
     # on CPU tensors the dispatching entry is the plain version
     L_ref, h2_ref = af.fused_alt_grid_reference(*targs, prior=PRIOR, reml=reml)
     assert torch.equal(L, L_ref) and torch.equal(h2, h2_ref)
-    assert af.launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("reml", [False, True])
@@ -103,7 +104,7 @@ def test_bf16x3_plain_version_matches_pallas_at_high(rotated, reml):
     assert torch.equal(L, L_ref) and torch.equal(h2, h2_ref)
     L32, _ = af.fused_alt_grid(*targs, prior=PRIOR, reml=reml)
     assert float((L - L32).abs().max()) > 0
-    assert af.launches == af.bf16x3_launches == 0
+    assert not launch_counts
 
 
 def test_plain_version_single_grid_point(rotated):
@@ -153,7 +154,7 @@ def test_cuda_wrapper_refuses_cpu_tensors(rotated):
     ops = af.prepare_inputs(*targs, prior=PRIOR)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         af.altgrid_cuda(*ops)
-    assert af.launches == 0
+    assert not launch_counts
 
 
 def _run(data, preset, **kw):
@@ -220,7 +221,7 @@ def test_alias_and_engines_on_cpu(bxd_like):
     c = bt.bulkscan(Y, G, K, method="alt-grid", precision=bt.BALANCED, engine="xla", device="cpu")
     for r in (b, c):
         assert torch.equal(a.L, r.L) and torch.equal(a.h2_panel, r.h2_panel)
-    assert af.launches == 0
+    assert not launch_counts
 
 
 def test_float32_gemm_presets_take_the_kernel_entry_only_on_cuda(bxd_like, monkeypatch):
@@ -232,10 +233,10 @@ def test_float32_gemm_presets_take_the_kernel_entry_only_on_cuda(bxd_like, monke
         bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="alt-grid",
                     precision=bt.precision_by_name(preset), device="cpu")
     assert calls == []
-    assert mb._altgrid_uses_kernel("auto", bt.BALANCED, "cuda")
-    assert mb._altgrid_uses_kernel("auto", bt.MIXED, "cuda")
-    assert not mb._altgrid_uses_kernel("auto", bt.EXACT64, "cuda")
-    assert not mb._altgrid_uses_kernel("xla", bt.BALANCED, "cuda")
+    assert mb.takes_cuda_kernel("auto", bt.BALANCED, "cuda")
+    assert mb.takes_cuda_kernel("auto", bt.MIXED, "cuda")
+    assert not mb.takes_cuda_kernel("auto", bt.EXACT64, "cuda")
+    assert not mb.takes_cuda_kernel("xla", bt.BALANCED, "cuda")
 
 
 @pytest.mark.parametrize("panel", [True, False], ids=["panel", "no-panel"])
@@ -245,13 +246,13 @@ def test_kernel_entry_over_trait_blocks_matches_jax(bxd_like, monkeypatch, panel
     version, against the JAX package's plain alt-grid."""
     mb = importlib.import_module("bulklmm_tpu_torch.models.bulkscan")
     calls = []
-    monkeypatch.setattr(mb, "_altgrid_uses_kernel", lambda *a: True)
+    monkeypatch.setattr(mb, "takes_cuda_kernel", lambda *a, **k: True)
     monkeypatch.setattr(mb, "fused_alt_grid", lambda *a, **k: calls.append(1) or af.fused_alt_grid(*a, **k))
     port, ref = _run(bxd_like, "BALANCED", trait_chunk=7, output_h2_panel=panel)
     assert len(calls) == -(-bxd_like["m"] // 7)  # one entry per trait block
     assert port.L.dtype == torch.float64 and (port.h2_panel is None) == (not panel)
     _compare(port, ref, "BALANCED")
-    assert af.launches == 0
+    assert not launch_counts
 
 
 def _both_raise(data, **kw):
@@ -284,4 +285,4 @@ def test_pallas_engine_refusals(bxd_like, preset, match):
     with pytest.raises(ValueError, match=match):
         bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="alt-grid",
                     engine="pallas", precision=bt.precision_by_name(preset), device="cpu")
-    assert af.launches == 0
+    assert not launch_counts

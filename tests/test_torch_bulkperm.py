@@ -30,6 +30,7 @@ from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
 from bulklmm_tpu_torch.kernels.split import matmul_bf16x3
 from bulklmm_tpu_torch.models import bulkperm as tmodel
 from bulklmm_tpu_torch.ops import bulkperm as tops
+from bulklmm_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -266,7 +267,7 @@ def test_plain_kernel_version_matches_pallas_interpret(rotated, c, mb, K):
     assert _maxdiff(out, ref) < 1e-5
     assert torch.equal(out, bf.fused_perm_maxlods_reference(X, S2, inv, n=52))
     assert torch.equal(out, tops.maxr2_to_lod(bf.bulkperm_maxr2_plain(X, S2, inv), 52))
-    assert bf.launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("c, mb, K", [(1, 4, 25), (3, 3, 25), (1, 3, 1)],
@@ -294,7 +295,7 @@ def test_bf16x3_plain_version_matches_pallas_interpret_at_high(rotated, c, mb, K
     split = tops.maxr2_to_lod(bf._maxr2_by_blocks(X, S2, inv, matmul_bf16x3), 52)
     assert torch.equal(out, split)
     assert float((out - bf.fused_perm_maxlods(X, S2, inv, n=52)).abs().max()) > 0
-    assert bf.launches == bf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 def test_bf16x3_moves_with_one_ulp_operand_changes():
@@ -349,7 +350,7 @@ def test_cuda_wrapper_refuses_cpu_tensors(rotated):
     inv = bf.prepare_trait_block(X, sw, Q, precision=bt.FAST32)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         bf.bulkperm_maxr2_cuda(X, S2, inv)
-    assert bf.launches == 0
+    assert not launch_counts
 
 
 # --- bulkscan_perms end to end ------------------------------------------------
@@ -481,7 +482,7 @@ def test_pallas_interpret_is_the_plain_kernel_version(perm_data, preset, monkeyp
                         lambda *a, **k: calls.append(k["dot_precision"]) or real(*a, **k))
     port, ref = _run(perm_data, preset, engine="pallas", interpret=True, trait_chunk=3)
     high = preset == "THROUGHPUT"
-    assert calls == ["high" if high else "highest"] * 2 and bf.launches == 0
+    assert calls == ["high" if high else "highest"] * 2 and not launch_counts
     assert port.maxlods.dtype == torch.float32 and _same_dtype(port.maxlods, ref.maxlods)
     assert _maxdiff(port.maxlods, ref.maxlods) < (BF16X3_BAR if high else 1e-5)
     plain = bt.bulkscan_perms(Y, G, K, nperms=NPERMS, perm_idx=_jax_idx(52), engine="xla",
@@ -515,7 +516,7 @@ def test_pallas_engine_refusals(perm_data, preset, match):
     with pytest.raises(ValueError, match=match):
         bt.bulkscan_perms(Y, G, K, nperms=4, engine="pallas",
                           precision=bt.precision_by_name(preset), device="cpu")
-    assert bf.launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("kw", [dict(missing="mask"), dict(missing="drop"), dict(lowrank=True)],

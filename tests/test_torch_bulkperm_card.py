@@ -14,6 +14,7 @@ import torch
 import bulklmm_tpu_torch as bt
 from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
 from bulklmm_tpu_torch.ops import bulkperm as ob
+from bulklmm_tpu_torch.utils.profiling import launch_counts
 
 R2_BAR = 1e-5  # max |d max r^2| of the kernel from its references (chip_smoke.py's R2_BAR)
 KERNEL_BAR = 5e-5  # max |dLOD| at up to 48 samples, scaled by n / 48 above (chip_smoke.py's)
@@ -71,8 +72,9 @@ def test_chunked_kernel_matches_its_split_reference(dev, n):
 def test_marker_groups_give_the_same_maxima_and_are_counted(dev, dot_precision):
     """A trait's maxima launched alone, its marker walk split across blocks,
     are bit-equal to the same trait's inside a block of traits wide enough
-    for one marker group; ``split_launches`` counts the first launch and not
-    the second, and the library's rule is the Python twin's."""
+    for one marker group; the launch record counts the first launch under
+    the path "chunked_split" and the second under "chunked", and the
+    library's rule is the Python twin's."""
     n, p, K, wide = 300, 4000, 1001, 160
     sms = _sms(dev)
     X, S2, inv = _operands(n, p, wide, K, dev, seed=3)
@@ -81,12 +83,14 @@ def test_marker_groups_give_the_same_maxima_and_are_counted(dev, dot_precision):
     assert bf.marker_groups(n, p, wide, K, sms) == 1
     for mb in (1, wide):
         assert lib.bulklmm_bulkperm_marker_groups(n, p, mb, K) == bf.marker_groups(n, p, mb, K, sms)
-    before = bf.split_launches
+    products = bf.kernel_route(n, dot_precision)[1]
+    split, chunked = (f"bulkperm_maxr2.{path}.{products}" for path in ("chunked_split", "chunked"))
+    before = launch_counts[split], launch_counts[chunked]
     alone = bf.bulkperm_maxr2_cuda(X, S2[7:8].contiguous(), inv[7:8].contiguous(),
                                    dot_precision=dot_precision)
-    assert bf.split_launches == before + 1
+    assert (launch_counts[split], launch_counts[chunked]) == (before[0] + 1, before[1])
     whole = bf.bulkperm_maxr2_cuda(X, S2, inv, dot_precision=dot_precision)
-    assert bf.split_launches == before + 1
+    assert (launch_counts[split], launch_counts[chunked]) == (before[0] + 1, before[1] + 1)
     assert torch.equal(alone[0], whole[7])
 
 

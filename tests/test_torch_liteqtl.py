@@ -8,6 +8,10 @@ them against the same plain version and split reference; the rule that
 picks the kernel from (n, c) and the operands' layout are held here.
 """
 
+import collections
+import contextlib
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +21,13 @@ from bulklmm_tpu.ops.liteqtl import lods_and_effects_per_trait as jax_lods_and_e
 from bulklmm_tpu.ops.liteqtl import lods_per_trait as jax_lods_per_trait
 from bulklmm_tpu.pallas import fused_lods_per_trait as jax_fused
 from bulklmm_tpu.utils import config as jcfg
+from bulklmm_tpu_torch.kernels import altgrid_fused as af
+from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
 from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 from bulklmm_tpu_torch.ops.liteqtl import lods_per_trait
 from bulklmm_tpu_torch.ops.smallchol import off_covariates
 from bulklmm_tpu_torch.utils.config import precision_by_name
+from bulklmm_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -70,7 +77,7 @@ def test_kernel_plain_version_matches_jax(shape):
         assert _maxdiff(port, pallas) < KERNEL_BAR
     else:
         assert torch.equal(port, ref)
-    assert lf.launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -147,7 +154,7 @@ def test_split_reference_matches_plain(shape):
     assert out.shape == (p, m) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     assert float((out - lf.liteqtl_lod_plain(*ops)).abs().max()) < KERNEL_BAR
-    assert lf.launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES)
@@ -181,7 +188,7 @@ def test_bf16x3_reference_is_throughput_grade(shape):
     assert 0 < gap < 4e-3
     plain = lf.fused_lods_per_trait_reference(*[torch.from_numpy(a) for a in args])
     assert _maxdiff(plain, exact) < gap
-    assert lf.launches == lf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("effects", [False, True], ids=["lod", "effects"])
@@ -196,7 +203,7 @@ def test_cpu_lod_step_keeps_float32_products_under_high(effects):
         assert torch.equal(a, b)
     assert torch.equal(lf.fused_lods_per_trait_reference(*targs, dot_precision="high"),
                        lf.fused_lods_per_trait_reference(*targs))
-    assert lf.launches == lf.effects_launches == lf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("entry", ["fused", "effects", "reference", "cuda"])
@@ -280,10 +287,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         lf.liteqtl_lod_cuda(*ops)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lf.liteqtl_lod_cuda(*ops, general=True)
-    assert lf.launches == 0
+    assert not launch_counts
     # the dispatching entry takes the plain version for them
     assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
-    assert lf.launches == 0
+    assert not launch_counts
 
 
 # --- the wide kernel (c > 3) -----------------------------------------------------
@@ -343,25 +350,59 @@ def test_prepare_wide_records_the_whitening():
     assert all(torch.equal(a, b) for a, b in zip(off, on))
 
 
-def test_wide_launches_count_only_the_wide_kernel():
-    """``wide_launches`` counts a launch of the wide kernel, of either
-    variant and either products, beside its count in ``launches`` or
-    ``effects_launches``; a resident or general launch leaves it alone."""
-    names = ("launches", "effects_launches", "bf16x3_launches", "wide_launches")
-    saved = {k: getattr(lf, k) for k in names}
+_ROUTES = [
+    # (wrapper, n, c, keywords, marker groups, the route's key)
+    ("liteqtl", 79, 1, {}, 1, "liteqtl_lod.resident.tf32x3"),
+    ("liteqtl", 79, 1, dict(general=True), 1, "liteqtl_lod.general.tf32x3"),
+    ("liteqtl", 300, 2, dict(dot_precision="high"), 1, "liteqtl_lod.general.bf16x3"),
+    ("liteqtl", 706, 69, {}, 1, "liteqtl_lod.wide.tf32x3"),
+    ("liteqtl", 706, 69, dict(effects=True), 1, "liteqtl_lod_effects.wide.tf32x3"),
+    ("liteqtl", 706, 69, dict(effects=True, dot_precision="high"), 1,
+     "liteqtl_lod_effects.wide.bf16x3"),
+    ("bulkperm", 79, 1, {}, 1, "bulkperm_maxr2.resident.tf32x3"),
+    ("bulkperm", 300, 1, {}, 1, "bulkperm_maxr2.chunked.tf32x3"),
+    ("bulkperm", 300, 1, dict(dot_precision="high"), 3, "bulkperm_maxr2.chunked_split.bf16x3"),
+    ("altgrid", 79, 1, dict(dot_precision="high"), 1, "altgrid.fused.bf16x3"),
+]
+
+
+@pytest.mark.parametrize("wrapper, n, c, kw, groups, key", _ROUTES,
+                         ids=[r[-1] for r in _ROUTES])
+def test_wide_launches_count_only_the_wide_kernel(monkeypatch, wrapper, n, c, kw, groups, key):
+    """Each CUDA wrapper counts a successful launch in the launch record
+    under the route that it launched, and under no other key: a wide,
+    effects, bf16x3 or split launch under its own. The card is stood in for
+    here (operand checks, library and stream), so the wrappers' own route
+    and count lines run on the CPU."""
+    module = {"liteqtl": lf, "bulkperm": bf, "altgrid": af}[wrapper]
+    lib = SimpleNamespace(
+        bulklmm_liteqtl_totals=lambda *a: 0, bulklmm_liteqtl_lod=lambda *a: 0,
+        bulklmm_bulkperm_marker_groups=lambda *a: groups, bulklmm_bulkperm_maxr2=lambda *a: 0,
+        bulklmm_altgrid=lambda *a: 0,
+    )
+    monkeypatch.setattr(module, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=0))
+    t = torch.zeros(4, 8)
+    if wrapper == "liteqtl":
+        monkeypatch.setattr(lf, "_check_operands", lambda *a: (n, 8, 8, c))
+        launch = lambda: lf.liteqtl_lod_cuda(t, t, t, t, t, **kw)  # noqa: E731
+    elif wrapper == "bulkperm":
+        monkeypatch.setattr(bf, "_check_operands", lambda *a: (n, 8, 1, 8))
+        launch = lambda: bf.bulkperm_maxr2_cuda(t, t, t, **kw)  # noqa: E731
+    else:
+        monkeypatch.setattr(af, "_check_operands", lambda *a: (1, n, 8, 8))
+        launch = lambda: af.altgrid_cuda(t[None], t[None], t, **kw)  # noqa: E731
+    saved = collections.Counter(launch_counts)
     try:
-        for k in names:
-            setattr(lf, k, 0)
-        lf._count_launch(effects=False, bf16=False, wide=False)
-        lf._count_launch(effects=False, bf16=True, wide=False)
-        assert lf.wide_launches == 0 and lf.launches == 2
-        lf._count_launch(effects=False, bf16=False, wide=True)
-        lf._count_launch(effects=True, bf16=False, wide=True)
-        lf._count_launch(effects=False, bf16=True, wide=True)
-        assert (lf.launches, lf.effects_launches, lf.bf16x3_launches, lf.wide_launches) == (4, 1, 2, 3)
+        launch_counts.clear()
+        launch()
+        assert launch_counts == collections.Counter({key: 1})
+        launch()
+        assert launch_counts == collections.Counter({key: 2})
     finally:
-        for k, v in saved.items():
-            setattr(lf, k, v)
+        launch_counts.clear()
+        launch_counts.update(saved)
 
 
 def test_prepare_inputs_wide_layout():
@@ -392,7 +433,7 @@ def test_wide_operands_refused_where_they_do_not_belong():
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lf.liteqtl_lod_cuda(*ops)
     assert torch.equal(lf.fused_lods_per_trait(*targs), lf.liteqtl_lod_plain(*ops))
-    assert lf.launches == 0 and lf.GENERAL_COVARIATES == 3
+    assert not launch_counts and lf.GENERAL_COVARIATES == 3
 
 
 @pytest.mark.parametrize("c", [1, 12])
@@ -423,7 +464,7 @@ def test_four_to_eight_covariates_take_the_wide_operands(c):
     assert torch.equal(port, lf.liteqtl_lod_plain(*ops))
     assert _maxdiff(port, jax_fused(*jargs, tile_p=32, tile_m=32, interpret=True)) < KERNEL_BAR
     assert _maxdiff(port, jax_lods_per_trait(*jargs, precision=jcfg.FAST32)) < KERNEL_BAR
-    assert lf.launches == 0
+    assert not launch_counts
 
 
 # --- the chunked kernels' arithmetic (general and wide paths) -----------------------
@@ -474,7 +515,7 @@ def test_chunked_reference_matches_plain_and_jax(n, c, effects):
                      for a in jax_lods_and_effects(*jargs, precision=jcfg.FAST32))
         assert float((np.abs(b.double().numpy() - jb) / (np.abs(jb) + js)).max()) < 1e-4
         assert float((np.abs(s.double().numpy() - js) / js).max()) < 1e-4
-    assert lf.launches == 0 and lf.effects_launches == 0
+    assert not launch_counts
 
 
 # --- the chunked kernels under "high" (bf16x3) -----------------------------------------
@@ -533,7 +574,7 @@ def test_bf16x3_chunked_reference_is_throughput_grade(n, c):
                                precision=jcfg.EXACT64)
     assert 0 < _maxdiff(out, exact) < 4e-3 * max(1.0, n / 79)
     assert float((out - lf.liteqtl_bf16x3_reference(*ops)).abs().max()) < TWIN_BAR[max(200, n)]
-    assert lf.launches == lf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 def test_bf16x3_chunked_reference_effects():

@@ -23,8 +23,8 @@ from bulklmm_tpu.utils import config as jcfg
 import bulklmm_tpu_torch as bt
 from bulklmm_tpu_torch.kernels import altgrid_fused as af
 from bulklmm_tpu_torch.kernels import bulkperm_fused as bf
-from bulklmm_tpu_torch.kernels import liteqtl_fused as lf
 from bulklmm_tpu_torch.utils import config as tcfg
+from bulklmm_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -69,7 +69,7 @@ def test_lod_step_passes_the_products(bxd_like, monkeypatch, preset, effects):
     bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], output_effects=effects,
                 precision=bt.precision_by_name(preset), device="cpu")
     assert seen == [PRECISIONS[preset]]
-    assert lf.launches == lf.effects_launches == lf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 def test_throughput_null_grid_is_fast32_on_the_cpu(bxd_like):
@@ -87,7 +87,7 @@ def test_alt_grid_kernel_call_passes_the_products(bxd_like, monkeypatch, preset)
     runs (within the file's kernel bar of the Pallas kernel at HIGH on the
     JAX side of test_torch_altgrid.py)."""
     mb = importlib.import_module("bulklmm_tpu_torch.models.bulkscan")
-    monkeypatch.setattr(mb, "_altgrid_uses_kernel", lambda *a: True)
+    monkeypatch.setattr(mb, "takes_cuda_kernel", lambda *a, **k: True)
     seen = _spy(monkeypatch, "bulklmm_tpu_torch.models.bulkscan", "fused_alt_grid")
     res = bt.bulkscan(bxd_like["Y"], bxd_like["G"], bxd_like["K"], method="alt-grid",
                       precision=bt.precision_by_name(preset), device="cpu")
@@ -97,14 +97,14 @@ def test_alt_grid_kernel_call_passes_the_products(bxd_like, monkeypatch, preset)
                           precision=jcfg.EXACT64)
         gap = float(np.abs(res.L.double().numpy() - np.asarray(ref.L)).max())
         assert 0 < gap < 2e-2  # the JAX package's THROUGHPUT alt-grid bar (tests/test_pallas_altgrid.py)
-    assert af.launches == af.bf16x3_launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("preset", ["BALANCED", "THROUGHPUT"])
 def test_streamed_alt_grid_passes_the_products(bxd_like, monkeypatch, tmp_path, preset):
-    ms = importlib.import_module("bulklmm_tpu_torch.models.streaming")
+    mb = importlib.import_module("bulklmm_tpu_torch.models.bulkscan")
     seen = _spy(monkeypatch, "bulklmm_tpu_torch.models.streaming", "fused_alt_grid")
-    monkeypatch.setattr(ms, "_altgrid_uses_kernel", lambda *a: True)
+    monkeypatch.setattr(mb, "takes_cuda_kernel", lambda *a, **k: True)
     G = np.ascontiguousarray(bxd_like["G"])
     bt.bulkscan_streamed(bxd_like["Y"], G, bxd_like["K"], method="alt-grid", marker_block=16,
                          precision=bt.precision_by_name(preset), device="cpu")
@@ -118,7 +118,7 @@ def test_permutation_kernel_call_passes_the_products(bxd_like, monkeypatch, pres
     res = bt.bulkscan_perms(bxd_like["Y"], bxd_like["G"], bxd_like["K"], nperms=8, engine="pallas",
                             interpret=True, precision=bt.precision_by_name(preset), device="cpu")
     assert seen == [PRECISIONS[preset]] and bool(torch.isfinite(res.maxlods).all())
-    assert bf.launches == bf.bf16x3_launches == 0
+    assert not launch_counts
 
 
 @pytest.mark.parametrize("entry", ["alt-grid", "alt-grid reference", "alt-grid plain", "permutation",
